@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port (``haet_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits non-zero before the final line):
+
+1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
+2. Build every CUDA kernel from ``haet_torch/csrc/`` (one ``nvcc`` per
+   source, in parallel) and print the build time.
+3. Each kernel at the ShapeNet-Car serving shapes against its plain PyTorch
+   version on the card: max abs/rel error against the stated tolerance, the
+   kernel's time, the plain version's time and the bound (least time the card
+   could take for the same bytes and float32 operations). The Erwin block is
+   also checked, untimed, at the largest clouds its shape gate admits.
+4. Serve: the car preset (2 layers, n_hidden 256, G 32, 1,757,190 params,
+   seeded random weights) on the card with both kernel flags set, behind a
+   ``BatchingServer`` with signature ``x [32186, 7] f32, fx None`` and batch
+   sizes (1, 2, 4). Sequential requests (``max_delay_s=0``) and a concurrent
+   burst that forms a batch of 4. Checks shapes, finiteness, agreement with
+   the plain path on the same weights and inputs, that the kernel launch
+   counters rose by exactly 2 + 2 + 24 per forward, and that no Erwin block
+   was routed to the plain version.
+5. Profile one batch-1 forward: device time by kernel against wall time.
+
+Then one JSON line of kernel records, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``haet_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N_POINTS = 32186          # a ShapeNet-Car sample's point count
+SEED = 0
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
+# the tensor cores (the kernels compute in float32 FMA, no TF32).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# Tolerances, relative to the plain result's max |value|: float32 with sums
+# taken in another order (chunked log-sum-exp merge, per-thread loops).
+KERNEL_RTOL = 1e-4
+SERVE_RTOL = 1e-4  # a whole 2-layer model, as the CPU parity test holds it
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean ms of ``fn()`` over ``reps`` launches, timed with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name, got, want, rtol):
+    """Max abs error of ``got`` vs ``want`` against ``rtol * max|want|``."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    check(bool(got.isfinite().all()), f"{name}: non-finite values")
+    tol = rtol * max(scale, 1e-30)
+    print(f"  {name}: max_abs_err {err:.3e}  max|plain| {scale:.3e}  "
+          f"rel {err / max(scale, 1e-30):.3e}  tol {tol:.3e}", flush=True)
+    check(err <= tol, f"{name}: max abs error {err} > tolerance {tol}")
+    return err
+
+
+def print_times(ms, plain_ms, bound):
+    print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]})", flush=True)
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, bound, **extra):
+    """One entry of the ``kernels`` JSON line; ``launches`` is filled in
+    from the serve phase's counters."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None, **extra}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: each kernel against its plain version at the car shapes.
+# ---------------------------------------------------------------------------
+
+def kernel_phase(dev):
+    import torch
+
+    from haet_torch.models.erwin import ErwinTransformerBlock
+    from haet_torch.ops.kernels import erwin_block as eb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    g = torch.Generator().manual_seed(SEED)
+    b, h, n, c, gs = 1, 8, N_POINTS, 32, 32
+    x = torch.randn(b, h, n, c, generator=g).to(dev)
+    ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
+    bs = (0.1 * torch.randn(gs, generator=g)).to(dev)
+    wa = (0.1 * torch.randn(c, 1, generator=g)).to(dev)
+    ba = torch.zeros(1).to(dev)
+    records = []
+
+    print(f"phase 3: slice_states  x [1, 8, {n}, 32], G 32", flush=True)
+    st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
+    st_p, m_p, s_p = sk.slice_states_plain(x, ws, bs, wa, ba)
+    torch.cuda.synchronize()
+    err = max(compare("states", st_k, st_p, KERNEL_RTOL),
+              compare("m", m_k, m_p, KERNEL_RTOL),
+              compare("s", s_k, s_p, KERNEL_RTOL))
+    ms = cuda_ms(lambda: sk.slice_states(x, ws, bs, wa, ba))
+    plain_ms = cuda_ms(lambda: sk.slice_states_plain(x, ws, bs, wa, ba))
+    bh = b * h
+    nbytes = 4 * (bh * n * c + c * gs + gs + c + 1 + bh * gs * c + 2 * bh * gs)
+    flops = 2 * bh * n * (2 * c * gs + c)
+    bound = bound_ms(nbytes, flops)
+    print_times(ms, plain_ms, bound)
+    records.append(kernel_record(
+        "slice_states", "haet_torch/csrc/slice_kernels.cu",
+        "haet_tpu/ops/pallas/slice_kernels.py:73", err, ms, plain_ms, bound))
+
+    print(f"phase 3: deslice  x [1, 8, {n}, 32], G 32", flush=True)
+    st = torch.randn(b, h, gs, c, generator=g).to(dev)
+    out_k = sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p)
+    out_p = sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p)
+    torch.cuda.synchronize()
+    err = compare("out", out_k, out_p, KERNEL_RTOL)
+    ms = cuda_ms(lambda: sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p))
+    plain_ms = cuda_ms(
+        lambda: sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p))
+    nbytes = 4 * (2 * bh * n * c + c * gs + gs + c + 1 + bh * gs * c
+                  + 2 * bh * gs)
+    flops = 2 * bh * n * (2 * c * gs + c)
+    bound = bound_ms(nbytes, flops)
+    print_times(ms, plain_ms, bound)
+    records.append(kernel_record(
+        "deslice", "haet_torch/csrc/slice_kernels.cu",
+        "haet_tpu/ops/pallas/slice_kernels.py:125", err, ms, plain_ms, bound))
+
+    def erwin_case(n_e, c_e, ball):
+        """Seeded inputs and weights of one block shape (8 clouds, 8 heads,
+        SwiGLU 4C), and the kernel's error against its plain version."""
+        torch.manual_seed(SEED)
+        blk = ErwinTransformerBlock(c_e, 8, ball, 4).to(dev)
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.copy_(0.2 * torch.randn(p.shape, generator=g).to(dev))
+            blk.BMSA.sigma_att.copy_(
+                -1.0 + 0.01 * torch.randn(1, 8, 1, 1, generator=g).to(dev))
+        params = dict(blk.named_parameters())
+        xe = torch.randn(8, n_e, c_e, generator=g).to(dev)
+        pe = torch.rand(8, n_e, 3, generator=g).to(dev)
+        kw = dict(ball_size=ball, num_heads=8, use_dist_bias=True)
+        check(eb.eligible(n_e, c_e, 8, c_e, 4 * c_e),
+              f"n {n_e} / C {c_e} is outside the kernel's gate")
+        with torch.inference_mode():
+            o_k = eb.fused_erwin_block(xe, pe, params, **kw)
+            o_p = eb.erwin_block_plain(xe, pe, params, **kw)
+            torch.cuda.synchronize()
+            err = compare("out", o_k, o_p, KERNEL_RTOL)
+        return xe, pe, params, kw, err
+
+    # The Erwin stage's two block shapes: encoder0/decoder0 (n 32, C 32,
+    # ball 32, SwiGLU 128; 16 launches per forward) and the bottleneck
+    # (n 16, C 64, ball 16, SwiGLU 256; 8 launches per forward).
+    errs, times, plain_times, bounds = [], [], [], []
+    for n_e, c_e, ball, weight in ((32, 32, 32, 16), (16, 64, 16, 8)):
+        print(f"phase 3: fused_erwin_block  x [8, {n_e}, {c_e}], 8 heads, "
+              f"ball {ball}", flush=True)
+        xe, pe, params, kw, err = erwin_case(n_e, c_e, ball)
+        errs.append(err)
+        with torch.inference_mode():
+            times.append((cuda_ms(
+                lambda: eb.fused_erwin_block(xe, pe, params, **kw)), weight))
+            plain_times.append((cuda_ms(
+                lambda: eb.erwin_block_plain(xe, pe, params, **kw)), weight))
+        hid = 4 * c_e
+        hd = c_e // 8
+        w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + 8
+                   + c_e * c_e + c_e + c_e + 2 * (hid * c_e + hid)
+                   + c_e * hid + c_e)
+        nbytes = 4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems)
+        flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e + 8 * ball * hd * 2
+                               + c_e * c_e + 3 * hid * c_e)
+        bounds.append((bound_ms(nbytes, flops), weight))
+        print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
+    total = sum(w for _, w in times)
+    mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
+    bound = (mix([(bd[0], w) for bd, w in bounds]),
+             "bytes" if all(bd[1] == "bytes" for bd, _ in bounds)
+             else "operations")
+    records.append(kernel_record(
+        "fused_erwin_block", "haet_torch/csrc/erwin_block.cu",
+        "haet_tpu/ops/pallas/erwin_block.py:163", max(errs), mix(times),
+        mix(plain_times), bound,
+        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]}))
+
+    # The largest clouds the eligible() gate admits (~166-170 KB of shared
+    # memory, past the 48 KB default): they must launch and agree too.
+    # Checked only, not timed and not part of the record.
+    for n_e, c_e, ball in ((128, 32, 32), (64, 64, 16)):
+        print(f"phase 3: fused_erwin_block at the gate's edge  x [8, {n_e}, "
+              f"{c_e}], 8 heads, ball {ball}, SwiGLU {4 * c_e}, shared "
+              f"memory {eb.smem_bytes(n_e, c_e, 3, 4 * c_e)} B", flush=True)
+        erwin_case(n_e, c_e, ball)
+    print("  none of the three has a single PyTorch call computing the same "
+          "function: library_ms is null", flush=True)
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve the car preset through the kernels.
+# ---------------------------------------------------------------------------
+
+def serve_phase(dev):
+    import torch
+
+    from haet_torch.models import HAETransolverIrregularMesh
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.serve import BatchingServer, SampleSignature
+    from haet_torch.utils.config import shapenet_car_config
+
+    kwargs = shapenet_car_config().model_kwargs()
+    kwargs.update(use_pallas=True)
+    model = HAETransolverIrregularMesh(**kwargs, use_pallas_erwin=True,
+                                       device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 1_757_190, f"car preset has {n_params} params")
+    # Perturb the init weights so the Erwin stage moves the output (at init
+    # the slice path dominates and would hide a wrong Erwin block).
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+    kwargs.update(use_pallas=False)
+    plain = HAETransolverIrregularMesh(**kwargs, use_pallas_erwin=False,
+                                       device=dev, seed=SEED)
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    model.eval()
+
+    rng = np.random.RandomState(SEED)
+    samples = [rng.randn(N_POINTS, 7).astype(np.float32) for _ in range(11)]
+    sig = SampleSignature(((N_POINTS, 7), None), ("float32", None))
+    with torch.inference_mode():  # warm-up: library loads, allocator
+        model(torch.from_numpy(samples[0][None]).to(dev))
+        torch.cuda.synchronize()
+
+    reset_launch_counts()
+    outs = {}
+    lat_seq = []
+    with BatchingServer(model, {sig: (1, 2, 4)}, max_delay_s=0.0,
+                        device=dev) as srv:
+        for i in range(4):
+            t0 = time.perf_counter()
+            outs[i] = srv.predict(samples[i], None, timeout=300)
+            lat_seq.append(time.perf_counter() - t0)
+        stats_seq = srv.stats.snapshot()
+    t_burst = time.perf_counter()
+    with BatchingServer(model, {sig: (1, 2, 4)}, max_delay_s=2.0,
+                        device=dev) as srv:
+        futs = {i: srv.submit(samples[i], None) for i in range(4, 11)}
+        for i, f in futs.items():
+            outs[i] = f.result(timeout=300)
+        stats_burst = srv.stats.snapshot()
+    t_burst = time.perf_counter() - t_burst
+    counts = launch_counts()
+    plain_routes = plain_route_counts()
+
+    forwards = stats_seq["dispatches"] + stats_burst["dispatches"]
+    print(f"  sequential batch histogram {stats_seq['batch_histogram']}; "
+          f"burst batch histogram {stats_burst['batch_histogram']}",
+          flush=True)
+    check(stats_burst["batch_histogram"].get(4, 0) >= 1,
+          "no batch of 4 formed")
+    check(len(outs) == 11, "not every request was answered")
+    for i, o in outs.items():
+        check(o.shape == (N_POINTS, 4), f"request {i}: shape {o.shape}")
+        check(bool(np.isfinite(o).all()), f"request {i}: non-finite output")
+    want = {"slice_states": 2 * forwards, "deslice": 2 * forwards,
+            "fused_erwin_block": 24 * forwards}
+    print(f"  forwards {forwards}; launches {counts}; expected {want}",
+          flush=True)
+    check(counts == want, f"launch counts {counts} != {want}")
+    print(f"  blocks routed to the plain version {plain_routes}", flush=True)
+    check(plain_routes == {"fused_erwin_block": 0},
+          f"some Erwin blocks left the kernel: {plain_routes}")
+
+    # Agreement with the plain path on the same weights and inputs (the
+    # burst's batch of 4 is compared as that same batch: outputs depend on
+    # the co-batched samples through the global min-max positions).
+    with torch.inference_mode():
+        ref1 = plain(torch.from_numpy(samples[0][None]).to(dev))[0]
+        got1 = torch.from_numpy(outs[0]).to(dev)
+        compare("serve batch-1 vs plain path", got1, ref1, SERVE_RTOL)
+        batch4 = np.stack([samples[i] for i in range(4, 8)])
+        ref4 = plain(torch.from_numpy(batch4).to(dev))
+        got4 = torch.from_numpy(np.stack([outs[i] for i in range(4, 8)])
+                                ).to(dev)
+        compare("serve batch-4 vs plain path", got4, ref4, SERVE_RTOL)
+
+    lat_all = stats_seq["latency_p50_s"], stats_burst["latency_p50_s"]
+    print(f"  sequential latency per request (s): "
+          f"{[round(t, 6) for t in lat_seq]}; p50 {lat_all[0]:.6f}",
+          flush=True)
+    print(f"  burst: 7 requests in {t_burst:.4f} s (includes the 2 s "
+          f"max_delay of the remainder), p50 latency {lat_all[1]:.6f} s",
+          flush=True)
+    print(f"  sequential throughput {4 / sum(lat_seq):.3f} samples/s",
+          flush=True)
+    return counts, forwards, model, samples[0]
+
+
+def profile_phase(model, sample, dev):
+    """Where one batch-1 forward's time goes: device time by kernel
+    (torch.profiler) against the forward's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(sample[None]).to(dev)
+    with torch.inference_mode():
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    wall_ms = 1e3 * min(walls)
+    # Kernels only: an operator's entry repeats its kernels' device time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  forward wall {wall_ms:.3f} ms (min of 5); device time "
+          f"{device_ms:.3f} ms in {sum(e.count for e in events)} kernels; "
+          f"device busy share {device_ms / wall_ms:.3f}", flush=True)
+    for e in events[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("FAIL: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "haet_torch" / "__init__.py").exists():
+        print(f"FAIL: haet_torch not found beside {Path(__file__).name}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from haet_torch.ops.kernels import _build
+    from haet_torch.utils.env import default_device
+
+    dev = default_device(None)
+    try:
+        line = card_line()
+        print(f"phase 1: card {line}; torch {torch.__version__}; "
+              f"CUDA {torch.version.cuda}; {torch.cuda.get_device_name(0)}",
+              flush=True)
+        t0 = time.perf_counter()
+        reports = _build.build_all()
+        nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout.strip().splitlines()[-1]
+        print(f"phase 2: built {sorted(reports)} in "
+              f"{time.perf_counter() - t0:.1f} s ({nvcc})", flush=True)
+        for name, rep in reports.items():
+            for ln in rep.splitlines():
+                if "registers" in ln or "smem" in ln:
+                    print(f"  {name}: {ln.strip()}", flush=True)
+        records = kernel_phase(dev)
+        print("phase 4: serve the ShapeNet-Car preset", flush=True)
+        counts, forwards, model, sample = serve_phase(dev)
+        print("phase 5: profile one batch-1 forward", flush=True)
+        profile_phase(model, sample, dev)
+    except CheckFailed as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+
+    for r in records:
+        r["launches"] = counts[r["name"]]
+    print(json.dumps({"kernels": records, "serve_forwards": forwards}))
+    print(line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

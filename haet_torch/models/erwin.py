@@ -1,0 +1,309 @@
+"""Erwin hierarchical ball-attention transformer, PyTorch.
+
+Counterpart of ``haet_tpu/models/erwin.py`` (reference
+``models/components/erwinflash/``): dense batched clouds ``[B, N, C]`` with
+N a power of two, on-device median-split grouping
+(:mod:`haet_torch.ops.ball_groups`), ball attention with the
+``sigma * cdist`` distance bias, stride pooling with BatchNorm, and a UNet of
+encoder levels, a bottleneck and decoder levels.
+
+Module names follow the reference torch schema (``encoder.0.blocks.3.BMSA``,
+``encoder.0.pool.norm``, ``decoder.0.unpool.proj``, ``bottleneck.blocks.1``)
+so ``state_dict`` keys match ``haet_tpu.utils.torch_import``'s export.
+
+``ErwinTransformerBlock(use_pallas=True)`` runs each block through the
+fused CUDA kernel (:mod:`haet_torch.ops.kernels.erwin_block`) when its shape
+passes the kernel's ``eligible`` gate, and the plain block otherwise, as the
+JAX module routes to XLA (``haet_tpu/models/erwin.py:157-158``). Each such
+fall-back adds one to ``erwin_block.PLAIN_ROUTES``, so a run can show that
+no block of its path left the kernel.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.ball_groups import (MORTON_TODO, ErwinPerms, build_erwin_perms,
+                               effective_ball_size)
+from ..ops.kernels.erwin_block import (PLAIN_ROUTES, ball_msa, eligible,
+                                       fused_erwin_block)
+from .components.mlp import SwiGLU
+
+MPNN_TODO = ("MPNN message passing (mp_steps > 0) is not ported yet "
+             "(ROADMAP.md, queue 1: MPNN and neighbors)")
+
+
+@dataclass
+class Node:
+    """Coarse-to-fine state linked list (reference ``node.py:8-16``)."""
+
+    x: torch.Tensor            # [B, N_level, C]
+    pos: torch.Tensor          # [B, N_level, D]
+    rot_perm: Optional[torch.Tensor] = None
+    rot_inv_perm: Optional[torch.Tensor] = None
+    children: Optional["Node"] = None
+
+
+def _gather_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[b, idx[b]]`` for ``a: [B, N, C]``, ``idx: [B, M]``."""
+    return torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
+
+
+class BallMSA(nn.Module):
+    """Ball multi-head self-attention (reference ``attention.py:12-91``)."""
+
+    def __init__(self, dim: int, num_heads: int, ball_size: int,
+                 dimensionality: int = 3, use_dist_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.ball_size = ball_size
+        self.pe_proj = nn.Linear(dimensionality, dim)
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+        self.sigma_att = (nn.Parameter(torch.empty(1, num_heads, 1, 1))
+                          if use_dist_bias else None)
+
+    def forward(self, x, pos):
+        return ball_msa(x, pos, self.pe_proj.weight, self.pe_proj.bias,
+                        self.qkv.weight, self.qkv.bias, self.sigma_att,
+                        self.proj.weight, self.proj.bias,
+                        ball_size=self.ball_size, num_heads=self.num_heads)
+
+
+class ErwinTransformerBlock(nn.Module):
+    """``x += BMSA(RMSNorm(x)); x += SwiGLU(RMSNorm(x))`` (``layers.py:14-32``),
+    RMSNorm eps 1e-6."""
+
+    def __init__(self, dim: int, num_heads: int, ball_size: int,
+                 mlp_ratio: int, dimensionality: int = 3,
+                 use_dist_bias: bool = True, use_pallas: bool = False):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.ball_size = ball_size
+        self.use_dist_bias = use_dist_bias
+        self.use_pallas = use_pallas
+        self.norm1 = nn.RMSNorm(dim, eps=1e-6)
+        self.BMSA = BallMSA(dim, num_heads, ball_size, dimensionality,
+                            use_dist_bias)
+        self.norm2 = nn.RMSNorm(dim, eps=1e-6)
+        self.swiglu = SwiGLU(dim, dim * mlp_ratio)
+
+    def fused_ok(self, x, pos) -> bool:
+        return eligible(x.shape[1], x.shape[2], self.num_heads, self.dim,
+                        self.swiglu.w1.out_features, pos.shape[-1])
+
+    def forward(self, x, pos):
+        if self.use_pallas:
+            if self.fused_ok(x, pos):
+                return fused_erwin_block(
+                    x, pos, dict(self.named_parameters()),
+                    ball_size=self.ball_size, num_heads=self.num_heads,
+                    use_dist_bias=self.use_dist_bias)
+            PLAIN_ROUTES.add()
+        x = x + self.BMSA(self.norm1(x), pos)
+        return x + self.swiglu(self.norm2(x))
+
+
+class BallPooling(nn.Module):
+    """Coarsen by ``stride`` (eq. 12; reference ``pooling.py:10-40``);
+    BatchNorm eps 1e-5 over the flattened ``[B*N, C]`` rows."""
+
+    def __init__(self, in_dim: int, out_dim: int, stride: int,
+                 dimensionality: int = 3):
+        super().__init__()
+        self.stride = stride
+        if stride > 1:
+            self.proj = nn.Linear(stride * (in_dim + dimensionality), out_dim)
+            self.norm = nn.BatchNorm1d(out_dim, eps=1e-5)
+
+    def forward(self, node: Node) -> Node:
+        if self.stride == 1:
+            return Node(x=node.x, pos=node.pos, children=node)
+        B, N, C = node.x.shape
+        D = node.pos.shape[-1]
+        s = self.stride
+        with torch.no_grad():
+            pos_g = node.pos.reshape(B, N // s, s, D)
+            centers = pos_g.mean(dim=2)
+            rel_pos = (pos_g - centers[:, :, None]).reshape(B, N // s, s * D)
+        x = torch.cat([node.x.reshape(B, N // s, s * C),
+                       rel_pos.to(node.x.dtype)], dim=-1)
+        x = self.proj(x)
+        x = self.norm(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        return Node(x=x, pos=centers, children=node)
+
+
+class BallUnpooling(nn.Module):
+    """Refine back to the children's resolution (eq. 13;
+    ``pooling.py:43-72``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, stride: int,
+                 dimensionality: int = 3):
+        super().__init__()
+        self.stride = stride
+        self.out_dim = out_dim
+        self.proj = nn.Linear(in_dim + stride * dimensionality,
+                              stride * out_dim)
+        self.norm = nn.BatchNorm1d(out_dim, eps=1e-5)
+
+    def forward(self, node: Node) -> Node:
+        children = node.children
+        B, Np, _ = node.x.shape
+        D = node.pos.shape[-1]
+        s = self.stride
+        with torch.no_grad():
+            rel_pos = (children.pos.reshape(B, Np, s, D)
+                       - node.pos[:, :, None]).reshape(B, Np, s * D)
+        x = torch.cat([node.x, rel_pos.to(node.x.dtype)], dim=-1)
+        up = self.proj(x).reshape(B, Np * s, self.out_dim)
+        y = children.x + up
+        x = self.norm(y.reshape(-1, self.out_dim)).reshape(y.shape)
+        return Node(x=x, pos=children.pos, rot_perm=children.rot_perm,
+                    rot_inv_perm=children.rot_inv_perm,
+                    children=children.children)
+
+
+class BasicLayer(nn.Module):
+    """``depth`` blocks with rotation on odd blocks, then pool/unpool
+    (reference ``layers.py:35-92``)."""
+
+    def __init__(self, direction: Optional[str], depth: int,
+                 stride: Optional[int], in_dim: int, out_dim: int,
+                 num_heads: int, ball_size: int, mlp_ratio: int, rotate: bool,
+                 dimensionality: int = 3, use_dist_bias: bool = True,
+                 use_pallas: bool = False):
+        super().__init__()
+        self.direction = direction
+        self.ball_size = ball_size
+        self.rotate = rotate
+        hidden_dim = in_dim if direction == "down" else out_dim
+        if direction == "up" and stride is not None:
+            self.unpool = BallUnpooling(in_dim, hidden_dim, stride,
+                                        dimensionality)
+        self.blocks = nn.ModuleList([
+            ErwinTransformerBlock(hidden_dim, num_heads, ball_size, mlp_ratio,
+                                  dimensionality, use_dist_bias, use_pallas)
+            for _ in range(depth)])
+        if direction == "down" and stride is not None:
+            self.pool = BallPooling(hidden_dim, out_dim, stride,
+                                    dimensionality)
+
+    def forward(self, node: Node) -> Node:
+        if hasattr(self, "unpool"):
+            node = self.unpool(node)
+        n_level = node.x.shape[1]
+        full_ball = effective_ball_size(self.ball_size, n_level) >= n_level
+        for i, blk in enumerate(self.blocks):
+            # A single-ball level skips rotation: it permutes inside the
+            # ball, and full-ball attention is permutation-equivariant.
+            rot = self.rotate and i % 2 == 1 and not full_ball
+            if rot:
+                if node.rot_perm is None:
+                    raise ValueError("rot_perm must be provided for rotation "
+                                     "(reference layers.py:78-80)")
+                out = blk(_gather_rows(node.x, node.rot_perm),
+                          _gather_rows(node.pos, node.rot_perm))
+                node.x = _gather_rows(out, node.rot_inv_perm)
+            else:
+                node.x = blk(node.x, node.pos)
+        if hasattr(self, "pool"):
+            node = self.pool(node)
+        return node
+
+
+class ErwinEmbedding(nn.Module):
+    """Linear embedding (reference ``embedding.py:12-20``); the MPNN part
+    (``mp_steps > 0``) is not ported yet."""
+
+    def __init__(self, c_in: int, c_hidden: int, mp_steps: int,
+                 dimensionality: int = 3):
+        super().__init__()
+        if mp_steps > 0:
+            raise NotImplementedError(MPNN_TODO)
+        self.embed_fn = nn.Linear(c_in, c_hidden)
+
+    def forward(self, x, pos):
+        return self.embed_fn(x)
+
+
+class ErwinTransformer(nn.Module):
+    """UNet-shaped hierarchical ball-attention transformer
+    (``haet_tpu/models/erwin.py:418-568``, reference
+    ``erwin_flash.py:40-56``).
+
+    ``forward(x [B, N, c_in], pos [B, N, D], mask=None)`` with N a power of
+    two; returns the decoded ``[B, N, c_hidden[0]]`` in input order, with
+    any masked points last. The JAX module's ``decode=False`` (the coarse
+    ``(x, pos)``) is not ported: physics attention, its one caller here,
+    needs the decoded states.
+    """
+
+    def __init__(self, c_in: int, c_hidden: Sequence[int],
+                 ball_sizes: Sequence[int], enc_num_heads: Sequence[int],
+                 enc_depths: Sequence[int], dec_num_heads: Sequence[int],
+                 dec_depths: Sequence[int], strides: Sequence[int],
+                 rotate: int = 45, mlp_ratio: int = 4,
+                 dimensionality: int = 3, mp_steps: int = 3,
+                 embed: bool = True, use_dist_bias: bool = True,
+                 use_pallas_blocks: bool = False, grouping: str = "median"):
+        super().__init__()
+        if not (len(enc_num_heads) == len(enc_depths) == len(ball_sizes)
+                and len(dec_num_heads) == len(dec_depths) == len(strides)
+                and len(strides) == len(ball_sizes) - 1):
+            raise ValueError("inconsistent Erwin level configuration")
+        if grouping == "morton":
+            raise NotImplementedError(MORTON_TODO)
+        if grouping != "median":
+            raise ValueError(f"unknown grouping {grouping!r}")
+        self.ball_sizes = tuple(ball_sizes)
+        self.strides = tuple(strides)
+        self.rotate = rotate
+        self.grouping = grouping
+        if embed:
+            self.embed = ErwinEmbedding(c_in, c_hidden[0], mp_steps,
+                                        dimensionality)
+        common = dict(mlp_ratio=mlp_ratio, rotate=rotate > 0,
+                      dimensionality=dimensionality,
+                      use_dist_bias=use_dist_bias,
+                      use_pallas=use_pallas_blocks)
+        num_layers = len(enc_depths) - 1
+        self.encoder = nn.ModuleList([
+            BasicLayer("down", enc_depths[i], strides[i], c_hidden[i],
+                       c_hidden[i + 1], enc_num_heads[i], ball_sizes[i],
+                       **common)
+            for i in range(num_layers)])
+        self.bottleneck = BasicLayer(
+            None, enc_depths[-1], None, c_hidden[-1], c_hidden[-1],
+            enc_num_heads[-1], ball_sizes[-1], **common)
+        self.decoder = nn.ModuleList([
+            BasicLayer("up", dec_depths[i], strides[i], c_hidden[i + 1],
+                       c_hidden[i], dec_num_heads[i], ball_sizes[i], **common)
+            for i in range(num_layers - 1, -1, -1)])
+
+    def forward(self, x, pos, *, perms: Optional[ErwinPerms] = None,
+                mask=None):
+        if perms is None:
+            perms = build_erwin_perms(
+                pos, ball_sizes=self.ball_sizes, strides=self.strides,
+                rotate_angle=float(self.rotate), grouping=self.grouping,
+                mask=mask)
+        if hasattr(self, "embed"):
+            x = self.embed(x, pos)
+        node = Node(x=_gather_rows(x, perms.perm),
+                    pos=_gather_rows(pos, perms.perm))
+        num_layers = len(self.encoder)
+        for i, layer in enumerate(self.encoder):
+            node.rot_perm = perms.rot_perms[i]
+            node.rot_inv_perm = perms.rot_inv_perms[i]
+            node = layer(node)
+        node.rot_perm = perms.rot_perms[num_layers]
+        node.rot_inv_perm = perms.rot_inv_perms[num_layers]
+        node = self.bottleneck(node)
+        for layer in self.decoder:
+            node = layer(node)
+        return _gather_rows(node.x, perms.unperm)

@@ -1,0 +1,147 @@
+"""Physics attention — the Transolver++ rep-slice tokenizer, PyTorch.
+
+Counterpart of ``haet_tpu/models/physics_attention.py``: slice -> Erwin
+transform -> deslice (``StructuredMesh2D.py:157-262``). Only the irregular
+variant (Linear projection, ``IrregularMesh.py:95``) is ported so far; the
+2D/3D variants are queued in ``ROADMAP.md``.
+
+``use_pallas=True`` routes the slice and deslice through the fused CUDA
+kernels (:mod:`haet_torch.ops.kernels.slice_kernels`), which never
+materialise the ``[B, H, N, G]`` weights; ``use_pallas_erwin=True`` runs each
+Erwin block through the fused block kernel. The flag names are the JAX
+package's, so a config means the same thing in both.
+
+The Erwin pseudo-positions are min-max normalised over the WHOLE flattened
+``B*H*G`` token batch (``:344-351``, reference ``:228-234``), so a sample's
+output depends on the samples batched with it; the port keeps this.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops import slice_ops
+from ..ops.ball_groups import pad_pow2
+from ..ops.kernels import slice_kernels as sk
+from .erwin import ErwinTransformer
+
+AUTO_TODO = ("use_pallas='auto' is not ported yet: its 1.7M-point threshold "
+             "was measured for TPU memory and must be re-measured on the card "
+             "(ROADMAP.md, queue 1: use_pallas='auto')")
+
+
+class PhysicsAttentionIrregularMesh(nn.Module):
+    """Linear slice projection; dimensionality 3 (``IrregularMesh.py:91``).
+
+    Parameter names follow the reference schema: ``in_project_x``,
+    ``in_project_slice`` (``[G, dim_head]``), ``ada_temp_linear``
+    (``[1, dim_head]``), ``erwin``, ``to_out.0``.
+    """
+
+    dimensionality = 3
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 dropout: float = 0.0, slice_num: int = 64,
+                 base_temp: float = 0.5, epsilon: float = 1e-6,
+                 c_hidden: Optional[Sequence[int]] = None,
+                 ball_sizes: Optional[Sequence[int]] = None,
+                 enc_num_heads: Optional[Sequence[int]] = None,
+                 enc_depths: Optional[Sequence[int]] = None,
+                 dec_num_heads: Optional[Sequence[int]] = None,
+                 dec_depths: Optional[Sequence[int]] = None,
+                 strides: Optional[Sequence[int]] = None, rotate: int = 1,
+                 decode: bool = True, mlp_ratio: int = 4, mp_steps: int = 0,
+                 embed: bool = False, use_dist_bias: bool = True,
+                 grouping: str = "median", orthogonal_slice_init: bool = True,
+                 use_pallas=False, use_pallas_erwin: bool = False):
+        super().__init__()
+        if use_pallas == "auto":
+            raise NotImplementedError(AUTO_TODO)
+        if not decode:
+            raise ValueError(
+                "decode=False is not valid inside physics attention: the "
+                "slice->erwin->deslice core needs per-slice-token states")
+        self.heads = heads
+        self.dim_head = dim_head
+        self.slice_num = slice_num
+        self.base_temp = base_temp
+        self.epsilon = epsilon
+        self.use_pallas = bool(use_pallas)
+        self.orthogonal_slice_init = orthogonal_slice_init
+        g, h, dh = slice_num, heads, dim_head
+        inner = dim_head * heads
+        self.in_project_x = nn.Linear(dim, inner)
+        self.in_project_slice = nn.Linear(dh, g)
+        self.ada_temp_linear = nn.Linear(dh, 1)
+        self.erwin = ErwinTransformer(
+            c_in=dh,
+            c_hidden=tuple(c_hidden) if c_hidden else (dh, dh * 2),
+            ball_sizes=tuple(ball_sizes) if ball_sizes
+            else (min(32, g), min(16, g // 2)),
+            enc_num_heads=tuple(enc_num_heads) if enc_num_heads
+            else (h // 2, h),
+            enc_depths=tuple(enc_depths) if enc_depths else (2, 2),
+            dec_num_heads=tuple(dec_num_heads) if dec_num_heads
+            else (h // 2,),
+            dec_depths=tuple(dec_depths) if dec_depths else (2,),
+            strides=tuple(strides) if strides else (2,),
+            rotate=rotate, mlp_ratio=mlp_ratio,
+            dimensionality=self.dimensionality, mp_steps=mp_steps,
+            embed=embed, use_dist_bias=use_dist_bias,
+            use_pallas_blocks=use_pallas_erwin, grouping=grouping)
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+
+    def _slice_params(self):
+        """``(Ws [C, G], bs [G], Wa [C, 1], ba [1])`` in the JAX layout."""
+        return (self.in_project_slice.weight.t().contiguous(),
+                self.in_project_slice.bias,
+                self.ada_temp_linear.weight.t().contiguous(),
+                self.ada_temp_linear.bias)
+
+    def forward(self, x):
+        """``x: [B, N, dim] -> [B, N, dim]``."""
+        B, N, _ = x.shape
+        G, H, Dh = self.slice_num, self.heads, self.dim_head
+
+        # (1) Slice
+        x_proj = slice_ops.split_heads(self.in_project_x(x), H).contiguous()
+        ws, bs, wa, ba = self._slice_params()
+        w = None
+        if self.use_pallas:
+            states, m_res, s_res = sk.slice_states(
+                x_proj, ws, bs, wa, ba, self.base_temp, self.epsilon)
+        else:
+            tau = slice_ops.ada_temp(self.ada_temp_linear(x_proj),
+                                     self.base_temp)
+            logits = self.in_project_slice(x_proj)
+            w = slice_ops.rep_slice_weights(logits, tau, self.epsilon)
+            states = slice_ops.eidetic_states(x_proj, w)      # [B, H, G, Dh]
+
+        # (2) Erwin over B*H clouds of G tokens; pseudo-positions are the
+        # first 3 channels, min-max normalised over the GLOBAL flat batch.
+        d = self.dimensionality
+        flat = states.reshape(B * H * G, Dh)
+        with torch.no_grad():
+            feat = flat[:, :d]
+            fmin = feat.amin(dim=0, keepdim=True)
+            fmax = feat.amax(dim=0, keepdim=True)
+            pos = ((feat - fmin) / (fmax - fmin + 1e-8)).reshape(B * H, G, d)
+        s_in = states.reshape(B * H, G, Dh)
+        mask = None
+        if G & (G - 1):  # pad non-power-of-two slice counts
+            s_in, pos, mask = pad_pow2(s_in, pos)
+        out_states = self.erwin(s_in, pos, mask=mask)
+        if mask is not None:
+            out_states = out_states[:, :G]
+        out_states = out_states.reshape(B, H, G, Dh).contiguous()
+
+        # (3) Deslice
+        if self.use_pallas:
+            out = sk.deslice(x_proj, ws, bs, wa, ba, out_states, m_res, s_res,
+                             self.base_temp, self.epsilon)
+        else:
+            out = slice_ops.deslice(out_states, w)
+        return self.to_out(slice_ops.merge_heads(out))

@@ -1,0 +1,96 @@
+"""Model config and the ShapeNet-Car preset, PyTorch.
+
+``ModelConfig`` is ``haet_tpu/utils/config.py:ModelConfig`` field for
+field, so one config describes the same model in both packages.
+:meth:`ModelConfig.build` returns the torch model; only the irregular
+variant is ported so far.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+BF16_TODO = "bf16=True is not ported yet (ROADMAP.md, queue 1: bf16)"
+VARIANT_TODO = ("the {} variant is not ported yet (ROADMAP.md, queue 1: "
+                "2D/3D variants, unified_pos and Time_Input)")
+
+
+@dataclass
+class ModelConfig:
+    variant: str = "irregular"  # irregular | structured_2d | structured_3d
+    space_dim: int = 2
+    n_layers: int = 5
+    n_hidden: int = 256
+    dropout: float = 0.0
+    n_head: int = 8
+    Time_Input: bool = False
+    act: str = "gelu"
+    mlp_ratio: int = 1
+    fun_dim: int = 1
+    out_dim: int = 1
+    slice_num: int = 32
+    ref: int = 8
+    unified_pos: bool = False
+    H: int = 85
+    W: int = 85
+    D: int = 32
+    c_hidden: Optional[Sequence[int]] = None
+    ball_sizes: Optional[Sequence[int]] = None
+    enc_num_heads: Optional[Sequence[int]] = None
+    enc_depths: Optional[Sequence[int]] = None
+    dec_num_heads: Optional[Sequence[int]] = None
+    dec_depths: Optional[Sequence[int]] = None
+    strides: Optional[Sequence[int]] = None
+    rotate: int = 45
+    decode: bool = True
+    mp_steps: int = 0
+    embed: bool = False
+    dim_head: Optional[int] = None
+    erwin_mlp_ratio: Optional[int] = None
+    use_checkpoint: bool = False
+    use_dist_bias: bool = True
+    grouping: str = "median"
+    use_pallas: bool | str = False  # False | True | "auto"
+    pallas_auto_threshold: int = 1_700_000
+    bf16: bool = False
+    shard_axes: Optional[tuple] = None
+
+    def model_kwargs(self) -> dict:
+        """Constructor kwargs of :class:`HAETransolverIrregularMesh` for
+        this config (what :meth:`build` passes)."""
+        if self.variant != "irregular":
+            raise NotImplementedError(VARIANT_TODO.format(self.variant))
+        if self.bf16:
+            raise NotImplementedError(BF16_TODO)
+        if self.shard_axes is not None:
+            raise NotImplementedError(
+                "shard_axes is not ported yet (ROADMAP.md, queue 1: parallel)")
+        kw = dataclasses.asdict(self)
+        for k in ("variant", "H", "W", "D", "pallas_auto_threshold", "bf16",
+                  "shard_axes"):
+            kw.pop(k)
+        return kw
+
+    def build(self, device=None, seed: int = 0):
+        """The torch model for this config on ``device`` (None = CUDA)."""
+        from ..models import HAETransolverIrregularMesh
+
+        return HAETransolverIrregularMesh(**self.model_kwargs(),
+                                          device=device, seed=seed)
+
+
+def shapenet_car_config() -> ModelConfig:
+    """The ShapeNet-Car model (``haet_tpu/utils/config.py:262-291``):
+    2 blocks, n_hidden 256, 8 heads, dim_head 32, G 32; Erwin c_hidden
+    (32, 64), balls (32, 16), heads 8/8/8, depths 4/4/4, mlp_ratio 4 and a
+    Linear embedding. 1,757,190 parameters."""
+    return ModelConfig(
+        variant="irregular", space_dim=7, fun_dim=0, out_dim=4,
+        n_layers=2, n_hidden=256, n_head=8, slice_num=32,
+        mlp_ratio=2, unified_pos=False,
+        enc_num_heads=(8, 8), enc_depths=(4, 4),
+        dec_num_heads=(8,), dec_depths=(4,),
+        erwin_mlp_ratio=4, embed=True, rotate=45,
+    )

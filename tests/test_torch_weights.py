@@ -1,0 +1,122 @@
+"""PyTorch port, the weight bridge and the config vs the JAX package.
+
+``haet_torch.utils.weights.from_jax_variables`` is a copy of the mapping in
+``haet_tpu.utils.torch_import`` (the port never imports ``haet_tpu``); here
+the two are held against each other key for key and value for value on the
+car preset's variables, and the result loads strictly into the port's car
+model.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from haet_torch.models import HAETransolverIrregularMesh
+from haet_torch.utils import config as tcfg
+from haet_torch.utils.weights import from_jax_variables, load_jax_variables
+from haet_tpu.utils import config as jcfg
+from haet_tpu.utils.torch_import import to_torch_state_dict
+
+CAR_PARAMS = 1_757_190
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def car_variables():
+    jm = jcfg.shapenet_car_config().model.build()
+    x = np.zeros((1, 64, 7), np.float32)
+    template = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
+    rng = np.random.RandomState(0)
+    return jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(np.float32), template)
+
+
+def test_keys_and_values_match_torch_import(car_variables):
+    sd = from_jax_variables(car_variables)
+    ref = to_torch_state_dict(car_variables)
+    tracked = {k for k in sd if k.endswith("num_batches_tracked")}
+    assert set(sd) - tracked == set(ref)
+    assert tracked == {k[:-len("running_mean")] + "num_batches_tracked"
+                       for k in ref if k.endswith("running_mean")}
+    assert len(tracked) == 4  # pool + unpool BatchNorm in each of 2 layers
+    for k, v in ref.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+
+
+def test_strict_load_into_car_model(car_variables):
+    m = tcfg.shapenet_car_config().build(device="cpu")
+    assert sum(p.numel() for p in m.parameters()) == CAR_PARAMS
+    ref = to_torch_state_dict(car_variables)
+    own = set(m.state_dict())
+    assert {k for k in own if not k.endswith("num_batches_tracked")} == set(
+        ref)
+    load_jax_variables(m, car_variables)  # strict=True
+    w = m.blocks[0].Attn.in_project_slice.weight
+    np.testing.assert_array_equal(
+        w.detach().numpy(),
+        car_variables["params"]["blocks_0"]["Attn"][
+            "in_project_slice_kernel"].T)
+
+
+def test_param_count_matches_jax(car_variables):
+    n_jax = sum(np.size(v) for v in
+                jax.tree_util.tree_leaves(car_variables["params"]))
+    assert n_jax == CAR_PARAMS
+
+
+def test_model_config_field_for_field():
+    names = lambda c: [(f.name, f.default) for f in dataclasses.fields(c)]  # noqa: E731
+    assert names(tcfg.ModelConfig) == names(jcfg.ModelConfig)
+    assert dataclasses.asdict(tcfg.shapenet_car_config()) == \
+        dataclasses.asdict(jcfg.shapenet_car_config().model)
+
+
+def test_seeded_init_is_deterministic():
+    a = tcfg.shapenet_car_config().build(device="cpu", seed=3)
+    b = tcfg.shapenet_car_config().build(device="cpu", seed=3)
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert ka == kb
+        assert torch.equal(va, vb), ka
+    sig = a.blocks[0].Attn.erwin.encoder[0].blocks[0].BMSA.sigma_att
+    assert abs(float(sig.detach().mean()) + 1.0) < 0.05
+    w = a.blocks[0].Attn.in_project_slice.weight
+    np.testing.assert_allclose((w @ w.T).detach().numpy(), np.eye(32),
+                               atol=1e-5)  # orthogonal slice init
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(bf16=True), "bf16"),
+    (dict(variant="structured_2d"), "structured_2d"),
+    (dict(use_pallas="auto"), "auto"),
+    (dict(Time_Input=True), "Time_Input"),
+    (dict(use_checkpoint=True), "use_checkpoint"),
+])
+def test_unported_options_raise(change, match):
+    cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
+    with pytest.raises(NotImplementedError, match=match):
+        cfg.build(device="cpu")
+
+
+def test_decode_false_raises():
+    """Physics attention needs the decoded per-slice-token states."""
+    cfg = dataclasses.replace(tcfg.shapenet_car_config(), decode=False)
+    with pytest.raises(ValueError, match="decode=False"):
+        cfg.build(device="cpu")
+
+
+def test_default_device_raises_without_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HAETransolverIrregularMesh(space_dim=3, n_layers=1, n_hidden=16,
+                                   n_head=2, slice_num=8)
