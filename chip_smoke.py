@@ -13,6 +13,11 @@ Phases (any failed check exits non-zero before the final line):
    kernel's time, the plain version's time and the bound (least time the card
    could take for the same bytes and float32 operations). The Erwin block is
    also checked, untimed, at the largest clouds its shape gate admits.
+3b. The backwards against autograd of their plain versions on the card:
+   the Erwin block's backward kernel at both car block shapes (dx, dpos and
+   all 14 parameter gradients, timed, with its bound) and, untimed, at the
+   two gate-edge shapes; the slice autograd functions (``SliceStatesFn``,
+   ``DesliceFn``) at the padded car shape ``[1, 8, 32768, 32]``, timed.
 4. Serve: the car preset (2 layers, n_hidden 256, G 32, 1,757,190 params,
    seeded random weights) on the card with both kernel flags set, behind a
    ``BatchingServer`` with signature ``x [32186, 7] f32, fx None`` and batch
@@ -22,9 +27,20 @@ Phases (any failed check exits non-zero before the final line):
    counters rose by exactly 2 + 2 + 24 per forward, and that no Erwin block
    was routed to the plain version.
 5. Profile one batch-1 forward: device time by kernel against wall time.
+6. Train: the car preset at full width with both flags set takes 5
+   ``Trainer.train_step``s (Adam + OneCycle + clip 1.0, the masked car
+   loss, train-mode BatchNorm) on a seeded synthetic sample of 32186 points
+   padded to the 32768 bucket. Checks that the loss and every parameter stay
+   finite, that after step 1 every parameter but ``sigma_att`` has a finite
+   gradient, that step 1's gradients match the plain path's (both flags off,
+   same weights and batch) leaf by leaf, and that the launch counters rose
+   by exactly 2 + 2 + 24 + 24 per step with no plain route. Prints the step
+   wall time, peak device memory and, from one profiled step, the device
+   time by kernel and the busy share.
 
-Then one JSON line of kernel records, the card line, and as the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``haet_tpu``.
+Then one JSON line of kernel records (``launches`` from phase 6), the card
+line, and as the last line ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or ``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -39,6 +55,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_POINTS = 32186          # a ShapeNet-Car sample's point count
+N_PADDED = 32768          # its 2048-point training bucket
+N_SURFACE = 3586          # surface points of a ShapeNet-Car sample
+TRAIN_STEPS = 5
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s outside
@@ -50,6 +69,20 @@ F32_FLOP_PER_S = 67e12
 # taken in another order (chunked log-sum-exp merge, per-thread loops).
 KERNEL_RTOL = 1e-4
 SERVE_RTOL = 1e-4  # a whole 2-layer model, as the CPU parity test holds it
+# The slice backwards' parameter gradients sum 262,144 points' terms that
+# cancel (for b_slice, sum_n dL/dlogit is 0 at a constant temperature), so
+# float32 sums in two orders differ by more than 1e-4 of the small result
+# (1.2e-4 on b_slice, H100 run of this script).
+SLICE_BWD_RTOL = 1e-3
+# Step 1's gradients, kernels against the plain path: each leaf within
+# GRAD_RTOL of its own max |grad|, or GRAD_ATOL of the largest |grad| of the
+# model. float32 through a forward and backward of 2 layers and 24 Erwin
+# blocks with sums in other orders (a CPU run of the same comparison at
+# N = 4096 measured 2.3e-5); the absolute floor is for leaves whose
+# gradient is zero up to round-off (biases in front of a train-mode
+# BatchNorm: ~1e-8 of the largest |grad|, all noise).
+GRAD_RTOL = 1e-3
+GRAD_ATOL = 1e-6
 
 
 class CheckFailed(Exception):
@@ -122,10 +155,46 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, bound, **extra):
 # Phase 3: each kernel against its plain version at the car shapes.
 # ---------------------------------------------------------------------------
 
-def kernel_phase(dev):
+def erwin_inputs(dev, g, n_e, c_e, ball):
+    """Seeded inputs and weights of one Erwin block shape (8 clouds, 8
+    heads, SwiGLU 4C), drawn from ``g``."""
     import torch
 
     from haet_torch.models.erwin import ErwinTransformerBlock
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    torch.manual_seed(SEED)
+    blk = ErwinTransformerBlock(c_e, 8, ball, 4).to(dev)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g).to(dev))
+        blk.BMSA.sigma_att.copy_(
+            -1.0 + 0.01 * torch.randn(1, 8, 1, 1, generator=g).to(dev))
+    params = dict(blk.named_parameters())
+    xe = torch.randn(8, n_e, c_e, generator=g).to(dev)
+    pe = torch.rand(8, n_e, 3, generator=g).to(dev)
+    check(eb.eligible(n_e, c_e, 8, c_e, 4 * c_e),
+          f"n {n_e} / C {c_e} is outside the kernel's gate")
+    return xe, pe, params, dict(ball_size=ball, num_heads=8,
+                                use_dist_bias=True)
+
+
+def erwin_work(n_e, c_e, ball):
+    """``(weight elements, forward FLOP)`` of one Erwin block call on 8
+    clouds of ``n_e`` points (8 heads, SwiGLU 4C)."""
+    hid = 4 * c_e
+    hd = c_e // 8
+    w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + 8
+               + c_e * c_e + c_e + c_e + 2 * (hid * c_e + hid)
+               + c_e * hid + c_e)
+    flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e + 8 * ball * hd * 2
+                           + c_e * c_e + 3 * hid * c_e)
+    return w_elems, flops
+
+
+def kernel_phase(dev):
+    import torch
+
     from haet_torch.ops.kernels import erwin_block as eb
     from haet_torch.ops.kernels import slice_kernels as sk
 
@@ -175,21 +244,9 @@ def kernel_phase(dev):
         "haet_tpu/ops/pallas/slice_kernels.py:125", err, ms, plain_ms, bound))
 
     def erwin_case(n_e, c_e, ball):
-        """Seeded inputs and weights of one block shape (8 clouds, 8 heads,
-        SwiGLU 4C), and the kernel's error against its plain version."""
-        torch.manual_seed(SEED)
-        blk = ErwinTransformerBlock(c_e, 8, ball, 4).to(dev)
-        with torch.no_grad():
-            for p in blk.parameters():
-                p.copy_(0.2 * torch.randn(p.shape, generator=g).to(dev))
-            blk.BMSA.sigma_att.copy_(
-                -1.0 + 0.01 * torch.randn(1, 8, 1, 1, generator=g).to(dev))
-        params = dict(blk.named_parameters())
-        xe = torch.randn(8, n_e, c_e, generator=g).to(dev)
-        pe = torch.rand(8, n_e, 3, generator=g).to(dev)
-        kw = dict(ball_size=ball, num_heads=8, use_dist_bias=True)
-        check(eb.eligible(n_e, c_e, 8, c_e, 4 * c_e),
-              f"n {n_e} / C {c_e} is outside the kernel's gate")
+        """One block shape's inputs, and the kernel's error against its
+        plain version."""
+        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball)
         with torch.inference_mode():
             o_k = eb.fused_erwin_block(xe, pe, params, **kw)
             o_p = eb.erwin_block_plain(xe, pe, params, **kw)
@@ -211,14 +268,8 @@ def kernel_phase(dev):
                 lambda: eb.fused_erwin_block(xe, pe, params, **kw)), weight))
             plain_times.append((cuda_ms(
                 lambda: eb.erwin_block_plain(xe, pe, params, **kw)), weight))
-        hid = 4 * c_e
-        hd = c_e // 8
-        w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + 8
-                   + c_e * c_e + c_e + c_e + 2 * (hid * c_e + hid)
-                   + c_e * hid + c_e)
+        w_elems, flops = erwin_work(n_e, c_e, ball)
         nbytes = 4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems)
-        flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e + 8 * ball * hd * 2
-                               + c_e * c_e + 3 * hid * c_e)
         bounds.append((bound_ms(nbytes, flops), weight))
         print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
     total = sum(w for _, w in times)
@@ -243,6 +294,134 @@ def kernel_phase(dev):
     print("  none of the three has a single PyTorch call computing the same "
           "function: library_ms is null", flush=True)
     return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 3b: the backwards against autograd of their plain versions.
+# ---------------------------------------------------------------------------
+
+def backward_phase(dev, records):
+    """Checks and times the backwards; adds the backward kernel's record to
+    ``records`` and the slice backwards' times to their forwards' records."""
+    import torch
+
+    from haet_torch.ops.kernels import erwin_block as eb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    g = torch.Generator().manual_seed(SEED + 2)
+    check(len(eb.GRAD_NAMES) == 14, f"{len(eb.GRAD_NAMES)} parameter grads")
+
+    def erwin_bwd_case(n_e, c_e, ball):
+        """The backward kernel's largest error against autograd of the plain
+        block over dx, dpos and every parameter gradient."""
+        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball)
+        dout = torch.randn(8, n_e, c_e, generator=g).to(dev)
+        dx_k, dpos_k, gr_k = eb.fused_erwin_block_bwd(xe, pe, dout, params,
+                                                      **kw)
+        dx_p, dpos_p, gr_p = eb.erwin_block_bwd_plain(xe, pe, dout, params,
+                                                      **kw)
+        torch.cuda.synchronize()
+        errs = [compare("dx", dx_k, dx_p, KERNEL_RTOL),
+                compare("dpos", dpos_k, dpos_p, KERNEL_RTOL)]
+        errs += [compare(f"d {k}", gr_k[k], gr_p[k], KERNEL_RTOL)
+                 for k in eb.GRAD_NAMES]
+        return xe, pe, params, kw, dout, max(errs)
+
+    errs, times, plain_times, bounds = [], [], [], []
+    for n_e, c_e, ball, weight in ((32, 32, 32, 16), (16, 64, 16, 8)):
+        print(f"phase 3b: fused_erwin_block_bwd  x [8, {n_e}, {c_e}], 8 "
+              f"heads, ball {ball}, shared memory "
+              f"{eb.bwd_smem_bytes(n_e, c_e, 3, 4 * c_e, 8, ball)} B",
+              flush=True)
+        xe, pe, params, kw, dout, err = erwin_bwd_case(n_e, c_e, ball)
+        errs.append(err)
+        times.append((cuda_ms(lambda: eb.fused_erwin_block_bwd(
+            xe, pe, dout, params, **kw)), weight))
+        # the plain backward alone: autograd of a recorded plain forward
+        leaves = [t.detach().requires_grad_()
+                  for t in (xe, pe, *(params[k] for k in eb.GRAD_NAMES))]
+        lp = dict(zip(eb.GRAD_NAMES, leaves[2:]),
+                  **{"BMSA.sigma_att": params["BMSA.sigma_att"]})
+        out = eb.erwin_block_plain(leaves[0], leaves[1], lp, **kw)
+        plain_times.append((cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True)), weight))
+        del out
+        w_elems, fwd_flops = erwin_work(n_e, c_e, ball)
+        # reads x, pos, dout and the weights; writes dx, dpos and the
+        # gradients of every weight but sigma; recomputes the forward and
+        # does its two backward products per forward product
+        nbytes = 4 * (3 * 8 * n_e * c_e + 2 * 8 * n_e * 3 + 2 * w_elems - 8)
+        bounds.append((bound_ms(nbytes, 3 * fwd_flops), weight))
+        print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
+    total = sum(w for _, w in times)
+    mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
+    records.append(kernel_record(
+        "fused_erwin_block_bwd", "haet_torch/csrc/erwin_block.cu",
+        "haet_tpu/ops/pallas/erwin_block.py:187", max(errs), mix(times),
+        mix(plain_times),
+        (mix([(bd[0], w) for bd, w in bounds]),
+         "bytes" if all(bd[1] == "bytes" for bd, _ in bounds)
+         else "operations"),
+        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]}))
+    for n_e, c_e, ball in ((128, 32, 32), (64, 64, 16)):
+        layout, smem, spilled = eb.bwd_layout(n_e, c_e, 3, 4 * c_e, 8, ball)
+        nbuf = len(eb.BWD_BUFFERS)
+        spills = [name for name, in_smem in
+                  zip(eb.BWD_BUFFERS, layout[nbuf:2 * nbuf]) if not in_smem]
+        print(f"phase 3b: fused_erwin_block_bwd at the gate's edge  x [8, "
+              f"{n_e}, {c_e}], ball {ball}: {smem} B of shared memory, "
+              f"{4 * spilled} B per cloud in the global scratch {spills}",
+              flush=True)
+        erwin_bwd_case(n_e, c_e, ball)
+
+    print(f"phase 3b: SliceStatesFn / DesliceFn backward  x [1, 8, "
+          f"{N_PADDED}, 32], G 32", flush=True)
+    b, h, n, c, gs = 1, 8, N_PADDED, 32, 32
+    x = torch.randn(b, h, n, c, generator=g).to(dev)
+    ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
+    bs = (0.1 * torch.randn(gs, generator=g)).to(dev)
+    wa = (0.1 * torch.randn(c, 1, generator=g)).to(dev)
+    ba = torch.zeros(1).to(dev)
+    st_in = torch.randn(b, h, gs, c, generator=g).to(dev)
+    g_st = torch.randn(b, h, gs, c, generator=g).to(dev)
+    g_out = torch.randn(b, h, n, c, generator=g).to(dev)
+
+    def grads(f_states, f_deslice):
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, ws, bs, wa, ba, st_in)]
+        st, m, s = f_states(*leaves[:5])
+        out = f_deslice(*leaves[:5], leaves[5], m, s)
+        return leaves, st, out, torch.autograd.grad(
+            [st, out], leaves, [g_st, g_out], retain_graph=True)
+
+    _, _, _, got = grads(sk.slice_states, sk.deslice)
+    leaves, st_p, out_p, want = grads(sk.slice_states_plain, sk.deslice_plain)
+    torch.cuda.synchronize()
+    err = max(compare(f"d {k}", a, w, SLICE_BWD_RTOL) for k, a, w in zip(
+        ("x", "w_slice", "b_slice", "w_ada", "b_ada", "states"), got, want))
+    with torch.no_grad():
+        st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
+        ms = {
+            "slice_states": cuda_ms(lambda: sk.slice_states_bwd(
+                x, ws, bs, wa, ba, st_k, m_k, s_k, g_st)),
+            "deslice": cuda_ms(lambda: sk.deslice_bwd(
+                x, ws, bs, wa, ba, st_in, m_k, s_k, g_out)),
+        }
+    plain_ms = {
+        "slice_states": cuda_ms(lambda: torch.autograd.grad(
+            st_p, leaves[:5], g_st, retain_graph=True)),
+        "deslice": cuda_ms(lambda: torch.autograd.grad(
+            out_p, leaves, g_out, retain_graph=True)),
+    }
+    for r in records:
+        if r["name"] in ms:
+            r.update(bwd_ms=ms[r["name"]], bwd_plain_ms=plain_ms[r["name"]],
+                     bwd_max_abs_err=err)
+            print(f"  {r['name']} backward (PyTorch, chunked) "
+                  f"{ms[r['name']]:.4f} ms  plain autograd "
+                  f"{plain_ms[r['name']]:.4f} ms", flush=True)
+    print("  no single PyTorch call computes the block's backward: "
+          "library_ms is null", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -316,12 +495,12 @@ def serve_phase(dev):
         check(o.shape == (N_POINTS, 4), f"request {i}: shape {o.shape}")
         check(bool(np.isfinite(o).all()), f"request {i}: non-finite output")
     want = {"slice_states": 2 * forwards, "deslice": 2 * forwards,
-            "fused_erwin_block": 24 * forwards}
+            "fused_erwin_block": 24 * forwards, "fused_erwin_block_bwd": 0}
     print(f"  forwards {forwards}; launches {counts}; expected {want}",
           flush=True)
     check(counts == want, f"launch counts {counts} != {want}")
     print(f"  blocks routed to the plain version {plain_routes}", flush=True)
-    check(plain_routes == {"fused_erwin_block": 0},
+    check(all(v == 0 for v in plain_routes.values()),
           f"some Erwin blocks left the kernel: {plain_routes}")
 
     # Agreement with the plain path on the same weights and inputs (the
@@ -349,6 +528,19 @@ def serve_phase(dev):
     return counts, forwards, model, samples[0]
 
 
+def kernel_events(prof):
+    """The profile's device kernels by name, longest first. Kernels only:
+    an operator's entry, and a user annotation such as
+    ``Optimizer.step#Adam.step``, repeat their kernels' device time."""
+    import torch
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    return sorted(events, key=lambda e: -e.self_device_time_total)
+
+
 def profile_phase(model, sample, dev):
     """Where one batch-1 forward's time goes: device time by kernel
     (torch.profiler) against the forward's wall time."""
@@ -369,11 +561,7 @@ def profile_phase(model, sample, dev):
             model(x)
             torch.cuda.synchronize()
     wall_ms = 1e3 * min(walls)
-    # Kernels only: an operator's entry repeats its kernels' device time.
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
+    events = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  forward wall {wall_ms:.3f} ms (min of 5); device time "
           f"{device_ms:.3f} ms in {sum(e.count for e in events)} kernels; "
@@ -381,6 +569,150 @@ def profile_phase(model, sample, dev):
     for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: train the car preset through the kernels.
+# ---------------------------------------------------------------------------
+
+def train_phase(dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from haet_torch.models import HAETransolverIrregularMesh
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder, make_batch
+    from haet_torch.utils.config import (shapenet_car_config,
+                                         shapenet_car_train_config)
+
+    kwargs = shapenet_car_config().model_kwargs()
+    cfg = shapenet_car_train_config()
+    rng = np.random.RandomState(SEED + 4)
+    x = rng.randn(N_POINTS, 7).astype(np.float32)
+    y = rng.randn(N_POINTS, 4).astype(np.float32)
+    surf = np.zeros(N_POINTS, bool)
+    surf[-N_SURFACE:] = True   # surface points come last in a car sample
+    batch = make_batch(x[:, :3], x, y, surf)
+    check(batch["x"].shape == (1, N_PADDED, 7),
+          f"padded batch {batch['x'].shape}")
+
+    def build(flags):
+        kwargs.update(use_pallas=flags)
+        model = HAETransolverIrregularMesh(**kwargs, use_pallas_erwin=flags,
+                                           device=dev, seed=SEED)
+        g = torch.Generator().manual_seed(SEED + 3)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+        return model, Trainer(model, loss_fn_builder(0.5), cfg,
+                              total_steps=TRAIN_STEPS + 1,
+                              batch_args=lambda bt: (bt["x"], None))
+
+    # The plain path (both flags off) first: step 1's gradients are kept,
+    # two more steps are timed, and the plain model is dropped before the
+    # kernel run's memory peak.
+    plain, trainer = build(False)
+    torch.cuda.reset_peak_memory_stats()
+    m_plain = {k: float(v) for k, v in trainer.train_step(batch).items()}
+    want = {k: None if p.grad is None else p.grad.detach().clone()
+            for k, p in plain.named_parameters()}
+    plain_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        plain_walls.append(time.perf_counter() - t0)
+    plain_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    del plain, trainer
+    torch.cuda.empty_cache()
+
+    model, trainer = build(True)
+    check(sum(p.numel() for p in model.parameters()) == 1_757_190,
+          "car preset size")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    walls, losses = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        check(all(np.isfinite(v) for v in m.values()),
+              f"step {step + 1}: non-finite metrics {m}")
+        if step == 0:
+            check(abs(m["loss"] - m_plain["loss"])
+                  <= GRAD_RTOL * abs(m_plain["loss"]),
+                  f"step 1 loss {m['loss']} vs plain {m_plain['loss']}")
+            print(f"  step 1: kernels {m}; plain path {m_plain}",
+                  flush=True)
+            gmax = max(float(g.abs().max()) for g in want.values()
+                       if g is not None)
+            worst, noise = (0.0, ""), 0
+            for name, p in model.named_parameters():
+                if name.endswith("sigma_att"):
+                    check(p.grad is None and want[name] is None,
+                          f"{name} has a gradient")
+                    continue
+                check(p.grad is not None, f"{name} has no gradient")
+                check(bool(p.grad.isfinite().all()),
+                      f"{name}: non-finite gradient")
+                err = float((p.grad - want[name]).abs().max())
+                scale = float(want[name].abs().max())
+                tol = max(GRAD_RTOL * scale, GRAD_ATOL * gmax)
+                check(err <= tol, f"{name}: gradient error {err} > {tol} "
+                                  f"(max |plain grad| {scale})")
+                if scale >= GRAD_ATOL * gmax:
+                    worst = max(worst, (err / scale, name))
+                else:
+                    noise += 1
+            print(f"  step 1 gradients: every leaf within tolerance; largest "
+                  f"error relative to its leaf's max |grad| {worst[0]:.3e} "
+                  f"({worst[1]}) over the leaves above {GRAD_ATOL:g} of the "
+                  f"largest |grad| {gmax:.3e}; {noise} leaves below it (zero "
+                  f"up to round-off)", flush=True)
+    counts = launch_counts()
+    plain_routes = plain_route_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    per_step = {"slice_states": 2, "deslice": 2, "fused_erwin_block": 24,
+                "fused_erwin_block_bwd": 24}
+    want_counts = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"  {TRAIN_STEPS} steps; launches {counts}; expected {want_counts}",
+          flush=True)
+    check(counts == want_counts, f"launch counts {counts} != {want_counts}")
+    check(all(v == 0 for v in plain_routes.values()),
+          f"some Erwin blocks left the kernels: {plain_routes}")
+    for name, p in model.named_parameters():
+        check(bool(p.isfinite().all()), f"{name}: non-finite after training")
+    print(f"  losses {losses}", flush=True)
+    print(f"  step wall (s) {[round(t, 6) for t in walls]}; min "
+          f"{min(walls[1:]):.6f} median {float(np.median(walls[1:])):.6f} "
+          f"(steps 2-{TRAIN_STEPS}); peak device memory allocated "
+          f"{peak_mb:.1f} MiB", flush=True)
+    print(f"  plain path (both flags off): step wall (s) "
+          f"{[round(t, 6) for t in plain_walls]} (steps 2-3); peak device "
+          f"memory allocated {plain_peak_mb:.1f} MiB", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    events = kernel_events(prof)
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    wall_ms = 1e3 * min(walls[1:])
+    print(f"  profiled step: device time {device_ms:.3f} ms in "
+          f"{sum(e.count for e in events)} kernels; busy share "
+          f"{device_ms / wall_ms:.3f} of the min step wall {wall_ms:.3f} ms",
+          flush=True)
+    for e in events[:15]:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -418,17 +750,24 @@ def main() -> int:
                 if "registers" in ln or "smem" in ln:
                     print(f"  {name}: {ln.strip()}", flush=True)
         records = kernel_phase(dev)
+        backward_phase(dev, records)
         print("phase 4: serve the ShapeNet-Car preset", flush=True)
-        counts, forwards, model, sample = serve_phase(dev)
+        serve_counts, forwards, model, sample = serve_phase(dev)
         print("phase 5: profile one batch-1 forward", flush=True)
         profile_phase(model, sample, dev)
+        del model
+        print(f"phase 6: train the ShapeNet-Car preset, {TRAIN_STEPS} steps",
+              flush=True)
+        counts = train_phase(dev)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
     for r in records:
         r["launches"] = counts[r["name"]]
-    print(json.dumps({"kernels": records, "serve_forwards": forwards}))
+        r["serve_launches"] = serve_counts[r["name"]]
+    print(json.dumps({"kernels": records, "train_steps": TRAIN_STEPS,
+                      "serve_forwards": forwards}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,15 @@ Module names follow the reference torch schema (``encoder.0.blocks.3.BMSA``,
 so ``state_dict`` keys match ``haet_tpu.utils.torch_import``'s export.
 
 ``ErwinTransformerBlock(use_pallas=True)`` runs each block through the
-fused CUDA kernel (:mod:`haet_torch.ops.kernels.erwin_block`) when its shape
-passes the kernel's ``eligible`` gate, and the plain block otherwise, as the
-JAX module routes to XLA (``haet_tpu/models/erwin.py:157-158``). Each such
-fall-back adds one to ``erwin_block.PLAIN_ROUTES``, so a run can show that
-no block of its path left the kernel.
+fused CUDA kernels (:mod:`haet_torch.ops.kernels.erwin_block`, forward and
+backward) when its shape passes the kernels' ``eligible`` gate, and the
+plain block otherwise, as the JAX module routes to XLA
+(``haet_tpu/models/erwin.py:157-158``). Each such fall-back adds one to
+``erwin_block.PLAIN_ROUTES`` (and to ``BWD_PLAIN_ROUTES`` when autograd
+records it), so a run can show that no block of its path left the kernels.
+
+Pooling and unpooling normalise with :class:`FlaxBatchNorm1d`, which in
+train mode updates its running variance as flax does.
 """
 
 from __future__ import annotations
@@ -25,12 +29,13 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.ball_groups import (MORTON_TODO, ErwinPerms, build_erwin_perms,
                                effective_ball_size)
-from ..ops.kernels.erwin_block import (PLAIN_ROUTES, ball_msa, eligible,
-                                       fused_erwin_block)
+from ..ops.kernels.erwin_block import (BWD_PLAIN_ROUTES, PLAIN_ROUTES,
+                                       ball_msa, eligible, fused_erwin_block)
 from .components.mlp import SwiGLU
 
 MPNN_TODO = ("MPNN message passing (mp_steps > 0) is not ported yet "
@@ -105,8 +110,38 @@ class ErwinTransformerBlock(nn.Module):
                     ball_size=self.ball_size, num_heads=self.num_heads,
                     use_dist_bias=self.use_dist_bias)
             PLAIN_ROUTES.add()
+            if torch.is_grad_enabled() and (
+                    x.requires_grad or self.norm1.weight.requires_grad):
+                BWD_PLAIN_ROUTES.add()
         x = x + self.BMSA(self.norm1(x), pos)
         return x + self.swiglu(self.norm2(x))
+
+
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm over ``[rows, C]`` as flax's ``nn.BatchNorm(momentum=0.9)``
+    (``haet_tpu/models/erwin.py:217-218,249-250``).
+
+    Eval mode is torch's. Train mode normalises with the biased batch
+    statistics, as torch does, but updates ``running_var`` with the
+    **biased** batch variance, where torch uses the unbiased one:
+    ``running = 0.9 running + 0.1 batch``. The state-dict keys are
+    ``nn.BatchNorm1d``'s.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=0, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class BallPooling(nn.Module):
@@ -119,7 +154,7 @@ class BallPooling(nn.Module):
         self.stride = stride
         if stride > 1:
             self.proj = nn.Linear(stride * (in_dim + dimensionality), out_dim)
-            self.norm = nn.BatchNorm1d(out_dim, eps=1e-5)
+            self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5)
 
     def forward(self, node: Node) -> Node:
         if self.stride == 1:
@@ -149,7 +184,7 @@ class BallUnpooling(nn.Module):
         self.out_dim = out_dim
         self.proj = nn.Linear(in_dim + stride * dimensionality,
                               stride * out_dim)
-        self.norm = nn.BatchNorm1d(out_dim, eps=1e-5)
+        self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5)
 
     def forward(self, node: Node) -> Node:
         children = node.children

@@ -26,7 +26,7 @@ from .physics_attention import PhysicsAttentionIrregularMesh
 TIME_INPUT_TODO = ("Time_Input is not ported yet (ROADMAP.md, queue 1: "
                    "2D/3D variants, unified_pos and Time_Input)")
 CHECKPOINT_TODO = ("use_checkpoint is not ported yet (ROADMAP.md, queue 1: "
-                   "training slice)")
+                   "use_checkpoint and dropout parity)")
 
 
 class TransolverErwinBlock(nn.Module):

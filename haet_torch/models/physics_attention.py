@@ -7,9 +7,12 @@ variant (Linear projection, ``IrregularMesh.py:95``) is ported so far; the
 
 ``use_pallas=True`` routes the slice and deslice through the fused CUDA
 kernels (:mod:`haet_torch.ops.kernels.slice_kernels`), which never
-materialise the ``[B, H, N, G]`` weights; ``use_pallas_erwin=True`` runs each
-Erwin block through the fused block kernel. The flag names are the JAX
-package's, so a config means the same thing in both.
+materialise the ``[B, H, N, G]`` weights, and through their autograd
+functions, whose chunked backwards do not either; ``use_pallas_erwin=True``
+runs each Erwin block through the fused block kernels. The flag names are
+the JAX package's, so a config means the same thing in both. The
+pseudo-positions are computed without gradient, as JAX stops it
+(``:347``).
 
 The Erwin pseudo-positions are min-max normalised over the WHOLE flattened
 ``B*H*G`` token batch (``:344-351``, reference ``:228-234``), so a sample's

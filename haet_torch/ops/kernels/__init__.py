@@ -40,6 +40,7 @@ def counters() -> dict:
         "slice_states": slice_kernels.SLICE_STATES_LAUNCHES,
         "deslice": slice_kernels.DESLICE_LAUNCHES,
         "fused_erwin_block": erwin_block.LAUNCHES,
+        "fused_erwin_block_bwd": erwin_block.BWD_LAUNCHES,
     }
 
 
@@ -50,15 +51,19 @@ def launch_counts() -> dict:
 
 def plain_route_counts() -> dict:
     """``{kernel name: calls its module routed to the plain version}``:
-    modules built to use the kernel whose shape failed its gate."""
+    modules built to use the kernel whose shape failed its gate, in both
+    directions (a backward counts when such a forward is recorded for
+    autograd, whose backward is then autograd of the plain block)."""
     from . import erwin_block
 
-    return {"fused_erwin_block": erwin_block.PLAIN_ROUTES.value}
+    return {"fused_erwin_block": erwin_block.PLAIN_ROUTES.value,
+            "fused_erwin_block_bwd": erwin_block.BWD_PLAIN_ROUTES.value}
 
 
 def reset_launch_counts() -> None:
     """Zero every launch counter and plain-route counter."""
     from . import erwin_block
 
-    for c in (*counters().values(), erwin_block.PLAIN_ROUTES):
+    for c in (*counters().values(), erwin_block.PLAIN_ROUTES,
+              erwin_block.BWD_PLAIN_ROUTES):
         c.reset()

@@ -1,9 +1,13 @@
-"""Fused Erwin transformer block (forward).
+"""Fused Erwin transformer block, forward and backward.
 
 Counterpart of ``haet_tpu/ops/pallas/erwin_block.py:fused_erwin_block``:
 one launch runs a whole ``ErwinTransformerBlock``
 (``x += BMSA(RMSNorm(x), pos); x += SwiGLU(RMSNorm(x))``) for every cloud,
-with the kernel in ``haet_torch/csrc/erwin_block.cu``.
+with the kernels in ``haet_torch/csrc/erwin_block.cu``. On CUDA tensors
+:class:`ErwinBlockFn` ties the forward kernel to the backward kernel
+(``_fused_block_bwd`` of the JAX code), which recomputes the block from
+``(x, pos)`` and gives ``dx``, ``dpos`` and every parameter gradient but
+``sigma_att``'s (the distance bias carries none, as in the reference).
 
 The functional pieces below (:func:`ball_msa`, :func:`swiglu`,
 :func:`erwin_block_plain`) are the one definition of the block's math: the
@@ -12,7 +16,8 @@ modules of :mod:`haet_torch.models.erwin` call them, and
 
 Parameters are passed as the block's own ``named_parameters()`` dict, in
 torch layout (``norm1.weight``, ``BMSA.qkv.weight`` ``[3C, C]``, ...), as the
-JAX function takes its flax param subtree.
+JAX function takes its flax param subtree; :class:`ErwinBlockFn` takes them
+as separate tensors in :data:`PARAM_NAMES` order, so autograd tracks each.
 """
 
 from __future__ import annotations
@@ -27,9 +32,12 @@ from ..ball_groups import effective_ball_size
 from . import LaunchCounter, _build
 
 LAUNCHES = LaunchCounter()
+BWD_LAUNCHES = LaunchCounter()
 #: blocks built with ``use_pallas`` whose shape failed :func:`eligible` and
-#: ran the plain block instead (counted by ``ErwinTransformerBlock``)
+#: ran the plain block instead (counted by ``ErwinTransformerBlock``), and
+#: those of them recorded for autograd, whose backward is the plain block's
 PLAIN_ROUTES = LaunchCounter()
+BWD_PLAIN_ROUTES = LaunchCounter()
 
 #: dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -43,6 +51,13 @@ PARAM_NAMES = (
     "swiglu.w1.weight", "swiglu.w1.bias", "swiglu.w2.weight",
     "swiglu.w2.bias", "swiglu.w3.weight", "swiglu.w3.bias",
 )
+#: the parameters the backward kernel gives a gradient, in its order
+GRAD_NAMES = tuple(k for k in PARAM_NAMES if k != "BMSA.sigma_att")
+
+#: the backward kernel's buffers (``csrc/erwin_block.cu:BwdBuf``), in the
+#: order :func:`bwd_layout` places them into shared memory
+BWD_BUFFERS = ("x", "hm", "qkv", "o", "x1", "zn", "dx1", "dz", "dqkv", "pos",
+               "rel", "r1", "r2", "rowdot", "u", "t", "probs", "dprobs")
 
 
 def smem_bytes(n: int, c: int, d: int, hidden: int) -> int:
@@ -54,13 +69,54 @@ def smem_bytes(n: int, c: int, d: int, hidden: int) -> int:
     return 4 * n * (6 * c + hidden + 2 * d + 6)
 
 
+def _bwd_buffer_floats(n, c, d, hidden, heads, bs):
+    """Floats of each :data:`BWD_BUFFERS` entry for one cloud (rows padded
+    by one float, as the forward's)."""
+    ldc, ld3, ldg = c + 1, 3 * c + 1, hidden + 1
+    return (n * ldc, n * ldc, n * ld3, n * ldc, n * ldc, n * ldc, n * ldc,
+            n * ldc, n * ld3, n * d, n * d, n, n, n, n * ldg, n * ldg,
+            heads * n * bs, heads * n * bs)
+
+
+def bwd_layout(n: int, c: int, d: int, hidden: int, heads: int, bs: int):
+    """Where the backward kernel keeps its buffers for one cloud.
+
+    Each :data:`BWD_BUFFERS` entry, in order, goes into shared memory while
+    it fits in :data:`MAX_SMEM_BYTES`, and otherwise into a per-cloud global
+    scratch. Returns ``(layout, smem bytes, scratch floats per cloud)``;
+    ``layout`` is what the C entry point takes: the offsets, the
+    shared-memory flags and the scratch stride.
+    """
+    offs, flags = [], []
+    used = spilled = 0
+    for size in _bwd_buffer_floats(n, c, d, hidden, heads, bs):
+        if 4 * (used + size) <= MAX_SMEM_BYTES:
+            offs.append(used)
+            flags.append(1)
+            used += size
+        else:
+            offs.append(spilled)
+            flags.append(0)
+            spilled += size
+    return offs + flags + [spilled], 4 * used, spilled
+
+
+def bwd_smem_bytes(n: int, c: int, d: int, hidden: int, heads: int,
+                   bs: int) -> int:
+    """Dynamic shared memory of the backward kernel for one cloud."""
+    return bwd_layout(n, c, d, hidden, heads, bs)[1]
+
+
 def eligible(n: int, c: int, num_heads: int, dim: int, hidden: int,
              d: int = 3) -> bool:
-    """Shape gate of the fused kernel, derived from its shared memory.
+    """Shape gate of the fused kernels, derived from the forward's shared
+    memory; one gate for both directions.
 
     The JAX gate (``n <= 512``) was sized for 16 MB of TPU VMEM. Here the
     bound is :func:`smem_bytes` <= 227 KB: n <= 128 at C = 32 with a 128-wide
-    SwiGLU, n <= 64 at C = 64 with 256. Shapes outside it take the plain
+    SwiGLU, n <= 64 at C = 64 with 256. The backward takes every shape the
+    forward takes: what does not fit in its shared memory goes to a global
+    scratch (:func:`bwd_layout`). Shapes outside the gate take the plain
     block at the module level.
     """
     return (c == dim and c % num_heads == 0 and n >= 1
@@ -127,30 +183,47 @@ def erwin_block_plain(x, pos, params: dict, *, ball_size: int,
                       p["swiglu.w3.weight"], p["swiglu.w3.bias"])
 
 
+def erwin_block_bwd_plain(x, pos, dout, params: dict, *, ball_size: int,
+                          num_heads: int, use_dist_bias: bool = True):
+    """Plain version of :func:`fused_erwin_block_bwd`: autograd of
+    :func:`erwin_block_plain`."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        pos = pos.detach().requires_grad_()
+        leaves = {k: params[k].detach().requires_grad_() for k in GRAD_NAMES}
+        p = dict(leaves)
+        if use_dist_bias:
+            p["BMSA.sigma_att"] = params["BMSA.sigma_att"]
+        out = erwin_block_plain(x, pos, p, ball_size=ball_size,
+                                num_heads=num_heads,
+                                use_dist_bias=use_dist_bias)
+        dx, dpos, *grads = torch.autograd.grad(
+            out, [x, pos, *leaves.values()], dout)
+    return dx, dpos, dict(zip(GRAD_NAMES, grads))
+
+
 # ---------------------------------------------------------------------------
-# The kernel wrapper.
+# The kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
-                      num_heads: int, use_dist_bias: bool = True):
-    """Run one Erwin block through the fused kernel.
+def param_shapes(c: int, d: int, heads: int, hidden: int) -> dict:
+    """``{name: shape}`` of the block's parameters, in torch layout."""
+    return {
+        "norm1.weight": (c,), "BMSA.pe_proj.weight": (c, d),
+        "BMSA.pe_proj.bias": (c,), "BMSA.qkv.weight": (3 * c, c),
+        "BMSA.qkv.bias": (3 * c,), "BMSA.sigma_att": (1, heads, 1, 1),
+        "BMSA.proj.weight": (c, c), "BMSA.proj.bias": (c,),
+        "norm2.weight": (c,), "swiglu.w1.weight": (hidden, c),
+        "swiglu.w1.bias": (hidden,), "swiglu.w2.weight": (hidden, c),
+        "swiglu.w2.bias": (hidden,), "swiglu.w3.weight": (c, hidden),
+        "swiglu.w3.bias": (c,),
+    }
 
-    Args:
-        x: ``[B, N, C]`` float32 features (B = clouds).
-        pos: ``[B, N, D]`` float32 positions.
-        params: the block's ``named_parameters()`` (:data:`PARAM_NAMES`;
-            ``BMSA.sigma_att`` only read when ``use_dist_bias``).
-        ball_size: requested ball size (clamped to the cloud like BallMSA).
 
-    Returns ``[B, N, C]``. Raises on a CUDA shape outside :func:`eligible`.
-    """
-    if x.device.type == "cpu":
-        return erwin_block_plain(x, pos, params, ball_size=ball_size,
-                                 num_heads=num_heads,
-                                 use_dist_bias=use_dist_bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_erwin_block runs on cuda or cpu, not "
-                         f"{x.device}")
+def _checked(what, x, pos, params, num_heads, use_dist_bias, dout=None):
+    """Check a CUDA call's inputs; returns ``(b, n, c, d, hidden, ptrs)``
+    with ``ptrs`` the parameter pointers in :data:`PARAM_NAMES` order
+    (None for an unused ``sigma_att``)."""
     if x.dim() != 3 or pos.dim() != 3 or pos.shape[:2] != x.shape[:2]:
         raise ValueError(f"x [B, N, C] and pos [B, N, D] expected, got "
                          f"{tuple(x.shape)} and {tuple(pos.shape)}")
@@ -160,22 +233,15 @@ def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
     if not eligible(n, c, num_heads, params["norm1.weight"].shape[0], hidden,
                     d):
         raise ValueError(
-            f"fused_erwin_block: shape n={n}, C={c}, heads={num_heads}, "
+            f"{what}: shape n={n}, C={c}, heads={num_heads}, "
             f"hidden={hidden}, D={d} is outside the kernel's gate "
             f"(needs {smem_bytes(n, c, d, hidden)} B of shared memory, "
             f"limit {MAX_SMEM_BYTES}); route it to the plain block")
-    shapes = {
-        "x": (b, n, c), "pos": (b, n, d),
-        "norm1.weight": (c,), "BMSA.pe_proj.weight": (c, d),
-        "BMSA.pe_proj.bias": (c,), "BMSA.qkv.weight": (3 * c, c),
-        "BMSA.qkv.bias": (3 * c,), "BMSA.sigma_att": (1, num_heads, 1, 1),
-        "BMSA.proj.weight": (c, c), "BMSA.proj.bias": (c,),
-        "norm2.weight": (c,), "swiglu.w1.weight": (hidden, c),
-        "swiglu.w1.bias": (hidden,), "swiglu.w2.weight": (hidden, c),
-        "swiglu.w2.bias": (hidden,), "swiglu.w3.weight": (c, hidden),
-        "swiglu.w3.bias": (c,),
-    }
+    shapes = {"x": (b, n, c), "pos": (b, n, d), "dout": (b, n, c),
+              **param_shapes(c, d, num_heads, hidden)}
     tensors = {"x": x, "pos": pos}
+    if dout is not None:
+        tensors["dout"] = dout
     for name in PARAM_NAMES:
         if name == "BMSA.sigma_att" and not use_dist_bias:
             continue
@@ -191,19 +257,127 @@ def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
                              f"{tuple(want)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    bs = effective_ball_size(ball_size, n)
-    out = torch.empty_like(x)
     ptrs = [tensors[k].data_ptr() if k in tensors else None
             for k in PARAM_NAMES]
+    return b, n, c, d, hidden, ptrs
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _device(x, what):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
+def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
+                      num_heads: int, use_dist_bias: bool = True):
+    """Run one Erwin block through the fused kernel.
+
+    Args:
+        x: ``[B, N, C]`` float32 features (B = clouds).
+        pos: ``[B, N, D]`` float32 positions.
+        params: the block's ``named_parameters()`` (:data:`PARAM_NAMES`;
+            ``BMSA.sigma_att`` only read when ``use_dist_bias``).
+        ball_size: requested ball size (clamped to the cloud like BallMSA).
+
+    Returns ``[B, N, C]``. On CUDA tensors it goes through
+    :class:`ErwinBlockFn`, so its backward is the backward kernel. Raises on
+    a CUDA shape outside :func:`eligible`.
+    """
+    if _device(x, "fused_erwin_block") == "cpu":
+        return erwin_block_plain(x, pos, params, ball_size=ball_size,
+                                 num_heads=num_heads,
+                                 use_dist_bias=use_dist_bias)
+    return ErwinBlockFn.apply(
+        ball_size, num_heads, use_dist_bias, x, pos,
+        *(None if k == "BMSA.sigma_att" and not use_dist_bias else params[k]
+          for k in PARAM_NAMES))
+
+
+def _fused_fwd(x, pos, params, ball_size, num_heads, use_dist_bias):
+    b, n, c, d, hidden, ptrs = _checked("fused_erwin_block", x, pos, params,
+                                        num_heads, use_dist_bias)
+    bs = effective_ball_size(ball_size, n)
+    out = torch.empty_like(x)
     lib = _lib()
     status = lib.haet_erwin_block_fwd_f32(
         x.data_ptr(), pos.data_ptr(), out.data_ptr(), *ptrs,
         b, n, c, d, num_heads, bs, hidden, int(use_dist_bias),
-        smem_bytes(n, c, d, hidden),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        smem_bytes(n, c, d, hidden), _stream(x.device))
     _build.check(lib, status, "fused_erwin_block")
     LAUNCHES.add()
     return out
+
+
+def fused_erwin_block_bwd(x, pos, dout, params: dict, *, ball_size: int,
+                          num_heads: int, use_dist_bias: bool = True):
+    """Backward of :func:`fused_erwin_block` through the backward kernel.
+
+    Returns ``(dx, dpos, grads)`` with ``grads`` a ``{name: gradient}`` dict
+    over :data:`GRAD_NAMES` (no ``sigma_att``). The kernel writes each
+    cloud's parameter gradients to a ``[clouds, P]`` partials buffer and a
+    second launch sums them over the clouds in a fixed order. On CPU tensors
+    it runs :func:`erwin_block_bwd_plain`. Raises on a CUDA shape outside
+    :func:`eligible`.
+    """
+    if _device(x, "fused_erwin_block_bwd") == "cpu":
+        return erwin_block_bwd_plain(x, pos, dout, params,
+                                     ball_size=ball_size,
+                                     num_heads=num_heads,
+                                     use_dist_bias=use_dist_bias)
+    b, n, c, d, hidden, ptrs = _checked("fused_erwin_block_bwd", x, pos,
+                                        params, num_heads, use_dist_bias,
+                                        dout)
+    bs = effective_ball_size(ball_size, n)
+    layout, smem, spilled = bwd_layout(n, c, d, hidden, num_heads, bs)
+    shapes = param_shapes(c, d, num_heads, hidden)
+    sizes = [math.prod(shapes[k]) for k in GRAD_NAMES]
+    dev = x.device
+    dx = torch.empty_like(x)
+    dpos = torch.empty_like(pos)
+    partials = torch.empty((b, sum(sizes)), device=dev, dtype=torch.float32)
+    grads = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
+    scratch = (torch.empty((b, spilled), device=dev, dtype=torch.float32)
+               if spilled else None)
+    lib = _lib()
+    status = lib.haet_erwin_block_bwd_f32(
+        x.data_ptr(), pos.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+        dpos.data_ptr(), partials.data_ptr(), grads.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), *ptrs,
+        b, n, c, d, num_heads, bs, hidden, int(use_dist_bias), sum(sizes),
+        (ctypes.c_int * len(layout))(*layout), smem, _stream(dev))
+    _build.check(lib, status, "fused_erwin_block_bwd")
+    BWD_LAUNCHES.add()
+    return dx, dpos, {k: g.view(shapes[k]) for k, g in
+                      zip(GRAD_NAMES, grads.split(sizes))}
+
+
+class ErwinBlockFn(torch.autograd.Function):
+    """The fused block on CUDA tensors: the forward kernel, and the backward
+    kernel as its backward (the JAX ``custom_vjp``,
+    ``erwin_block.py:319-406``). Takes the parameters as separate tensors
+    in :data:`PARAM_NAMES` order (``sigma_att`` None without the distance
+    bias) and returns no gradient for ``sigma_att``."""
+
+    @staticmethod
+    def forward(ctx, ball_size, num_heads, use_dist_bias, x, pos, *params):
+        p = dict(zip(PARAM_NAMES, params))
+        ctx.save_for_backward(x, pos, *params)
+        ctx.cfg = dict(ball_size=ball_size, num_heads=num_heads,
+                       use_dist_bias=use_dist_bias)
+        return _fused_fwd(x, pos, p, ball_size, num_heads, use_dist_bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, pos, *params = ctx.saved_tensors
+        dx, dpos, grads = fused_erwin_block_bwd(
+            x, pos, dout.contiguous(), dict(zip(PARAM_NAMES, params)),
+            **ctx.cfg)
+        return (None, None, None, dx, dpos,
+                *(grads.get(k) for k in PARAM_NAMES))
 
 
 def _lib() -> ctypes.CDLL:
@@ -212,5 +386,8 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.haet_erwin_block_fwd_f32.argtypes = [P] * 18 + [I] * 8 + [I, P]
         lib.haet_erwin_block_fwd_f32.restype = I
+        lib.haet_erwin_block_bwd_f32.argtypes = (
+            [P] * 23 + [I] * 9 + [ctypes.POINTER(I), I, P])
+        lib.haet_erwin_block_bwd_f32.restype = I
         lib._haet_typed = True
     return lib

@@ -1,9 +1,9 @@
-"""Model config and the ShapeNet-Car preset, PyTorch.
+"""Model and training configs and the ShapeNet-Car presets, PyTorch.
 
-``ModelConfig`` is ``haet_tpu/utils/config.py:ModelConfig`` field for
-field, so one config describes the same model in both packages.
-:meth:`ModelConfig.build` returns the torch model; only the irregular
-variant is ported so far.
+``ModelConfig`` and ``TrainConfig`` are ``haet_tpu/utils/config.py``'s
+field for field, so one config describes the same model and the same
+training in both packages. :meth:`ModelConfig.build` returns the torch
+model; only the irregular variant is ported so far.
 """
 
 from __future__ import annotations
@@ -13,6 +13,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 BF16_TODO = "bf16=True is not ported yet (ROADMAP.md, queue 1: bf16)"
+MU_BF16_TODO = "mu_bf16=True is not ported yet (ROADMAP.md, queue 1: bf16)"
+TRAINER_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: Trainer and "
+                "drivers)")
 VARIANT_TODO = ("the {} variant is not ported yet (ROADMAP.md, queue 1: "
                 "2D/3D variants, unified_pos and Time_Input)")
 
@@ -94,3 +97,70 @@ def shapenet_car_config() -> ModelConfig:
         dec_num_heads=(8,), dec_depths=(4,),
         erwin_mlp_ratio=4, embed=True, rotate=45,
     )
+
+
+@dataclass
+class TrainConfig:
+    """``haet_tpu/utils/config.py:TrainConfig``, field for field.
+
+    The port's ``Trainer.train_step`` runs Adam with OneCycle
+    (``cycle_momentum`` included) and torch's gradient clipping;
+    :meth:`check_ported` raises for the settings it does not run yet.
+    ``weight_decay`` is read by AdamW only, as in JAX. ``epochs``,
+    ``batch_size``, ``seed``, ``stop_on_nonfinite`` and ``preempt_save``
+    belong to the training loop (``fit``), which is not ported yet.
+    """
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-5
+    epochs: int = 500
+    batch_size: int = 8
+    max_grad_norm: Optional[float] = None
+    schedule: str = "onecycle"  # onecycle | cosine_annealing | constant
+    pct_start: float = 0.3
+    div_factor: float = 25.0
+    final_div_factor: float = 1e4
+    cycle_momentum: bool = True
+    base_momentum: float = 0.85
+    max_momentum: float = 0.95
+    t_max: Optional[int] = None
+    optimizer: str = "adamw"  # adamw | adam
+    mu_bf16: bool = False
+    seed: int = 0
+    early_stop_patience: Optional[int] = None
+    early_stop_min_delta: float = 0.0
+    checkpoint_every: Optional[int] = None
+    accum_steps: int = 1
+    stop_on_nonfinite: bool = True
+    preempt_save: bool = True
+
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` for a setting the port does not run
+        yet, naming its ``ROADMAP.md`` item."""
+        if self.optimizer == "adamw":
+            raise NotImplementedError(TRAINER_TODO.format("optimizer='adamw'"))
+        if self.optimizer != "adam":
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if self.schedule in ("cosine_annealing", "constant"):
+            raise NotImplementedError(
+                TRAINER_TODO.format(f"schedule={self.schedule!r}"))
+        if self.schedule != "onecycle":
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.accum_steps != 1:
+            raise NotImplementedError(TRAINER_TODO.format("accum_steps > 1"))
+        if self.mu_bf16:
+            raise NotImplementedError(MU_BF16_TODO)
+        if self.early_stop_patience is not None:
+            raise NotImplementedError(TRAINER_TODO.format("early stopping"))
+        if self.checkpoint_every is not None:
+            raise NotImplementedError(TRAINER_TODO.format("checkpointing"))
+
+
+def shapenet_car_train_config() -> TrainConfig:
+    """The ShapeNet-Car training (``haet_tpu/utils/config.py:284-290``):
+    Adam, lr 1e-3, OneCycle with ``final_div_factor`` 1000 and torch's other
+    defaults, clipping at 1.0, batch 1, 200 epochs. The JAX preset's
+    ``early_stop_patience=7`` acts in ``fit``, which is not ported yet
+    (``ROADMAP.md``, queue 1: Trainer and drivers), so it is left unset."""
+    return TrainConfig(lr=1e-3, optimizer="adam", final_div_factor=1000.0,
+                       epochs=200, batch_size=1, max_grad_norm=1.0)

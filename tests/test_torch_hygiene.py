@@ -9,9 +9,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from haet_torch.models import HAETransolverIrregularMesh
+from haet_torch.train import Trainer
+from haet_torch.train.car import loss_fn_builder, make_batch
+from haet_torch.utils.config import shapenet_car_train_config
 from haet_torch.utils.env import default_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,7 +45,7 @@ def _imported_roots(path):
 def test_port_files_are_found():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "serve.py", "erwin_block.py",
-            "slice_kernels.py"} <= names
+            "slice_kernels.py", "trainer.py", "car.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,6 +63,7 @@ def test_imports_with_jax_blocked():
             "import haet_torch.utils.config, haet_torch.utils.weights\n"
             "import haet_torch.ops.kernels.slice_kernels\n"
             "import haet_torch.ops.kernels.erwin_block\n"
+            "import haet_torch.train, haet_torch.train.car\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -85,3 +91,40 @@ def test_chip_smoke_refuses_without_card():
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_cpu_train_step_leaves_every_gradient_but_sigma():
+    """A CPU ``train_step`` of a small model with both kernel flags set
+    leaves a finite ``.grad`` on every parameter upstream and downstream of
+    the kernels' autograd functions, and none on ``sigma_att`` (the distance
+    bias is gradient-free). The card's half of this check is
+    ``chip_smoke.py`` phase 6."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model = HAETransolverIrregularMesh(
+            space_dim=7, fun_dim=0, out_dim=4, n_layers=1, n_hidden=32,
+            n_head=4, slice_num=16, enc_num_heads=(2, 4), enc_depths=(1, 1),
+            dec_num_heads=(2,), dec_depths=(1,), embed=True, use_pallas=True,
+            use_pallas_erwin=True, device="cpu")
+        trainer = Trainer(model, loss_fn_builder(0.5),
+                          shapenet_car_train_config(), 10,
+                          batch_args=lambda b: (b["x"], None))
+        rng = np.random.RandomState(0)
+        surf = np.zeros(100, bool)
+        surf[-20:] = True
+        metrics = trainer.train_step(make_batch(
+            rng.rand(100, 3), rng.randn(100, 7), rng.randn(100, 4), surf,
+            n_pad=128))
+    finally:
+        torch.set_num_threads(threads)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    n_sigma = 0
+    for name, p in model.named_parameters():
+        if name.endswith("sigma_att"):
+            assert p.grad is None, name
+            n_sigma += 1
+        else:
+            assert p.grad is not None, name
+            assert bool(torch.isfinite(p.grad).all()), name
+    assert n_sigma == 3   # one Erwin block per level

@@ -91,7 +91,8 @@ def test_car_forward_matches_jax(car, use_pallas):
         out = tm(torch.from_numpy(x)).numpy()
     assert out.shape == (B, N, 4)
     # every car Erwin block passes the kernel's gate: none falls back
-    assert plain_route_counts() == {"fused_erwin_block": 0}
+    assert plain_route_counts() == {"fused_erwin_block": 0,
+                                    "fused_erwin_block_bwd": 0}
     scale = np.abs(ref).max()
     err = np.abs(out - ref).max()
     print(f"PARITY car forward use_pallas={use_pallas}: max_abs_err "
