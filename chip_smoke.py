@@ -37,10 +37,39 @@ Phases (any failed check exits non-zero before the final line):
    by exactly 2 + 2 + 24 + 24 per step with no plain route. Prints the step
    wall time, peak device memory and, from one profiled step, the device
    time by kernel and the busy share.
+7. Benchmarks: the drivers of ``haet_torch.bench`` and
+   ``haet_torch/benchmarks/``, and the copy kernel they time.
+   a. ``copy_scale`` (the fifth kernel) at ``[256, 32]`` against
+      ``x * 1.000001``: bit-exact after 1 call and after 1050 chained calls,
+      and on an unaligned and a tailed view of 8191 elements (its scalar
+      kernel and its float4 kernel's tail); its time, the plain version's,
+      ``torch.mul``'s (``library_ms``) and its bound.
+   b. The Erwin forward and backward kernels against the plain block (out,
+      dx, dpos, every parameter gradient), timed, at the drivers' block
+      shapes: the micro driver's (8 clouds of 32, C 32, 4 heads, SwiGLU
+      128) and bench_flags' two (C 32, 4 heads, ball 32, SwiGLU 64; n 16,
+      C 64, 8 heads, ball 16, SwiGLU 128). The car uses 8 heads and SwiGLU
+      4C throughout. Records gain ``micro_*``, ``flags_n32_c32_*`` and
+      ``flags_n16_c64_*``.
+   c. ``slice_states``/``deslice`` against their plain versions, untimed,
+      at ``[1, 8, 2**20, 32]``, the memory probes' size.
+   d. ``micro_erwin_fused`` with reduced windows: the copy counter rises by
+      exactly the chained calls the driver made, the Erwin counters by
+      exactly the fused lines' calls, and no block takes the plain route.
+   e. ``bench_flags`` with 2 rounds of 1/3 steps: per step, exactly 2 + 2
+      slice launches for ``pallas-tokenizer``, one forward and one backward
+      launch per Erwin block (12) for ``pallas-erwin``, none for
+      ``baseline``, and no plain route.
+   f. ``haet_torch.bench``, 2 rounds: a finite throughput and MFU.
+   g. One ``mem_sweep`` probe per path at N = 2**20, forward only, each in
+      a fresh process: the slice-kernel path's peak memory must be below
+      the plain path's, and its probe must count 1 + 1 slice launches.
 
-Then one JSON line of kernel records (``launches`` from phase 6), the card
-line, and as the last line ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or ``haet_tpu``.
+Then one JSON line of kernel records, five of them (``launches`` from
+phase 6's counters, and for ``copy_scale`` from the counter after phase
+7d's run), the card line, and as the
+last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -155,41 +184,52 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, bound, **extra):
 # Phase 3: each kernel against its plain version at the car shapes.
 # ---------------------------------------------------------------------------
 
-def erwin_inputs(dev, g, n_e, c_e, ball):
-    """Seeded inputs and weights of one Erwin block shape (8 clouds, 8
-    heads, SwiGLU 4C), drawn from ``g``."""
+def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4):
+    """Seeded inputs and weights of one Erwin block shape (8 clouds,
+    ``heads`` heads, SwiGLU ``mlp_ratio`` * C), drawn from ``g``."""
     import torch
 
     from haet_torch.models.erwin import ErwinTransformerBlock
     from haet_torch.ops.kernels import erwin_block as eb
 
     torch.manual_seed(SEED)
-    blk = ErwinTransformerBlock(c_e, 8, ball, 4).to(dev)
+    blk = ErwinTransformerBlock(c_e, heads, ball, mlp_ratio).to(dev)
     with torch.no_grad():
         for p in blk.parameters():
             p.copy_(0.2 * torch.randn(p.shape, generator=g).to(dev))
         blk.BMSA.sigma_att.copy_(
-            -1.0 + 0.01 * torch.randn(1, 8, 1, 1, generator=g).to(dev))
+            -1.0 + 0.01 * torch.randn(1, heads, 1, 1, generator=g).to(dev))
     params = dict(blk.named_parameters())
     xe = torch.randn(8, n_e, c_e, generator=g).to(dev)
     pe = torch.rand(8, n_e, 3, generator=g).to(dev)
-    check(eb.eligible(n_e, c_e, 8, c_e, 4 * c_e),
-          f"n {n_e} / C {c_e} is outside the kernel's gate")
-    return xe, pe, params, dict(ball_size=ball, num_heads=8,
+    check(eb.eligible(n_e, c_e, heads, c_e, mlp_ratio * c_e),
+          f"n {n_e} / C {c_e} / {heads} heads is outside the kernel's gate")
+    return xe, pe, params, dict(ball_size=ball, num_heads=heads,
                                 use_dist_bias=True)
 
 
-def erwin_work(n_e, c_e, ball):
+def erwin_work(n_e, c_e, ball, heads=8, mlp_ratio=4):
     """``(weight elements, forward FLOP)`` of one Erwin block call on 8
-    clouds of ``n_e`` points (8 heads, SwiGLU 4C)."""
-    hid = 4 * c_e
-    hd = c_e // 8
-    w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + 8
+    clouds of ``n_e`` points (``heads`` heads, SwiGLU ``mlp_ratio`` * C)."""
+    hid = mlp_ratio * c_e
+    hd = c_e // heads
+    w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + heads
                + c_e * c_e + c_e + c_e + 2 * (hid * c_e + hid)
                + c_e * hid + c_e)
-    flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e + 8 * ball * hd * 2
+    flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e
+                           + heads * ball * hd * 2
                            + c_e * c_e + 3 * hid * c_e)
     return w_elems, flops
+
+
+def erwin_bwd_bound(n_e, c_e, ball, heads=8, mlp_ratio=4):
+    """Bound of one backward call: reads x, pos, dout and the weights;
+    writes dx, dpos and the gradients of every weight but sigma;
+    recomputes the forward and does its two backward products per forward
+    product."""
+    w_elems, fwd_flops = erwin_work(n_e, c_e, ball, heads, mlp_ratio)
+    nbytes = 4 * (3 * 8 * n_e * c_e + 2 * 8 * n_e * 3 + 2 * w_elems - heads)
+    return bound_ms(nbytes, 3 * fwd_flops)
 
 
 def kernel_phase(dev):
@@ -300,6 +340,22 @@ def kernel_phase(dev):
 # Phase 3b: the backwards against autograd of their plain versions.
 # ---------------------------------------------------------------------------
 
+def plain_bwd_ms(xe, pe, dout, params, kw):
+    """ms of the plain block's backward alone: autograd of a recorded plain
+    forward."""
+    import torch
+
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    leaves = [t.detach().requires_grad_()
+              for t in (xe, pe, *(params[k] for k in eb.GRAD_NAMES))]
+    lp = dict(zip(eb.GRAD_NAMES, leaves[2:]),
+              **{"BMSA.sigma_att": params["BMSA.sigma_att"]})
+    out = eb.erwin_block_plain(leaves[0], leaves[1], lp, **kw)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dout,
+                                               retain_graph=True))
+
+
 def backward_phase(dev, records):
     """Checks and times the backwards; adds the backward kernel's record to
     ``records`` and the slice backwards' times to their forwards' records."""
@@ -337,21 +393,8 @@ def backward_phase(dev, records):
         errs.append(err)
         times.append((cuda_ms(lambda: eb.fused_erwin_block_bwd(
             xe, pe, dout, params, **kw)), weight))
-        # the plain backward alone: autograd of a recorded plain forward
-        leaves = [t.detach().requires_grad_()
-                  for t in (xe, pe, *(params[k] for k in eb.GRAD_NAMES))]
-        lp = dict(zip(eb.GRAD_NAMES, leaves[2:]),
-                  **{"BMSA.sigma_att": params["BMSA.sigma_att"]})
-        out = eb.erwin_block_plain(leaves[0], leaves[1], lp, **kw)
-        plain_times.append((cuda_ms(lambda: torch.autograd.grad(
-            out, leaves, dout, retain_graph=True)), weight))
-        del out
-        w_elems, fwd_flops = erwin_work(n_e, c_e, ball)
-        # reads x, pos, dout and the weights; writes dx, dpos and the
-        # gradients of every weight but sigma; recomputes the forward and
-        # does its two backward products per forward product
-        nbytes = 4 * (3 * 8 * n_e * c_e + 2 * 8 * n_e * 3 + 2 * w_elems - 8)
-        bounds.append((bound_ms(nbytes, 3 * fwd_flops), weight))
+        plain_times.append((plain_bwd_ms(xe, pe, dout, params, kw), weight))
+        bounds.append((erwin_bwd_bound(n_e, c_e, ball), weight))
         print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
     total = sum(w for _, w in times)
     mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
@@ -495,7 +538,8 @@ def serve_phase(dev):
         check(o.shape == (N_POINTS, 4), f"request {i}: shape {o.shape}")
         check(bool(np.isfinite(o).all()), f"request {i}: non-finite output")
     want = {"slice_states": 2 * forwards, "deslice": 2 * forwards,
-            "fused_erwin_block": 24 * forwards, "fused_erwin_block_bwd": 0}
+            "fused_erwin_block": 24 * forwards, "fused_erwin_block_bwd": 0,
+            "copy_scale": 0}
     print(f"  forwards {forwards}; launches {counts}; expected {want}",
           flush=True)
     check(counts == want, f"launch counts {counts} != {want}")
@@ -528,24 +572,13 @@ def serve_phase(dev):
     return counts, forwards, model, samples[0]
 
 
-def kernel_events(prof):
-    """The profile's device kernels by name, longest first. Kernels only:
-    an operator's entry, and a user annotation such as
-    ``Optimizer.step#Adam.step``, repeat their kernels' device time."""
-    import torch
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0
-              and not getattr(e, "is_user_annotation", False)]
-    return sorted(events, key=lambda e: -e.self_device_time_total)
-
-
 def profile_phase(model, sample, dev):
     """Where one batch-1 forward's time goes: device time by kernel
     (torch.profiler) against the forward's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from haet_torch.utils.profiling import kernel_events
 
     x = torch.from_numpy(sample[None]).to(dev)
     with torch.inference_mode():
@@ -586,6 +619,7 @@ def train_phase(dev):
     from haet_torch.train.car import loss_fn_builder, make_batch
     from haet_torch.utils.config import (shapenet_car_config,
                                          shapenet_car_train_config)
+    from haet_torch.utils.profiling import kernel_events
 
     kwargs = shapenet_car_config().model_kwargs()
     cfg = shapenet_car_train_config()
@@ -680,7 +714,7 @@ def train_phase(dev):
     plain_routes = plain_route_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     per_step = {"slice_states": 2, "deslice": 2, "fused_erwin_block": 24,
-                "fused_erwin_block_bwd": 24}
+                "fused_erwin_block_bwd": 24, "copy_scale": 0}
     want_counts = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     print(f"  {TRAIN_STEPS} steps; launches {counts}; expected {want_counts}",
           flush=True)
@@ -713,6 +747,246 @@ def train_phase(dev):
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the benchmark drivers and the copy kernel.
+# ---------------------------------------------------------------------------
+
+COPY_CHAIN = 1050            # the micro driver's hi window
+#: the micro driver's reduced lo/hi windows and rounds
+MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=3)
+#: bench_flags' reduced windows: k_lo/k_hi steps and rounds
+FLAGS_STEPS = dict(k_lo=1, k_hi=3, rounds=2)
+#: the slice kernels' check and the memory probes: ~30x the car's points
+N_LARGE = 1 << 20
+
+
+def copy_phase(dev):
+    """7a: ``copy_scale`` bit-exact against its plain version after one
+    call and after ``COPY_CHAIN`` chained calls; its record, with the time
+    of ``torch.mul`` as the library time."""
+    import torch
+
+    from haet_torch.ops.kernels import copy_kernel as ck
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randn(256, 32, generator=g).to(dev)
+    print("phase 7a: copy_scale  x [256, 32] f32", flush=True)
+    got, want = ck.copy_scale(x), ck.copy_scale_plain(x)
+    chained, want_chain = ck.chain_copy(x, COPY_CHAIN), x
+    for _ in range(COPY_CHAIN):
+        want_chain = ck.copy_scale_plain(want_chain)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()),
+              float((chained - want_chain).abs().max()))
+    print(f"  1 call: bit-exact {torch.equal(got, want)}; {COPY_CHAIN} "
+          f"chained calls: bit-exact {torch.equal(chained, want_chain)}",
+          flush=True)
+    check(torch.equal(got, want), "copy_scale differs from x * 1.000001")
+    check(torch.equal(chained, want_chain),
+          f"chain_copy differs after {COPY_CHAIN} calls")
+    # The kernel's other two routes: an input 4 bytes past a 16-byte
+    # boundary (the scalar kernel), and an aligned one of 8191 elements
+    # (float4 loads and a scalar tail of 3).
+    flat = x.view(-1)
+    for what, xs in (("unaligned [8191]", flat[1:]),
+                     ("aligned [8191], tail 3", flat[:-1])):
+        got_s, want_s = ck.copy_scale(xs), ck.copy_scale_plain(xs)
+        torch.cuda.synchronize()
+        print(f"  {what}: bit-exact {torch.equal(got_s, want_s)}",
+              flush=True)
+        check(torch.equal(got_s, want_s),
+              f"copy_scale differs from x * 1.000001 on the {what} input")
+        err = max(err, float((got_s - want_s).abs().max()))
+    ms = cuda_ms(lambda: ck.copy_scale(x), reps=200)
+    plain_ms = cuda_ms(lambda: ck.copy_scale_plain(x), reps=200)
+    library_ms = cuda_ms(lambda: torch.mul(x, ck.SCALE), reps=200)
+    bound = bound_ms(2 * 4 * x.numel(), x.numel())
+    print_times(ms, plain_ms, bound)
+    print(f"  library torch.mul {library_ms:.4f} ms", flush=True)
+    rec = kernel_record("copy_scale", "haet_torch/csrc/copy_kernel.cu",
+                        "benchmarks/micro_erwin_fused.py:70", err, ms,
+                        plain_ms, bound)
+    rec["library_ms"] = library_ms
+    return rec
+
+
+#: 7b's Erwin block shapes, ``tag: (n, C, ball, heads, mlp_ratio)``: the
+#: micro driver's block, and the two that bench_flags' ``pallas-erwin``
+#: model runs (constructor defaults: Erwin mlp_ratio 2, heads 4/8/4)
+DRIVER_SHAPES = {"micro": (32, 32, 32, 4, 4),
+                 "flags_n32_c32": (32, 32, 32, 4, 2),
+                 "flags_n16_c64": (16, 64, 16, 8, 2)}
+
+
+def driver_shape_phase(dev, records):
+    """7b: the Erwin forward and backward kernels at the drivers' block
+    shapes (``DRIVER_SHAPES``; 4 heads and SwiGLU 2C are shapes the car
+    never uses) against the plain block at phase 3/3b's tolerance: out,
+    dx, dpos and every parameter gradient. Their times, bounds and errors
+    go into the forward and backward records as ``<tag>_*``."""
+    import torch
+
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    for tag, (n_e, c_e, ball, heads, ratio) in DRIVER_SHAPES.items():
+        print(f"phase 7b: fused_erwin_block fwd/bwd ({tag})  x [8, {n_e}, "
+              f"{c_e}], {heads} heads, ball {ball}, SwiGLU {ratio * c_e}",
+              flush=True)
+        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball, heads,
+                                          ratio)
+        dout = torch.randn(8, n_e, c_e, generator=g).to(dev)
+        with torch.inference_mode():
+            o_k = eb.fused_erwin_block(xe, pe, params, **kw)
+            o_p = eb.erwin_block_plain(xe, pe, params, **kw)
+            torch.cuda.synchronize()
+            err_f = compare("out", o_k, o_p, KERNEL_RTOL)
+        dx_k, dpos_k, gr_k = eb.fused_erwin_block_bwd(xe, pe, dout, params,
+                                                      **kw)
+        dx_p, dpos_p, gr_p = eb.erwin_block_bwd_plain(xe, pe, dout, params,
+                                                      **kw)
+        torch.cuda.synchronize()
+        err_b = max([compare("dx", dx_k, dx_p, KERNEL_RTOL),
+                     compare("dpos", dpos_k, dpos_p, KERNEL_RTOL)]
+                    + [compare(f"d {k}", gr_k[k], gr_p[k], KERNEL_RTOL)
+                       for k in eb.GRAD_NAMES])
+        with torch.inference_mode():
+            fwd = (cuda_ms(lambda: eb.fused_erwin_block(xe, pe, params,
+                                                        **kw)),
+                   cuda_ms(lambda: eb.erwin_block_plain(xe, pe, params,
+                                                        **kw)))
+        bwd = (cuda_ms(lambda: eb.fused_erwin_block_bwd(xe, pe, dout, params,
+                                                        **kw)),
+               plain_bwd_ms(xe, pe, dout, params, kw))
+        w_elems, flops = erwin_work(n_e, c_e, ball, heads, ratio)
+        bounds = {"fused_erwin_block": bound_ms(
+                      4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems), flops),
+                  "fused_erwin_block_bwd": erwin_bwd_bound(n_e, c_e, ball,
+                                                           heads, ratio)}
+        times = {"fused_erwin_block": (fwd, err_f),
+                 "fused_erwin_block_bwd": (bwd, err_b)}
+        for r in records:
+            if r["name"] in times:
+                (ms, plain_ms), err = times[r["name"]]
+                r.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                          f"{tag}_bound_ms": bounds[r["name"]][0],
+                          f"{tag}_max_abs_err": err})
+                print(f"  {r['name']}:", flush=True)
+                print_times(ms, plain_ms, bounds[r["name"]])
+
+
+def large_slice_phase(dev):
+    """7c: the slice kernels, untimed, at ``N_LARGE`` points, the memory
+    probes' size."""
+    import torch
+
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    b, h, n, c, gs = 1, 8, N_LARGE, 32, 32
+    print(f"phase 7c: slice_states / deslice  x [1, 8, {n}, 32], G 32",
+          flush=True)
+    x = torch.randn(b, h, n, c, generator=g).to(dev)
+    ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
+    bs = (0.1 * torch.randn(gs, generator=g)).to(dev)
+    wa = (0.1 * torch.randn(c, 1, generator=g)).to(dev)
+    ba = torch.zeros(1).to(dev)
+    st_in = torch.randn(b, h, gs, c, generator=g).to(dev)
+    with torch.inference_mode():
+        st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
+        st_p, m_p, s_p = sk.slice_states_plain(x, ws, bs, wa, ba)
+        torch.cuda.synchronize()
+        compare("states", st_k, st_p, KERNEL_RTOL)
+        compare("m", m_k, m_p, KERNEL_RTOL)
+        compare("s", s_k, s_p, KERNEL_RTOL)
+        del st_k, st_p
+        out_k = sk.deslice(x, ws, bs, wa, ba, st_in, m_p, s_p)
+        out_p = sk.deslice_plain(x, ws, bs, wa, ba, st_in, m_p, s_p)
+        torch.cuda.synchronize()
+        compare("out", out_k, out_p, KERNEL_RTOL)
+    torch.cuda.empty_cache()
+
+
+def expect_counts(what, counts, want):
+    print(f"  {what}: {counts}; expected {want}", flush=True)
+    check(counts == want, f"{what}: {counts} != {want}")
+
+
+def drivers_phase(dev):
+    """7d-7g: run each benchmark driver briefly on the card and check from
+    the launch counters that its kernel paths went through the kernels.
+    Returns the copy kernel's launch count after the micro driver's run."""
+    import torch
+
+    from haet_torch import bench
+    from haet_torch.benchmarks import bench_flags, mem_sweep
+    from haet_torch.benchmarks import micro_erwin_fused as micro
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+
+    no_routes = {k: 0 for k in plain_route_counts()}
+    print(f"phase 7d: micro_erwin_fused {MICRO_REPS}", flush=True)
+    reset_launch_counts()
+    res = micro.run(dev, **MICRO_REPS)
+    counts, routes = launch_counts(), plain_route_counts()
+    calls = res["copy_calls"]   # the driver's chained calls per line
+    expect_counts("launches", counts, {
+        "slice_states": 0, "deslice": 0, "fused_erwin_block": 2 * calls,
+        "fused_erwin_block_bwd": calls, "copy_scale": calls})
+    expect_counts("plain routes", routes, no_routes)
+    for name in ("copy_scale", "fused block fwd", "fused block fwd+bwd"):
+        check(res[name]["device_us"] is not None
+              and res[name]["device_us"] > 0, f"{name}: no device time")
+    copy_launches = counts["copy_scale"]
+
+    print(f"phase 7e: bench_flags {FLAGS_STEPS}", flush=True)
+    reset_launch_counts()
+    res = bench_flags.run(dev, **FLAGS_STEPS)
+    for name, r in res.items():
+        blocks = r["erwin_blocks"]
+        check(blocks == 12, f"{name}: {blocks} Erwin blocks, expected 12 "
+                            "(2 layers of depths 2/2/2)")
+        want = {"slice_states": 0, "deslice": 0, "fused_erwin_block": 0,
+                "fused_erwin_block_bwd": 0, "copy_scale": 0}
+        if name == "pallas-tokenizer":
+            want.update(slice_states=2, deslice=2)
+        elif name == "pallas-erwin":
+            want.update(fused_erwin_block=blocks,
+                        fused_erwin_block_bwd=blocks)
+        expect_counts(f"{name} launches per step ({r['steps']} steps)",
+                      r["launches_per_step"], want)
+        expect_counts(f"{name} plain routes per step",
+                      r["plain_routes_per_step"], no_routes)
+
+    print("phase 7f: haet_torch.bench, 2 rounds", flush=True)
+    rec = bench.run(dev, budget_s=0.0, rounds=2)
+    print(f"  {json.dumps(rec)}", flush=True)
+    check(np.isfinite(rec["value"]) and rec["value"] > 0,
+          f"bench value {rec['value']}")
+    check(rec["mfu"] is not None and 0 < rec["mfu"] < 1,
+          f"bench mfu {rec['mfu']}")
+    del rec
+    torch.cuda.empty_cache()
+
+    print(f"phase 7g: mem_sweep probes at N = {N_LARGE}, forward only, "
+          f"each in a fresh process", flush=True)
+    probes = {}
+    for pallas in (False, True):
+        probes[pallas] = p = mem_sweep.probe_subprocess(N_LARGE, pallas)
+        print(f"  {json.dumps(p)}", flush=True)
+        check(p.get("ok") is True, f"probe pallas={pallas} failed: {p}")
+        n = int(pallas)
+        check(p["slice_launches"] == {"slice_states": n, "deslice": n},
+              f"probe pallas={pallas}: slice launches {p['slice_launches']}")
+    plain_mb, kernel_mb = (probes[False]["peak_memory_mb"],
+                           probes[True]["peak_memory_mb"])
+    print(f"  peak device memory: plain path {plain_mb:.1f} MiB, slice "
+          f"kernels {kernel_mb:.1f} MiB", flush=True)
+    check(kernel_mb < plain_mb,
+          f"kernel path peak {kernel_mb} MiB is not below plain {plain_mb}")
+    return copy_launches
 
 
 def main() -> int:
@@ -759,10 +1033,17 @@ def main() -> int:
         print(f"phase 6: train the ShapeNet-Car preset, {TRAIN_STEPS} steps",
               flush=True)
         counts = train_phase(dev)
+        t7 = time.perf_counter()
+        records.append(copy_phase(dev))
+        driver_shape_phase(dev, records)
+        large_slice_phase(dev)
+        copy_launches = drivers_phase(dev)
+        print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
+    counts["copy_scale"] = copy_launches
     for r in records:
         r["launches"] = counts[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]

@@ -1,0 +1,18 @@
+"""Benchmark drivers of the port, run on the card by default.
+
+Counterparts of the JAX repo's drivers (``bench.py`` is
+:mod:`haet_torch.bench`):
+
+* :mod:`.micro_erwin_fused` -- per-call cost of the copy kernel and of the
+  Erwin block, plain against fused, forward and forward+backward;
+* :mod:`.bench_flags` -- train-step A/B of the kernel flags;
+* :mod:`.profile_step` -- per-component ablation of the car train step;
+* :mod:`.mem_sweep` -- the most points a forward holds, plain against the
+  slice kernels, one fresh process per probe;
+* :mod:`.velocity_mem_checker` -- forward latency and peak memory against
+  the point count;
+* :mod:`.timing` -- the interleaved differential timing they share.
+
+Each runs as ``python -m haet_torch.benchmarks.<name>``; ``--device cpu``
+runs it on the CPU, which is only plumbing: no CPU time is a device metric.
+"""

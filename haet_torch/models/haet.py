@@ -29,6 +29,31 @@ CHECKPOINT_TODO = ("use_checkpoint is not ported yet (ROADMAP.md, queue 1: "
                    "use_checkpoint and dropout parity)")
 
 
+@torch.no_grad()
+def init_weights(root: nn.Module, generator: torch.Generator) -> None:
+    """The reference ``_init_weights`` over every submodule of ``root``:
+    trunc-normal(0.02) Linears with zero biases, unit/zero norms,
+    ``sigma_att ~ -1 + 0.01 N(0,1)`` and an orthogonal slice head."""
+    for mod in root.modules():
+        if isinstance(mod, nn.Linear):
+            init_linear(mod, generator)
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.RMSNorm):
+            nn.init.ones_(mod.weight)
+        elif isinstance(mod, BallMSA) and mod.sigma_att is not None:
+            mod.sigma_att.copy_(
+                -1.0 + 0.01 * torch.randn(mod.sigma_att.shape,
+                                          generator=generator))
+    # after the Linear pass, which would overwrite it
+    for mod in root.modules():
+        if (isinstance(mod, PhysicsAttentionIrregularMesh)
+                and mod.orthogonal_slice_init):
+            nn.init.orthogonal_(mod.in_project_slice.weight,
+                                generator=generator)
+
+
 class TransolverErwinBlock(nn.Module):
     """Pre-LN residual block (LayerNorm eps 1e-5; ``ln_3``/``mlp2`` on the
     last layer)."""
@@ -124,28 +149,9 @@ class HAETransolverIrregularMesh(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """The reference ``_init_weights``: trunc-normal(0.02) Linears with
-        zero biases, unit/zero norms, an orthogonal slice head, the
-        placeholder ``U[0,1)/n_hidden`` and ``sigma_att ~ -1 + 0.01 N(0,1)``.
-        """
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                init_linear(mod, generator)
-            elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.RMSNorm):
-                nn.init.ones_(mod.weight)
-            elif isinstance(mod, BallMSA) and mod.sigma_att is not None:
-                mod.sigma_att.copy_(
-                    -1.0 + 0.01 * torch.randn(mod.sigma_att.shape,
-                                              generator=generator))
-        # after the Linear pass, which would overwrite it
-        for mod in self.modules():
-            if (isinstance(mod, PhysicsAttentionIrregularMesh)
-                    and mod.orthogonal_slice_init):
-                nn.init.orthogonal_(mod.in_project_slice.weight,
-                                    generator=generator)
+        """The reference ``_init_weights`` (:func:`init_weights`), then the
+        placeholder ``U[0,1)/n_hidden``."""
+        init_weights(self, generator)
         self.placeholder.copy_(
             torch.rand(self.n_hidden, generator=generator) / self.n_hidden)
 

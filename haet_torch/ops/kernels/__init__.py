@@ -34,13 +34,14 @@ class LaunchCounter:
 
 def counters() -> dict:
     """``{kernel name: LaunchCounter}`` for every kernel of the port."""
-    from . import erwin_block, slice_kernels
+    from . import copy_kernel, erwin_block, slice_kernels
 
     return {
         "slice_states": slice_kernels.SLICE_STATES_LAUNCHES,
         "deslice": slice_kernels.DESLICE_LAUNCHES,
         "fused_erwin_block": erwin_block.LAUNCHES,
         "fused_erwin_block_bwd": erwin_block.BWD_LAUNCHES,
+        "copy_scale": copy_kernel.LAUNCHES,
     }
 
 
