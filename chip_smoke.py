@@ -7,17 +7,23 @@ Phases (any failed check exits non-zero before the final line):
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. Build every CUDA kernel from ``haet_torch/csrc/`` (one ``nvcc`` per
-   source, in parallel) and print the build time.
+   source, in parallel) and print the build time and ``ptxas``' register,
+   stack and spill report for every kernel.
 3. Each kernel at the ShapeNet-Car serving shapes against its plain PyTorch
    version on the card: max abs/rel error against the stated tolerance, the
-   kernel's time, the plain version's time and the bound (least time the card
-   could take for the same bytes and float32 operations). The Erwin block is
-   also checked, untimed, at the largest clouds its shape gate admits.
+   kernel's time (CUDA events over back-to-back launches, and for the Erwin
+   kernels also the profiler's device time per call), the plain version's
+   time and the bound (least time the card could take for the same bytes
+   and float32 operations). Each Erwin line prints its launch shape (a
+   cluster of K CTAs per cloud, shared memory per CTA). The Erwin forward is
+   also checked at the serve burst's 32 clouds (timed on the device) and,
+   untimed, at the gate's edges (``ERWIN_EDGES``).
 3b. The backwards against autograd of their plain versions on the card:
    the Erwin block's backward kernel at both car block shapes (dx, dpos and
    all 14 parameter gradients, timed, with its bound) and, untimed, at the
-   two gate-edge shapes; the slice autograd functions (``SliceStatesFn``,
-   ``DesliceFn``) at the padded car shape ``[1, 8, 32768, 32]``, timed.
+   gate's edges, each shape twice to show the results bit-identical; the
+   slice autograd functions (``SliceStatesFn``, ``DesliceFn``) at the
+   padded car shape ``[1, 8, 32768, 32]``, timed.
 4. Serve: the car preset (2 layers, n_hidden 256, G 32, 1,757,190 params,
    seeded random weights) on the card with both kernel flags set, behind a
    ``BatchingServer`` with signature ``x [32186, 7] f32, fx None`` and batch
@@ -48,9 +54,9 @@ Phases (any failed check exits non-zero before the final line):
       dx, dpos, every parameter gradient), timed, at the drivers' block
       shapes: the micro driver's (8 clouds of 32, C 32, 4 heads, SwiGLU
       128) and bench_flags' two (C 32, 4 heads, ball 32, SwiGLU 64; n 16,
-      C 64, 8 heads, ball 16, SwiGLU 128). The car uses 8 heads and SwiGLU
-      4C throughout. Records gain ``micro_*``, ``flags_n32_c32_*`` and
-      ``flags_n16_c64_*``.
+      C 64, 8 heads, ball 16, SwiGLU 128), with their device time per call.
+      The car uses 8 heads and SwiGLU 4C throughout. Records gain
+      ``micro_*``, ``flags_n32_c32_*`` and ``flags_n16_c64_*``.
    c. ``slice_states``/``deslice`` against their plain versions, untimed,
       at ``[1, 8, 2**20, 32]``, the memory probes' size.
    d. ``micro_erwin_fused`` with reduced windows: the copy counter rises by
@@ -148,6 +154,33 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_us(fn, names=None, reps: int = 50) -> float:
+    """The card's time per call of ``fn()``, in microseconds, from a
+    ``torch.profiler`` trace of ``reps`` back-to-back calls: the kernels
+    whose names contain one of ``names`` (every kernel when None)."""
+    from haet_torch.benchmarks.erwin_kernels import kernel_us
+
+    return kernel_us(fn, reps, names)[0]
+
+
+ERWIN_FWD_KERNELS = ("erwin_block_fwd",)
+ERWIN_BWD_KERNELS = ("erwin_block_bwd", "erwin_block_sum_partials")
+
+
+def erwin_launch_line(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8):
+    """The Erwin kernels' launch shape at one block shape: the grid of
+    ``clouds`` clusters of ``CLUSTER`` CTAs, and each kernel's dynamic
+    shared memory and global scratch per CTA."""
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    args = (n_e, c_e, 3, mlp_ratio * c_e, heads, min(ball, n_e))
+    fwd, bwd = eb.fwd_layout(*args), eb.bwd_layout(*args)
+    return (f"grid {clouds * eb.CLUSTER} CTAs = {clouds} clouds x cluster "
+            f"K {eb.CLUSTER}, 256 threads; shared memory per CTA fwd "
+            f"{fwd.smem} B, bwd {bwd.smem} B; scratch per CTA fwd "
+            f"{4 * fwd.scratch} B, bwd {4 * bwd.scratch} B")
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -184,9 +217,17 @@ def kernel_record(name, source, replaces, err, ms, plain_ms, bound, **extra):
 # Phase 3: each kernel against its plain version at the car shapes.
 # ---------------------------------------------------------------------------
 
-def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4):
-    """Seeded inputs and weights of one Erwin block shape (8 clouds,
-    ``heads`` heads, SwiGLU ``mlp_ratio`` * C), drawn from ``g``."""
+#: the Erwin kernels' gate edges, ``(n, C, ball)`` at 8 heads and SwiGLU
+#: 4C: the largest clouds the one-CTA gate admitted at the car's widths,
+#: and the edges of the cluster kernels' gate (the JAX gate, n <= 512 and
+#: C <= 512), where buffers and weight slices spill to global memory
+ERWIN_EDGES = ((128, 32, 32), (64, 64, 16), (512, 32, 32), (512, 64, 16),
+               (16, 512, 16))
+
+
+def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8):
+    """Seeded inputs and weights of one Erwin block shape (``clouds``
+    clouds, ``heads`` heads, SwiGLU ``mlp_ratio`` * C), drawn from ``g``."""
     import torch
 
     from haet_torch.models.erwin import ErwinTransformerBlock
@@ -200,8 +241,8 @@ def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4):
         blk.BMSA.sigma_att.copy_(
             -1.0 + 0.01 * torch.randn(1, heads, 1, 1, generator=g).to(dev))
     params = dict(blk.named_parameters())
-    xe = torch.randn(8, n_e, c_e, generator=g).to(dev)
-    pe = torch.rand(8, n_e, 3, generator=g).to(dev)
+    xe = torch.randn(clouds, n_e, c_e, generator=g).to(dev)
+    pe = torch.rand(clouds, n_e, 3, generator=g).to(dev)
     check(eb.eligible(n_e, c_e, heads, c_e, mlp_ratio * c_e),
           f"n {n_e} / C {c_e} / {heads} heads is outside the kernel's gate")
     return xe, pe, params, dict(ball_size=ball, num_heads=heads,
@@ -283,10 +324,11 @@ def kernel_phase(dev):
         "deslice", "haet_torch/csrc/slice_kernels.cu",
         "haet_tpu/ops/pallas/slice_kernels.py:125", err, ms, plain_ms, bound))
 
-    def erwin_case(n_e, c_e, ball):
+    def erwin_case(n_e, c_e, ball, clouds=8):
         """One block shape's inputs, and the kernel's error against its
         plain version."""
-        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball)
+        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball,
+                                          clouds=clouds)
         with torch.inference_mode():
             o_k = eb.fused_erwin_block(xe, pe, params, **kw)
             o_p = eb.erwin_block_plain(xe, pe, params, **kw)
@@ -296,40 +338,60 @@ def kernel_phase(dev):
 
     # The Erwin stage's two block shapes: encoder0/decoder0 (n 32, C 32,
     # ball 32, SwiGLU 128; 16 launches per forward) and the bottleneck
-    # (n 16, C 64, ball 16, SwiGLU 256; 8 launches per forward).
-    errs, times, plain_times, bounds = [], [], [], []
+    # (n 16, C 64, ball 16, SwiGLU 256; 8 launches per forward). The event
+    # time of back-to-back launches is the host's launch rate at these
+    # sizes; the profiler's device time per call is the kernel's.
+    errs, times, plain_times, bounds, dev_us = [], [], [], [], {}
     for n_e, c_e, ball, weight in ((32, 32, 32, 16), (16, 64, 16, 8)):
         print(f"phase 3: fused_erwin_block  x [8, {n_e}, {c_e}], 8 heads, "
-              f"ball {ball}", flush=True)
+              f"ball {ball}; {erwin_launch_line(n_e, c_e, ball)}", flush=True)
         xe, pe, params, kw, err = erwin_case(n_e, c_e, ball)
         errs.append(err)
         with torch.inference_mode():
-            times.append((cuda_ms(
-                lambda: eb.fused_erwin_block(xe, pe, params, **kw)), weight))
+            def fn():
+                return eb.fused_erwin_block(xe, pe, params, **kw)
+            times.append((cuda_ms(fn), weight))
+            dev_us[f"n{n_e}_c{c_e}"] = device_us(fn, ERWIN_FWD_KERNELS)
             plain_times.append((cuda_ms(
                 lambda: eb.erwin_block_plain(xe, pe, params, **kw)), weight))
         w_elems, flops = erwin_work(n_e, c_e, ball)
         nbytes = 4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems)
         bounds.append((bound_ms(nbytes, flops), weight))
         print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
+        print(f"  device {dev_us[f'n{n_e}_c{c_e}']:.2f} us per call "
+              f"(profiler)", flush=True)
     total = sum(w for _, w in times)
     mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
     bound = (mix([(bd[0], w) for bd, w in bounds]),
              "bytes" if all(bd[1] == "bytes" for bd, _ in bounds)
              else "operations")
+
+    # The serve burst's batch of 4: 32 clouds, 256 CTAs.
+    for n_e, c_e, ball in ((32, 32, 32), (16, 64, 16)):
+        print(f"phase 3: fused_erwin_block, serve burst  x [32, {n_e}, "
+              f"{c_e}], 8 heads, ball {ball}; "
+              f"{erwin_launch_line(n_e, c_e, ball, clouds=32)}", flush=True)
+        xe, pe, params, kw, err = erwin_case(n_e, c_e, ball, clouds=32)
+        errs.append(err)
+        with torch.inference_mode():
+            dev_us[f"burst_n{n_e}_c{c_e}"] = device_us(
+                lambda: eb.fused_erwin_block(xe, pe, params, **kw),
+                ERWIN_FWD_KERNELS)
+        print(f"  device {dev_us[f'burst_n{n_e}_c{c_e}']:.2f} us per call "
+              f"(profiler)", flush=True)
     records.append(kernel_record(
         "fused_erwin_block", "haet_torch/csrc/erwin_block.cu",
         "haet_tpu/ops/pallas/erwin_block.py:163", max(errs), mix(times),
         mix(plain_times), bound,
-        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]}))
+        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]},
+        device_us_per_call=dev_us))
 
-    # The largest clouds the eligible() gate admits (~166-170 KB of shared
-    # memory, past the 48 KB default): they must launch and agree too.
-    # Checked only, not timed and not part of the record.
-    for n_e, c_e, ball in ((128, 32, 32), (64, 64, 16)):
-        print(f"phase 3: fused_erwin_block at the gate's edge  x [8, {n_e}, "
-              f"{c_e}], 8 heads, ball {ball}, SwiGLU {4 * c_e}, shared "
-              f"memory {eb.smem_bytes(n_e, c_e, 3, 4 * c_e)} B", flush=True)
+    # The gate's edges: they must launch and agree too. Checked only, not
+    # timed and not part of the record.
+    for n_e, c_e, ball in ERWIN_EDGES:
+        print(f"phase 3: fused_erwin_block at a gate edge  x [8, {n_e}, "
+              f"{c_e}], 8 heads, ball {ball}, SwiGLU {4 * c_e}; "
+              f"{erwin_launch_line(n_e, c_e, ball)}", flush=True)
         erwin_case(n_e, c_e, ball)
     print("  none of the three has a single PyTorch call computing the same "
           "function: library_ms is null", flush=True)
@@ -369,10 +431,14 @@ def backward_phase(dev, records):
 
     def erwin_bwd_case(n_e, c_e, ball):
         """The backward kernel's largest error against autograd of the plain
-        block over dx, dpos and every parameter gradient."""
+        block over dx, dpos and every parameter gradient; a second call on
+        the same inputs must give bit-identical results (no atomics: the
+        ranks' and the clouds' partials are summed in a fixed order)."""
         xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball)
         dout = torch.randn(8, n_e, c_e, generator=g).to(dev)
         dx_k, dpos_k, gr_k = eb.fused_erwin_block_bwd(xe, pe, dout, params,
+                                                      **kw)
+        dx_2, dpos_2, gr_2 = eb.fused_erwin_block_bwd(xe, pe, dout, params,
                                                       **kw)
         dx_p, dpos_p, gr_p = eb.erwin_block_bwd_plain(xe, pe, dout, params,
                                                       **kw)
@@ -381,21 +447,30 @@ def backward_phase(dev, records):
                 compare("dpos", dpos_k, dpos_p, KERNEL_RTOL)]
         errs += [compare(f"d {k}", gr_k[k], gr_p[k], KERNEL_RTOL)
                  for k in eb.GRAD_NAMES]
+        same = (torch.equal(dx_k, dx_2) and torch.equal(dpos_k, dpos_2)
+                and all(torch.equal(gr_k[k], gr_2[k]) for k in eb.GRAD_NAMES))
+        print(f"  two calls bit-identical (dx, dpos, 14 gradients): {same}",
+              flush=True)
+        check(same, f"backward at n {n_e} / C {c_e} is not deterministic")
         return xe, pe, params, kw, dout, max(errs)
 
-    errs, times, plain_times, bounds = [], [], [], []
+    errs, times, plain_times, bounds, dev_us = [], [], [], [], {}
     for n_e, c_e, ball, weight in ((32, 32, 32, 16), (16, 64, 16, 8)):
         print(f"phase 3b: fused_erwin_block_bwd  x [8, {n_e}, {c_e}], 8 "
-              f"heads, ball {ball}, shared memory "
-              f"{eb.bwd_smem_bytes(n_e, c_e, 3, 4 * c_e, 8, ball)} B",
+              f"heads, ball {ball}; {erwin_launch_line(n_e, c_e, ball)}",
               flush=True)
         xe, pe, params, kw, dout, err = erwin_bwd_case(n_e, c_e, ball)
         errs.append(err)
-        times.append((cuda_ms(lambda: eb.fused_erwin_block_bwd(
-            xe, pe, dout, params, **kw)), weight))
+        def fn():
+            return eb.fused_erwin_block_bwd(xe, pe, dout, params, **kw)
+        times.append((cuda_ms(fn), weight))
+        dev_us[f"n{n_e}_c{c_e}"] = device_us(fn, ERWIN_BWD_KERNELS)
         plain_times.append((plain_bwd_ms(xe, pe, dout, params, kw), weight))
         bounds.append((erwin_bwd_bound(n_e, c_e, ball), weight))
         print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
+        print(f"  device {dev_us[f'n{n_e}_c{c_e}']:.2f} us per call "
+              f"(profiler, erwin_block_bwd + erwin_block_sum_partials)",
+              flush=True)
     total = sum(w for _, w in times)
     mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
     records.append(kernel_record(
@@ -405,16 +480,18 @@ def backward_phase(dev, records):
         (mix([(bd[0], w) for bd, w in bounds]),
          "bytes" if all(bd[1] == "bytes" for bd, _ in bounds)
          else "operations"),
-        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]}))
-    for n_e, c_e, ball in ((128, 32, 32), (64, 64, 16)):
-        layout, smem, spilled = eb.bwd_layout(n_e, c_e, 3, 4 * c_e, 8, ball)
+        per_shape_ms={"n32_c32": times[0][0], "n16_c64": times[1][0]},
+        device_us_per_call=dev_us))
+    for n_e, c_e, ball in ERWIN_EDGES:
+        layout = eb.bwd_layout(n_e, c_e, 3, 4 * c_e, 8, min(ball, n_e))
         nbuf = len(eb.BWD_BUFFERS)
-        spills = [name for name, in_smem in
-                  zip(eb.BWD_BUFFERS, layout[nbuf:2 * nbuf]) if not in_smem]
-        print(f"phase 3b: fused_erwin_block_bwd at the gate's edge  x [8, "
-              f"{n_e}, {c_e}], ball {ball}: {smem} B of shared memory, "
-              f"{4 * spilled} B per cloud in the global scratch {spills}",
-              flush=True)
+        spills = [name for (name, _), in_smem in
+                  zip(eb.BWD_BUFFERS, layout.ints[nbuf:2 * nbuf])
+                  if not in_smem]
+        print(f"phase 3b: fused_erwin_block_bwd at a gate edge  x [8, "
+              f"{n_e}, {c_e}], ball {ball}; "
+              f"{erwin_launch_line(n_e, c_e, ball)}; in global memory "
+              f"{spills}", flush=True)
         erwin_bwd_case(n_e, c_e, ball)
 
     print(f"phase 3b: SliceStatesFn / DesliceFn backward  x [1, 8, "
@@ -802,12 +879,20 @@ def copy_phase(dev):
     ms = cuda_ms(lambda: ck.copy_scale(x), reps=200)
     plain_ms = cuda_ms(lambda: ck.copy_scale_plain(x), reps=200)
     library_ms = cuda_ms(lambda: torch.mul(x, ck.SCALE), reps=200)
+    # On the card's own clock: the event times above are the host's launch
+    # rate at this size (the ctypes wrapper against torch.mul's dispatch).
+    dev = {"copy_scale": device_us(lambda: ck.copy_scale(x), reps=200),
+           "torch.mul": device_us(lambda: torch.mul(x, ck.SCALE), reps=200)}
     bound = bound_ms(2 * 4 * x.numel(), x.numel())
     print_times(ms, plain_ms, bound)
-    print(f"  library torch.mul {library_ms:.4f} ms", flush=True)
+    print(f"  library torch.mul {library_ms:.4f} ms; device us per call "
+          f"(profiler): copy_scale {dev['copy_scale']:.3f}, torch.mul "
+          f"{dev['torch.mul']:.3f}", flush=True)
     rec = kernel_record("copy_scale", "haet_torch/csrc/copy_kernel.cu",
                         "benchmarks/micro_erwin_fused.py:70", err, ms,
-                        plain_ms, bound)
+                        plain_ms, bound,
+                        device_us_per_call=dev["copy_scale"],
+                        library_device_us_per_call=dev["torch.mul"])
     rec["library_ms"] = library_ms
     return rec
 
@@ -833,7 +918,8 @@ def driver_shape_phase(dev, records):
     g = torch.Generator().manual_seed(SEED + 6)
     for tag, (n_e, c_e, ball, heads, ratio) in DRIVER_SHAPES.items():
         print(f"phase 7b: fused_erwin_block fwd/bwd ({tag})  x [8, {n_e}, "
-              f"{c_e}], {heads} heads, ball {ball}, SwiGLU {ratio * c_e}",
+              f"{c_e}], {heads} heads, ball {ball}, SwiGLU {ratio * c_e}; "
+              f"{erwin_launch_line(n_e, c_e, ball, heads, ratio)}",
               flush=True)
         xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball, heads,
                                           ratio)
@@ -857,24 +943,31 @@ def driver_shape_phase(dev, records):
                                                         **kw)),
                    cuda_ms(lambda: eb.erwin_block_plain(xe, pe, params,
                                                         **kw)))
+            fwd_us = device_us(lambda: eb.fused_erwin_block(
+                xe, pe, params, **kw), ERWIN_FWD_KERNELS)
         bwd = (cuda_ms(lambda: eb.fused_erwin_block_bwd(xe, pe, dout, params,
                                                         **kw)),
                plain_bwd_ms(xe, pe, dout, params, kw))
+        bwd_us = device_us(lambda: eb.fused_erwin_block_bwd(
+            xe, pe, dout, params, **kw), ERWIN_BWD_KERNELS)
         w_elems, flops = erwin_work(n_e, c_e, ball, heads, ratio)
         bounds = {"fused_erwin_block": bound_ms(
                       4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems), flops),
                   "fused_erwin_block_bwd": erwin_bwd_bound(n_e, c_e, ball,
                                                            heads, ratio)}
-        times = {"fused_erwin_block": (fwd, err_f),
-                 "fused_erwin_block_bwd": (bwd, err_b)}
+        times = {"fused_erwin_block": (fwd, err_f, fwd_us),
+                 "fused_erwin_block_bwd": (bwd, err_b, bwd_us)}
         for r in records:
             if r["name"] in times:
-                (ms, plain_ms), err = times[r["name"]]
+                (ms, plain_ms), err, us = times[r["name"]]
                 r.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
                           f"{tag}_bound_ms": bounds[r["name"]][0],
                           f"{tag}_max_abs_err": err})
+                r["device_us_per_call"][tag] = us
                 print(f"  {r['name']}:", flush=True)
                 print_times(ms, plain_ms, bounds[r["name"]])
+                print(f"  device {us:.2f} us per call (profiler)",
+                      flush=True)
 
 
 def large_slice_phase(dev):
@@ -1021,7 +1114,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s ({nvcc})", flush=True)
         for name, rep in reports.items():
             for ln in rep.splitlines():
-                if "registers" in ln or "smem" in ln:
+                if any(w in ln for w in ("Compiling entry", "registers",
+                                         "spill", "smem")):
                     print(f"  {name}: {ln.strip()}", flush=True)
         records = kernel_phase(dev)
         backward_phase(dev, records)

@@ -3,8 +3,10 @@
 Counterpart of ``haet_tpu/ops/pallas/erwin_block.py:fused_erwin_block``:
 one launch runs a whole ``ErwinTransformerBlock``
 (``x += BMSA(RMSNorm(x), pos); x += SwiGLU(RMSNorm(x))``) for every cloud,
-with the kernels in ``haet_torch/csrc/erwin_block.cu``. On CUDA tensors
-:class:`ErwinBlockFn` ties the forward kernel to the backward kernel
+with the kernels in ``haet_torch/csrc/erwin_block.cu``: each cloud on a
+thread-block cluster of :data:`CLUSTER` CTAs that share out its products
+and exchange activations through the cluster's shared memory. On CUDA
+tensors :class:`ErwinBlockFn` ties the forward kernel to the backward kernel
 (``_fused_block_bwd`` of the JAX code), which recomputes the block from
 ``(x, pos)`` and gives ``dx``, ``dpos`` and every parameter gradient but
 ``sigma_att``'s (the distance bias carries none, as in the reference).
@@ -23,7 +25,9 @@ as separate tensors in :data:`PARAM_NAMES` order, so autograd tracks each.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,74 +58,162 @@ PARAM_NAMES = (
 #: the parameters the backward kernel gives a gradient, in its order
 GRAD_NAMES = tuple(k for k in PARAM_NAMES if k != "BMSA.sigma_att")
 
-#: the backward kernel's buffers (``csrc/erwin_block.cu:BwdBuf``), in the
-#: order :func:`bwd_layout` places them into shared memory
-BWD_BUFFERS = ("x", "hm", "qkv", "o", "x1", "zn", "dx1", "dz", "dqkv", "pos",
-               "rel", "r1", "r2", "rowdot", "u", "t", "probs", "dprobs")
+#: CTAs per cloud: each cloud runs on a thread-block cluster of this many
+#: (the portable cluster size), each owning a share of every product
+CLUSTER = 8
+
+#: the kernels' buffers (``csrc/erwin_block.cu:FwdBuf``/``BwdBuf``) with
+#: their kind, in the order the layouts place them into shared memory:
+#: "shared" ones are activations every rank holds whole, most of them read
+#: by peers (exchanges, partial sums), "weight"
+#: ones are the block's parameter vectors and the rank's weight slices
+#: (read from the parameter tensors themselves when they do not fit),
+#: "local" ones the rank's own
+FWD_BUFFERS = (
+    ("x", "shared"), ("qkv", "shared"), ("o", "shared"),
+    ("vec", "weight"), ("w_qkvh", "weight"), ("w_qkv", "weight"),
+    ("w_o", "weight"), ("w_1", "weight"), ("w_2", "weight"),
+    ("w_3", "weight"),
+    ("hm", "local"), ("u", "local"), ("t", "local"), ("pos", "local"),
+    ("rel", "local"), ("rinv", "local"), ("probs", "local"))
+BWD_BUFFERS = (
+    ("qkv", "shared"), ("o", "shared"), ("x1", "shared"), ("dqkv", "shared"),
+    ("vec", "weight"), ("w_qkvh", "weight"), ("w_qkv", "weight"),
+    ("w_o", "weight"), ("w_1", "weight"), ("w_2", "weight"),
+    ("w_3", "weight"),
+    ("x", "local"), ("dx1", "local"), ("hm", "local"), ("zn", "local"),
+    ("dz", "local"), ("pos", "local"), ("rel", "local"), ("r1", "local"),
+    ("r2", "local"), ("rowdot", "local"), ("u", "local"), ("t", "local"),
+    ("g", "local"), ("probs", "local"), ("dprobs", "local"))
 
 
-def smem_bytes(n: int, c: int, d: int, hidden: int) -> int:
-    """Dynamic shared memory of the kernel for one cloud, in float32: ``x``,
-    the normed/hm buffer and the attention output (``n (C+1)`` each),
-    ``qkv`` (``n (3C+1)``), the SwiGLU hidden (``n (hidden+1)``; every row is
-    padded by one float against bank conflicts), positions and relative
-    positions (``2 n D``) and one 1/rms per row."""
-    return 4 * n * (6 * c + hidden + 2 * d + 6)
+class Layout(NamedTuple):
+    """Where one kernel keeps its buffers in each CTA: ``ints`` is what the
+    C entry point takes (the offsets, the shared-memory flags and the
+    scratch stride), ``smem`` the dynamic shared memory in bytes, ``scratch``
+    the floats of global scratch per CTA."""
+    ints: tuple
+    smem: int
+    scratch: int
 
 
-def _bwd_buffer_floats(n, c, d, hidden, heads, bs):
-    """Floats of each :data:`BWD_BUFFERS` entry for one cloud (rows padded
-    by one float, as the forward's)."""
-    ldc, ld3, ldg = c + 1, 3 * c + 1, hidden + 1
-    return (n * ldc, n * ldc, n * ld3, n * ldc, n * ldc, n * ldc, n * ldc,
-            n * ldc, n * ld3, n * d, n * d, n, n, n, n * ldg, n * ldg,
-            heads * n * bs, heads * n * bs)
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def bwd_layout(n: int, c: int, d: int, hidden: int, heads: int, bs: int):
-    """Where the backward kernel keeps its buffers for one cloud.
+def _heads_spanned(items: int, per_head: int, k: int = CLUSTER) -> int:
+    """The most heads any rank's share of ``items`` (pairs or units, head
+    by head, ``per_head`` each) touches: the heads whose q, k, v rows it
+    computes."""
+    most = 0
+    for r in range(k):
+        lo, hi = items * r // k, items * (r + 1) // k
+        if hi > lo:
+            most = max(most, (hi - 1) // per_head - lo // per_head + 1)
+    return most
 
-    Each :data:`BWD_BUFFERS` entry, in order, goes into shared memory while
-    it fits in :data:`MAX_SMEM_BYTES`, and otherwise into a per-cloud global
-    scratch. Returns ``(layout, smem bytes, scratch floats per cloud)``;
-    ``layout`` is what the C entry point takes: the offsets, the
-    shared-memory flags and the scratch stride.
-    """
+
+def _buffer_floats(n, c, d, hidden, heads, bs, k=CLUSTER) -> dict:
+    """Floats of every buffer of either kernel in one CTA: the activations
+    each rank holds whole (rows padded by one float against bank
+    conflicts), its shares of the hidden columns and of the attention
+    pairs, the parameter vectors and its weight slices (rows padded
+    likewise)."""
+    ldc, ld3, hs = c + 1, 3 * c + 1, _ceil(hidden, k)
+    hd, nb = c // heads, n // bs
+    full = {name: n * ldc for name in ("x", "o", "hm", "x1", "dx1", "zn",
+                                       "dz")}
+    return {**full, "qkv": n * ld3, "dqkv": n * ld3,
+            "u": n * (hs + 1), "t": n * (hs + 1), "g": n * (hs + 1),
+            "pos": n * d, "rel": n * d, "rinv": n, "r1": n, "r2": n,
+            "rowdot": n,
+            # the forward's share of (head, query) pairs; the backward's
+            # share of whole (head, ball) units, bs pairs each
+            "probs_fwd": _ceil(heads * n, k) * bs,
+            "probs": _ceil(heads * (n // bs), k) * bs * bs,
+            "dprobs": _ceil(heads * (n // bs), k) * bs * bs,
+            "vec": 8 * c + c * d + heads + 2 * hidden,
+            # the q, k, v rows of the heads of the rank's pairs (forward)
+            # or units (backward)
+            "w_qkvh_fwd": 3 * hd * _heads_spanned(heads * n, n, k) * ldc,
+            "w_qkvh": 3 * hd * _heads_spanned(heads * nb, nb, k) * ldc,
+            "w_qkv": _ceil(3 * c, k) * ldc, "w_o": _ceil(c, k) * ldc,
+            "w_1": hs * ldc, "w_2": hs * ldc, "w_3": c * (hs + 1)}
+
+
+def _layout(buffers, floats: dict) -> Layout:
+    """Each buffer in order into shared memory while it fits in
+    :data:`MAX_SMEM_BYTES`; else a weight stays in its tensor and any other
+    buffer goes to the CTA's global scratch."""
     offs, flags = [], []
     used = spilled = 0
-    for size in _bwd_buffer_floats(n, c, d, hidden, heads, bs):
+    for name, kind in buffers:
+        size = floats[name]
         if 4 * (used + size) <= MAX_SMEM_BYTES:
             offs.append(used)
             flags.append(1)
             used += size
+        elif kind == "weight":
+            offs.append(0)
+            flags.append(0)
         else:
             offs.append(spilled)
             flags.append(0)
             spilled += size
-    return offs + flags + [spilled], 4 * used, spilled
+    return Layout(tuple(offs + flags + [spilled]), 4 * used, spilled)
 
 
-def bwd_smem_bytes(n: int, c: int, d: int, hidden: int, heads: int,
-                   bs: int) -> int:
-    """Dynamic shared memory of the backward kernel for one cloud."""
-    return bwd_layout(n, c, d, hidden, heads, bs)[1]
+def fwd_layout(n: int, c: int, d: int, hidden: int, heads: int,
+               bs: int) -> Layout:
+    """The forward kernel's buffers in one CTA of a cloud's cluster."""
+    floats = _buffer_floats(n, c, d, hidden, heads, bs)
+    floats.update(probs=floats["probs_fwd"], w_qkvh=floats["w_qkvh_fwd"],
+                  w_qkv=0)   # the forward uses no share of the Wqkv rows
+    return _layout(FWD_BUFFERS, floats)
+
+
+def bwd_layout(n: int, c: int, d: int, hidden: int, heads: int,
+               bs: int) -> Layout:
+    """The backward kernel's buffers in one CTA of a cloud's cluster."""
+    return _layout(BWD_BUFFERS, _buffer_floats(n, c, d, hidden, heads, bs))
 
 
 def eligible(n: int, c: int, num_heads: int, dim: int, hidden: int,
              d: int = 3) -> bool:
-    """Shape gate of the fused kernels, derived from the forward's shared
-    memory; one gate for both directions.
+    """Shape gate of the fused kernels, one for both directions: the JAX
+    gate (``haet_tpu/ops/pallas/erwin_block.py:eligible``: n a power of two
+    up to 512, C up to 512, heads dividing C).
 
-    The JAX gate (``n <= 512``) was sized for 16 MB of TPU VMEM. Here the
-    bound is :func:`smem_bytes` <= 227 KB: n <= 128 at C = 32 with a 128-wide
-    SwiGLU, n <= 64 at C = 64 with 256. The backward takes every shape the
-    forward takes: what does not fit in its shared memory goes to a global
-    scratch (:func:`bwd_layout`). Shapes outside the gate take the plain
-    block at the module level.
+    Every shape inside it fits: :func:`fwd_layout`/:func:`bwd_layout` keep
+    what does not fit in a CTA's shared memory in a global scratch (and
+    the weight slices in their tensors). At the car shapes everything is in
+    shared memory. ``hidden`` and ``d`` size the layouts, not the gate.
+    Shapes outside the gate take the plain block at the module level.
     """
-    return (c == dim and c % num_heads == 0 and n >= 1
-            and (n & (n - 1)) == 0
-            and smem_bytes(n, c, d, hidden) <= MAX_SMEM_BYTES)
+    return (c == dim and c % num_heads == 0 and 1 <= n <= 512 and c <= 512
+            and (n & (n - 1)) == 0)
+
+
+class _Plan(NamedTuple):
+    fwd: Layout
+    bwd: Layout
+    fwd_ints: ctypes.Array
+    bwd_ints: ctypes.Array
+    grad_shapes: tuple
+    grad_sizes: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, c: int, d: int, hidden: int, heads: int, bs: int) -> _Plan:
+    """Both layouts, as the C entry points take them, and the gradient
+    shapes, once per block shape."""
+    fwd = fwd_layout(n, c, d, hidden, heads, bs)
+    bwd = bwd_layout(n, c, d, hidden, heads, bs)
+    shapes = param_shapes(c, d, heads, hidden)
+    grad_shapes = tuple(shapes[k] for k in GRAD_NAMES)
+    return _Plan(fwd, bwd, (ctypes.c_int * len(fwd.ints))(*fwd.ints),
+                 (ctypes.c_int * len(bwd.ints))(*bwd.ints), grad_shapes,
+                 tuple(math.prod(s) for s in grad_shapes))
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +326,9 @@ def _checked(what, x, pos, params, num_heads, use_dist_bias, dout=None):
                     d):
         raise ValueError(
             f"{what}: shape n={n}, C={c}, heads={num_heads}, "
-            f"hidden={hidden}, D={d} is outside the kernel's gate "
-            f"(needs {smem_bytes(n, c, d, hidden)} B of shared memory, "
-            f"limit {MAX_SMEM_BYTES}); route it to the plain block")
+            f"hidden={hidden}, D={d} is outside the kernel's gate (n a "
+            f"power of two up to 512, C up to 512 and divisible by the "
+            f"heads); route it to the plain block")
     shapes = {"x": (b, n, c), "pos": (b, n, d), "dout": (b, n, c),
               **param_shapes(c, d, num_heads, hidden)}
     tensors = {"x": x, "pos": pos}
@@ -297,16 +389,30 @@ def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
           for k in PARAM_NAMES))
 
 
+def _scratch(layout: Layout, clouds: int, device):
+    """The CTAs' global scratch for what ``layout`` spills, or None."""
+    if not layout.scratch:
+        return None
+    return torch.empty((clouds * CLUSTER, layout.scratch), device=device,
+                       dtype=torch.float32)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _fused_fwd(x, pos, params, ball_size, num_heads, use_dist_bias):
     b, n, c, d, hidden, ptrs = _checked("fused_erwin_block", x, pos, params,
                                         num_heads, use_dist_bias)
     bs = effective_ball_size(ball_size, n)
+    plan = _plan(n, c, d, hidden, num_heads, bs)
     out = torch.empty_like(x)
+    scratch = _scratch(plan.fwd, b, x.device)
     lib = _lib()
     status = lib.haet_erwin_block_fwd_f32(
-        x.data_ptr(), pos.data_ptr(), out.data_ptr(), *ptrs,
-        b, n, c, d, num_heads, bs, hidden, int(use_dist_bias),
-        smem_bytes(n, c, d, hidden), _stream(x.device))
+        x.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(scratch), *ptrs,
+        b, n, c, d, num_heads, bs, hidden, int(use_dist_bias), CLUSTER,
+        plan.fwd_ints, plan.fwd.smem, _stream(x.device))
     _build.check(lib, status, "fused_erwin_block")
     LAUNCHES.add()
     return out
@@ -332,27 +438,26 @@ def fused_erwin_block_bwd(x, pos, dout, params: dict, *, ball_size: int,
                                         params, num_heads, use_dist_bias,
                                         dout)
     bs = effective_ball_size(ball_size, n)
-    layout, smem, spilled = bwd_layout(n, c, d, hidden, num_heads, bs)
-    shapes = param_shapes(c, d, num_heads, hidden)
-    sizes = [math.prod(shapes[k]) for k in GRAD_NAMES]
+    plan = _plan(n, c, d, hidden, num_heads, bs)
     dev = x.device
+    np_ = sum(plan.grad_sizes)
     dx = torch.empty_like(x)
     dpos = torch.empty_like(pos)
-    partials = torch.empty((b, sum(sizes)), device=dev, dtype=torch.float32)
-    grads = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
-    scratch = (torch.empty((b, spilled), device=dev, dtype=torch.float32)
-               if spilled else None)
+    partials = torch.empty((b, np_), device=dev, dtype=torch.float32)
+    grads = torch.empty(np_, device=dev, dtype=torch.float32)
+    scratch = _scratch(plan.bwd, b, dev)
     lib = _lib()
     status = lib.haet_erwin_block_bwd_f32(
         x.data_ptr(), pos.data_ptr(), dout.data_ptr(), dx.data_ptr(),
         dpos.data_ptr(), partials.data_ptr(), grads.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), *ptrs,
-        b, n, c, d, num_heads, bs, hidden, int(use_dist_bias), sum(sizes),
-        (ctypes.c_int * len(layout))(*layout), smem, _stream(dev))
+        _ptr(scratch), *ptrs, b, n, c, d, num_heads, bs, hidden,
+        int(use_dist_bias), np_, CLUSTER, plan.bwd_ints, plan.bwd.smem,
+        _stream(dev))
     _build.check(lib, status, "fused_erwin_block_bwd")
     BWD_LAUNCHES.add()
-    return dx, dpos, {k: g.view(shapes[k]) for k, g in
-                      zip(GRAD_NAMES, grads.split(sizes))}
+    return dx, dpos, {k: g.view(shape) for k, g, shape in
+                      zip(GRAD_NAMES, grads.split(plan.grad_sizes),
+                          plan.grad_shapes)}
 
 
 class ErwinBlockFn(torch.autograd.Function):
@@ -384,10 +489,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("erwin_block")
     if not getattr(lib, "_haet_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.haet_erwin_block_fwd_f32.argtypes = [P] * 18 + [I] * 8 + [I, P]
+        lib.haet_erwin_block_fwd_f32.argtypes = (
+            [P] * 19 + [I] * 9 + [ctypes.POINTER(I), I, P])
         lib.haet_erwin_block_fwd_f32.restype = I
         lib.haet_erwin_block_bwd_f32.argtypes = (
-            [P] * 23 + [I] * 9 + [ctypes.POINTER(I), I, P])
+            [P] * 23 + [I] * 10 + [ctypes.POINTER(I), I, P])
         lib.haet_erwin_block_bwd_f32.restype = I
         lib._haet_typed = True
     return lib

@@ -81,12 +81,16 @@ def test_block_matches_jax(n, c, ball, heads, use_dist_bias):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("c,hidden,edge", [(32, 128, 128), (64, 256, 64)])
+@pytest.mark.parametrize("c,hidden,edge", [(32, 128, 512), (64, 256, 512)])
 def test_eligible_at_its_edge(c, hidden, edge):
-    """The gate admits exactly the power-of-two clouds whose shared memory
-    fits in 227 KB."""
-    assert teb.smem_bytes(edge, c, 3, hidden) <= teb.MAX_SMEM_BYTES
-    assert teb.smem_bytes(2 * edge, c, 3, hidden) > teb.MAX_SMEM_BYTES
+    """The gate is the JAX gate (n a power of two up to 512): at its edge
+    both kernels' per-CTA layouts still fit in 227 KB of shared memory, the
+    rest in their global scratch."""
+    for layout in (teb.fwd_layout(edge, c, 3, hidden, 8, 32),
+                   teb.bwd_layout(edge, c, 3, hidden, 8, 32)):
+        assert layout.smem <= teb.MAX_SMEM_BYTES
+        assert layout.scratch > 0
+    assert jeb.eligible(edge, c, 8, c) and not jeb.eligible(2 * edge, c, 8, c)
     assert teb.eligible(edge, c, 8, c, hidden)
     assert not teb.eligible(2 * edge, c, 8, c, hidden)
     assert not teb.eligible(edge - 1, c, 8, c, hidden)      # not a power of 2
@@ -101,7 +105,7 @@ def test_block_routes_outside_gate_to_plain():
     blk = TBlock(32, 4, 32, 4, 3, True, use_pallas=True)
     with torch.no_grad():
         blk.BMSA.sigma_att.fill_(-1.0)
-    x, pos = _mk(1, 256, 32, 3)
+    x, pos = _mk(1, 1024, 32, 3)
     xt, pt = torch.from_numpy(x), torch.from_numpy(pos)
     assert not blk.fused_ok(xt, pt)
     teb.PLAIN_ROUTES.reset()

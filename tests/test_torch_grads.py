@@ -230,27 +230,30 @@ def test_block_grads_match_jax(n, c, ball, heads, use_dist_bias):
 @pytest.mark.parametrize("n,c,ball", [(32, 32, 32), (16, 64, 16),
                                       (128, 32, 32), (64, 64, 16)])
 def test_bwd_layout(n, c, ball):
-    """The backward's buffers fit in shared memory at the car shapes; at
-    the largest clouds the forward's gate admits, what does not fit goes to
-    the global scratch, and no two buffers of one space overlap."""
+    """The backward's buffers fit in one CTA's shared memory at the car
+    shapes; at the largest clouds the one-CTA gate admitted, what does not fit
+    goes to the global scratch while the buffers the ranks exchange stay in
+    shared memory, and no two buffers of one space overlap."""
     hidden, heads = 4 * c, 8
     assert teb.eligible(n, c, heads, c, hidden)
-    layout, smem, spilled = teb.bwd_layout(n, c, 3, hidden, heads, ball)
+    layout = teb.bwd_layout(n, c, 3, hidden, heads, ball)
     nbuf = len(teb.BWD_BUFFERS)
-    offs, flags = layout[:nbuf], layout[nbuf:2 * nbuf]
-    assert layout[2 * nbuf] == spilled and len(layout) == 2 * nbuf + 1
-    assert smem <= teb.MAX_SMEM_BYTES
-    assert smem == teb.bwd_smem_bytes(n, c, 3, hidden, heads, ball)
-    sizes = teb._bwd_buffer_floats(n, c, 3, hidden, heads, ball)
-    for space, total in ((1, smem // 4), (0, spilled)):
-        spans = sorted((o, o + s) for o, s, f in zip(offs, sizes, flags)
-                       if f == space)
+    offs, flags = layout.ints[:nbuf], layout.ints[nbuf:2 * nbuf]
+    assert layout.ints[2 * nbuf] == layout.scratch
+    assert len(layout.ints) == 2 * nbuf + 1
+    assert layout.smem <= teb.MAX_SMEM_BYTES
+    floats = teb._buffer_floats(n, c, 3, hidden, heads, ball)
+    sizes = [floats[name] for name, _ in teb.BWD_BUFFERS]
+    kinds = [kind for _, kind in teb.BWD_BUFFERS]
+    for space, total in ((1, layout.smem // 4), (0, layout.scratch)):
+        spans = sorted((o, o + s) for o, s, f, k in
+                       zip(offs, sizes, flags, kinds)
+                       if f == space and not (space == 0 and k == "weight"))
         assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
         assert all(end <= total for _, end in spans)
     car = n * c in (32 * 32, 16 * 64)
-    assert (spilled == 0) == car
-    if not car:   # the forward's residents stay in shared memory
-        assert all(flags[:teb.BWD_BUFFERS.index("rowdot") + 1])
+    assert (layout.scratch == 0) == car
+    assert all(f for f, k in zip(flags, kinds) if k != "local")
 
 
 def test_param_grad_sizes():
