@@ -11,13 +11,24 @@ Phases (any failed check exits non-zero before the final line):
    stack and spill report for every kernel.
 3. Each kernel at the ShapeNet-Car serving shapes against its plain PyTorch
    version on the card: max abs/rel error against the stated tolerance, the
-   kernel's time (CUDA events over back-to-back launches, and for the Erwin
-   kernels also the profiler's device time per call), the plain version's
-   time and the bound (least time the card could take for the same bytes
-   and float32 operations). Each Erwin line prints its launch shape (a
-   cluster of K CTAs per cloud, shared memory per CTA). The Erwin forward is
-   also checked at the serve burst's 32 clouds (timed on the device) and,
-   untimed, at the gate's edges (``ERWIN_EDGES``).
+   kernel's time (CUDA events over back-to-back launches, and the
+   profiler's device time per call), the plain version's time and the bound
+   (least time the card could take for the same bytes and float32
+   operations; for the slice kernels, whose products run in 3xTF32 on the
+   tensor cores, the operations at the faster of that rate and float32's).
+   The slice kernels run at serve batch 1, the burst's batch of 4 and the
+   training batch (``SLICE_TIMED``: device time with the L2 flushed before
+   each call, beside the bound and, as context, the float32-FMA bound)
+   and, untimed, at ``SLICE_EDGES`` (G 64 at C 16 and 32, ragged N 1, 255,
+   257, and widths of the generic kernels); every slice line prints each
+   kernel's grid and shared memory per block, and two calls must give
+   bit-identical states, m, s and out. One generic edge with the weights
+   unscaled (``SLICE_UNSCALED``: logits past 100, where float32 itself
+   loses digits) is held to a float64 reference instead, beside the plain
+   version's own distance from it. Each Erwin line prints its launch
+   shape (a cluster of K CTAs per cloud, shared memory per CTA). The Erwin
+   forward is also checked at the serve burst's 32 clouds (timed on the
+   device) and, untimed, at the gate's edges (``ERWIN_EDGES``).
 3b. The backwards against autograd of their plain versions on the card:
    the Erwin block's backward kernel at both car block shapes (dx, dpos and
    all 14 parameter gradients, timed, with its bound) and, untimed, at the
@@ -58,7 +69,8 @@ Phases (any failed check exits non-zero before the final line):
       The car uses 8 heads and SwiGLU 4C throughout. Records gain
       ``micro_*``, ``flags_n32_c32_*`` and ``flags_n16_c64_*``.
    c. ``slice_states``/``deslice`` against their plain versions, untimed,
-      at ``[1, 8, 2**20, 32]``, the memory probes' size.
+      at ``[1, 8, 2**20, 32]``, the memory probes' size, two calls
+      bit-identical.
    d. ``micro_erwin_fused`` with reduced windows: the copy counter rises by
       exactly the chained calls the driver made, the Erwin counters by
       exactly the fused lines' calls, and no block takes the plain route.
@@ -273,56 +285,195 @@ def erwin_bwd_bound(n_e, c_e, ball, heads=8, mlp_ratio=4):
     return bound_ms(nbytes, 3 * fwd_flops)
 
 
+#: the slice kernels' timed shapes ``tag: (B, H, N, C, G)``: serve batch
+#: 1, the serve burst's batch of 4, the padded training batch
+#: (``benchmarks/slice_kernels.py:SHAPES``)
+SLICE_TIMED = {"serve_b1": (1, 8, N_POINTS, 32, 32),
+               "burst_b4": (4, 8, N_POINTS, 32, 32),
+               "train_b1": (1, 8, N_PADDED, 32, 32)}
+#: untimed: the presets' widest slices (G 64 at C 16 and 32), ragged N
+#: around the kernels' 256-row block unit, and widths that take the generic
+#: kernels (G*C <= 2048 with C > 32 or G > 64)
+SLICE_EDGES = {"g64_c16": (1, 8, N_POINTS, 16, 64),
+               "g64_c32": (1, 8, N_POINTS, 32, 64),
+               "n1": (1, 8, 1, 32, 32), "n255": (1, 8, 255, 32, 32),
+               "n257": (1, 8, 257, 32, 32),
+               "c13_g20": (1, 8, 3001, 13, 20),
+               "generic_c128_g16": (1, 8, 3001, 128, 16),
+               "generic_c16_g128": (1, 8, 3001, 16, 128)}
+#: the edge ``generic_c128_g16`` with its seed, but ``ws`` 0.3 N(0, 1) and
+#: ``wa`` 0.1 N(0, 1) unscaled: most temperatures clamp to 0.1 and logits
+#: reach ~120, so two float32 computations differ by ~1e-4 of max |out|
+#: (the plain version alone is ~4e-5 from float64 there, on the CPU)
+SLICE_UNSCALED = ("generic_c128_g16", SLICE_EDGES["generic_c128_g16"],
+                  list(SLICE_EDGES).index("generic_c128_g16"))
+
+
+def slice_phase(dev, shapes, timed: bool, label: str = "phase 3"):
+    """Both slice kernels against their plain versions at ``shapes``
+    (``tag: (B, H, N, C, G)``), within ``KERNEL_RTOL`` of each output's
+    max, and two calls bit-identical (states, m, s, out). Prints each
+    launch's grid and shared memory per block. When ``timed``: the
+    profiler's device us per call with the L2 flushed before each call
+    (every kernel of the op, named), CUDA-event ms of back-to-back calls,
+    the plain version's ms and the bound; returns the two kernel records
+    (event and plain times and the bound at the first shape)."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    rec = {k: {"err": 0.0, "us": {}, "bound_us": {}, "f32_bound_us": {},
+               "names": set(), "ms": None}
+           for k in ("slice_states", "deslice")}
+    for i, (tag, shape) in enumerate(shapes.items()):
+        b, h, n, c, gs = shape
+        print(f"{label}: slice_states / deslice ({tag})  x [{b}, {h}, {n}, "
+              f"{c}], G {gs}; {slice_launches(dev, shape)}", flush=True)
+        x, ws, bs, wa, ba, st = sb.inputs(shape, dev, SEED + 10 + i)
+        with torch.inference_mode():
+            got = sk.slice_states(x, ws, bs, wa, ba)
+            again = sk.slice_states(x, ws, bs, wa, ba)
+            want = sk.slice_states_plain(x, ws, bs, wa, ba)
+            torch.cuda.synchronize()
+            rec["slice_states"]["err"] = max(
+                rec["slice_states"]["err"],
+                *(compare(nm, a, w, KERNEL_RTOL)
+                  for nm, a, w in zip(("states", "m", "s"), got, want)))
+            same = all(torch.equal(a, w) for a, w in zip(got, again))
+            m_p, s_p = want[1], want[2]
+            del got, again, want
+            out_k = sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p)
+            out_2 = sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p)
+            out_p = sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p)
+            torch.cuda.synchronize()
+            rec["deslice"]["err"] = max(rec["deslice"]["err"],
+                                        compare("out", out_k, out_p,
+                                                KERNEL_RTOL))
+            same = same and torch.equal(out_k, out_2)
+            del out_k, out_2, out_p
+            print(f"  two calls bit-identical (states, m, s, out): {same}",
+                  flush=True)
+            check(same, f"slice kernels at {tag} are not deterministic")
+            if not timed:
+                continue
+            fns = {"slice_states": (
+                       lambda: sk.slice_states(x, ws, bs, wa, ba),
+                       lambda: sk.slice_states_plain(x, ws, bs, wa, ba)),
+                   "deslice": (
+                       lambda: sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p),
+                       lambda: sk.deslice_plain(x, ws, bs, wa, ba, st, m_p,
+                                                s_p))}
+            for kind, (fn, plain_fn) in fns.items():
+                r = rec[kind]
+                us, names = sb.flushed_us(fn, 30)
+                bound = sb.bound_us(kind, shape)
+                f32 = sb.bound_us(kind, shape, float32_only=True)
+                r["us"][tag], r["bound_us"][tag] = us, bound[0]
+                r["f32_bound_us"][tag] = f32[0]
+                r["names"].update(names)
+                if r["ms"] is None:
+                    r["ms"], r["plain_ms"] = cuda_ms(fn), cuda_ms(plain_fn)
+                    r["bound"] = (bound[0] / 1e3, bound[1])
+                    print_times(r["ms"], r["plain_ms"], r["bound"])
+                print(f"  {kind}: device {us:.2f} us per call (profiler, L2 "
+                      f"flushed; {names}); bound {bound[0]:.2f} us "
+                      f"({bound[1]}; 3xTF32 tensor cores), {bound[0] / us:.0%}"
+                      f" of it; float32-FMA bound {f32[0]:.2f} us ({f32[1]}),"
+                      f" context", flush=True)
+        del x, st
+        torch.cuda.empty_cache()
+    if not timed:
+        return None
+    replaces = {"slice_states": "haet_tpu/ops/pallas/slice_kernels.py:73",
+                "deslice": "haet_tpu/ops/pallas/slice_kernels.py:125"}
+    return [kernel_record(k, "haet_torch/csrc/slice_kernels.cu", replaces[k],
+                          r["err"], r["ms"], r["plain_ms"], r["bound"],
+                          device_us_per_call=r["us"],
+                          bound_us=r["bound_us"],
+                          float32_bound_us=r["f32_bound_us"],
+                          kernel_names=sorted(r["names"]))
+            for k, r in rec.items()]
+
+
+def slice_launches(dev, shape) -> str:
+    """Both slice kernels' route, grid and shared memory per block."""
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    b, h, n, c, gs = shape
+    parts = []
+    for kind in ("slice_states", "deslice"):
+        geom = sk.launch_geometry(kind, b * h, n, c, gs, sk.sm_count(dev))
+        parts.append(f"{kind} {geom.route}, grid ({geom.per_cloud}, {b * h}, "
+                     f"{geom.groups}) x 256 threads, {geom.span} rows per "
+                     f"block, {geom.smem} B dynamic shared memory")
+    return "; ".join(parts)
+
+
+def slice_f64(x, ws, bs, wa, ba, st, m, s, base_temp=0.5, epsilon=1e-6):
+    """slice_states ``(states, m, s)`` and deslice's ``out`` (from the
+    given ``m``, ``s``) computed in float64 from the float32 inputs."""
+    import math
+
+    import torch
+
+    x, ws, bs, wa, ba, st = (t.double() for t in (x, ws, bs, wa, ba, st))
+    tau = base_temp + (x @ wa + ba).clamp(-0.4, 0.4)
+    z = (x @ ws + bs - math.log(-math.log(epsilon))) / tau
+    m64 = z.amax(dim=2)
+    e = torch.exp(z - m64[:, :, None])
+    s64 = e.sum(dim=2)
+    states = torch.einsum("bhng,bhnc->bhgc", e, x) / s64[..., None]
+    states = states / (1 + 1e-5)
+    w = torch.exp(z - m.double()[:, :, None]) / s.double()[:, :, None]
+    return (states, m64, s64), torch.einsum("bhng,bhgc->bhnc", w, st)
+
+
+def slice_unscaled_phase(dev):
+    """``SLICE_UNSCALED``: the generic kernels and the plain version both
+    against float64; the kernels within ``KERNEL_RTOL`` of each output's
+    max of the float64 value. Prints the plain version's distance from
+    float64 (the witness that float32 loses those digits) and the kernels'
+    from the plain version."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    tag, shape, index = SLICE_UNSCALED
+    b, h, n, c, gs = shape
+    print(f"phase 3: slice_states / deslice ({tag}, weights unscaled)  x "
+          f"[{b}, {h}, {n}, {c}], G {gs}; {slice_launches(dev, shape)}",
+          flush=True)
+    x, ws, bs, wa, ba, st = sb.inputs(shape, dev, SEED + 10 + index,
+                                      scaled=False)
+    with torch.inference_mode():
+        got = sk.slice_states(x, ws, bs, wa, ba)
+        plain = sk.slice_states_plain(x, ws, bs, wa, ba)
+        m_p, s_p = plain[1], plain[2]
+        out_k = sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p)
+        out_p = sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p)
+        ref, out_ref = slice_f64(x, ws, bs, wa, ba, st, m_p, s_p)
+        torch.cuda.synchronize()
+    for name, k, p, r in zip(("states", "m", "s", "out"), (*got, out_k),
+                             (*plain, out_p), (*ref, out_ref)):
+        scale = float(r.abs().max())
+        plain_rel = float((p.double() - r).abs().max()) / scale
+        kp_rel = float((k.double() - p.double()).abs().max()) / scale
+        print(f"  {name}: plain float32 vs float64 rel {plain_rel:.3e}; "
+              f"kernel vs plain rel {kp_rel:.3e}", flush=True)
+        compare(f"{name} vs float64", k, r, KERNEL_RTOL)
+
+
 def kernel_phase(dev):
     import torch
 
     from haet_torch.ops.kernels import erwin_block as eb
-    from haet_torch.ops.kernels import slice_kernels as sk
 
     g = torch.Generator().manual_seed(SEED)
-    b, h, n, c, gs = 1, 8, N_POINTS, 32, 32
-    x = torch.randn(b, h, n, c, generator=g).to(dev)
-    ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
-    bs = (0.1 * torch.randn(gs, generator=g)).to(dev)
-    wa = (0.1 * torch.randn(c, 1, generator=g)).to(dev)
-    ba = torch.zeros(1).to(dev)
-    records = []
-
-    print(f"phase 3: slice_states  x [1, 8, {n}, 32], G 32", flush=True)
-    st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
-    st_p, m_p, s_p = sk.slice_states_plain(x, ws, bs, wa, ba)
-    torch.cuda.synchronize()
-    err = max(compare("states", st_k, st_p, KERNEL_RTOL),
-              compare("m", m_k, m_p, KERNEL_RTOL),
-              compare("s", s_k, s_p, KERNEL_RTOL))
-    ms = cuda_ms(lambda: sk.slice_states(x, ws, bs, wa, ba))
-    plain_ms = cuda_ms(lambda: sk.slice_states_plain(x, ws, bs, wa, ba))
-    bh = b * h
-    nbytes = 4 * (bh * n * c + c * gs + gs + c + 1 + bh * gs * c + 2 * bh * gs)
-    flops = 2 * bh * n * (2 * c * gs + c)
-    bound = bound_ms(nbytes, flops)
-    print_times(ms, plain_ms, bound)
-    records.append(kernel_record(
-        "slice_states", "haet_torch/csrc/slice_kernels.cu",
-        "haet_tpu/ops/pallas/slice_kernels.py:73", err, ms, plain_ms, bound))
-
-    print(f"phase 3: deslice  x [1, 8, {n}, 32], G 32", flush=True)
-    st = torch.randn(b, h, gs, c, generator=g).to(dev)
-    out_k = sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p)
-    out_p = sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p)
-    torch.cuda.synchronize()
-    err = compare("out", out_k, out_p, KERNEL_RTOL)
-    ms = cuda_ms(lambda: sk.deslice(x, ws, bs, wa, ba, st, m_p, s_p))
-    plain_ms = cuda_ms(
-        lambda: sk.deslice_plain(x, ws, bs, wa, ba, st, m_p, s_p))
-    nbytes = 4 * (2 * bh * n * c + c * gs + gs + c + 1 + bh * gs * c
-                  + 2 * bh * gs)
-    flops = 2 * bh * n * (2 * c * gs + c)
-    bound = bound_ms(nbytes, flops)
-    print_times(ms, plain_ms, bound)
-    records.append(kernel_record(
-        "deslice", "haet_torch/csrc/slice_kernels.cu",
-        "haet_tpu/ops/pallas/slice_kernels.py:125", err, ms, plain_ms, bound))
+    records = slice_phase(dev, SLICE_TIMED, timed=True)
+    slice_phase(dev, SLICE_EDGES, timed=False)
+    slice_unscaled_phase(dev)
 
     def erwin_case(n_e, c_e, ball, clouds=8):
         """One block shape's inputs, and the kernel's error against its
@@ -973,33 +1124,8 @@ def driver_shape_phase(dev, records):
 def large_slice_phase(dev):
     """7c: the slice kernels, untimed, at ``N_LARGE`` points, the memory
     probes' size."""
-    import torch
-
-    from haet_torch.ops.kernels import slice_kernels as sk
-
-    g = torch.Generator().manual_seed(SEED + 7)
-    b, h, n, c, gs = 1, 8, N_LARGE, 32, 32
-    print(f"phase 7c: slice_states / deslice  x [1, 8, {n}, 32], G 32",
-          flush=True)
-    x = torch.randn(b, h, n, c, generator=g).to(dev)
-    ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
-    bs = (0.1 * torch.randn(gs, generator=g)).to(dev)
-    wa = (0.1 * torch.randn(c, 1, generator=g)).to(dev)
-    ba = torch.zeros(1).to(dev)
-    st_in = torch.randn(b, h, gs, c, generator=g).to(dev)
-    with torch.inference_mode():
-        st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
-        st_p, m_p, s_p = sk.slice_states_plain(x, ws, bs, wa, ba)
-        torch.cuda.synchronize()
-        compare("states", st_k, st_p, KERNEL_RTOL)
-        compare("m", m_k, m_p, KERNEL_RTOL)
-        compare("s", s_k, s_p, KERNEL_RTOL)
-        del st_k, st_p
-        out_k = sk.deslice(x, ws, bs, wa, ba, st_in, m_p, s_p)
-        out_p = sk.deslice_plain(x, ws, bs, wa, ba, st_in, m_p, s_p)
-        torch.cuda.synchronize()
-        compare("out", out_k, out_p, KERNEL_RTOL)
-    torch.cuda.empty_cache()
+    slice_phase(dev, {"large": (1, 8, N_LARGE, 32, 32)}, timed=False,
+                label="phase 7c")
 
 
 def expect_counts(what, counts, want):

@@ -13,7 +13,14 @@ with the same arguments and layouts:
 The kernels (``haet_torch/csrc/slice_kernels.cu``) never materialise the
 ``[B, H, N, G]`` weights. On CPU tensors the wrappers run the plain versions
 below, which do materialise them; on CUDA tensors they launch the kernel or
-raise.
+raise. :func:`launch_geometry` is the kernels' cut of the points axis, in
+Python so that it can be tested without a card: each cloud's N goes to
+``per_cloud`` blocks of ``span`` rows (for slice_states, per group of
+:func:`register_slices` slices), and a block's :data:`WARPS` warps take its
+tiles of :data:`TILE_ROWS` rows in turn (:func:`warp_tiles`). The fast
+kernels take C <= 32 and G <= 64 (:func:`fast_widths`), every preset's
+widths; the rest of the gate (C > 32 or G > 64) takes the generic kernels,
+which split N into :data:`CHUNK`-point blocks.
 
 Gradients: :class:`SliceStatesFn` and :class:`DesliceFn` wrap the forwards,
 and their backwards are :func:`slice_states_bwd` and :func:`deslice_bwd` on
@@ -28,15 +35,22 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from typing import NamedTuple
 
 import torch
 
 from . import LaunchCounter, _build
 
-#: points per block of the slice_states partial pass (8 x 126 blocks at the
-#: car shapes, B*H = 8, N = 32186)
+#: warps per block of the fast kernels, rows per warp tile, ring slots per
+#: warp (``WARPS``, ``TR``, ``STAGES`` in the CUDA source)
+WARPS = 8
+TILE_ROWS = 32
+STAGES = 2
+#: points per block of the generic slice_states partial pass
 CHUNK = 256
-#: the kernel keeps G*C accumulators in registers: 256 threads x 8
+#: the kernels take G*C up to this (the generic kernels keep G*C
+#: accumulators in registers: 256 threads x 8)
 MAX_GC = 256 * 8
 #: points per chunk of the backward passes (``_BWD_CHUNK`` of the JAX code);
 #: a module constant so that tests can make the chunk loop run several times
@@ -51,6 +65,118 @@ DESLICE_LAUNCHES = LaunchCounter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class Geometry(NamedTuple):
+    """One kernel's launch: ``route`` "fast" or "generic"; the grid is
+    ``(per_cloud, bh, groups)`` blocks of 256 threads, block ``b`` covering
+    rows ``[b * span, min(n, (b + 1) * span))`` of its cloud, and one group
+    of slices; ``smem`` is the fast kernel's dynamic shared memory per
+    block in bytes (0 on the generic route)."""
+
+    route: str
+    per_cloud: int
+    span: int
+    groups: int
+    smem: int
+
+
+def fast_widths(c: int, g: int):
+    """``(CM, GL)`` of the fast kernels for C channels and G slices, or
+    None: C padded to ``CM`` in {8, 16, 32}, G to ``32 * GL`` with ``GL``
+    in {1, 2} (``fast_key`` in the CUDA source)."""
+    cm = next((w for w in (8, 16, 32) if c <= w), None)
+    gl = 1 if g <= 32 else 2 if g <= 64 else None
+    if cm is None or gl is None:
+        return None
+    return cm, gl
+
+
+def register_slices(cm: int, gl: int) -> int:
+    """Slices whose tensor-core fragments of Ws (and the states) a lane
+    holds at once: all ``32 * GL`` where ``CM * GL <= 32``, else 32
+    (``held_slices`` in the CUDA source). slice_states gives each group of
+    them its own blocks; deslice rebuilds the fragments group by group."""
+    return 32 * gl if cm * gl <= 32 else 32
+
+
+def fast_smem_bytes(c: int, g: int, per_cloud: int):
+    """``(slice_states, deslice)`` dynamic shared memory per block of the
+    fast kernels (``states_smem``/``deslice_smem`` in the CUDA source): the
+    warps' x rings (rows padded to CM + 4 floats) and the staged Ws, bs and
+    Wa of the block's slices (and for deslice, of all slices, states / s
+    and m); for slice_states, the larger of that and its two merges."""
+    cm, gl = fast_widths(c, g)
+    gp, gb = 32 * gl, register_slices(cm, gl)
+    ring = WARPS * STAGES * TILE_ROWS * (cm + 4)
+
+    def staged(slices):  # Ws [CM][slices + 1], bs [slices], Wa [CM]
+        return cm * (slices + 1) + slices + cm
+
+    states = max(ring + staged(gb), WARPS * gb * (2 + cm + 8) + gb,
+                 (2 * per_cloud + 2) * gb)
+    return 4 * states, 4 * (ring + staged(gp) + gp * (cm + 4) + gp)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
+                    sms: int) -> Geometry:
+    """The launch of ``kernel`` ("slice_states" or "deslice") for ``bh``
+    clouds of ``n`` points on a card of ``sms`` multiprocessors. A fast
+    kernel fills one wave, one block per SM (its ``__launch_bounds__``),
+    shared among the clouds and, for slice_states, its slice groups; each
+    block's range is a whole number of its warps' tiles. Other widths take
+    the generic kernels' one block per :data:`CHUNK` points."""
+    widths = fast_widths(c, g)
+    if widths is None:
+        return Geometry("generic", _cdiv(n, CHUNK), CHUNK, 1, 0)
+    groups = (32 * widths[1] // register_slices(*widths)
+              if kernel == "slice_states" else 1)
+    per_cloud = max(1, min(sms // (bh * groups), _cdiv(n, TILE_ROWS)))
+    block_rows = WARPS * TILE_ROWS
+    span = _cdiv(_cdiv(n, per_cloud), block_rows) * block_rows
+    per_cloud = _cdiv(n, span)
+    smem = fast_smem_bytes(c, g, per_cloud)
+    return Geometry("fast", per_cloud, span, groups,
+                    smem[0] if kernel == "slice_states" else smem[1])
+
+
+def warp_tiles(geom: Geometry, n: int):
+    """``(block, warp, row0, rows)`` of every tile a fast-kernel launch
+    reads from one cloud, in the order each warp takes them."""
+    for blk in range(geom.per_cloud):
+        begin = blk * geom.span
+        end = min(n, begin + geom.span)
+        for warp in range(WARPS):
+            for row0 in range(begin + warp * TILE_ROWS, end,
+                              WARPS * TILE_ROWS):
+                yield blk, warp, row0, min(TILE_ROWS, end - row0)
+
+
+def sm_count(device) -> int:
+    """The card's multiprocessors."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def _counter(device, stream_ptr: int, count: int) -> torch.Tensor:
+    """The fast slice_states' arrival counters (one per cloud and slice
+    group) for one stream: int32 zeros, which the kernel's last block of
+    each cloud and group resets."""
+    key = (device.index, stream_ptr)
+    with _COUNTERS_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < count:
+            buf = torch.zeros(max(count, 64), device=device,
+                              dtype=torch.int32)
+            _COUNTERS[key] = buf
+        return buf
 
 
 def _shift(epsilon: float) -> float:
@@ -168,22 +294,38 @@ def _slice_states_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
                          f"{x_proj.device}")
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     bh = b * h
-    n_chunks = -(-n // CHUNK)
     dev = x_proj.device
-    part_m = torch.empty((bh, n_chunks, g), device=dev, dtype=torch.float32)
-    part_s = torch.empty_like(part_m)
-    part_acc = torch.empty((bh, n_chunks, g, c), device=dev,
-                           dtype=torch.float32)
+    geom = launch_geometry("slice_states", bh, n, c, g, sm_count(dev))
     states = torch.empty((b, h, g, c), device=dev, dtype=torch.float32)
     m = torch.empty((b, h, g), device=dev, dtype=torch.float32)
     s = torch.empty_like(m)
     lib = _lib()
-    status = lib.haet_slice_states_f32(
-        x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
-        w_ada.data_ptr(), b_ada.data_ptr(), part_m.data_ptr(),
-        part_s.data_ptr(), part_acc.data_ptr(), states.data_ptr(),
-        m.data_ptr(), s.data_ptr(), bh, n, c, g, CHUNK, base_temp,
-        _shift(epsilon), _stream(dev))
+    stream = _stream(dev)
+    # partial softmax states per block: [BH, groups, blocks, G, C], G and C
+    # padded to a fast block's slices and channels on that route
+    if geom.route == "fast":
+        cm, gl = fast_widths(c, g)
+        pg, pc = register_slices(cm, gl), cm
+    else:
+        pg, pc = g, c
+    part_m = torch.empty((bh * geom.groups, geom.per_cloud, pg), device=dev,
+                         dtype=torch.float32)
+    part_s = torch.empty_like(part_m)
+    part_acc = torch.empty((bh * geom.groups, geom.per_cloud, pg, pc),
+                           device=dev, dtype=torch.float32)
+    head = (x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
+            w_ada.data_ptr(), b_ada.data_ptr(), part_m.data_ptr(),
+            part_s.data_ptr(), part_acc.data_ptr())
+    tail = (states.data_ptr(), m.data_ptr(), s.data_ptr(), bh, n, c, g)
+    if geom.route == "fast":
+        status = lib.haet_slice_states_f32(
+            *head, _counter(dev, stream.value, bh * geom.groups).data_ptr(),
+            *tail,
+            geom.per_cloud, geom.span, base_temp, _shift(epsilon),
+            geom.smem, stream)
+    else:
+        status = lib.haet_slice_states_generic_f32(
+            *head, *tail, CHUNK, base_temp, _shift(epsilon), stream)
     _build.check(lib, status, "slice_states")
     SLICE_STATES_LAUNCHES.add()
     return states, m, s
@@ -204,11 +346,17 @@ def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
     _check("s", s, (b, h, g), dev)
     out = torch.empty_like(x_proj)
     lib = _lib()
-    status = lib.haet_deslice_f32(
-        x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
-        w_ada.data_ptr(), b_ada.data_ptr(), states.data_ptr(), m.data_ptr(),
-        s.data_ptr(), out.data_ptr(), b * h, n, c, g, base_temp,
-        _shift(epsilon), _stream(dev))
+    geom = launch_geometry("deslice", b * h, n, c, g, sm_count(dev))
+    args = (x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
+            w_ada.data_ptr(), b_ada.data_ptr(), states.data_ptr(),
+            m.data_ptr(), s.data_ptr(), out.data_ptr(), b * h, n, c, g)
+    if geom.route == "fast":
+        status = lib.haet_deslice_f32(
+            *args, geom.per_cloud, geom.span, base_temp, _shift(epsilon),
+            geom.smem, _stream(dev))
+    else:
+        status = lib.haet_deslice_generic_f32(
+            *args, base_temp, _shift(epsilon), _stream(dev))
     _build.check(lib, status, "deslice")
     DESLICE_LAUNCHES.add()
     return out
@@ -385,12 +533,24 @@ def deslice_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("slice_kernels")
+    return typed(_build.load("slice_kernels"))
+
+
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the four entry points
+    set (once)."""
     if not getattr(lib, "_haet_typed", False):
         lib.haet_slice_states_f32.argtypes = (
+            [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P])
+        lib.haet_deslice_f32.argtypes = (
+            [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P])
+        lib.haet_slice_states_generic_f32.argtypes = (
             [_P] * 11 + [_I] * 5 + [_F, _F, _P])
-        lib.haet_slice_states_f32.restype = _I
-        lib.haet_deslice_f32.argtypes = [_P] * 9 + [_I] * 4 + [_F, _F, _P]
-        lib.haet_deslice_f32.restype = _I
+        lib.haet_deslice_generic_f32.argtypes = (
+            [_P] * 9 + [_I] * 4 + [_F, _F, _P])
+        for fn in (lib.haet_slice_states_f32, lib.haet_deslice_f32,
+                   lib.haet_slice_states_generic_f32,
+                   lib.haet_deslice_generic_f32):
+            fn.restype = _I
         lib._haet_typed = True
     return lib

@@ -139,7 +139,7 @@ def test_erwin_stage_matches_jax():
         lambda a: a + 0.1 * rng.rand(*a.shape).astype(np.float32),
         variables["batch_stats"])
     variables = {"params": variables["params"], "batch_stats": stats}
-    ref = np.asarray(jm.apply(variables, x, pos))
+    ref = np.asarray(jax.jit(jm.apply)(variables, x, pos))
     sd = {k[len("erwin."):]: v
           for k, v in from_jax_variables(_prefixed(variables)).items()}
     for use_pallas in (False, True):

@@ -3,8 +3,12 @@
 The car preset at full width (2 layers, n_hidden 256, 8 heads, G 32,
 1,757,190 params) at a small point count (N = 1000, B = 2), in eval mode,
 with both ``use_pallas`` settings (``use_pallas`` and ``use_pallas_erwin``
-together, as the server runs them). The JAX side runs its Pallas kernels in
-interpret mode; the port runs its kernels' plain versions on the CPU.
+together, as the server runs them), against one JAX reference built once
+for the module: the model's plain path, which the JAX package's own tests
+hold to its Pallas kernels (``tests/test_pallas_*.py``). The port runs its
+kernels' plain versions on the CPU; its kernel modules are held to the
+Pallas kernels in interpret mode in ``test_torch_slice.py`` and
+``test_torch_erwin.py``.
 
 Weights: the JAX model's parameter tree comes from ``jax.eval_shape`` of its
 init (no init compile), and each leaf is drawn with numpy from the init's
@@ -70,17 +74,16 @@ def car():
     jm = jax_car_config().model.build()
     template = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
     variables = init_like(template, rng, jm.n_hidden)
-    yield jm, variables, x
+    plain = jm.clone(use_pallas=False, use_pallas_erwin=False)
+    ref = np.asarray(jax.jit(plain.apply)(variables, x))
+    yield jm, variables, x, ref
     jsk.INTERPRET, jeb.INTERPRET = sk_mode, eb_mode
     torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_car_forward_matches_jax(car, use_pallas):
-    jm, variables, x = car
-    jm = jm.clone(use_pallas=use_pallas, use_pallas_erwin=use_pallas)
-    ref = np.asarray(jax.jit(jm.apply)(variables, x))
-
+    _, variables, x, ref = car
     kwargs = torch_car_config().model_kwargs()
     kwargs["use_pallas"] = use_pallas
     tm = HAETransolverIrregularMesh(**kwargs, use_pallas_erwin=use_pallas,
@@ -104,7 +107,7 @@ def test_erwin_stage_moves_the_output(car):
     """The perturbed weights make the Erwin stage matter: dropping its
     output (identity Erwin) changes the model output by far more than the
     parity tolerance, so the parity test above could see a wrong Erwin."""
-    _, variables, x = car
+    _, variables, x, _ = car
     tm = HAETransolverIrregularMesh(**torch_car_config().model_kwargs(),
                                     device="cpu").eval()
     load_jax_variables(tm, variables)

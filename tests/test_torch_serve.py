@@ -86,7 +86,7 @@ def test_served_batch_of_4_matches_jax_on_that_batch(env):
     assert err <= RTOL * scale
     # The per-sample reference differs by far more than the tolerance:
     # batching is not output-neutral for this model (finding 2).
-    alone = np.asarray(jm.apply(variables, xb[:1], fb[:1]))[0]
+    alone = np.asarray(jax.jit(jm.apply)(variables, xb[:1], fb[:1]))[0]
     assert np.abs(alone - ref[0]).max() > 10 * RTOL * scale
 
 

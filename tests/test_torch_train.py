@@ -9,10 +9,14 @@
   ``benchmarks/car_train.py``.
 * a small HAET (1 block, n_hidden 32, 4 heads, G 16, Erwin c_hidden (8, 16),
   depths 1/1/1) takes 3 ``Trainer.train_step``s with both kernel flags on
-  and both off, against ``haet_tpu.train.Trainer`` with the car loss and
-  optimizer (Pallas in interpret mode) on one car-like sample of 200 points
-  padded to 256, from the same numpy weights. Tolerances are stated at
-  each check.
+  and both off, against one run of ``haet_tpu.train.Trainer`` with the car
+  loss and optimizer on one car-like sample of 200 points padded to 256,
+  from the same numpy weights. The JAX run is built once for the module,
+  on the model's plain path, which the JAX package's own tests hold to its
+  Pallas kernels and their custom VJPs; the port's kernel paths are held
+  to those in interpret mode in ``test_torch_slice.py``,
+  ``test_torch_erwin.py`` and ``test_torch_grads.py``. Tolerances are
+  stated at each check.
 """
 
 import contextlib
@@ -236,10 +240,13 @@ def _leaves(tree):
             if not k.endswith("num_batches_tracked")}
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_small_haet_trains_like_jax(small, car_train, use_pallas):
+@pytest.fixture(scope="module")
+def jax_run(small, car_train):
+    """The JAX side, once: step 1's gradients and their global norm, the
+    losses of 3 steps, the BatchNorm statistics after step 1 and the
+    parameters after step 3."""
     batch, variables = small
-    jm = JModel(**MODEL, use_pallas=use_pallas, use_pallas_erwin=use_pallas)
+    jm = JModel(**MODEL)
     jcfg = JTrainConfig(lr=1e-3, optimizer="adam", final_div_factor=1000.0,
                         batch_size=1, max_grad_norm=1.0)
     jtr = JTrainer(model=jm, loss_fn=car_train.loss_fn_builder(0.5),
@@ -256,7 +263,6 @@ def test_small_haet_trains_like_jax(small, car_train, use_pallas):
         return jtr.loss_fn(out, batch)[0]
 
     jgrads = jax.jit(jax.grad(loss))(state.params)
-    jnorm = float(optax.global_norm(jgrads))
     jlosses = []
     for step in range(STEPS):
         state, metrics = jtr.train_step(state, batch, key)
@@ -264,7 +270,17 @@ def test_small_haet_trains_like_jax(small, car_train, use_pallas):
         if step == 0:
             jstats = _leaves({"batch_stats":
                               jax.device_get(state.batch_stats)})
-    jparams = _leaves({"params": jax.device_get(state.params)})
+    return dict(grads=jgrads, norm=float(optax.global_norm(jgrads)),
+                losses=jlosses, stats=jstats,
+                params=_leaves({"params": jax.device_get(state.params)}))
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_small_haet_trains_like_jax(small, jax_run, use_pallas):
+    batch, variables = small
+    jgrads, jnorm, jlosses = (jax_run["grads"], jax_run["norm"],
+                              jax_run["losses"])
+    jstats, jparams = jax_run["stats"], jax_run["params"]
 
     tm = TModel(**MODEL, use_pallas=use_pallas, use_pallas_erwin=use_pallas,
                 device="cpu")
