@@ -20,29 +20,42 @@ Phases (any failed check exits non-zero before the final line):
    training batch (``SLICE_TIMED``: device time with the L2 flushed before
    each call, beside the bound and, as context, the float32-FMA bound)
    and, untimed, at ``SLICE_EDGES`` (G 64 at C 16 and 32, ragged N 1, 255,
-   257, and widths of the generic kernels); every slice line prints each
-   kernel's grid and shared memory per block, and two calls must give
-   bit-identical states, m, s and out. One generic edge with the weights
+   257, G 128 and 600 at C <= 32, and widths of the generic kernels up to
+   G*C = 16384 and C = 2048); every slice line prints each kernel's grid
+   and shared memory per block, and two calls must give bit-identical
+   states, m, s and out. One generic edge with the weights
    unscaled (``SLICE_UNSCALED``: logits past 100, where float32 itself
    loses digits) is held to a float64 reference instead, beside the plain
    version's own distance from it. Each Erwin line prints its launch
    shape (a cluster of K CTAs per cloud, shared memory per CTA). The Erwin
    forward is also checked at the serve burst's 32 clouds (timed on the
    device) and, untimed, at the gate's edges (``ERWIN_EDGES``).
-3b. The backwards against autograd of their plain versions on the card:
-   the Erwin block's backward kernel at both car block shapes (dx, dpos and
-   all 14 parameter gradients, timed, with its bound) and, untimed, at the
-   gate's edges, each shape twice to show the results bit-identical; the
-   slice autograd functions (``SliceStatesFn``, ``DesliceFn``) at the
-   padded car shape ``[1, 8, 32768, 32]``, timed.
+3b. The backwards against their plain versions on the card: the Erwin
+   block's backward kernel at both car block shapes (dx, dpos and all 14
+   parameter gradients, timed, with its bound) and, untimed, at the gate's
+   edges, each shape twice to show the results bit-identical; the slice
+   backward kernels (``slice_states_bwd``: dx, dWs, dbs, dWa, dba;
+   ``deslice_bwd``: those and dstates; the fast kernels at C <= 32, the
+   generic ones wider) against ``*_bwd_plain``, each gradient within
+   ``KERNEL_RTOL`` of its max but the cancelling biases (dbs, dba:
+   ``SLICE_BWD_RTOL``), at the padded car shape ``train_b1`` (timed:
+   device us per call with the L2 flushed, the bound, the plain version's
+   time; and a one-pass TF32 control, the plain version with TF32 matrix
+   products, whose distance the tolerances must tell apart) and, untimed,
+   at every ``SLICE_EDGES`` entry, two calls bit-identical (at N = 1 the
+   gradients through the softmax's derivative are zero in exact arithmetic
+   and are printed, not compared); both against float64 at a
+   low-temperature C 32 edge (``SLICE_BWD_UNSCALED``); and the slice
+   autograd functions (``SliceStatesFn``, ``DesliceFn``) against autograd
+   of the plain versions at ``train_b1``.
 4. Serve: the car preset (2 layers, n_hidden 256, G 32, 1,757,190 params,
    seeded random weights) on the card with both kernel flags set, behind a
    ``BatchingServer`` with signature ``x [32186, 7] f32, fx None`` and batch
    sizes (1, 2, 4). Sequential requests (``max_delay_s=0``) and a concurrent
    burst that forms a batch of 4. Checks shapes, finiteness, agreement with
    the plain path on the same weights and inputs, that the kernel launch
-   counters rose by exactly 2 + 2 + 24 per forward, and that no Erwin block
-   was routed to the plain version.
+   counters rose by exactly 2 + 2 + 24 per forward, and that nothing was
+   routed to a plain version.
 5. Profile one batch-1 forward: device time by kernel against wall time.
 6. Train: the car preset at full width with both flags set takes 5
    ``Trainer.train_step``s (Adam + OneCycle + clip 1.0, the masked car
@@ -51,7 +64,8 @@ Phases (any failed check exits non-zero before the final line):
    finite, that after step 1 every parameter but ``sigma_att`` has a finite
    gradient, that step 1's gradients match the plain path's (both flags off,
    same weights and batch) leaf by leaf, and that the launch counters rose
-   by exactly 2 + 2 + 24 + 24 per step with no plain route. Prints the step
+   by exactly 2 + 2 (slice forwards) + 2 + 2 (their backwards) + 24 + 24
+   (Erwin) per step with no plain route. Prints the step
    wall time, peak device memory and, from one profiled step, the device
    time by kernel and the busy share.
 7. Benchmarks: the drivers of ``haet_torch.bench`` and
@@ -75,15 +89,17 @@ Phases (any failed check exits non-zero before the final line):
       exactly the chained calls the driver made, the Erwin counters by
       exactly the fused lines' calls, and no block takes the plain route.
    e. ``bench_flags`` with 2 rounds of 1/3 steps: per step, exactly 2 + 2
-      slice launches for ``pallas-tokenizer``, one forward and one backward
-      launch per Erwin block (12) for ``pallas-erwin``, none for
-      ``baseline``, and no plain route.
+      slice launches and 2 + 2 of their backwards for ``pallas-tokenizer``,
+      one forward and one backward launch per Erwin block (12) for
+      ``pallas-erwin``, none for ``baseline``, and no plain route; then
+      ``pallas-tokenizer`` alone at ``--slice_num 128`` (G*C 4096), with
+      the same counts.
    f. ``haet_torch.bench``, 2 rounds: a finite throughput and MFU.
    g. One ``mem_sweep`` probe per path at N = 2**20, forward only, each in
       a fresh process: the slice-kernel path's peak memory must be below
       the plain path's, and its probe must count 1 + 1 slice launches.
 
-Then one JSON line of kernel records, five of them (``launches`` from
+Then one JSON line of kernel records, seven of them (``launches`` from
 phase 6's counters, and for ``copy_scale`` from the counter after phase
 7d's run), the card line, and as the
 last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
@@ -116,10 +132,11 @@ F32_FLOP_PER_S = 67e12
 # taken in another order (chunked log-sum-exp merge, per-thread loops).
 KERNEL_RTOL = 1e-4
 SERVE_RTOL = 1e-4  # a whole 2-layer model, as the CPU parity test holds it
-# The slice backwards' parameter gradients sum 262,144 points' terms that
-# cancel (for b_slice, sum_n dL/dlogit is 0 at a constant temperature), so
-# float32 sums in two orders differ by more than 1e-4 of the small result
-# (1.2e-4 on b_slice, H100 run of this script).
+# The slice backwards' bias gradients sum 262,144 points' terms that cancel
+# (for b_slice, sum_n dL/dlogit is 0 at a constant temperature), so float32
+# sums in two orders differ by more than 1e-4 of the small result (3.6e-4
+# on b_slice, H100 run of this script); every other gradient of theirs is
+# held to KERNEL_RTOL.
 SLICE_BWD_RTOL = 1e-3
 # Step 1's gradients, kernels against the plain path: each leaf within
 # GRAD_RTOL of its own max |grad|, or GRAD_ATOL of the largest |grad| of the
@@ -292,15 +309,23 @@ SLICE_TIMED = {"serve_b1": (1, 8, N_POINTS, 32, 32),
                "burst_b4": (4, 8, N_POINTS, 32, 32),
                "train_b1": (1, 8, N_PADDED, 32, 32)}
 #: untimed: the presets' widest slices (G 64 at C 16 and 32), ragged N
-#: around the kernels' 256-row block unit, and widths that take the generic
-#: kernels (G*C <= 2048 with C > 32 or G > 64)
+#: around the kernels' 256-row block unit, wide slices at C <= 32 (G 128,
+#: ``bench_flags --slice_num 128``; G 600, past what deslice stages at
+#: once, and 19 windows of the backwards), and heads wider than 32 (the
+#: generic kernels; ``--n_hidden 1024`` over 8 heads is C 128), up to G*C
+#: 16384 and to the widest head, C 2048
 SLICE_EDGES = {"g64_c16": (1, 8, N_POINTS, 16, 64),
                "g64_c32": (1, 8, N_POINTS, 32, 64),
                "n1": (1, 8, 1, 32, 32), "n255": (1, 8, 255, 32, 32),
                "n257": (1, 8, 257, 32, 32),
                "c13_g20": (1, 8, 3001, 13, 20),
                "generic_c128_g16": (1, 8, 3001, 128, 16),
-               "generic_c16_g128": (1, 8, 3001, 16, 128)}
+               "g128_c16": (1, 8, 3001, 16, 128),
+               "g128_c32": (1, 8, 3001, 32, 128),
+               "g600_c32": (1, 8, 1001, 32, 600),
+               "generic_c128_g32": (1, 8, 3001, 128, 32),
+               "generic_c128_g128": (1, 8, 1001, 128, 128),
+               "generic_c2048_g3": (1, 8, 301, 2048, 3)}
 #: the edge ``generic_c128_g16`` with its seed, but ``ws`` 0.3 N(0, 1) and
 #: ``wa`` 0.1 N(0, 1) unscaled: most temperatures clamp to 0.1 and logits
 #: reach ~120, so two float32 computations differ by ~1e-4 of max |out|
@@ -396,13 +421,13 @@ def slice_phase(dev, shapes, timed: bool, label: str = "phase 3"):
             for k, r in rec.items()]
 
 
-def slice_launches(dev, shape) -> str:
-    """Both slice kernels' route, grid and shared memory per block."""
+def slice_launches(dev, shape, kinds=("slice_states", "deslice")) -> str:
+    """The slice kernels' route, grid and shared memory per block."""
     from haet_torch.ops.kernels import slice_kernels as sk
 
     b, h, n, c, gs = shape
     parts = []
-    for kind in ("slice_states", "deslice"):
+    for kind in kinds:
         geom = sk.launch_geometry(kind, b * h, n, c, gs, sk.sm_count(dev))
         parts.append(f"{kind} {geom.route}, grid ({geom.per_cloud}, {b * h}, "
                      f"{geom.groups}) x 256 threads, {geom.span} rows per "
@@ -553,6 +578,242 @@ def kernel_phase(dev):
 # Phase 3b: the backwards against autograd of their plain versions.
 # ---------------------------------------------------------------------------
 
+#: the gradients each slice backward returns, in order
+SLICE_BWD_GRADS = {"slice_states_bwd": ("dx", "dWs", "dbs", "dWa", "dba"),
+                   "deslice_bwd": ("dx", "dWs", "dbs", "dWa", "dba",
+                                   "dstates")}
+#: zero in exact arithmetic at N = 1: one point's softmax weight is 1
+#: whatever its logit, so dL/dlogit is 0 and so is every gradient through
+#: it; both versions return rounding noise of the logits' size (up to ~1e-3
+#: of the largest gradient), which no relative tolerance can hold
+SLICE_BWD_ZERO_AT_N1 = {"slice_states_bwd": ("dWs", "dbs", "dWa", "dba"),
+                        "deslice_bwd": ("dx", "dWs", "dbs", "dWa", "dba")}
+#: the slice backwards' launch shapes: slice_states' first and second
+#: pass, deslice's first and second
+SLICE_BWD_KINDS = ("slice_states_bwd_sums", "slice_states_bwd",
+                   "deslice_bwd_sums", "deslice_bwd")
+#: the cancelling bias gradients, held to ``SLICE_BWD_RTOL``; the others to
+#: ``KERNEL_RTOL``
+SLICE_BWD_BIASES = ("dbs", "dba")
+#: the backwards' low-temperature edge, held to float64: ``tag: (shape,
+#: weight factor)``, ``ws`` and ``wa`` of ``slice_kernels.inputs`` times
+#: the factor: at C 32 twice the car's spread, logits to ~140 and ~40 % of
+#: the rows at the clamp's temperature 0.1, where the residuals' rounding
+#: broke the backwards before they normalised their weights by their own
+#: sum. (At C 128 unscaled, ``SLICE_UNSCALED``'s spread, float32 itself
+#: misses ``d b_slice`` by more than 1e-3 of its max: the plain version
+#: by 5.6e-3 in a CPU run.)
+SLICE_BWD_UNSCALED = {"c32_g32_x2": ((1, 8, 3001, 32, 32), 2.0)}
+
+
+def slice_bwd_rtol(name: str) -> float:
+    return SLICE_BWD_RTOL if name in SLICE_BWD_BIASES else KERNEL_RTOL
+
+
+def f64_rel(got, ref) -> float:
+    """Max abs distance of ``got`` from the float64 ``ref``, relative to
+    max |ref|."""
+    return (float((got.double() - ref).abs().max())
+            / max(float(ref.abs().max()), 1e-30))
+
+
+def tf32_control(plain_fn, args, want, kind):
+    """The plain version with TF32 matrix products (one tensor-core pass,
+    as a kernel without the 3xTF32 split would compute) against the float32
+    plain version: each gradient's distance relative to its max, the
+    reading that the tolerances must tell apart from the kernels'."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = plain_fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    rel = {name: float((a.double() - w.double()).abs().max()
+                       / w.double().abs().max())
+           for name, a, w in zip(SLICE_BWD_GRADS[kind], got, want)}
+    print(f"  {kind} one-pass TF32 control vs float32 plain, rel: "
+          + "  ".join(f"{k} {v:.3e}" for k, v in rel.items()), flush=True)
+    return rel
+
+
+def slice_bwd_phase(dev, shapes, timed: bool, label: str = "phase 3b"):
+    """Both slice backwards on CUDA tensors (their kernels: the fast ones
+    at C <= 32, the generic ones wider) against their plain versions at
+    ``shapes``, each gradient within ``slice_bwd_rtol`` of its max, and two
+    calls bit-identical. When ``timed``: the one-pass TF32 control, device
+    us per call with the L2 flushed (every kernel of the call), CUDA-event
+    ms, the plain version's ms and device us, and the bound; returns the
+    two kernel records."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    rec = {k: {"err": 0.0, "us": {}, "plain_us": {}, "bound_us": {},
+               "f32_bound_us": {}, "names": set(), "ms": None, "rel": {}}
+           for k in SLICE_BWD_GRADS}
+    fns = {"slice_states_bwd": (sk.slice_states_bwd,
+                                sk.slice_states_bwd_plain),
+           "deslice_bwd": (sk.deslice_bwd, sk.deslice_bwd_plain)}
+    for i, (tag, shape) in enumerate(shapes.items()):
+        b, h, n, c, gs = shape
+        print(f"{label}: slice_states_bwd / deslice_bwd ({tag})  x [{b}, {h}, "
+              f"{n}, {c}], G {gs}; "
+              f"{slice_launches(dev, shape, SLICE_BWD_KINDS)}", flush=True)
+        x, ws, bs, wa, ba, st = sb.inputs(shape, dev, SEED + 10 + i)
+        g_st, g_out = sb.grads(shape, dev, SEED + 10 + i)
+        with torch.inference_mode():
+            states, m, s = sk.slice_states_plain(x, ws, bs, wa, ba)
+        args = {"slice_states_bwd": (x, ws, bs, wa, ba, states, m, s, g_st),
+                "deslice_bwd": (x, ws, bs, wa, ba, st, m, s, g_out)}
+        for kind, (fn, plain_fn) in fns.items():
+            a_k = args[kind]
+            ref = slice_bwd_f64(kind, x, ws, bs, wa, ba, st, a_k[-1])
+            with torch.inference_mode():
+                got, again, want = fn(*a_k), fn(*a_k), plain_fn(*a_k)
+                torch.cuda.synchronize()
+                print(f"  {kind} vs float64, rel (kernel / plain): "
+                      + "  ".join(f"{nm} {f64_rel(a, r):.2e} / "
+                                  f"{f64_rel(w, r):.2e}" for nm, a, w, r in
+                                  zip(SLICE_BWD_GRADS[kind], got, want, ref)),
+                      flush=True)
+                for name, a, w in zip(SLICE_BWD_GRADS[kind], got, want):
+                    if n == 1 and name in SLICE_BWD_ZERO_AT_N1[kind]:
+                        check(bool(a.isfinite().all()),
+                              f"{kind} {name}: non-finite values")
+                        print(f"  {kind} {name}: zero in exact arithmetic "
+                              f"at N = 1; max |kernel| "
+                              f"{float(a.abs().max()):.3e}, max |plain| "
+                              f"{float(w.abs().max()):.3e}", flush=True)
+                        continue
+                    err = compare(f"{kind} {name}", a, w,
+                                  slice_bwd_rtol(name))
+                    rec[kind]["err"] = max(rec[kind]["err"], err)
+                    rec[kind]["rel"][name] = max(
+                        rec[kind]["rel"].get(name, 0.0),
+                        err / float(w.double().abs().max()))
+                same = all(torch.equal(a, w) for a, w in zip(got, again))
+                print(f"  {kind}: two calls bit-identical: {same}",
+                      flush=True)
+                check(same, f"{kind} at {tag} is not deterministic")
+                if timed:
+                    rec[kind]["tf32_control_rel"] = tf32_control(
+                        plain_fn, a_k, want, kind)
+                del got, again, want
+                if not timed:
+                    continue
+                r = rec[kind]
+                us, names = sb.flushed_us(lambda: fn(*a_k), 30, None)
+                plain_us, _ = sb.flushed_us(lambda: plain_fn(*a_k), 10, None)
+                bound = sb.bound_us(kind, shape)
+                f32 = sb.bound_us(kind, shape, float32_only=True)
+                r["us"][tag], r["plain_us"][tag] = us, plain_us
+                r["bound_us"][tag], r["f32_bound_us"][tag] = bound[0], f32[0]
+                r["names"].update(names)
+                if r["ms"] is None:
+                    r["ms"] = cuda_ms(lambda: fn(*a_k))
+                    r["plain_ms"] = cuda_ms(lambda: plain_fn(*a_k), reps=5)
+                    r["bound"] = (bound[0] / 1e3, bound[1])
+                    print_times(r["ms"], r["plain_ms"], r["bound"])
+                print(f"  {kind}: device {us:.2f} us per call (profiler, L2 "
+                      f"flushed; {names}); plain version {plain_us:.2f} us; "
+                      f"bound {bound[0]:.2f} us ({bound[1]}; 3xTF32 tensor "
+                      f"cores), {bound[0] / us:.0%} of it; float32-FMA "
+                      f"bound {f32[0]:.2f} us ({f32[1]}), context",
+                      flush=True)
+        del x, st, g_out
+        torch.cuda.empty_cache()
+    for kind, r in rec.items():
+        print(f"  {label} {kind}: largest rel error per gradient over these "
+              f"shapes: " + "  ".join(f"{k} {v:.3e}"
+                                      for k, v in r["rel"].items()),
+              flush=True)
+    if not timed:
+        return None
+    replaces = {"slice_states_bwd": "haet_tpu/ops/pallas/slice_kernels.py:327",
+                "deslice_bwd": "haet_tpu/ops/pallas/slice_kernels.py:448"}
+    return [kernel_record(k, "haet_torch/csrc/slice_kernels.cu", replaces[k],
+                          r["err"], r["ms"], r["plain_ms"], r["bound"],
+                          device_us_per_call=r["us"],
+                          plain_device_us_per_call=r["plain_us"],
+                          bound_us=r["bound_us"],
+                          float32_bound_us=r["f32_bound_us"],
+                          max_rel_err=r["rel"],
+                          tf32_control_rel=r["tf32_control_rel"],
+                          kernel_names=sorted(r["names"]))
+            for k, r in rec.items()]
+
+
+def slice_bwd_f64(kind, x, ws, bs, wa, ba, st, grad, base_temp=0.5,
+                  epsilon=1e-6):
+    """The backward ``kind`` in float64: autograd of the softmax over the
+    points (the function whose derivative the backwards compute; their
+    ``(m, s)`` residuals only make its weights cheap) from the float32
+    inputs."""
+    import math
+
+    import torch
+
+    leaves = [t.double().requires_grad_() for t in (x, ws, bs, wa, ba, st)]
+    xd, wsd, bsd, wad, bad, std = leaves
+    tau = base_temp + (xd @ wad + bad).clamp(-0.4, 0.4)
+    z = (xd @ wsd + bsd - math.log(-math.log(epsilon))) / tau
+    w = torch.softmax(z, dim=2)
+    if kind == "slice_states_bwd":
+        out = (torch.einsum("bhng,bhnc->bhgc", w, xd)
+               / (w.sum(dim=2)[..., None] + 1e-5))
+        return torch.autograd.grad(out, leaves[:5], grad.double())
+    out = torch.einsum("bhng,bhgc->bhnc", w, std)
+    return torch.autograd.grad(out, leaves, grad.double())
+
+
+def slice_bwd_unscaled_phase(dev):
+    """``SLICE_BWD_UNSCALED``: both backwards' kernels and their plain
+    versions against float64, the kernels within ``slice_bwd_rtol`` of
+    each gradient's float64 max; prints the plain version's distance (what
+    float32 itself loses there) beside the kernel's."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    for i, (tag, (shape, factor)) in enumerate(SLICE_BWD_UNSCALED.items()):
+        b, h, n, c, gs = shape
+        print(f"phase 3b: slice_states_bwd / deslice_bwd ({tag}, weights x "
+              f"{factor} against float64)  x [{b}, {h}, {n}, {c}], G {gs}; "
+              f"{slice_launches(dev, shape, SLICE_BWD_KINDS)}", flush=True)
+        x, ws, bs, wa, ba, st = sb.inputs(shape, dev, SEED + 40 + i)
+        ws, wa = ws * factor, wa * factor
+        g_st, g_out = sb.grads(shape, dev, SEED + 40 + i)
+        tau = 0.5 + (x @ wa + ba).clamp(-0.4, 0.4)
+        print(f"  rows at temperature 0.1: "
+              f"{float((tau < 0.1 + 1e-6).float().mean()):.1%}", flush=True)
+        with torch.inference_mode():
+            states, m, s = sk.slice_states_plain(x, ws, bs, wa, ba)
+        cases = {"slice_states_bwd": (sk.slice_states_bwd,
+                                      sk.slice_states_bwd_plain,
+                                      (x, ws, bs, wa, ba, states, m, s, g_st),
+                                      st, g_st),
+                 "deslice_bwd": (sk.deslice_bwd, sk.deslice_bwd_plain,
+                                 (x, ws, bs, wa, ba, st, m, s, g_out), st,
+                                 g_out)}
+        for kind, (fn, plain_fn, args, st_in, grad) in cases.items():
+            ref = slice_bwd_f64(kind, x, ws, bs, wa, ba, st_in, grad)
+            with torch.inference_mode():
+                got, plain = fn(*args), plain_fn(*args)
+                torch.cuda.synchronize()
+            for name, k, p, r in zip(SLICE_BWD_GRADS[kind], got, plain, ref):
+                print(f"  {kind} {name}: plain float32 vs float64 rel "
+                      f"{f64_rel(p, r):.3e}", flush=True)
+                compare(f"{kind} {name} vs float64", k, r,
+                        slice_bwd_rtol(name))
+        del x, st, g_out
+        torch.cuda.empty_cache()
+
+
 def plain_bwd_ms(xe, pe, dout, params, kw):
     """ms of the plain block's backward alone: autograd of a recorded plain
     forward."""
@@ -645,8 +906,14 @@ def backward_phase(dev, records):
               f"{spills}", flush=True)
         erwin_bwd_case(n_e, c_e, ball)
 
+    records.extend(slice_bwd_phase(dev, {"train_b1": SLICE_TIMED["train_b1"]},
+                                   timed=True))
+    slice_bwd_phase(dev, SLICE_EDGES, timed=False)
+    slice_bwd_unscaled_phase(dev)
+
     print(f"phase 3b: SliceStatesFn / DesliceFn backward  x [1, 8, "
-          f"{N_PADDED}, 32], G 32", flush=True)
+          f"{N_PADDED}, 32], G 32, against autograd of the plain versions",
+          flush=True)
     b, h, n, c, gs = 1, 8, N_PADDED, 32, 32
     x = torch.randn(b, h, n, c, generator=g).to(dev)
     ws = (0.3 * torch.randn(c, gs, generator=g)).to(dev)
@@ -662,37 +929,20 @@ def backward_phase(dev, records):
                   for t in (x, ws, bs, wa, ba, st_in)]
         st, m, s = f_states(*leaves[:5])
         out = f_deslice(*leaves[:5], leaves[5], m, s)
-        return leaves, st, out, torch.autograd.grad(
-            [st, out], leaves, [g_st, g_out], retain_graph=True)
+        return torch.autograd.grad([st, out], leaves, [g_st, g_out])
 
-    _, _, _, got = grads(sk.slice_states, sk.deslice)
-    leaves, st_p, out_p, want = grads(sk.slice_states_plain, sk.deslice_plain)
+    got = grads(sk.slice_states, sk.deslice)
+    want = grads(sk.slice_states_plain, sk.deslice_plain)
     torch.cuda.synchronize()
-    err = max(compare(f"d {k}", a, w, SLICE_BWD_RTOL) for k, a, w in zip(
-        ("x", "w_slice", "b_slice", "w_ada", "b_ada", "states"), got, want))
-    with torch.no_grad():
-        st_k, m_k, s_k = sk.slice_states(x, ws, bs, wa, ba)
-        ms = {
-            "slice_states": cuda_ms(lambda: sk.slice_states_bwd(
-                x, ws, bs, wa, ba, st_k, m_k, s_k, g_st)),
-            "deslice": cuda_ms(lambda: sk.deslice_bwd(
-                x, ws, bs, wa, ba, st_in, m_k, s_k, g_out)),
-        }
-    plain_ms = {
-        "slice_states": cuda_ms(lambda: torch.autograd.grad(
-            st_p, leaves[:5], g_st, retain_graph=True)),
-        "deslice": cuda_ms(lambda: torch.autograd.grad(
-            out_p, leaves, g_out, retain_graph=True)),
-    }
+    err = max(compare(f"d {k}", a, w, SLICE_BWD_RTOL if k.startswith("b_")
+                      else KERNEL_RTOL)
+              for k, a, w in zip(("x", "w_slice", "b_slice", "w_ada", "b_ada",
+                                  "states"), got, want))
     for r in records:
-        if r["name"] in ms:
-            r.update(bwd_ms=ms[r["name"]], bwd_plain_ms=plain_ms[r["name"]],
-                     bwd_max_abs_err=err)
-            print(f"  {r['name']} backward (PyTorch, chunked) "
-                  f"{ms[r['name']]:.4f} ms  plain autograd "
-                  f"{plain_ms[r['name']]:.4f} ms", flush=True)
-    print("  no single PyTorch call computes the block's backward: "
-          "library_ms is null", flush=True)
+        if r["name"] in SLICE_BWD_GRADS:
+            r["autograd_max_abs_err"] = err
+    print("  no single PyTorch call computes the block's backward or the "
+          "slice backwards: library_ms is null", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -766,14 +1016,15 @@ def serve_phase(dev):
         check(o.shape == (N_POINTS, 4), f"request {i}: shape {o.shape}")
         check(bool(np.isfinite(o).all()), f"request {i}: non-finite output")
     want = {"slice_states": 2 * forwards, "deslice": 2 * forwards,
+            "slice_states_bwd": 0, "deslice_bwd": 0,
             "fused_erwin_block": 24 * forwards, "fused_erwin_block_bwd": 0,
             "copy_scale": 0}
     print(f"  forwards {forwards}; launches {counts}; expected {want}",
           flush=True)
     check(counts == want, f"launch counts {counts} != {want}")
-    print(f"  blocks routed to the plain version {plain_routes}", flush=True)
+    print(f"  calls routed to a plain version {plain_routes}", flush=True)
     check(all(v == 0 for v in plain_routes.values()),
-          f"some Erwin blocks left the kernel: {plain_routes}")
+          f"some calls left the kernels: {plain_routes}")
 
     # Agreement with the plain path on the same weights and inputs (the
     # burst's batch of 4 is compared as that same batch: outputs depend on
@@ -941,14 +1192,16 @@ def train_phase(dev):
     counts = launch_counts()
     plain_routes = plain_route_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    per_step = {"slice_states": 2, "deslice": 2, "fused_erwin_block": 24,
+    per_step = {"slice_states": 2, "deslice": 2, "slice_states_bwd": 2,
+                "deslice_bwd": 2, "fused_erwin_block": 24,
                 "fused_erwin_block_bwd": 24, "copy_scale": 0}
     want_counts = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     print(f"  {TRAIN_STEPS} steps; launches {counts}; expected {want_counts}",
           flush=True)
     check(counts == want_counts, f"launch counts {counts} != {want_counts}")
+    print(f"  calls routed to a plain version {plain_routes}", flush=True)
     check(all(v == 0 for v in plain_routes.values()),
-          f"some Erwin blocks left the kernels: {plain_routes}")
+          f"some calls left the kernels: {plain_routes}")
     for name, p in model.named_parameters():
         check(bool(p.isfinite().all()), f"{name}: non-finite after training")
     print(f"  losses {losses}", flush=True)
@@ -986,6 +1239,8 @@ COPY_CHAIN = 1050            # the micro driver's hi window
 MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=3)
 #: bench_flags' reduced windows: k_lo/k_hi steps and rounds
 FLAGS_STEPS = dict(k_lo=1, k_hi=3, rounds=2)
+#: bench_flags' --slice_num past the old G*C gate of the slice kernels
+FLAGS_WIDE_G = 128
 #: the slice kernels' check and the memory probes: ~30x the car's points
 N_LARGE = 1 << 20
 
@@ -1152,7 +1407,8 @@ def drivers_phase(dev):
     counts, routes = launch_counts(), plain_route_counts()
     calls = res["copy_calls"]   # the driver's chained calls per line
     expect_counts("launches", counts, {
-        "slice_states": 0, "deslice": 0, "fused_erwin_block": 2 * calls,
+        "slice_states": 0, "deslice": 0, "slice_states_bwd": 0,
+        "deslice_bwd": 0, "fused_erwin_block": 2 * calls,
         "fused_erwin_block_bwd": calls, "copy_scale": calls})
     expect_counts("plain routes", routes, no_routes)
     for name in ("copy_scale", "fused block fwd", "fused block fwd+bwd"):
@@ -1163,14 +1419,22 @@ def drivers_phase(dev):
     print(f"phase 7e: bench_flags {FLAGS_STEPS}", flush=True)
     reset_launch_counts()
     res = bench_flags.run(dev, **FLAGS_STEPS)
+    print(f"phase 7e: bench_flags {FLAGS_STEPS}, pallas-tokenizer at "
+          f"--slice_num {FLAGS_WIDE_G} (G*C {32 * FLAGS_WIDE_G})", flush=True)
+    wide = bench_flags.run(dev, slice_num=FLAGS_WIDE_G,
+                           variants=["pallas-tokenizer"], **FLAGS_STEPS)
+    res[f"pallas-tokenizer G {FLAGS_WIDE_G}"] = wide["pallas-tokenizer"]
     for name, r in res.items():
         blocks = r["erwin_blocks"]
         check(blocks == 12, f"{name}: {blocks} Erwin blocks, expected 12 "
                             "(2 layers of depths 2/2/2)")
-        want = {"slice_states": 0, "deslice": 0, "fused_erwin_block": 0,
+        check(np.isfinite(r["ms_per_step"]), f"{name}: step time")
+        want = {"slice_states": 0, "deslice": 0, "slice_states_bwd": 0,
+                "deslice_bwd": 0, "fused_erwin_block": 0,
                 "fused_erwin_block_bwd": 0, "copy_scale": 0}
-        if name == "pallas-tokenizer":
-            want.update(slice_states=2, deslice=2)
+        if name.startswith("pallas-tokenizer"):
+            want.update(slice_states=2, deslice=2, slice_states_bwd=2,
+                        deslice_bwd=2)
         elif name == "pallas-erwin":
             want.update(fused_erwin_block=blocks,
                         fused_erwin_block_bwd=blocks)

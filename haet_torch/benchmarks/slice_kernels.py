@@ -3,15 +3,18 @@
     python -m haet_torch.benchmarks.slice_kernels
     python -m haet_torch.benchmarks.slice_kernels --ab PARENT_DIR [--rounds 2]
 
-Times ``slice_states`` and ``deslice`` on one card at the shapes of
-:data:`SHAPES` (serve batch 1, the serve burst's batch of 4, the padded
-training batch, and the NS preset's G 64 at C 32, the widest slices of the
-fast kernels), from a ``torch.profiler`` trace of ``--reps`` calls with
-the 50 MB L2 cache flushed before each (a 64 MB fill, which the sum leaves
-out): the device time of every kernel whose name contains "slice", divided
-by the calls, with the kernels' names. The CUDA-event time of back-to-back
-calls (no flush) is printed beside it. The bound of each call is computed
-from its shape (:func:`bound_us`).
+Times ``slice_states`` and ``deslice`` and their backwards
+(``slice_states_bwd``, ``deslice_bwd``: :data:`KINDS`) on one card at the
+shapes of :data:`SHAPES` (serve batch 1, the serve burst's batch of 4, the
+padded training batch, and the NS preset's G 64 at C 32, the widest slices
+of the presets), from a ``torch.profiler`` trace of ``--reps`` calls with
+the 50 MB L2 cache flushed before each (a 64 MB pass of ``bitwise_not``,
+which the sum leaves out): the device time of every kernel whose name
+contains "slice" (the forwards) or of every kernel the call launches (the
+backwards, whose parent versions are chunked PyTorch), divided by the
+calls, with the kernels' names. The CUDA-event time of back-to-back calls
+(no flush) is printed beside it. The bound of each call is computed from
+its shape (:func:`bound_us`).
 
 ``--ab PARENT_DIR`` times the ``haet_torch`` under ``PARENT_DIR`` (for
 example a ``git archive`` of the parent commit) and this one in turns, each
@@ -61,16 +64,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: the timed functions: the two forwards and their backwards
+KINDS = ("slice_states", "deslice", "slice_states_bwd", "deslice_bwd")
+
+
 def work(kind: str, b: int, h: int, n: int, c: int, g: int):
     """``(bytes, FLOP)`` of one call: each input read once, each output
-    written once; the logits (and ``tau``) and the weighted sum or the
-    output product, 2 FLOP per multiply-add."""
+    written once; 2 FLOP per multiply-add of the products the call runs.
+    Forwards: the logits (and ``tau``) and the weighted sum or the output
+    product. slice_states_bwd reads x, the parameters, the states, their
+    gradient and ``(m, s)`` and writes dx and the parameters' gradients;
+    its products are the logits, ``x G^T``, ``w G^``, ``dpre Ws^T`` and
+    ``x^T dpre`` (and ``tau``, ``draw Wa^T``, ``x^T draw``). deslice_bwd
+    reads x and g_out and writes dx and dstates as well; its two passes run
+    seven products (the logits and ``g_out states^T`` in both, ``w^T g_out``
+    in the first, ``dpre Ws^T`` and ``x^T dpre`` in the second) and ``tau``
+    twice."""
     bh = b * h
     params = c * g + g + c + 1
-    flops = 2 * bh * n * (2 * c * g + c)
+    rows = bh * n * c            # one [B, H, N, C] tensor
+    small = bh * g * c + 2 * bh * g  # the states, m and s
     if kind == "slice_states":
-        return 4 * (bh * n * c + params + bh * g * c + 2 * bh * g), flops
-    return 4 * (2 * bh * n * c + params + bh * g * c + 2 * bh * g), flops
+        return 4 * (rows + params + small), 2 * bh * n * (2 * c * g + c)
+    if kind == "deslice":
+        return 4 * (2 * rows + params + small), 2 * bh * n * (2 * c * g + c)
+    if kind == "slice_states_bwd":
+        return (4 * (2 * rows + 2 * params + small + bh * g * c),
+                2 * bh * n * (5 * c * g + 3 * c))
+    return (4 * (3 * rows + 2 * params + small + bh * g * c),
+            2 * bh * n * (7 * c * g + 4 * c))
 
 
 def bound_us(kind: str, shape, float32_only: bool = False) -> tuple:
@@ -108,27 +130,37 @@ def inputs(shape, dev, seed: int = 0, scaled: bool = True):
     return x, ws, bs, wa, ba, st
 
 
+def grads(shape, dev, seed: int = 0):
+    """Seeded ``(dL/dstates, dL/dout)`` of one shape."""
+    b, h, n, c, g = shape
+    gen = torch.Generator().manual_seed(seed + 1000)
+    return (torch.randn(b, h, g, c, generator=gen).to(dev),
+            torch.randn(b, h, n, c, generator=gen).to(dev))
+
+
 def flushed_us(fn, reps: int, names=("slice",)) -> tuple:
     """``(device us per call, kernel names)`` of ``fn()`` from a profiler
-    trace of ``reps`` calls, each after a write of :data:`FLUSH_BYTES`:
-    the kernels whose names contain one of ``names``."""
+    trace of ``reps`` calls, each after a pass of ``bitwise_not`` over
+    :data:`FLUSH_BYTES`: the kernels whose names contain one of ``names``,
+    or every kernel but the flush's when ``names`` is None."""
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            flush.fill_(1.0)
+            torch.bitwise_not(flush, out=flush)
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0
               and not getattr(e, "is_user_annotation", False)
-              and any(nm in e.key for nm in names)]
+              and "bitwise_not" not in e.key
+              and (names is None or any(nm in e.key for nm in names))]
     total = sum(e.self_device_time_total for e in events)
     return total / reps, sorted({e.key[:72] for e in events})
 
@@ -161,16 +193,22 @@ def measure(root: Path, reps: int) -> dict:
     out = {}
     for i, (tag, shape) in enumerate(SHAPES.items()):
         x, ws, bs, wa, ba, st = inputs(shape, dev, i)
+        g_st, g_out = grads(shape, dev, i)
         with torch.inference_mode():
-            _, m, s = sk.slice_states(x, ws, bs, wa, ba)
+            states, m, s = sk.slice_states(x, ws, bs, wa, ba)
             fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
-                   "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s)}
+                   "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s),
+                   "slice_states_bwd": lambda: sk.slice_states_bwd(
+                       x, ws, bs, wa, ba, states, m, s, g_st),
+                   "deslice_bwd": lambda: sk.deslice_bwd(
+                       x, ws, bs, wa, ba, st, m, s, g_out)}
             out[tag] = {}
             for kind, fn in fns.items():
-                us, names = flushed_us(fn, reps)
+                us, names = flushed_us(
+                    fn, reps, None if kind.endswith("_bwd") else ("slice",))
                 out[tag][kind] = {"us": us, "event_us": event_us(fn, reps),
                                   "names": names}
-        del x, st
+        del x, st, g_out
         torch.cuda.empty_cache()
     return out
 
@@ -201,11 +239,11 @@ def ab(parent: Path, rounds: int, reps: int) -> dict:
             print(f"round {r + 1} {side}: {json.dumps(res)}", flush=True)
     med = {side: medians(rs) for side, rs in runs.items()}
     for tag, shape in SHAPES.items():
-        for kind in ("slice_states", "deslice"):
+        for kind in KINDS:
             p, t = med["parent"][tag][kind], med["this"][tag][kind]
             bound, by = bound_us(kind, shape)
             f32, f32_by = bound_us(kind, shape, float32_only=True)
-            print(f"{tag:9s} {kind:12s} device us/call {p:8.2f} -> {t:8.2f}"
+            print(f"{tag:9s} {kind:16s} device us/call {p:8.2f} -> {t:8.2f}"
                   f"  ({p / t:.2f}x)   bound {bound:.2f} ({by}; "
                   f"{bound / t:.0%} of it; float32 FMA alone {f32:.2f}, "
                   f"{f32_by})",

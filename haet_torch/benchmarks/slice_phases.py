@@ -21,7 +21,9 @@ runs the fast ``slice_states`` and ``deslice`` at serve batch 1 (``[1, 8,
 
 Both are timed beside the regular build, device us per call from the
 profiler with the L2 flushed before each call
-(:func:`haet_torch.benchmarks.slice_kernels.flushed_us`). The extra
+(:func:`haet_torch.benchmarks.slice_kernels.flushed_us`), and so are the
+backward kernels (``slice_states_bwd``, ``deslice_bwd``: every kernel of
+the call) at the padded training batch ``[1, 8, 32768, 32]``. The extra
 libraries go to ``haet_torch/_build/``; the slice wrappers use them only
 inside :func:`routed`.
 """
@@ -39,7 +41,7 @@ import torch
 
 from ..ops.kernels import _build
 from ..ops.kernels import slice_kernels as sk
-from .slice_kernels import SHAPES, card_line, flushed_us, inputs
+from .slice_kernels import SHAPES, card_line, flushed_us, grads, inputs
 
 #: blocks and warps per block the trace build records (``TRACE_CTAS``,
 #: ``WARPS`` in the CUDA source)
@@ -99,10 +101,19 @@ def run(reps: int) -> dict:
         _, m, s = sk.slice_states_plain(x, ws, bs, wa, ba)
         fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
                "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s)}
+        xb, wsb, bsb, wab, bab, stb = inputs(SHAPES["train_b1"], dev)
+        g_st, g_out = grads(SHAPES["train_b1"], dev)
+        states_b, m_b, s_b = sk.slice_states_plain(xb, wsb, bsb, wab, bab)
+        bwd = {"slice_states_bwd": lambda: sk.slice_states_bwd(
+                   xb, wsb, bsb, wab, bab, states_b, m_b, s_b, g_st),
+               "deslice_bwd": lambda: sk.deslice_bwd(
+                   xb, wsb, bsb, wab, bab, stb, m_b, s_b, g_out)}
         for name, lib in libs.items():
             with routed(lib):
                 res["us"][name] = {k: flushed_us(fn, reps)[0]
                                    for k, fn in fns.items()}
+                res["us"][name].update({k: flushed_us(fn, reps, None)[0]
+                                        for k, fn in bwd.items()})
         buf = (ctypes.c_ulonglong * (2 * TRACE_CTAS * TRACE_WARPS * 4))()
         with routed(libs["clock"]):
             for fn in fns.values():  # one more call each: the records read
@@ -127,9 +138,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     res = run(args.reps)
     for name, us in res["us"].items():
-        print(f"{name:8s} device us/call  slice_states "
-              f"{us['slice_states']:7.2f}  deslice {us['deslice']:7.2f}",
-              flush=True)
+        print(f"{name:8s} device us/call  " + "  ".join(
+            f"{k} {v:7.2f}" for k, v in us.items()), flush=True)
     for kernel, seg in res["cycles"].items():
         print(f"{kernel:12s} median cycles per warp: " + "  ".join(
             f"{k} {v:.0f}" for k, v in seg.items()), flush=True)

@@ -39,6 +39,8 @@ def counters() -> dict:
     return {
         "slice_states": slice_kernels.SLICE_STATES_LAUNCHES,
         "deslice": slice_kernels.DESLICE_LAUNCHES,
+        "slice_states_bwd": slice_kernels.SLICE_STATES_BWD_LAUNCHES,
+        "deslice_bwd": slice_kernels.DESLICE_BWD_LAUNCHES,
         "fused_erwin_block": erwin_block.LAUNCHES,
         "fused_erwin_block_bwd": erwin_block.BWD_LAUNCHES,
         "copy_scale": copy_kernel.LAUNCHES,

@@ -1,4 +1,5 @@
-"""Fused rep-slice tokenizer: ``slice_states`` and ``deslice``.
+"""Fused rep-slice tokenizer: ``slice_states`` and ``deslice``, and their
+backwards.
 
 Counterparts of the Pallas TPU kernels in
 ``haet_tpu/ops/pallas/slice_kernels.py`` (``slice_states`` and ``deslice``),
@@ -18,17 +19,25 @@ Python so that it can be tested without a card: each cloud's N goes to
 ``per_cloud`` blocks of ``span`` rows (for slice_states, per group of
 :func:`register_slices` slices), and a block's :data:`WARPS` warps take its
 tiles of :data:`TILE_ROWS` rows in turn (:func:`warp_tiles`). The fast
-kernels take C <= 32 and G <= 64 (:func:`fast_widths`), every preset's
-widths; the rest of the gate (C > 32 or G > 64) takes the generic kernels,
-which split N into :data:`CHUNK`-point blocks.
+kernels take C <= 32 and any G (:func:`fast_widths`), every preset's
+widths; wider heads (C up to :data:`MAX_GENERIC_C`) take the generic
+kernels, which split N into :data:`CHUNK`-point blocks (slice_states) or
+``generic_plan`` rows (deslice) and the slices into groups.
 
 Gradients: :class:`SliceStatesFn` and :class:`DesliceFn` wrap the forwards,
-and their backwards are :func:`slice_states_bwd` and :func:`deslice_bwd` on
-both devices: the hand-derived, chunked passes over N of the JAX
-``custom_vjp`` (``slice_kernels.py:253-380`` and ``:448-523``), written as
-PyTorch code. Like the JAX backwards, they never hold more than one
-``[B*H, BWD_CHUNK, G]`` weight tile. Only ``states`` and ``out`` carry a
-gradient; ``m`` and ``s`` are marked non-differentiable.
+and their backwards are :func:`slice_states_bwd` and :func:`deslice_bwd`,
+the hand-derived passes over N of the JAX ``custom_vjp``
+(``slice_kernels.py:327-383`` and ``:448-526``). On CUDA tensors they
+launch the backward kernels, two passes over N each (the first sums the
+softmax coupling ``t`` and ``sum_n w``, the second applies the chain with
+the weights normalised by that sum), their partial sums added in a fixed
+order: at C <= 32 ``slice_bwd_fast`` (the slices in windows of
+:data:`BWD_WINDOW`), wider heads ``slice_bwd_generic`` (groups of slices
+sized by :func:`generic_bwd_plan`). On CPU tensors they run
+:func:`slice_states_bwd_plain` / :func:`deslice_bwd_plain`, chunked PyTorch
+that never holds more than one ``[B*H, BWD_CHUNK, G]`` weight tile. Only
+``states`` and ``out`` carry a gradient; ``m`` and ``s`` are marked
+non-differentiable.
 """
 
 from __future__ import annotations
@@ -49,18 +58,36 @@ TILE_ROWS = 32
 STAGES = 2
 #: points per block of the generic slice_states partial pass
 CHUNK = 256
-#: the kernels take G*C up to this (the generic kernels keep G*C
-#: accumulators in registers: 256 threads x 8)
-MAX_GC = 256 * 8
-#: points per chunk of the backward passes (``_BWD_CHUNK`` of the JAX code);
-#: a module constant so that tests can make the chunk loop run several times
+#: the generic kernels: points per inner tile of slice_states (at most),
+#: its accumulators and deslice's outputs per thread, threads per block,
+#: and the widest head they take, one slice's accumulators per block
+#: (``TILE``, ``MAX_ACC``, ``MAX_OUT``, ``NT``, ``MAX_GENERIC_C``)
+GENERIC_TILE = 32
+MAX_ACC = 8
+MAX_OUT = 32
+NT = 256
+MAX_GENERIC_C = NT * MAX_ACC
+#: dynamic shared memory a block can use on the card (``MAX_SMEM``)
+MAX_SMEM = 232448
+#: slices per window of the backward kernels (``BW``)
+BWD_WINDOW = 32
+#: points per chunk of the plain backward passes (``_BWD_CHUNK`` of the JAX
+#: code); a module constant so that tests can make the chunk loop run
+#: several times
 BWD_CHUNK = 64 * 1024
+#: the backward kernels' modes (``BWD_STATES``, ``BWD_SUMS``, ``BWD_CHAIN``,
+#: ``BWD_STATES_SUMS``) by launch name: slice_states' second and first
+#: pass, deslice's first and second
+BWD_MODES = {"slice_states_bwd": 0, "deslice_bwd_sums": 1, "deslice_bwd": 2,
+             "slice_states_bwd_sums": 3}
 
 #: the slice norm of the states: ``sum_n w + 1e-5`` with ``sum_n w == 1``
 _NORM = 1.0 + 1e-5
 
 SLICE_STATES_LAUNCHES = LaunchCounter()
 DESLICE_LAUNCHES = LaunchCounter()
+SLICE_STATES_BWD_LAUNCHES = LaunchCounter()
+DESLICE_BWD_LAUNCHES = LaunchCounter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,77 +98,204 @@ class Geometry(NamedTuple):
     """One kernel's launch: ``route`` "fast" or "generic"; the grid is
     ``(per_cloud, bh, groups)`` blocks of 256 threads, block ``b`` covering
     rows ``[b * span, min(n, (b + 1) * span))`` of its cloud, and one group
-    of slices; ``smem`` is the fast kernel's dynamic shared memory per
-    block in bytes (0 on the generic route)."""
+    of ``slices`` slices. For deslice and the backwards' second passes,
+    ``groups`` counts the groups of ``slices`` slices that one block (the
+    generic chain, fast deslice) or one launch each (the fast chain) takes
+    in turn, instead of grid z. ``smem`` is the dynamic shared memory per
+    block in bytes."""
 
     route: str
     per_cloud: int
     span: int
     groups: int
     smem: int
+    slices: int
 
 
 def fast_widths(c: int, g: int):
     """``(CM, GL)`` of the fast kernels for C channels and G slices, or
-    None: C padded to ``CM`` in {8, 16, 32}, G to ``32 * GL`` with ``GL``
-    in {1, 2} (``fast_key`` in the CUDA source)."""
+    None: C padded to ``CM`` in {8, 16, 32}, G to ``32 * GL`` (any G >= 1)
+    (``fast_cm`` in the CUDA source)."""
     cm = next((w for w in (8, 16, 32) if c <= w), None)
-    gl = 1 if g <= 32 else 2 if g <= 64 else None
-    if cm is None or gl is None:
+    if cm is None or g < 1:
         return None
-    return cm, gl
+    return cm, _cdiv(g, 32)
 
 
 def register_slices(cm: int, gl: int) -> int:
     """Slices whose tensor-core fragments of Ws (and the states) a lane
-    holds at once: all ``32 * GL`` where ``CM * GL <= 32``, else 32
+    holds at once: 64 at ``CM <= 16`` with more than 32 slices, else 32
     (``held_slices`` in the CUDA source). slice_states gives each group of
     them its own blocks; deslice rebuilds the fragments group by group."""
-    return 32 * gl if cm * gl <= 32 else 32
+    return 64 if cm <= 16 and gl >= 2 else 32
 
 
-def fast_smem_bytes(c: int, g: int, per_cloud: int):
-    """``(slice_states, deslice)`` dynamic shared memory per block of the
-    fast kernels (``states_smem``/``deslice_smem`` in the CUDA source): the
-    warps' x rings (rows padded to CM + 4 floats) and the staged Ws, bs and
-    Wa of the block's slices (and for deslice, of all slices, states / s
-    and m); for slice_states, the larger of that and its two merges."""
-    cm, gl = fast_widths(c, g)
-    gp, gb = 32 * gl, register_slices(cm, gl)
+def states_smem(cm: int, gp: int, per_cloud: int) -> int:
+    """Dynamic shared memory of a fast slice_states block of ``gp`` slices
+    (``states_smem`` in the CUDA source): the larger of the warps' x rings
+    (rows padded to CM + 4 floats) with the staged Ws, bs and Wa, and its
+    two merges."""
     ring = WARPS * STAGES * TILE_ROWS * (cm + 4)
+    floats = max(ring + cm * (gp + 1) + gp + cm,
+                 WARPS * gp * (2 + cm + 8) + gp, (2 * per_cloud + 2) * gp)
+    return 4 * floats
 
-    def staged(slices):  # Ws [CM][slices + 1], bs [slices], Wa [CM]
-        return cm * (slices + 1) + slices + cm
 
-    states = max(ring + staged(gb), WARPS * gb * (2 + cm + 8) + gb,
-                 (2 * per_cloud + 2) * gb)
-    return 4 * states, 4 * (ring + staged(gp) + gp * (cm + 4) + gp)
+def deslice_smem(cm: int, gp: int) -> int:
+    """Dynamic shared memory of a fast deslice launch staging ``gp`` slices
+    (``deslice_smem``): the x rings, Ws, bs, Wa, states / s and m."""
+    ring = WARPS * STAGES * TILE_ROWS * (cm + 4)
+    return 4 * (ring + cm * (gp + 1) + gp * (cm + 4) + 2 * gp + cm)
+
+
+def deslice_slices(cm: int, g: int) -> int:
+    """Slices a fast deslice block stages at once: G padded to a multiple
+    of the held slices, at most as many as fit its shared memory (past
+    that, it stages them in ranges, one after the other)."""
+    gh = register_slices(cm, _cdiv(g, 32))
+    gp = _cdiv(g, gh) * gh
+    while deslice_smem(cm, gp) > MAX_SMEM:
+        gp -= gh
+    return gp
+
+
+def _is_first_pass(kernel: str) -> bool:
+    return kernel.endswith("_sums")
+
+
+def bwd_smem(cm: int, kernel: str) -> int:
+    """Dynamic shared memory of a fast backward kernel block
+    (``bwd_smem_floats`` in the CUDA source): the x ring (and deslice's
+    g_out ring), the fragment tables of Ws and the G-side matrix as B
+    (16-byte hi/lo pairs) and, in the chains, of Ws (and G^) as A, four
+    floats per slice of the window, Wa, and the warps' 16-row buffers and
+    draw."""
+    mode = BWD_MODES[kernel]
+    ring = WARPS * STAGES * TILE_ROWS * (cm + 4)
+    tab_b = (cm // 8) * (BWD_WINDOW // 8) * 32 * 4
+    tab_a = max(1, cm // 16) * (BWD_WINDOW // 8) * 32 * 8
+    floats = ((2 if kernel.startswith("deslice") else 1) * ring + 2 * tab_b
+              + (2, 0, 1, 0)[mode] * tab_a + 4 * BWD_WINDOW + cm
+              + WARPS * 16 * (BWD_WINDOW + 5))
+    return 4 * floats
+
+
+def bwd_row(cm: int, kernel: str) -> int:
+    """Row stride of a block's partial sums (``bwd_row``): the channels,
+    then dbs (a chain), or t and ``sum_n w`` (a first pass)."""
+    return cm + (2 if _is_first_pass(kernel) else 1)
+
+
+def bwd_part_floats(cm: int, kernel: str) -> int:
+    """Floats of one fast block's partial sums (``bwd_part_floats``):
+    ``[BW][bwd_row]`` (dWs^T and dbs, or dstates, t and ``sum_n w``), then
+    dWa and dba for a chain."""
+    extra = 0 if _is_first_pass(kernel) else cm + 1
+    return BWD_WINDOW * bwd_row(cm, kernel) + extra
+
+
+def generic_bwd_plan(c: int, g: int):
+    """``(slices per group, rows per tile)`` of ``slice_bwd_generic``
+    (``generic_bwd_gsz``, ``generic_bwd_tile``): a group's ``gsz * C <=
+    NT * MAX_ACC`` accumulators in registers, its Ws and G-side matrix and
+    the tile's rows in shared memory."""
+    gsz = min(g, max(1, NT * MAX_ACC // c))
+    fixed = 2 * c * gsz + 4 * gsz + c
+    tile = min(GENERIC_TILE, (MAX_SMEM // 4 - fixed) // (2 * c + 3 * gsz + 4))
+    return gsz, tile
+
+
+def generic_bwd_smem(c: int, g: int) -> int:
+    """Dynamic shared memory of a ``slice_bwd_generic`` block
+    (``generic_bwd_smem``)."""
+    gsz, tile = generic_bwd_plan(c, g)
+    return 4 * (2 * c * gsz + 4 * gsz + c + tile * (2 * c + 3 * gsz + 4))
+
+
+def generic_plan(c: int, g: int):
+    """``(slice_states' slices per block, deslice's rows per block,
+    deslice's slices per group)`` of the generic kernels
+    (``generic_states_gsz``, ``generic_dtile``, ``generic_deslice_gsz``):
+    slice_states keeps ``gsz * C <= NT * MAX_ACC`` accumulators in
+    registers, deslice ``dtile * C <= NT * MAX_OUT`` outputs, its groups'
+    Ws and states in the rest of the shared memory."""
+    gs = min(g, max(1, NT * MAX_ACC // c))
+    dtile = min(64, NT * MAX_OUT // c)
+    gd = min(g, (MAX_SMEM // 4 - c - dtile * (c + 1)) // (2 * c + 3 + dtile))
+    return gs, dtile, gd
+
+
+def generic_tile(c: int, gs: int) -> int:
+    """Points per inner tile of the generic slice_states
+    (``generic_states_tile``): 32, fewer where its rows would not fit the
+    shared memory beside ``gs`` slices' weights."""
+    fixed = c * gs + 5 * gs + c
+    return min(GENERIC_TILE, (MAX_SMEM // 4 - fixed) // (c + gs + 1))
+
+
+def _generic_smem(c: int, g: int, kernel: str) -> int:
+    gs, dtile, gd = generic_plan(c, g)
+    if kernel == "slice_states":
+        tile = generic_tile(c, gs)
+        return 4 * (c * gs + 5 * gs + c + tile * (c + gs + 1))
+    return 4 * (2 * c * gd + 3 * gd + c + dtile * (c + gd + 1))
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
-                    sms: int) -> Geometry:
-    """The launch of ``kernel`` ("slice_states" or "deslice") for ``bh``
-    clouds of ``n`` points on a card of ``sms`` multiprocessors. A fast
-    kernel fills one wave, one block per SM (its ``__launch_bounds__``),
-    shared among the clouds and, for slice_states, its slice groups; each
-    block's range is a whole number of its warps' tiles. Other widths take
-    the generic kernels' one block per :data:`CHUNK` points."""
-    widths = fast_widths(c, g)
-    if widths is None:
-        return Geometry("generic", _cdiv(n, CHUNK), CHUNK, 1, 0)
-    groups = (32 * widths[1] // register_slices(*widths)
-              if kernel == "slice_states" else 1)
+def _split_rows(bh: int, n: int, groups: int, sms: int):
+    """``(per_cloud, span)``: one wave of blocks, one per SM, shared among
+    the clouds and grid-z groups; each block's range a whole number of its
+    warps' tiles."""
     per_cloud = max(1, min(sms // (bh * groups), _cdiv(n, TILE_ROWS)))
     block_rows = WARPS * TILE_ROWS
     span = _cdiv(_cdiv(n, per_cloud), block_rows) * block_rows
-    per_cloud = _cdiv(n, span)
-    smem = fast_smem_bytes(c, g, per_cloud)
-    return Geometry("fast", per_cloud, span, groups,
-                    smem[0] if kernel == "slice_states" else smem[1])
+    return _cdiv(n, span), span
+
+
+def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
+                    sms: int) -> Geometry:
+    """The launch of ``kernel`` for ``bh`` clouds of ``n`` points on a card
+    of ``sms`` multiprocessors: "slice_states" or "deslice"; or a backward
+    pass, "slice_states_bwd_sums" / "deslice_bwd_sums" (the first passes)
+    or "slice_states_bwd" / "deslice_bwd" (the chains). A fast kernel, or a
+    generic backward, fills one wave, one block per SM, shared among the
+    clouds and its grid-z groups; each block's range is a whole number of
+    the fast warps' tiles. Heads wider than 32 take the generic kernels."""
+    widths = fast_widths(c, g)
+    if kernel in BWD_MODES:
+        if widths is None:  # C <= MAX_GENERIC_C (``_check_inputs``)
+            gsz = generic_bwd_plan(c, g)[0]
+            groups = _cdiv(g, gsz)
+            per_cloud, span = _split_rows(
+                bh, n, groups if _is_first_pass(kernel) else 1, sms)
+            return Geometry("generic", per_cloud, span, groups,
+                            generic_bwd_smem(c, g), gsz)
+        windows = _cdiv(g, BWD_WINDOW)
+        per_cloud, span = _split_rows(
+            bh, n, windows if _is_first_pass(kernel) else 1, sms)
+        return Geometry("fast", per_cloud, span, windows,
+                        bwd_smem(widths[0], kernel), BWD_WINDOW)
+    if widths is None:  # C <= MAX_GENERIC_C (``_check_inputs``)
+        gs, dtile, gd = generic_plan(c, g)
+        if kernel == "slice_states":
+            return Geometry("generic", _cdiv(n, CHUNK), CHUNK, _cdiv(g, gs),
+                            _generic_smem(c, g, kernel), gs)
+        return Geometry("generic", _cdiv(n, dtile), dtile, 1,
+                        _generic_smem(c, g, kernel), gd)
+    cm, gl = widths
+    if kernel == "slice_states":
+        gp = register_slices(cm, gl)
+        groups = _cdiv(g, gp)
+        per_cloud, span = _split_rows(bh, n, groups, sms)
+        return Geometry("fast", per_cloud, span, groups,
+                        states_smem(cm, gp, per_cloud), gp)
+    gp = deslice_slices(cm, g)
+    per_cloud, span = _split_rows(bh, n, 1, sms)
+    return Geometry("fast", per_cloud, span, _cdiv(g, gp),
+                    deslice_smem(cm, gp), gp)
 
 
 def warp_tiles(geom: Geometry, n: int):
@@ -249,9 +403,20 @@ def _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada):
     _check("b_ada", b_ada, (1,), dev)
     if n < 1:
         raise ValueError("slice kernels need at least one point")
-    if g * c > MAX_GC:
-        raise ValueError(f"G*C = {g * c} exceeds the kernel's {MAX_GC}")
+    if c > MAX_GENERIC_C:
+        raise ValueError(f"the slice kernels take C <= {MAX_GENERIC_C}, "
+                         f"got {c}")
     return b, h, n, c, g
+
+
+def _on_card(x_proj, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
+    plain version); raises on any other device."""
+    if x_proj.device.type == "cpu":
+        return False
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x_proj.device}")
+    return True
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -286,12 +451,14 @@ def deslice(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
 def _slice_states_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
                       epsilon):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if x_proj.device.type == "cpu":
-        return slice_states_plain(x_proj, w_slice, b_slice, w_ada, b_ada,
-                                  base_temp, epsilon)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"slice_states runs on cuda or cpu, not "
-                         f"{x_proj.device}")
+    args = (x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
+    if not _on_card(x_proj, "slice_states"):
+        return slice_states_plain(*args)
+    return _slice_states_kernel(*args)
+
+
+def _slice_states_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
+                         epsilon):
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     bh = b * h
     dev = x_proj.device
@@ -301,18 +468,17 @@ def _slice_states_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
     s = torch.empty_like(m)
     lib = _lib()
     stream = _stream(dev)
-    # partial softmax states per block: [BH, groups, blocks, G, C], G and C
-    # padded to a fast block's slices and channels on that route
+    # partial softmax states per block: fast, [BH, groups, blocks, GP, CM]
+    # (a block's slices and channels, padded); generic, [BH, blocks, G, C]
     if geom.route == "fast":
-        cm, gl = fast_widths(c, g)
-        pg, pc = register_slices(cm, gl), cm
+        rows, pg, pc = bh * geom.groups, geom.slices, fast_widths(c, g)[0]
     else:
-        pg, pc = g, c
-    part_m = torch.empty((bh * geom.groups, geom.per_cloud, pg), device=dev,
+        rows, pg, pc = bh, g, c
+    part_m = torch.empty((rows, geom.per_cloud, pg), device=dev,
                          dtype=torch.float32)
     part_s = torch.empty_like(part_m)
-    part_acc = torch.empty((bh * geom.groups, geom.per_cloud, pg, pc),
-                           device=dev, dtype=torch.float32)
+    part_acc = torch.empty((rows, geom.per_cloud, pg, pc), device=dev,
+                           dtype=torch.float32)
     head = (x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
             w_ada.data_ptr(), b_ada.data_ptr(), part_m.data_ptr(),
             part_s.data_ptr(), part_acc.data_ptr())
@@ -334,11 +500,15 @@ def _slice_states_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
 def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
                  base_temp, epsilon):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if x_proj.device.type == "cpu":
-        return deslice_plain(x_proj, w_slice, b_slice, w_ada, b_ada, states,
-                             m, s, base_temp, epsilon)
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"deslice runs on cuda or cpu, not {x_proj.device}")
+    args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, base_temp,
+            epsilon)
+    if not _on_card(x_proj, "deslice"):
+        return deslice_plain(*args)
+    return _deslice_kernel(*args)
+
+
+def _deslice_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
+                    base_temp, epsilon):
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     dev = x_proj.device
     _check("states", states, (b, h, g, c), dev)
@@ -352,8 +522,8 @@ def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
             m.data_ptr(), s.data_ptr(), out.data_ptr(), b * h, n, c, g)
     if geom.route == "fast":
         status = lib.haet_deslice_f32(
-            *args, geom.per_cloud, geom.span, base_temp, _shift(epsilon),
-            geom.smem, _stream(dev))
+            *args, geom.slices, geom.per_cloud, geom.span, base_temp,
+            _shift(epsilon), geom.smem, _stream(dev))
     else:
         status = lib.haet_deslice_generic_f32(
             *args, base_temp, _shift(epsilon), _stream(dev))
@@ -364,9 +534,9 @@ def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
 
 class SliceStatesFn(torch.autograd.Function):
     """:func:`slice_states` with :func:`slice_states_bwd` as its backward
-    (the JAX ``custom_vjp``, ``slice_kernels.py:316-383``). The float32
-    states are the residual; a gradient arriving on ``m`` or ``s`` is
-    dropped, as the JAX backward drops it."""
+    (the JAX ``custom_vjp``, ``slice_kernels.py:316-383``): the backward
+    kernel on CUDA tensors. The float32 states are the residual; a gradient
+    arriving on ``m`` or ``s`` is dropped, as the JAX backward drops it."""
 
     @staticmethod
     def forward(ctx, x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
@@ -381,14 +551,15 @@ class SliceStatesFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_states, _g_m, _g_s):
-        grads = slice_states_bwd(*ctx.saved_tensors, g_states, *ctx.consts)
+        grads = slice_states_bwd(*ctx.saved_tensors, g_states.contiguous(),
+                                 *ctx.consts)
         return (*grads, None, None)
 
 
 class DesliceFn(torch.autograd.Function):
     """:func:`deslice` with :func:`deslice_bwd` as its backward (the JAX
-    ``custom_vjp``, ``slice_kernels.py:441-526``): no gradient for ``m``,
-    ``s``."""
+    ``custom_vjp``, ``slice_kernels.py:441-526``): the backward kernels on
+    CUDA tensors; no gradient for ``m``, ``s``."""
 
     @staticmethod
     def forward(ctx, x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
@@ -401,12 +572,15 @@ class DesliceFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out):
-        grads = deslice_bwd(*ctx.saved_tensors, g_out, *ctx.consts)
+        grads = deslice_bwd(*ctx.saved_tensors, g_out.contiguous(),
+                            *ctx.consts)
         return (*grads, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
-# Chunked backwards (plain PyTorch, both devices).
+# The plain backwards: chunked PyTorch (the CPU path, the ground truth the
+# kernels are held against on the card, and the route of heads wider than
+# the backward kernels take).
 #
 # Per (b, h), with the softmax over the points axis n:
 #   raw[n] = x[n] @ Wa + ba;  tau[n] = base + clip(raw[n], +-0.4)
@@ -455,11 +629,12 @@ def _chunks(n: int):
     return [slice(i, min(i + BWD_CHUNK, n)) for i in range(0, n, BWD_CHUNK)]
 
 
-def slice_states_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
-                     g_states, base_temp: float = 0.5,
-                     epsilon: float = 1e-6):
-    """Backward of :func:`slice_states` from its residuals and ``dL/dstates``:
-    ``(dx_proj, dWs, dbs, dWa, dba)`` (``slice_kernels.py:327-380``).
+def slice_states_bwd_plain(x_proj, w_slice, b_slice, w_ada, b_ada, states,
+                           m, s, g_states, base_temp: float = 0.5,
+                           epsilon: float = 1e-6):
+    """Plain version of :func:`slice_states_bwd`: ``(dx_proj, dWs, dbs,
+    dWa, dba)`` from the residuals and ``dL/dstates``
+    (``slice_kernels.py:327-383``).
 
     One pass over N in chunks of :data:`BWD_CHUNK`: with ``states = A /
     (1 + 1e-5)`` and ``sum_n w == 1``, the softmax coupling has the closed
@@ -492,10 +667,11 @@ def slice_states_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
             dbs.to(b_slice.dtype), dwa.to(w_ada.dtype), dba.to(b_ada.dtype))
 
 
-def deslice_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
-                base_temp: float = 0.5, epsilon: float = 1e-6):
-    """Backward of :func:`deslice` from its residuals and ``dL/dout``:
-    ``(dx_proj, dWs, dbs, dWa, dba, dstates)`` (``slice_kernels.py:448-523``).
+def deslice_bwd_plain(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
+                      g_out, base_temp: float = 0.5, epsilon: float = 1e-6):
+    """Plain version of :func:`deslice_bwd`: ``(dx_proj, dWs, dbs, dWa,
+    dba, dstates)`` from the residuals and ``dL/dout``
+    (``slice_kernels.py:448-526``).
 
     The coupling ``t[g] = sum_n w (dL/dout @ states^T)`` has no closed form,
     so two passes run over N: the first sums ``t`` and ``dL/dstates``, the
@@ -532,25 +708,220 @@ def deslice_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
             dst.reshape(b, h, g, c).to(states.dtype))
 
 
+def slice_states_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
+                     g_states, base_temp: float = 0.5,
+                     epsilon: float = 1e-6):
+    """Backward of :func:`slice_states` from its residuals and ``dL/dstates``:
+    ``(dx_proj, dWs, dbs, dWa, dba)`` (``slice_kernels.py:327-383``).
+
+    On CUDA tensors the backward kernels: a first pass sums ``t[g] = sum_n
+    w (x G^[g])`` and ``S[g] = sum_n w`` (``G^`` the states' gradient over
+    the norm), the second applies the chain with ``w / S`` and ``t / S``,
+    the exact softmax of the kernels' own logits (the residuals' ``sum_n w
+    = 1`` holds only up to the forward's rounding of the logits); on CPU
+    tensors :func:`slice_states_bwd_plain`.
+    """
+    args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_states,
+            base_temp, epsilon)
+    if not _on_card(x_proj, "slice_states_bwd"):
+        return slice_states_bwd_plain(*args)
+    return _slice_states_bwd_kernel(*args)
+
+
+def deslice_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
+                base_temp: float = 0.5, epsilon: float = 1e-6):
+    """Backward of :func:`deslice` from its residuals and ``dL/dout``:
+    ``(dx_proj, dWs, dbs, dWa, dba, dstates)`` (``slice_kernels.py:448-526``).
+
+    The coupling ``t[g] = sum_n w (dL/dout @ states^T)`` has no closed form,
+    so two passes run over N: the first sums ``t``, ``sum_n w`` and
+    ``dL/dstates``, the second applies the softmax and Ada-Temp chain. On
+    CUDA tensors the backward kernels; on CPU tensors
+    :func:`deslice_bwd_plain`.
+    """
+    args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
+            base_temp, epsilon)
+    if not _on_card(x_proj, "deslice_bwd"):
+        return deslice_bwd_plain(*args)
+    return _deslice_bwd_kernel(*args)
+
+
+def _ptr(t) -> int:
+    return None if t is None else t.data_ptr()
+
+
+def _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, grad,
+               grad_name, grad_shape):
+    b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
+    dev = x_proj.device
+    _check("states", states, (b, h, g, c), dev)
+    _check("m", m, (b, h, g), dev)
+    _check("s", s, (b, h, g), dev)
+    _check(grad_name, grad, grad_shape(b, h, n, c, g), dev)
+    return b, h, n, c, g
+
+
+def _bwd_launch(lib, kernel, geom, tensors, shape, win0, windows, flags,
+                base_temp, epsilon, stream):
+    """One launch of a backward kernel in ``kernel``'s mode (the fast one
+    over ``windows`` windows from ``win0`` with the window ``flags``, or
+    the generic one); ``tensors`` are ``(x, g_out, Ws, bs, Wa, ba, bmat,
+    tsum, m, s, part, dx, q)``, None where the mode reads none."""
+    bh, n, c, g = shape
+    head = (BWD_MODES[kernel], *(_ptr(t) for t in tensors), bh, n, c, g,
+            geom.per_cloud, geom.span)
+    tail = (base_temp, _shift(epsilon), geom.smem, stream)
+    if geom.route == "fast":
+        status = lib.haet_slice_bwd_f32(*head, win0, windows, flags, *tail)
+    else:
+        status = lib.haet_slice_bwd_generic_f32(*head, *tail)
+    _build.check(lib, status, kernel)
+
+
+#: where ``sum_partials`` puts its sums (``SUM_PARAMS``, ``SUM_STATES`` in
+#: the CUDA source): a chain's parameter gradients, or a first pass's sums
+#: (and dstates)
+SUM_MODES = {"params": 1, "states": 2}
+
+
+def _sum_partials(lib, part, batches: int, parts: int, stream, mode, outs,
+                  shape):
+    """``part [batches, parts, len]`` summed over ``parts`` in a fixed
+    order into ``outs`` (see ``SumOut`` in the CUDA source); ``shape`` is
+    ``(c, g, dbs column, row stride, bh, slices per window)``."""
+    length = part.numel() // (batches * parts)
+    status = lib.haet_sum_partials_f32(
+        part.data_ptr(), *(_ptr(t) for t in outs), batches, parts, length,
+        SUM_MODES[mode], *shape, stream)
+    _build.check(lib, status, "sum_partials")
+
+
+def _part_layout(kernel, geom, c, g):
+    """``(windows, row stride, slices per window, dbs column)`` of a
+    launch's partial sums: per window of :data:`BWD_WINDOW` slices and CM
+    channels (fast), or one window of all ``g`` slices (generic)."""
+    if geom.route == "fast":
+        cm = fast_widths(c, g)[0]
+        return geom.groups, bwd_row(cm, kernel), BWD_WINDOW, cm
+    return 1, c + (2 if _is_first_pass(kernel) else 1), g, c
+
+
+def _first_pass_sums(lib, kernel, tensors, shape, base_temp, epsilon, stream,
+                     dstates=None):
+    """A first pass (its windows or groups as grid z) and the sum of its
+    partials: ``tsum [windows * bh, slices * row stride]``, each slice's
+    row holding dstates (or unused columns), t and ``sum_n w``; dstates
+    also in its own layout if given. ``tensors``: ``(x, g_out, Ws, bs, Wa,
+    ba, bmat, m, s)``, ``g_out`` None for slice_states."""
+    bh, n, c, g = shape
+    dev = tensors[0].device
+    geom = launch_geometry(kernel, bh, n, c, g, sm_count(dev))
+    windows, rw, wr, col = _part_layout(kernel, geom, c, g)
+    f32 = dict(device=dev, dtype=torch.float32)
+    part = torch.empty((windows * bh, geom.per_cloud, wr * rw), **f32)
+    _bwd_launch(lib, kernel, geom,
+                (*tensors[:7], None, *tensors[7:], part, None, None), shape,
+                0, windows, 0, base_temp, epsilon, stream)
+    tsum = torch.empty((windows * bh, wr * rw), **f32)
+    _sum_partials(lib, part, windows * bh, geom.per_cloud, stream, "states",
+                  (tsum, dstates, None, None), (c, g, col, rw, bh, wr))
+    return tsum
+
+
+def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
+                 stream):
+    """A chain pass (``tensors`` as for :func:`_first_pass_sums`, ``tsum``
+    its sums) and the sum of its partials: ``(dx, dWs, dbs, dWa, dba)``.
+    The fast kernel runs one launch per window of slices, the
+    generic one a loop over its groups in each block; both add each
+    window's or group's dx and its rows' ``sum_g dlogit * logit`` to the
+    earlier ones'."""
+    bh, n, c, g = shape
+    x_proj = tensors[0]
+    dev = x_proj.device
+    geom = launch_geometry(kernel, bh, n, c, g, sm_count(dev))
+    windows, rw, wr, col = _part_layout(kernel, geom, c, g)
+    f32 = dict(device=dev, dtype=torch.float32)
+    part = torch.empty((windows, bh * geom.per_cloud, wr * rw + col + 1),
+                       **f32)
+    dx = torch.empty_like(x_proj)
+    q = torch.empty(bh * n, **f32) if geom.groups > 1 else None
+    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, q)
+    for w in range(windows):
+        flags = (1 if w == 0 else 0) | (2 if w == windows - 1 else 0)
+        _bwd_launch(lib, kernel, geom, ptrs, shape, w, 1, flags, base_temp,
+                    epsilon, stream)
+    dws, dbs = torch.empty((c, g), **f32), torch.empty(g, **f32)
+    dwa, dba = torch.empty((c, 1), **f32), torch.empty(1, **f32)
+    _sum_partials(lib, part, windows, bh * geom.per_cloud, stream, "params",
+                  (dws, dbs, dwa, dba), (c, g, col, rw, bh, wr))
+    return dx, dws, dbs, dwa, dba
+
+
+def _slice_states_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states,
+                             m, s, g_states, base_temp, epsilon):
+    """:func:`slice_states_bwd` on the card: the first pass (``t = sum_n w
+    (x G^)`` and ``sum_n w``) and the sum of its partials, then the chain
+    and the sum of its partials."""
+    b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
+                               states, m, s, g_states, "g_states",
+                               lambda b, h, n, c, g: (b, h, g, c))
+    lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
+    tensors = (x_proj, None, w_slice, b_slice, w_ada, b_ada, g_states, m, s)
+    tsum = _first_pass_sums(lib, "slice_states_bwd_sums", tensors, shape,
+                            base_temp, epsilon, stream)
+    grads = _chain_grads(lib, "slice_states_bwd", tensors, tsum, shape,
+                         base_temp, epsilon, stream)
+    SLICE_STATES_BWD_LAUNCHES.add()
+    return grads
+
+
+def _deslice_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
+                        s, g_out, base_temp, epsilon):
+    """:func:`deslice_bwd` on the card: the first pass (``t``, ``sum_n w``
+    and ``dL/dstates``) and the sum of its partials, then the chain and
+    the sum of its partials."""
+    b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
+                               states, m, s, g_out, "g_out",
+                               lambda b, h, n, c, g: (b, h, n, c))
+    lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
+    tensors = (x_proj, g_out, w_slice, b_slice, w_ada, b_ada, states, m, s)
+    dstates = torch.empty((b, h, g, c), device=x_proj.device,
+                          dtype=torch.float32)
+    tsum = _first_pass_sums(lib, "deslice_bwd_sums", tensors, shape,
+                            base_temp, epsilon, stream, dstates)
+    grads = _chain_grads(lib, "deslice_bwd", tensors, tsum, shape, base_temp,
+                         epsilon, stream)
+    DESLICE_BWD_LAUNCHES.add()
+    return (*grads, dstates)
+
+
 def _lib() -> ctypes.CDLL:
     return typed(_build.load("slice_kernels"))
 
 
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with the argument and result types of the four entry points
+    """``lib`` with the argument and result types of the seven entry points
     set (once)."""
     if not getattr(lib, "_haet_typed", False):
         lib.haet_slice_states_f32.argtypes = (
             [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P])
         lib.haet_deslice_f32.argtypes = (
-            [_P] * 9 + [_I] * 6 + [_F, _F, _I, _P])
+            [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P])
         lib.haet_slice_states_generic_f32.argtypes = (
             [_P] * 11 + [_I] * 5 + [_F, _F, _P])
         lib.haet_deslice_generic_f32.argtypes = (
             [_P] * 9 + [_I] * 4 + [_F, _F, _P])
+        lib.haet_slice_bwd_f32.argtypes = (
+            [_I] + [_P] * 13 + [_I] * 9 + [_F, _F, _I, _P])
+        lib.haet_slice_bwd_generic_f32.argtypes = (
+            [_I] + [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P])
+        lib.haet_sum_partials_f32.argtypes = [_P] * 5 + [_I] * 10 + [_P]
         for fn in (lib.haet_slice_states_f32, lib.haet_deslice_f32,
                    lib.haet_slice_states_generic_f32,
-                   lib.haet_deslice_generic_f32):
+                   lib.haet_deslice_generic_f32, lib.haet_slice_bwd_f32,
+                   lib.haet_slice_bwd_generic_f32,
+                   lib.haet_sum_partials_f32):
             fn.restype = _I
         lib._haet_typed = True
     return lib

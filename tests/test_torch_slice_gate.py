@@ -5,9 +5,10 @@ card; what surrounds them is Python and is checked here:
 
 * :func:`launch_geometry` covers every point of a cloud exactly once, at
   ragged N, and fills at most one wave of the card with each kernel;
-* the fast and generic routes together take every shape the previous gate
-  took (``G*C <= 2048``), the fast one every preset's widths, and the fast
-  kernels' shared memory fits the SM;
+* the fast and generic routes together take every shape the old gate
+  took (``G*C <= 2048``), the fast one every width with C <= 32, and the
+  kernels' shared memory fits the SM; the wrapper refuses only heads wider
+  than the generic kernels take;
 * a plain model of the fast slice_states' partition and merge (each warp's
   online softmax over its own tiles, the block's warps merged by
   log-sum-exp in warp order, the cloud's blocks in block order) matches
@@ -43,6 +44,8 @@ H100_SMS = 132
 #: dynamic shared memory a block can use, and an SM's (less 1 KB per block
 #: the runtime keeps)
 BLOCK_SMEM, SM_SMEM = 232448, 233472
+#: the widest G*C the slice kernels took before their gate was lifted
+OLD_GATE = 2048
 
 
 def _coverage(geom, n):
@@ -57,7 +60,8 @@ def _coverage(geom, n):
     (8, 1, 32, 32), (8, 255, 32, 32), (8, 256, 32, 32), (8, 257, 32, 32),
     (8, 32186, 32, 32), (32, 32186, 32, 32), (8, 32768, 32, 32),
     (8, 1 << 20, 32, 32), (1, 5000, 32, 32), (300, 700, 32, 32),
-    (16, 4096, 32, 64), (8, 3001, 32, 40)])
+    (16, 4096, 32, 64), (8, 3001, 32, 40), (8, 3001, 32, 128),
+    (8, 3001, 16, 128), (8, 1001, 32, 600)])
 def test_geometry_covers_every_point_once(bh, n, c, g):
     for kernel in ("slice_states", "deslice"):
         geom = tsk.launch_geometry(kernel, bh, n, c, g, H100_SMS)
@@ -91,28 +95,32 @@ def test_car_shapes_fill_the_card():
 
 def test_every_shape_of_the_old_gate_is_taken():
     """Every (C, G) with G*C <= 2048 takes a route; the fast one exactly
-    at C <= 32 and G <= 64, with shared memory that fits the SM, and slice
-    groups only where a lane's registers cannot hold all slices."""
+    at C <= 32, with shared memory that fits the SM, slice groups of the
+    slices a lane's registers hold, and one deslice launch; the generic
+    one for wider heads, one block per CHUNK points (slice_states) or per
+    ``dtile`` rows (deslice)."""
     fast = 0
-    for c in range(1, tsk.MAX_GC + 1):
-        for g in range(1, tsk.MAX_GC // c + 1):
+    for c in range(1, OLD_GATE + 1):
+        for g in range(1, OLD_GATE // c + 1):
             widths = tsk.fast_widths(c, g)
-            assert (widths is not None) == (c <= 32 and g <= 64), (c, g)
+            assert (widths is not None) == (c <= 32), (c, g)
             for kernel in ("slice_states", "deslice"):
                 geom = tsk.launch_geometry(kernel, 8, 32186, c, g, H100_SMS)
                 assert (geom.route == "fast") == (widths is not None)
+                assert geom.smem + 1024 <= SM_SMEM, (c, g, geom.smem)
                 if widths is None:
-                    assert geom.per_cloud == -(-32186 // tsk.CHUNK)
+                    rows = (tsk.CHUNK if kernel == "slice_states"
+                            else tsk.generic_plan(c, g)[1])
+                    assert geom.per_cloud == -(-32186 // rows)
                     continue
                 cm, gl = widths
                 assert c <= cm and g <= 32 * gl
                 held = tsk.register_slices(cm, gl)
-                assert cm * held <= 32 * 32 and held in (32, 32 * gl)
-                want = 32 * gl // held if kernel == "slice_states" else 1
+                assert cm * held <= 32 * 32 and held in (32, 64)
+                want = -(-g // held) if kernel == "slice_states" else 1
                 assert geom.groups == want
-                assert geom.smem + 1024 <= SM_SMEM, (c, g, geom.smem)
             fast += widths is not None
-    assert fast == 32 * 64
+    assert fast == sum(OLD_GATE // c for c in range(1, 33))
     # every preset's widths take the tensor-core kernels: G 32 at C 16 and
     # 32, G 64 at C 16 and (the NS preset) C 32
     assert all(tsk.fast_widths(c, g) is not None for c, g in
@@ -120,12 +128,15 @@ def test_every_shape_of_the_old_gate_is_taken():
 
 
 def test_wrapper_refuses_wider_than_the_gate():
-    x = torch.empty(1, 1, 4, 64, device="meta")
-    with pytest.raises(ValueError, match="exceeds the kernel"):
-        tsk._check_inputs(x, torch.empty(64, 64, device="meta"),
-                          torch.empty(64, device="meta"),
-                          torch.empty(64, 1, device="meta"),
-                          torch.empty(1, device="meta"))
+    """The gate is the generic kernels' widest head (C 2048, the widest of
+    the old G*C <= 2048 gate), not a G*C product: G*C 4096 at C 64 passes
+    the wrapper's checks, C 2049 raises."""
+    def meta(c, g):
+        return [torch.empty(sh, device="meta") for sh in
+                ((1, 1, 4, c), (c, g), (g,), (c, 1), (1,))]
+    assert tsk._check_inputs(*meta(64, 64)) == (1, 1, 4, 64, 64)
+    with pytest.raises(ValueError, match="take C <= 2048"):
+        tsk._check_inputs(*meta(tsk.MAX_GENERIC_C + 1, 4))
 
 
 def test_constants_match_the_cuda_source():
@@ -136,8 +147,21 @@ def test_constants_match_the_cuda_source():
     cases = re.search(r"#define HAET_FAST_CASES\(X\) \\\n(.*)", src)
     got = {tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+)\)",
                                                   cases.group(1))}
-    want = {tsk.fast_widths(c, g) for c in range(1, 65) for g in range(1, 65)
-            if tsk.fast_widths(c, g)}
+    want = {(w[0], tsk.register_slices(*w)) for c in range(1, 65)
+            for g in range(1, 200) if (w := tsk.fast_widths(c, g))}
+    assert got == want
+    # deslice's: (CM, held slices, staged slices when 32 or 64, else 0)
+    cases = re.search(r"#define HAET_DESLICE_CASES\(X\)(.*?)\n\n", src,
+                      re.S)
+    got = {tuple(map(int, m)) for m in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", cases.group(1))}
+    want = set()
+    for c in range(1, 33):
+        for g in range(1, 700, 7):
+            cm, gl = tsk.fast_widths(c, g)
+            gp = tsk.deslice_slices(cm, g)
+            want.add((cm, tsk.register_slices(cm, gl),
+                      gp if gp in (32, 64) else 0))
     assert got == want
 
 
