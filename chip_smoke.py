@@ -73,8 +73,11 @@ Phases (any failed check exits non-zero before the final line):
    a. ``copy_scale`` (the fifth kernel) at ``[256, 32]`` against
       ``x * 1.000001``: bit-exact after 1 call and after 1050 chained calls,
       and on an unaligned and a tailed view of 8191 elements (its scalar
-      kernel and its float4 kernel's tail); its time, the plain version's,
-      ``torch.mul``'s (``library_ms``) and its bound.
+      route and its float4 route's tail); its time, the plain version's,
+      ``torch.mul``'s (``library_ms``) and its bound. Then at
+      ``[4096, 4096]`` (64 MiB each way, its wide route): bit-exact, and
+      its device time per call beside ``torch.mul``'s and the bound
+      (record keys ``large_*``).
    b. The Erwin forward and backward kernels against the plain block (out,
       dx, dpos, every parameter gradient), timed, at the drivers' block
       shapes: the micro driver's (8 clouds of 32, C 32, 4 heads, SwiGLU
@@ -99,9 +102,29 @@ Phases (any failed check exits non-zero before the final line):
       a fresh process: the slice-kernel path's peak memory must be below
       the plain path's, and its probe must count 1 + 1 slice launches.
 
+8. The car preset's training run.
+   a. ``Trainer.fit`` at full width (1,757,190 params, both kernel flags,
+      ``shapenet_car_train_config()`` with early stopping armed) over
+      ``car_like(n=4, npts=32186, seed=0)``, each sample padded to its
+      2048 bucket: 3 for training, 1 held out; 3 epochs, eval every epoch,
+      a ``Checkpointer`` in a temporary directory. Checks finite losses,
+      ``best`` and ``last`` written, the launch counters risen by exactly
+      2 + 2 + 2 + 2 + 24 + 24 per train step and 2 + 2 + 24 per eval
+      forward, no plain route; ``last`` restored on the CPU equal to the
+      card's model; a run stopped by ``stop_event`` after epoch 1 and
+      resumed through a fresh ``Trainer`` ends within 1e-5 of each leaf's
+      max of the unbroken run (printed: whether bit-identical). Prints the
+      per-epoch wall, ``fit``'s wall per step against bare ``train_step``s
+      on the same batches, and the peak device memory.
+   b. ``python -m haet_torch.benchmarks.car_train --epochs 2`` at full
+      width on the synthetic stand-in, in a subprocess, then
+      ``car_eval --which last`` on its checkpoints (2 + 2 + 24 launches
+      per forward): every metric finite, ``car_eval`` equal to
+      ``car_train``'s final metrics at rtol 1e-5; ``time_per_sample``.
+
 Then one JSON line of kernel records, seven of them (``launches`` from
 phase 6's counters, and for ``copy_scale`` from the counter after phase
-7d's run), the card line, and as the
+7d's run) and phase 8's numbers, the card line, and as the
 last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``haet_tpu``.
 """
@@ -109,6 +132,7 @@ last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1095,6 +1119,7 @@ def train_phase(dev):
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
                                         reset_launch_counts)
     from haet_torch.train import Trainer
+    from haet_torch.data.shapenet_car import CarSample
     from haet_torch.train.car import loss_fn_builder, make_batch
     from haet_torch.utils.config import (shapenet_car_config,
                                          shapenet_car_train_config)
@@ -1107,7 +1132,7 @@ def train_phase(dev):
     y = rng.randn(N_POINTS, 4).astype(np.float32)
     surf = np.zeros(N_POINTS, bool)
     surf[-N_SURFACE:] = True   # surface points come last in a car sample
-    batch = make_batch(x[:, :3], x, y, surf)
+    batch = make_batch(CarSample(x[:, :3], x, y, surf))
     check(batch["x"].shape == (1, N_PADDED, 7),
           f"padded batch {batch['x'].shape}")
 
@@ -1235,6 +1260,8 @@ def train_phase(dev):
 # ---------------------------------------------------------------------------
 
 COPY_CHAIN = 1050            # the micro driver's hi window
+#: the copy kernel's large timed shape: 64 MiB each way, past the 50 MB L2
+COPY_LARGE = (4096, 4096)
 #: the micro driver's reduced lo/hi windows and rounds
 MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=3)
 #: bench_flags' reduced windows: k_lo/k_hi steps and rounds
@@ -1251,6 +1278,7 @@ def copy_phase(dev):
     of ``torch.mul`` as the library time."""
     import torch
 
+    from haet_torch.benchmarks.copy_scale import graph_us
     from haet_torch.ops.kernels import copy_kernel as ck
 
     g = torch.Generator().manual_seed(SEED + 5)
@@ -1289,18 +1317,60 @@ def copy_phase(dev):
     # rate at this size (the ctypes wrapper against torch.mul's dispatch).
     dev = {"copy_scale": device_us(lambda: ck.copy_scale(x), reps=200),
            "torch.mul": device_us(lambda: torch.mul(x, ck.SCALE), reps=200)}
+    # and from a CUDA graph of 100 calls: the card's time per call with
+    # no host in the way
+    graph = {"copy_scale": graph_us(lambda: ck.copy_scale(x)),
+             "torch.mul": graph_us(lambda: torch.mul(x, ck.SCALE))}
     bound = bound_ms(2 * 4 * x.numel(), x.numel())
     print_times(ms, plain_ms, bound)
     print(f"  library torch.mul {library_ms:.4f} ms; device us per call "
           f"(profiler): copy_scale {dev['copy_scale']:.3f}, torch.mul "
-          f"{dev['torch.mul']:.3f}", flush=True)
+          f"{dev['torch.mul']:.3f}; in a CUDA graph: copy_scale "
+          f"{graph['copy_scale']:.3f}, torch.mul {graph['torch.mul']:.3f}",
+          flush=True)
+    large = copy_large(ck)
     rec = kernel_record("copy_scale", "haet_torch/csrc/copy_kernel.cu",
                         "benchmarks/micro_erwin_fused.py:70", err, ms,
                         plain_ms, bound,
                         device_us_per_call=dev["copy_scale"],
-                        library_device_us_per_call=dev["torch.mul"])
+                        library_device_us_per_call=dev["torch.mul"],
+                        graph_us_per_call=graph["copy_scale"],
+                        library_graph_us_per_call=graph["torch.mul"],
+                        **large)
     rec["library_ms"] = library_ms
     return rec
+
+
+def copy_large(ck):
+    """7a at ``COPY_LARGE`` (64 MiB each way, past the L2): bit-exact,
+    then the kernel's and ``torch.mul``'s device time per call (profiler)
+    and events time, and the bytes bound."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x = torch.randn(COPY_LARGE, generator=g, device="cuda")
+    print(f"phase 7a: copy_scale  x {list(COPY_LARGE)} f32", flush=True)
+    got, want = ck.copy_scale(x), ck.copy_scale_plain(x)
+    torch.cuda.synchronize()
+    print(f"  bit-exact {torch.equal(got, want)}", flush=True)
+    check(torch.equal(got, want),
+          f"copy_scale differs from x * 1.000001 at {list(COPY_LARGE)}")
+    del got, want
+    bound = bound_ms(2 * 4 * x.numel(), x.numel())
+    ms = cuda_ms(lambda: ck.copy_scale(x), reps=50)
+    library_ms = cuda_ms(lambda: torch.mul(x, ck.SCALE), reps=50)
+    us = device_us(lambda: ck.copy_scale(x), reps=50)
+    library_us = device_us(lambda: torch.mul(x, ck.SCALE), reps=50)
+    print(f"  device us per call (profiler): copy_scale {us:.3f}, torch.mul "
+          f"{library_us:.3f} (ratio {us / library_us:.4f}); bound "
+          f"{bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} "
+          f"of it; events ms copy_scale {ms:.5f}, torch.mul "
+          f"{library_ms:.5f}", flush=True)
+    return {"large_shape": list(COPY_LARGE), "large_ms": ms,
+            "large_library_ms": library_ms,
+            "large_device_us_per_call": us,
+            "large_library_device_us_per_call": library_us,
+            "large_bound_ms": bound[0]}
 
 
 #: 7b's Erwin block shapes, ``tag: (n, C, ball, heads, mlp_ratio)``: the
@@ -1472,6 +1542,281 @@ def drivers_phase(dev):
     return copy_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the car preset's training run (Trainer.fit) and its drivers.
+# ---------------------------------------------------------------------------
+
+FIT_EPOCHS = 3
+#: car_like samples of a ShapeNet-Car size: 3 for training, 1 held out
+FIT_SAMPLES = 4
+#: kernel launches per train step and per eval forward of the car preset
+PER_STEP = {"slice_states": 2, "deslice": 2, "slice_states_bwd": 2,
+            "deslice_bwd": 2, "fused_erwin_block": 24,
+            "fused_erwin_block_bwd": 24, "copy_scale": 0}
+PER_FORWARD = {"slice_states": 2, "deslice": 2, "slice_states_bwd": 0,
+               "deslice_bwd": 0, "fused_erwin_block": 24,
+               "fused_erwin_block_bwd": 0, "copy_scale": 0}
+RESUME_RTOL = 1e-5
+#: rounds of (bare, fit, fit, bare) for fit's overhead per step
+WALL_ROUNDS = 3
+DRIVER_EPOCHS = 2
+
+
+def expected_launches(steps: int, forwards: int) -> dict:
+    return {k: PER_STEP[k] * steps + PER_FORWARD[k] * forwards
+            for k in PER_STEP}
+
+
+def car_fold():
+    """``car_like(n=4, npts=32186, seed=0)`` as normalised ``CarSample``s
+    (statistics of the 3 training samples), split 3 / 1."""
+    from haet_torch.data import synthetic
+    from haet_torch.data.shapenet_car import CarSample, compute_coef_norm
+    from haet_torch.train.car import bucket_size
+
+    raw = synthetic.car_like(n=FIT_SAMPLES, npts=N_POINTS, seed=0)
+    samples = [CarSample(pos=d["pos"], x=d["x"], y=d["y"], surf=d["surf"],
+                         name=f"synthetic/{i}", quads=d["quads"],
+                         surf_slice=d["surf_slice"])
+               for i, d in enumerate(raw)]
+    coef = compute_coef_norm(samples[:3])
+    samples = [coef.encode(s) for s in samples]
+    print("  samples (points -> bucket): " + ", ".join(
+        f"{len(s.pos)} -> {bucket_size(len(s.pos))}" for s in samples),
+        flush=True)
+    return samples[:3], samples[3:], coef
+
+
+def state_on_cpu(trainer) -> dict:
+    """The trainer's model and Adam tensors, and the rest of its state,
+    copied to the host."""
+    import torch
+
+    def host(v):
+        return v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v
+    sd = trainer.state_dict()
+    return {"model": {k: host(v) for k, v in sd["model"].items()},
+            "adam": {(i, k): host(v)
+                     for i, st in sd["optimizer"]["state"].items()
+                     for k, v in st.items()},
+            "groups": sd["optimizer"]["param_groups"],
+            "scheduler": sd["scheduler"], "step": sd["step"]}
+
+
+def compare_states(got: dict, want: dict) -> bool:
+    """Every model and Adam tensor within ``RESUME_RTOL`` of its max, the
+    rest equal; returns whether every tensor is bit-identical."""
+    import torch
+
+    check(got["step"] == want["step"], f"step {got['step']} != "
+                                       f"{want['step']}")
+    check(got["scheduler"] == want["scheduler"], "OneCycleLR state differs")
+    check(got["groups"] == want["groups"], "Adam's param groups differ")
+    identical, worst = True, (0.0, "")
+    for part in ("model", "adam"):
+        check(sorted(map(str, got[part])) == sorted(map(str, want[part])),
+              f"{part} keys differ")
+        for k, w in want[part].items():
+            g = got[part][k]
+            if w.is_floating_point():
+                err = float((g.double() - w.double()).abs().max())
+                tol = RESUME_RTOL * max(float(w.double().abs().max()), 1e-30)
+                check(err <= tol, f"resume: {part} {k} differs by {err} > "
+                                  f"{tol}")
+                worst = max(worst, (err / max(tol / RESUME_RTOL, 1e-30),
+                                    f"{part} {k}"))
+            identical = identical and torch.equal(g, w)
+    print(f"  resumed run against the unbroken one: largest error "
+          f"relative to its leaf's max {worst[0]:.3e} ({worst[1]}); "
+          f"bit-identical {identical}", flush=True)
+    return identical
+
+
+def fit_phase(dev):
+    """8a: ``Trainer.fit`` of the car preset on the card: 3 epochs over 3
+    car-sized samples, eval on the fourth every epoch, ``best``/``last``
+    checkpoints; exact launch counts, no plain route; a stopped and resumed
+    run against the unbroken one; ``last`` restored on the CPU; walls
+    beside bare ``train_step``s on the same batches; peak memory."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.train import Checkpointer, MetricsLogger, Trainer
+    from haet_torch.train.car import loss_fn_builder, make_batch
+    from haet_torch.utils.config import (shapenet_car_config,
+                                         shapenet_car_train_config)
+
+    quiet = MetricsLogger(echo=False)   # fit returns its epoch records
+    train, val, _ = car_fold()
+    batches = [make_batch(s) for s in train]
+    evals = [make_batch(s) for s in val]
+    cfg = shapenet_car_train_config()
+    cfg.epochs = FIT_EPOCHS
+    check(cfg.early_stop_patience == 7, "early stopping not armed")
+    steps = FIT_EPOCHS * len(train)
+
+    def trainer(dev=dev, seed=SEED):
+        model = build_model(shapenet_car_config(), dev, seed=seed)
+        return Trainer(model, loss_fn_builder(0.5), cfg, total_steps=steps,
+                       batch_args=lambda b: (b["x"], None))
+
+    tmp = tempfile.mkdtemp(prefix="haet_fit_")
+    whole = trainer()
+    check(whole.num_params() == 1_757_190, "car preset size")
+    ck = Checkpointer(f"{tmp}/whole")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recs = whole.fit(lambda: iter(batches), lambda: iter(evals),
+                     checkpointer=ck, logger=quiet)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, routes = launch_counts(), plain_route_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    want = expected_launches(steps, FIT_EPOCHS * len(val))
+    expect_counts(f"launches over {steps} steps and {FIT_EPOCHS * len(val)} "
+                  f"eval forwards", counts, want)
+    expect_counts("plain routes", routes, {k: 0 for k in routes})
+    check([r["epoch"] for r in recs] == list(range(FIT_EPOCHS)),
+          f"epochs {[r['epoch'] for r in recs]}")
+    for r in recs:
+        for k in ("train/loss", "val/loss", "train/grad_norm"):
+            check(np.isfinite(r[k]), f"epoch {r['epoch']}: {k} {r[k]}")
+        print(f"  epoch {r['epoch']}: train/loss {r['train/loss']:.6f} "
+              f"val/loss {r['val/loss']:.6f} lr "
+              f"{r['train/learning_rate']:.3e} wall "
+              f"{r['epoch/time_seconds']:.4f} s (host per step "
+              f"{r['train/avg_batch_time']:.4f} s)", flush=True)
+    for name in ("best", "last"):
+        check(ck.restore(name, map_location="cpu") is not None,
+              f"no '{name}' checkpoint")
+    print(f"  fit: {FIT_EPOCHS} epochs in {fit_s:.3f} s; best (epoch "
+          f"{ck.best_epoch}) and last written; peak device memory "
+          f"{peak_mb:.1f} MiB", flush=True)
+    want_state = state_on_cpu(whole)
+
+    # `last`, written on the card, restored on the CPU
+    cpu = trainer(dev="cpu", seed=SEED + 1)
+    check(cpu.maybe_restore(Checkpointer(f"{tmp}/whole")), "no last")
+    for k, v in cpu.model.state_dict().items():
+        check(torch.equal(v, want_state["model"][k]),
+              f"{k} differs after a restore on the CPU")
+    print("  'last' restored on the CPU: every model tensor equal", flush=True)
+    del cpu
+
+    # stopped after epoch 1 (the event set as epoch 2's batches are asked
+    # for), then resumed through a fresh Trainer and Checkpointer
+    ev = threading.Event()
+    passes = []
+
+    def stopping():
+        passes.append(1)
+        if len(passes) == FIT_EPOCHS:
+            ev.set()
+        return iter(batches)
+
+    first = trainer()
+    first.fit(stopping, lambda: iter(evals), stop_event=ev,
+              checkpointer=Checkpointer(f"{tmp}/stopped"), logger=quiet)
+    check(first.step == (FIT_EPOCHS - 1) * len(train),
+          f"stopped at step {first.step}")
+    del first
+    resumed = trainer(seed=SEED + 2)
+    check(resumed.maybe_restore(Checkpointer(f"{tmp}/stopped")),
+          "nothing to resume")
+    recs2 = resumed.fit(lambda: iter(batches), lambda: iter(evals),
+                        checkpointer=Checkpointer(f"{tmp}/stopped"),
+                        logger=quiet)
+    check([r["epoch"] for r in recs2] == [FIT_EPOCHS - 1],
+          f"resumed epochs {[r['epoch'] for r in recs2]}")
+    identical = compare_states(state_on_cpu(resumed), want_state)
+    del resumed
+
+    # fit's wall per step against bare train_step's, same batches: a fit
+    # with no eval and no checkpoints, and the bare loop, in turns
+    walls = {"bare": [], "fit": []}
+    for side in ("bare", "fit", "fit", "bare") * WALL_ROUNDS:
+        t = trainer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if side == "bare":
+            for _ in range(FIT_EPOCHS):
+                for b in batches:
+                    t.train_step(b)
+        else:
+            t.fit(lambda: iter(batches), logger=quiet)
+        torch.cuda.synchronize()
+        walls[side].append((time.perf_counter() - t0) / steps)
+        del t
+    bare, fitted = (float(np.median(walls[k])) for k in ("bare", "fit"))
+    print(f"  wall per step (s), median of {2 * WALL_ROUNDS} runs of {steps} "
+          f"steps: bare train_step {bare:.5f}, fit {fitted:.5f} (overhead "
+          f"{1e3 * (fitted - bare):.3f} ms per step); mins "
+          f"{min(walls['bare']):.5f}, {min(walls['fit']):.5f}; runs "
+          f"{ {k: [round(v, 5) for v in w] for k, w in walls.items()} }",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"epoch_s": [r["epoch/time_seconds"] for r in recs],
+            "bare_step_s": bare, "fit_step_s": fitted, "peak_mb": peak_mb,
+            "resume_bit_identical": identical}
+
+
+def drivers_car_phase(dev):
+    """8b: ``car_train --epochs 2`` at full width on the synthetic
+    stand-in, in a subprocess, then ``car_eval --which last`` on its
+    checkpoints; every metric finite, and ``car_eval`` reproduces
+    ``car_train``'s final metrics at rtol 1e-5."""
+    import tempfile
+
+    from haet_torch.benchmarks import car_eval
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    tmp = tempfile.mkdtemp(prefix="haet_drivers_")
+    common = ["--data_dir", f"{tmp}/absent"]
+    cmd = [sys.executable, "-m", "haet_torch.benchmarks.car_train",
+           "--epochs", str(DRIVER_EPOCHS), "--out_dir", tmp, *common]
+    print(f"  {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        if ln.startswith(("train ", "nb_parameters", "epoch=", "time:")):
+            print(f"    {ln[:240]}", flush=True)
+    check(proc.returncode == 0, f"car_train failed:\n{proc.stderr[-3000:]}")
+    check("nb_parameters 1757190" in proc.stdout, "car_train model size")
+    with open(f"{tmp}/car_metrics.jsonl") as f:
+        rec = [json.loads(ln) for ln in f if '"eval/' in ln][-1]
+    trained = {k[len("eval/"):]: v for k, v in rec.items()
+               if k.startswith("eval/")}
+    print(f"  car_train ({wall:.1f} s): {trained}", flush=True)
+    reset_launch_counts()
+    got = car_eval.main(common + ["--which", "last", "--checkpoint_dir",
+                                  f"{tmp}/checkpoints/car"])
+    n_val = 2   # the stand-in's validation samples
+    expect_counts("car_eval launches", launch_counts(),
+                  expected_launches(0, n_val))
+    print(f"  car_eval: {got}", flush=True)
+    check(sorted(got) == sorted(trained), "metric keys differ")
+    for k, v in got.items():
+        check(np.isfinite(v) and np.isfinite(trained[k]),
+              f"non-finite metric {k}")
+        if k != "time_per_sample":
+            check(abs(v - trained[k]) <= 1e-5 * abs(trained[k]),
+                  f"car_eval {k} {v} != car_train's {trained[k]}")
+    print(f"  time_per_sample: car_train {trained['time_per_sample']:.5f} "
+          f"s, car_eval {got['time_per_sample']:.5f} s", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"train_time_per_sample": trained["time_per_sample"],
+            "eval_time_per_sample": got["time_per_sample"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1523,6 +1868,14 @@ def main() -> int:
         large_slice_phase(dev)
         copy_launches = drivers_phase(dev)
         print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+        t8 = time.perf_counter()
+        print(f"phase 8a: Trainer.fit of the ShapeNet-Car preset, "
+              f"{FIT_EPOCHS} epochs", flush=True)
+        fit = fit_phase(dev)
+        print(f"phase 8b: car_train --epochs {DRIVER_EPOCHS}, then car_eval "
+              f"--which last", flush=True)
+        fit.update(drivers_car_phase(dev))
+        print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1532,7 +1885,7 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]
     print(json.dumps({"kernels": records, "train_steps": TRAIN_STEPS,
-                      "serve_forwards": forwards}))
+                      "serve_forwards": forwards, "fit": fit}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

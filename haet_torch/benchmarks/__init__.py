@@ -11,6 +11,10 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
   slice kernels, one fresh process per probe;
 * :mod:`.velocity_mem_checker` -- forward latency and peak memory against
   the point count;
+* :mod:`.copy_scale` -- the copy kernel against ``torch.mul``, and an A/B
+  of two trees;
+* :mod:`.car_train`, :mod:`.car_eval` -- the ShapeNet-Car training run and
+  its evaluation from a checkpoint;
 * :mod:`.timing` -- the interleaved differential timing they share.
 
 Each runs as ``python -m haet_torch.benchmarks.<name>``; ``--device cpu``

@@ -1,0 +1,189 @@
+"""ShapeNet-Car aerodynamics benchmark: training + evaluation.
+
+    python -m haet_torch.benchmarks.car_train [--smoke] [--device cpu]
+
+Counterpart of ``benchmarks/car_train.py:129-245``, with its flags: the car
+preset (2 layers, n_hidden 256, 8 heads, G 32, Erwin depths 4/4/4) with
+both kernel flags set, the car loss ``MSE(velocity) + 0.5 *
+MSE(surface pressure)``, Adam + OneCycle, clipping at 1.0 and early
+stopping after 7 evals without improvement, through ``Trainer.fit`` (eval
+on the held-out fold every epoch, ``best``/``last`` checkpoints under
+``<out_dir>/checkpoints/car``, metrics in ``<out_dir>/car_metrics.jsonl``);
+then :func:`haet_torch.train.car.evaluate` of the final state (the one
+``last`` holds) on the validation fold. ``--smoke`` runs 2 epochs at
+n_hidden 32, 1 layer, G 16, 4 heads and the Erwin defaults.
+
+Data: the fold layout under ``--data_dir`` (``param0..8/<sample>/``), or
+the synthetic stand-in when it is absent. Batches are one sample each,
+padded to its 2048-point bucket, assembled in a background thread
+(``--prefetch``). The shuffle is one ``RandomState(0)`` made on each
+``main()``, outside the batch factory, as in the JAX driver: a resumed run
+(``--resume``) therefore replays epoch 0's order from its first resumed
+epoch on. ``Trainer.fit`` resumes exactly for a given order.
+
+The card is the default device; ``--device cpu`` runs on the CPU. ``--dp``,
+``--tp``, ``--pp``, ``--multihost``, ``--bf16 1`` and ``--mu_bf16 1`` are
+not ported yet and raise, naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from ..data import Prefetcher, shapenet_car
+from ..models import HAETransolverIrregularMesh
+from ..train import Checkpointer, MetricsLogger, Trainer
+from ..train.car import evaluate, loss_fn_builder, make_batch
+from ..utils.config import (BF16_TODO, MU_BF16_TODO, shapenet_car_config,
+                            shapenet_car_train_config)
+from ..utils.env import default_device
+
+PARALLEL_TODO = "{} is not ported yet (ROADMAP.md, queue 1: parallel)"
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The JAX drivers' mesh flags (``benchmarks/_common.py:88-109``);
+    only their defaults run here."""
+    p.add_argument("--dp", type=int, default=0)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--multihost", action="store_true")
+
+
+def check_mesh_args(args) -> None:
+    for flag, default in (("dp", 0), ("tp", 1), ("pp", 1),
+                          ("pp_microbatches", 0), ("multihost", False)):
+        if getattr(args, flag) != default:
+            raise NotImplementedError(PARALLEL_TODO.format(f"--{flag}"))
+
+
+def model_config(args):
+    """The car preset's model config sized by ``args`` (``--smoke`` resets
+    the preset's pinned 8-head Erwin sizing to the defaults, which scale
+    with ``n_head``)."""
+    cfg = shapenet_car_config()
+    cfg.n_hidden = args.n_hidden
+    cfg.n_layers = args.n_layers
+    cfg.slice_num = args.slice_num
+    if args.smoke:
+        cfg.n_head = 4
+        cfg.enc_num_heads = cfg.enc_depths = None
+        cfg.dec_num_heads = cfg.dec_depths = None
+        cfg.erwin_mlp_ratio = None
+        cfg.embed = False
+    return cfg
+
+
+def build_model(cfg, device, seed: int = 0):
+    """The model of ``cfg`` on ``device`` with both kernel flags set."""
+    kw = cfg.model_kwargs()
+    kw["use_pallas"] = True
+    return HAETransolverIrregularMesh(**kw, use_pallas_erwin=True,
+                                      device=device, seed=seed)
+
+
+def load_fold(args):
+    """``(train, val, coef, is_synthetic)`` of ``--data_dir`` and
+    ``--fold_id``, normalised by the training fold's statistics."""
+    return shapenet_car.load_train_val_fold(
+        args.data_dir, args.fold_id, savedir=args.save_dir,
+        preprocessed=args.preprocessed)
+
+
+def print_metrics(metrics: dict) -> None:
+    print("relative l2 error press:", metrics["rel_l2_press"])
+    print("relative l2 error velo:", metrics["rel_l2_velo"])
+    print("press:", metrics["rmse_press"])
+    print("velo:", metrics["rmse_velo"])
+    if "rho_d" in metrics:
+        print("rho_d:", metrics["rho_d"], "c_d:", metrics["cd_rel_err"])
+    print("time:", metrics["time_per_sample"], flush=True)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    check_mesh_args(args)
+    if args.bf16:
+        raise NotImplementedError(BF16_TODO)
+    if args.mu_bf16:
+        raise NotImplementedError(MU_BF16_TODO)
+    dev = default_device(args.device)
+    cfg = model_config(args)
+    train_cfg = shapenet_car_train_config()
+    train_cfg.epochs = args.epochs
+    train_cfg.lr = args.lr
+
+    train_s, val_s, coef, is_synth = load_fold(args)
+    if is_synth:
+        print("[car_train] dataset not found -> synthetic stand-in data")
+    print(f"train {len(train_s)} / val {len(val_s)} samples", flush=True)
+    model = build_model(cfg, dev, train_cfg.seed)
+    trainer = Trainer(model, loss_fn_builder(args.weight), train_cfg,
+                      total_steps=len(train_s) * train_cfg.epochs,
+                      batch_args=lambda b: (b["x"], None))
+    print(f"nb_parameters {trainer.num_params()}", flush=True)
+
+    ckpt = Checkpointer(os.path.join(args.out_dir, "checkpoints", "car"))
+    if args.resume:
+        trainer.maybe_restore(ckpt)
+
+    # one RandomState outside the factory: fit() calls train_batches()
+    # every epoch, and a re-seeded one would replay one order every epoch
+    shuffle_rng = np.random.RandomState(0)
+
+    def train_batches():
+        for i in shuffle_rng.permutation(len(train_s)):
+            yield make_batch(train_s[i])
+
+    def eval_batches():
+        for s in val_s:
+            yield make_batch(s)
+
+    with MetricsLogger(os.path.join(args.out_dir,
+                                    "car_metrics.jsonl")) as logger:
+        trainer.fit(Prefetcher(train_batches, depth=args.prefetch)
+                    if args.prefetch else train_batches,
+                    eval_batches, logger=logger, checkpointer=ckpt)
+        metrics = evaluate(model, val_s, coef, logger)
+    print_metrics(metrics)
+    return metrics
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="haet_torch ShapeNet-Car")
+    p.add_argument("--data_dir", type=str,
+                   default="./data/shapenet_car/mlcfd_data/training_data")
+    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--preprocessed", action="store_true")
+    p.add_argument("--fold_id", type=int, default=0)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight", type=float, default=0.5)
+    p.add_argument("--n_hidden", type=int, default=256)
+    p.add_argument("--n_layers", type=int, default=2)
+    p.add_argument("--slice_num", type=int, default=32)
+    p.add_argument("--bf16", type=int, default=0)
+    p.add_argument("--mu_bf16", type=int, default=0)
+    p.add_argument("--out_dir", type=str, default="./runs")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="background batch prefetch depth (0 disables)")
+    add_mesh_args(p)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--smoke", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    args = p.parse_args(argv)
+    if args.smoke:
+        args.epochs = 2
+        args.n_hidden = 32
+        args.n_layers = 1
+        args.slice_num = 16
+    return args
+
+
+if __name__ == "__main__":
+    main()

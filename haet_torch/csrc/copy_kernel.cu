@@ -8,57 +8,96 @@
 // kernel multiplies by the same constant and gives the same bits.
 //
 // What bounds it on an H100: one read and one write per element and one
-// multiply. At the benchmark's shape (x [256, 32], 32 KiB each way) that is
-// 65,536 bytes, 0.02 us at 3.35 TB/s, so the launch itself (a few us)
-// bounds every call; the kernel exists to time that cost, as its Pallas
-// counterpart timed a TPU kernel's fixed cost.
+// multiply, so bytes: at the micro driver's shape (x [256, 32], 32 KiB each
+// way) 0.02 us at 3.35 TB/s, far below the launch, which bounds the call;
+// at [4096, 4096] (64 MiB each way) 40 us, the memory system's rate.
 //
-// Design: a grid-stride loop, 16-byte float4 loads and stores where both
-// pointers are 16-byte aligned, and a scalar loop for the tail (or for the
-// whole array when a pointer is not aligned). Blocks: enough for one
-// element (or float4) per thread, at most 8 per SM.
+// Design: one pass with no loop. Each thread loads VPT 16-byte float4s
+// (all loads issued before the first store, neighbouring threads on
+// neighbouring addresses), scales and stores them; the grid covers the
+// array exactly. Small arrays take VPT 1, so that their few loads spread
+// over as many CTAs, and SMs, as there are warps' worth of work; from four
+// CTAs of VPT 4 per SM on, VPT 4 keeps 64 bytes in flight per thread.
+// Indices are 32-bit below 2^31 elements. The 0-3 floats past the last
+// float4 are done by the first CTA's first threads in the same launch.
+// Pointers that are not both 16-byte aligned take the same design with
+// one float per load.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;                // threads per block
-constexpr int MAX_BLOCKS = 132 * 8;    // 8 blocks per SM on an H100 SXM
+constexpr int NT = 128;                // threads per CTA
 constexpr float SCALE = 1.000001f;
+// from this many items on, each thread takes 4: four CTAs per SM of the
+// H100's 132
+constexpr long long WIDE_ITEMS = 132LL * 4 * NT * 4;
+// 32-bit indices while the last thread's index stays below 2^31
+constexpr long long MAX_INT_ITEMS = (1LL << 31) - (1LL << 16);
 
-__global__ void copy_scale_vec(const float4* __restrict__ x,
-                               float4* __restrict__ out, long long n4,
-                               const float* __restrict__ x_tail,
-                               float* __restrict__ out_tail, int tail) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
-                          threadIdx.x;
-  for (long long i = first; i < n4; i += stride) {
-    float4 v = x[i];
-    v.x *= SCALE;
-    v.y *= SCALE;
-    v.z *= SCALE;
-    v.w *= SCALE;
-    out[i] = v;
-  }
-  if (first < tail) out_tail[first] = x_tail[first] * SCALE;
+__device__ __forceinline__ float4 scaled(float4 v) {
+  v.x *= SCALE;
+  v.y *= SCALE;
+  v.z *= SCALE;
+  v.w *= SCALE;
+  return v;
 }
 
-__global__ void copy_scale_scalar(const float* __restrict__ x,
-                                  float* __restrict__ out, long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = x[i] * SCALE;
+__device__ __forceinline__ float scaled(float v) { return v * SCALE; }
+
+// T: float4 (aligned) or float; items: the T's of the array;
+// x_tail/out_tail/tail: the floats past the last float4 (float4 only).
+template <typename T, int VPT, typename Index>
+__global__ void __launch_bounds__(NT)
+    copy_scale(const T* __restrict__ x, T* __restrict__ out, Index items,
+               const float* __restrict__ x_tail, float* __restrict__ out_tail,
+               int tail) {
+  const Index first = static_cast<Index>(blockIdx.x) * (NT * VPT) +
+                      static_cast<Index>(threadIdx.x);
+  T v[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const Index i = first + k * NT;
+    if (i < items) v[k] = x[i];
+  }
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const Index i = first + k * NT;
+    if (i < items) out[i] = scaled(v[k]);
+  }
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
+    out_tail[threadIdx.x] = x_tail[threadIdx.x] * SCALE;
   }
 }
 
-int blocks_for(long long items) {
-  long long b = (items + NT - 1) / NT;
-  if (b < 1) b = 1;
-  return static_cast<int>(b < MAX_BLOCKS ? b : MAX_BLOCKS);
+template <typename T, typename Index>
+cudaError_t launch(const T* x, T* out, long long items, const float* x_tail,
+                   float* out_tail, int tail, cudaStream_t st) {
+  const int vpt = items >= WIDE_ITEMS ? 4 : 1;
+  long long blocks = (items + NT * vpt - 1) / (NT * vpt);
+  if (blocks < 1) blocks = 1;   // a tail alone
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const Index n = static_cast<Index>(items);
+  if (vpt == 4) {
+    copy_scale<T, 4, Index><<<grid, NT, 0, st>>>(x, out, n, x_tail,
+                                                  out_tail, tail);
+  } else {
+    copy_scale<T, 1, Index><<<grid, NT, 0, st>>>(x, out, n, x_tail,
+                                                  out_tail, tail);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_any(const T* x, T* out, long long items,
+                       const float* x_tail, float* out_tail, int tail,
+                       cudaStream_t st) {
+  if (items < MAX_INT_ITEMS) {
+    return launch<T, int>(x, out, items, x_tail, out_tail, tail, st);
+  }
+  return launch<T, long long>(x, out, items, x_tail, out_tail, tail, st);
 }
 
 }  // namespace
@@ -78,14 +117,12 @@ int haet_copy_scale_f32(const float* x, float* out, long long numel,
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   if (aligned) {
     const long long n4 = numel / 4;
-    const int tail = static_cast<int>(numel - 4 * n4);   // 0..3
-    copy_scale_vec<<<blocks_for(n4 > 0 ? n4 : 1), NT, 0, st>>>(
+    return static_cast<int>(launch_any<float4>(
         reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out),
-        n4, x + 4 * n4, out + 4 * n4, tail);
-  } else {
-    copy_scale_scalar<<<blocks_for(numel), NT, 0, st>>>(x, out, numel);
+        n4, x + 4 * n4, out + 4 * n4, static_cast<int>(numel - 4 * n4), st));
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_any<float>(x, out, numel, nullptr, nullptr, 0, st));
 }
 
 }  // extern "C"

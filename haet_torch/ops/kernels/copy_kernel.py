@@ -40,23 +40,26 @@ def copy_scale(x: torch.Tensor) -> torch.Tensor:
 
     On a CUDA tensor (float32, contiguous, at least one element) it launches
     the kernel or raises; on a CPU tensor it runs :func:`copy_scale_plain`.
+    The C function and the stream query are resolved at the first launch
+    (:func:`_entry`), so a call costs the checks, one allocation and one
+    ctypes call.
     """
-    if x.device.type == "cpu":
-        return copy_scale_plain(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return copy_scale_plain(x)
         raise ValueError(f"copy_scale runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"copy_scale takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("copy_scale needs a contiguous tensor")
-    if x.numel() < 1:
+    n = x.numel()
+    if n < 1:
         raise ValueError("copy_scale needs at least one element")
+    fn, raw_stream = _ENTRY or _entry()
     out = torch.empty_like(x)
-    lib = _lib()
-    status = lib.haet_copy_scale_f32(
-        x.data_ptr(), out.data_ptr(), x.numel(),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, status, "copy_scale")
+    status = fn(x.data_ptr(), out.data_ptr(), n, raw_stream(x.get_device()))
+    if status:
+        _build.check(_build.load("copy_kernel"), status, "copy_scale")
     LAUNCHES.add()
     return out
 
@@ -69,12 +72,20 @@ def chain_copy(x: torch.Tensor, reps: int) -> torch.Tensor:
     return x
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("copy_kernel")
-    if not getattr(lib, "_haet_typed", False):
-        lib.haet_copy_scale_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p]
-        lib.haet_copy_scale_f32.restype = ctypes.c_int
-        lib._haet_typed = True
-    return lib
+#: ``(C function, stream query)`` once resolved by :func:`_entry`
+_ENTRY = None
+
+
+def _entry():
+    """Build or load the library and resolve ``haet_copy_scale_f32`` with
+    its argument types, and the query of the current stream's raw handle
+    (``torch._C._cuda_getCurrentRawStream``, the int that
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives without making a
+    ``Stream`` object)."""
+    global _ENTRY
+    fn = _build.load("copy_kernel").haet_copy_scale_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _ENTRY = (fn, torch._C._cuda_getCurrentRawStream)
+    return _ENTRY

@@ -103,12 +103,14 @@ def shapenet_car_config() -> ModelConfig:
 class TrainConfig:
     """``haet_tpu/utils/config.py:TrainConfig``, field for field.
 
-    The port's ``Trainer.train_step`` runs Adam with OneCycle
-    (``cycle_momentum`` included) and torch's gradient clipping;
+    The port's ``Trainer`` runs Adam with OneCycle (``cycle_momentum``
+    included) and torch's gradient clipping, and ``Trainer.fit`` the
+    training loop with early stopping, periodic checkpoints
+    (``checkpoint_every``), ``stop_on_nonfinite`` and ``preempt_save``;
     :meth:`check_ported` raises for the settings it does not run yet.
-    ``weight_decay`` is read by AdamW only, as in JAX. ``epochs``,
-    ``batch_size``, ``seed``, ``stop_on_nonfinite`` and ``preempt_save``
-    belong to the training loop (``fit``), which is not ported yet.
+    ``weight_decay`` is read by AdamW only, as in JAX. ``seed`` seeds the
+    car driver's model; its batches hold one sample, the preset's
+    ``batch_size``.
     """
 
     lr: float = 1e-3
@@ -150,17 +152,13 @@ class TrainConfig:
             raise NotImplementedError(TRAINER_TODO.format("accum_steps > 1"))
         if self.mu_bf16:
             raise NotImplementedError(MU_BF16_TODO)
-        if self.early_stop_patience is not None:
-            raise NotImplementedError(TRAINER_TODO.format("early stopping"))
-        if self.checkpoint_every is not None:
-            raise NotImplementedError(TRAINER_TODO.format("checkpointing"))
 
 
 def shapenet_car_train_config() -> TrainConfig:
     """The ShapeNet-Car training (``haet_tpu/utils/config.py:284-290``):
     Adam, lr 1e-3, OneCycle with ``final_div_factor`` 1000 and torch's other
-    defaults, clipping at 1.0, batch 1, 200 epochs. The JAX preset's
-    ``early_stop_patience=7`` acts in ``fit``, which is not ported yet
-    (``ROADMAP.md``, queue 1: Trainer and drivers), so it is left unset."""
+    defaults, clipping at 1.0, batch 1, 200 epochs, early stopping after 7
+    evals without improvement."""
     return TrainConfig(lr=1e-3, optimizer="adam", final_div_factor=1000.0,
-                       epochs=200, batch_size=1, max_grad_norm=1.0)
+                       epochs=200, batch_size=1, max_grad_norm=1.0,
+                       early_stop_patience=7)

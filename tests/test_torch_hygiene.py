@@ -1,7 +1,9 @@
 """PyTorch port, import hygiene and the device rule.
 
-``haet_torch`` and ``chip_smoke.py`` import ``torch``, numpy and the
-standard library only: never JAX, flax, optax or anything of ``haet_tpu``.
+``haet_torch`` and ``chip_smoke.py`` import ``torch``, numpy, scipy and
+the standard library only: never JAX, flax, optax or anything of ``haet_tpu``,
+and never scikit-learn (absent on the card's machine; the data layer's
+nearest neighbours come from scipy).
 """
 
 import ast
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from haet_torch.data.shapenet_car import CarSample
 from haet_torch.models import HAETransolverIrregularMesh
 from haet_torch.train import Trainer
 from haet_torch.train.car import loss_fn_builder, make_batch
@@ -20,7 +23,8 @@ from haet_torch.utils.config import shapenet_car_train_config
 from haet_torch.utils.env import default_device
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "haet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "haet_tpu",
+             "sklearn")
 
 
 def _port_files():
@@ -45,7 +49,9 @@ def _imported_roots(path):
 def test_port_files_are_found():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "serve.py", "erwin_block.py",
-            "slice_kernels.py", "trainer.py", "car.py"} <= names
+            "slice_kernels.py", "trainer.py", "car.py", "checkpoint.py",
+            "shapenet_car.py", "vtk_io.py", "car_train.py",
+            "car_eval.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -57,13 +63,18 @@ def test_no_jax_or_reference_imports(path):
 
 def test_imports_with_jax_blocked():
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'haet_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'haet_tpu',\n"
+            "          'sklearn'):\n"
             "    sys.modules[m] = None\n"
             "import haet_torch, haet_torch.serve, haet_torch.models\n"
             "import haet_torch.utils.config, haet_torch.utils.weights\n"
             "import haet_torch.ops.kernels.slice_kernels\n"
             "import haet_torch.ops.kernels.erwin_block\n"
             "import haet_torch.train, haet_torch.train.car\n"
+            "import haet_torch.data.shapenet_car, haet_torch.data.vtk_io\n"
+            "import haet_torch.data.preprocess_car\n"
+            "import haet_torch.benchmarks.car_train\n"
+            "import haet_torch.benchmarks.car_eval\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -113,8 +124,8 @@ def test_cpu_train_step_leaves_every_gradient_but_sigma():
         rng = np.random.RandomState(0)
         surf = np.zeros(100, bool)
         surf[-20:] = True
-        metrics = trainer.train_step(make_batch(
-            rng.rand(100, 3), rng.randn(100, 7), rng.randn(100, 4), surf,
+        metrics = trainer.train_step(make_batch(CarSample(
+            rng.rand(100, 3), rng.randn(100, 7), rng.randn(100, 4), surf),
             n_pad=128))
     finally:
         torch.set_num_threads(threads)

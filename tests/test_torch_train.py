@@ -31,6 +31,7 @@ import optax
 import pytest
 import torch
 
+from haet_torch.data.shapenet_car import CarSample as TCarSample
 from haet_torch.models import HAETransolverIrregularMesh as TModel
 from haet_torch.train import Trainer, make_optimizer
 from haet_torch.train import car as tcar
@@ -83,15 +84,14 @@ def interpret_and_threads():
 
 def test_train_config_matches_jax():
     """``TrainConfig`` is JAX's field for field with the same defaults, and
-    the car preset differs from JAX's only in the early stopping that
-    ``fit`` would apply."""
+    the car preset equals JAX's field for field, ``early_stop_patience``
+    (7) included."""
     jax_fields = {f.name: f.default for f in dataclasses.fields(JTrainConfig)}
     assert {f.name: f.default for f in dataclasses.fields(TrainConfig)} \
         == jax_fields
     port = dataclasses.asdict(shapenet_car_train_config())
     want = dataclasses.asdict(jax_car_config().train)
-    assert want.pop("early_stop_patience") == 7
-    assert port.pop("early_stop_patience") is None
+    assert port["early_stop_patience"] == want["early_stop_patience"] == 7
     assert port == want
 
 
@@ -101,14 +101,38 @@ def test_train_config_matches_jax():
     (dict(schedule="constant"), "constant"),
     (dict(accum_steps=2), "accum_steps"),
     (dict(mu_bf16=True), "mu_bf16"),
-    (dict(early_stop_patience=7), "early stopping"),
-    (dict(checkpoint_every=10), "checkpointing"),
 ])
 def test_unported_train_settings_raise(change, match):
     cfg = dataclasses.replace(shapenet_car_train_config(), **change)
     with pytest.raises(NotImplementedError, match=match) as e:
         make_optimizer(cfg, 10, [torch.zeros(1, requires_grad=True)])
     assert "ROADMAP.md" in str(e.value)
+
+
+@pytest.mark.parametrize("change", [dict(early_stop_patience=7),
+                                    dict(checkpoint_every=1)],
+                         ids=["early stopping", "checkpointing"])
+def test_fit_settings_run(change, tmp_path):
+    """Early stopping and periodic checkpoints no longer raise: the
+    optimizer builds with each, and one ``fit`` epoch runs with it (one
+    ``epoch_0`` save under ``checkpoint_every=1``)."""
+    from haet_torch.train import Checkpointer, MetricsLogger
+
+    cfg = dataclasses.replace(shapenet_car_train_config(), **change)
+    make_optimizer(cfg, 10, [torch.zeros(1, requires_grad=True)])
+    lin = torch.nn.Linear(3, 1)
+    trainer = Trainer(lin, lambda out, b: (((out - b["y"]) ** 2).mean(), {}),
+                      cfg, 4, batch_args=lambda b: (b["x"],))
+    rng = np.random.RandomState(0)
+    batch = {"x": rng.randn(8, 3).astype(np.float32),
+             "y": rng.randn(8, 1).astype(np.float32)}
+    ck = Checkpointer(str(tmp_path))
+    recs = trainer.fit(lambda: [batch, batch], lambda: [batch], epochs=1,
+                       logger=MetricsLogger(echo=False), checkpointer=ck)
+    assert [r["epoch"] for r in recs] == [0] and trainer.step == 2
+    assert np.isfinite(recs[0]["val/loss"])
+    assert ck.periodic_epochs() == ([0] if "checkpoint_every" in change
+                                    else [])
 
 
 @pytest.mark.parametrize("total_steps", [20, 3])
@@ -182,24 +206,24 @@ def test_car_pad_matches_jax(car_train, n):
     batch, equal to the JAX data layer and driver."""
     arrays = _sample(n, seed=n)
     sample = jcar.CarSample(*arrays)
+    tsample = TCarSample(*arrays)
     assert tcar.bucket_size(n) == car_train.bucket_size(n)
     for n_pad in (tcar.bucket_size(n), 4096):
-        for got, want in zip(tcar.pad_sample(*arrays, n_pad),
+        for got, want in zip(tcar.pad_sample(tsample, n_pad),
                              jcar.pad_sample(sample, n_pad)):
             np.testing.assert_array_equal(got, want)
-    got = tcar.make_batch(*arrays)
+    got = tcar.make_batch(tsample)
     want = car_train.make_batch(sample)
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == np.float32
         np.testing.assert_array_equal(got[k], want[k])
     with pytest.raises(ValueError, match="surface points"):
-        tcar.pad_sample(*arrays, n - 1)
+        tcar.pad_sample(tsample, n - 1)
 
 
 def test_car_loss_matches_jax(car_train):
-    arrays = _sample(N_POINTS)
-    batch = tcar.make_batch(*arrays, n_pad=N_PAD)
+    batch = tcar.make_batch(TCarSample(*_sample(N_POINTS)), n_pad=N_PAD)
     out = np.random.RandomState(3).randn(1, N_PAD, 4).astype(np.float32)
     jl, jaux = car_train.loss_fn_builder(0.5)(jnp.asarray(out), batch)
     tl, taux = tcar.loss_fn_builder(0.5)(
@@ -221,7 +245,7 @@ def small():
     test's rtol (at the init scale they differ by ~2e-6 there; the
     unpooling's BatchNorm sees enough variance as it is)."""
     rng = np.random.RandomState(0)
-    batch = tcar.make_batch(*_sample(N_POINTS), n_pad=N_PAD)
+    batch = tcar.make_batch(TCarSample(*_sample(N_POINTS)), n_pad=N_PAD)
     template = jax.eval_shape(JModel(**MODEL).init, jax.random.PRNGKey(0),
                               batch["x"])
     variables = init_like(template, rng, MODEL["n_hidden"])
