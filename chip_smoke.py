@@ -60,14 +60,17 @@ Phases (any failed check exits non-zero before the final line):
 6. Train: the car preset at full width with both flags set takes 5
    ``Trainer.train_step``s (Adam + OneCycle + clip 1.0, the masked car
    loss, train-mode BatchNorm) on a seeded synthetic sample of 32186 points
-   padded to the 32768 bucket. Checks that the loss and every parameter stay
+   padded to the 32768 bucket: replays of one CUDA graph, the trainer's
+   default on the card. Checks that the loss and every parameter stay
    finite, that after step 1 every parameter but ``sigma_att`` has a finite
    gradient, that step 1's gradients match the plain path's (both flags off,
-   same weights and batch) leaf by leaf, and that the launch counters rose
-   by exactly 2 + 2 (slice forwards) + 2 + 2 (their backwards) + 24 + 24
-   (Erwin) per step with no plain route. Prints the step
-   wall time, peak device memory and, from one profiled step, the device
-   time by kernel and the busy share.
+   same weights and batch, stepped op by op) leaf by leaf, that the launch
+   counters rose by exactly 2 + 2 (slice forwards) + 2 + 2 (their
+   backwards) + 24 + 24 (Erwin) per step of the graph's warm-up and
+   capture, with no plain route, and that one replay ran exactly those
+   kernel calls on the device (``profile_launches``). Prints the step wall
+   time, peak device memory and, from one profiled step, the device time
+   by kernel and the busy share.
 7. Benchmarks: the drivers of ``haet_torch.bench`` and
    ``haet_torch/benchmarks/``, and the copy kernel they time.
    a. ``copy_scale`` (the fifth kernel) at ``[256, 32]`` against
@@ -91,41 +94,74 @@ Phases (any failed check exits non-zero before the final line):
    d. ``micro_erwin_fused`` with reduced windows: the copy counter rises by
       exactly the chained calls the driver made, the Erwin counters by
       exactly the fused lines' calls, and no block takes the plain route.
-   e. ``bench_flags`` with 2 rounds of 1/3 steps: per step, exactly 2 + 2
-      slice launches and 2 + 2 of their backwards for ``pallas-tokenizer``,
-      one forward and one backward launch per Erwin block (12) for
-      ``pallas-erwin``, none for ``baseline``, and no plain route; then
+   e. ``bench_flags`` with 2 rounds of 1/3 steps, dispatched and as CUDA
+      graphs: per step, exactly 2 + 2 slice launches and 2 + 2 of their
+      backwards for ``pallas-tokenizer``, one forward and one backward
+      launch per Erwin block (12) for ``pallas-erwin``, none for
+      ``baseline``, and no plain route, from the launch counters for the
+      dispatched steps and from the profiler for the replayed ones; then
       ``pallas-tokenizer`` alone at ``--slice_num 128`` (G*C 4096), with
       the same counts.
-   f. ``haet_torch.bench``, 2 rounds: a finite throughput and MFU.
+   f. ``haet_torch.bench``, 2 rounds: a finite throughput and MFU, both
+      strategies' seconds per step, the better one reported.
    g. One ``mem_sweep`` probe per path at N = 2**20, forward only, each in
       a fresh process: the slice-kernel path's peak memory must be below
       the plain path's, and its probe must count 1 + 1 slice launches.
+   h. ``bench_loop_diag`` (dispatched, graph with the input tied to the
+      loss, graph with a constant input) at windows of 1 and 3 steps, and
+      ``profile_step`` at 1/2 calls: finite windows, a graph wall per line.
 
 8. The car preset's training run.
    a. ``Trainer.fit`` at full width (1,757,190 params, both kernel flags,
       ``shapenet_car_train_config()`` with early stopping armed) over
       ``car_like(n=4, npts=32186, seed=0)``, each sample padded to its
       2048 bucket: 3 for training, 1 held out; 3 epochs, eval every epoch,
-      a ``Checkpointer`` in a temporary directory. Checks finite losses,
-      ``best`` and ``last`` written, the launch counters risen by exactly
-      2 + 2 + 2 + 2 + 24 + 24 per train step and 2 + 2 + 24 per eval
-      forward, no plain route; ``last`` restored on the CPU equal to the
-      card's model; a run stopped by ``stop_event`` after epoch 1 and
-      resumed through a fresh ``Trainer`` ends within 1e-5 of each leaf's
+      a ``Checkpointer`` in a temporary directory; the steps replay one
+      CUDA graph per bucket. Checks finite losses, ``best`` and ``last``
+      written, the launch counters risen by exactly 2 + 2 + 2 + 2 + 24 +
+      24 per step of each graph's warm-up and capture and 2 + 2 + 24 per
+      eval forward, no plain route; ``last`` restored on the CPU equal to
+      the card's model; a run stopped by ``stop_event`` after epoch 1 and
+      resumed through a fresh ``Trainer`` (its epoch profiled: exactly 2 +
+      2 + 2 + 2 + 24 + 24 kernel calls on the device per step and warm-up
+      step, 2 + 2 + 24 per eval forward) ends within 1e-5 of each leaf's
       max of the unbroken run (printed: whether bit-identical). Prints the
       per-epoch wall, ``fit``'s wall per step against bare ``train_step``s
-      on the same batches, and the peak device memory.
+      on the same batches (graphs captured before the timed region), and
+      the peak device memory.
    b. ``python -m haet_torch.benchmarks.car_train --epochs 2`` at full
       width on the synthetic stand-in, in a subprocess, then
       ``car_eval --which last`` on its checkpoints (2 + 2 + 24 launches
       per forward): every metric finite, ``car_eval`` equal to
       ``car_train``'s final metrics at rtol 1e-5; ``time_per_sample``.
 
+9. The car train step as CUDA graphs against the eager step
+   (``Trainer(..., eager=True)``), the car preset at full width with both
+   kernel flags, ``cycle_momentum`` on.
+   a. Two trainers from the same weights take 6 steps over two buckets in
+      turns (30720 and 32768 points, so the graphs switch): at every step
+      the metrics, and the lr and beta1 that the step applied, within
+      ``GRAPH_RTOL`` = 1e-6 (printed: whether bit-identical); after them
+      every parameter, BatchNorm statistic and counter, Adam state, lr and
+      beta1 within 1e-6 of its max.
+   b. One replay's kernel calls from the profiler: exactly 2 + 2 + 2 + 2
+      + 24 + 24, no plain route; the same replay twice from one state
+      (restored in place) bit-identical.
+   d. The eager trainer's checkpoint of step 3 restored into both (the
+      training state keeps its storage), then 3 more steps: equal again,
+      and no new graph captured.
+   e. Each trainer's step wall (median of 12), device time, kernels per
+      step, busy share, and memory: the resident state, the graphs' pool
+      and the eager step's temporaries.
+   c. ``train_steps`` of 5 batches (one graph of 5 steps) against 5
+      graphed ``train_step``s from the same weights: equal metrics and
+      state.
+
 Then one JSON line of kernel records, seven of them (``launches`` from
-phase 6's counters, and for ``copy_scale`` from the counter after phase
-7d's run) and phase 8's numbers, the card line, and as the
-last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+phase 6's counters, for ``copy_scale`` from the counter after phase 7d's
+run, ``replay_launches`` from the profiler's count of one replay) and
+phase 8's and 9's numbers, the card line, and as the last line ``{"ok":
+true, "device": {...}}``. Imports nothing of JAX or
 ``haet_tpu``.
 """
 
@@ -1117,8 +1153,10 @@ def train_phase(dev):
 
     from haet_torch.models import HAETransolverIrregularMesh
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        profile_launches,
                                         reset_launch_counts)
     from haet_torch.train import Trainer
+    from haet_torch.train.graphs import WARMUP
     from haet_torch.data.shapenet_car import CarSample
     from haet_torch.train.car import loss_fn_builder, make_batch
     from haet_torch.utils.config import (shapenet_car_config,
@@ -1136,7 +1174,7 @@ def train_phase(dev):
     check(batch["x"].shape == (1, N_PADDED, 7),
           f"padded batch {batch['x'].shape}")
 
-    def build(flags):
+    def build(flags, eager=False):
         kwargs.update(use_pallas=flags)
         model = HAETransolverIrregularMesh(**kwargs, use_pallas_erwin=flags,
                                            device=dev, seed=SEED)
@@ -1146,12 +1184,13 @@ def train_phase(dev):
                 p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
         return model, Trainer(model, loss_fn_builder(0.5), cfg,
                               total_steps=TRAIN_STEPS + 1,
-                              batch_args=lambda bt: (bt["x"], None))
+                              batch_args=lambda bt: (bt["x"], None),
+                              eager=eager)
 
-    # The plain path (both flags off) first: step 1's gradients are kept,
-    # two more steps are timed, and the plain model is dropped before the
-    # kernel run's memory peak.
-    plain, trainer = build(False)
+    # The plain path (both flags off, step by step) first: step 1's
+    # gradients are kept, two more steps are timed, and the plain model is
+    # dropped before the kernel run's memory peak.
+    plain, trainer = build(False, eager=True)
     torch.cuda.reset_peak_memory_stats()
     m_plain = {k: float(v) for k, v in trainer.train_step(batch).items()}
     want = {k: None if p.grad is None else p.grad.detach().clone()
@@ -1217,12 +1256,14 @@ def train_phase(dev):
     counts = launch_counts()
     plain_routes = plain_route_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    per_step = {"slice_states": 2, "deslice": 2, "slice_states_bwd": 2,
-                "deslice_bwd": 2, "fused_erwin_block": 24,
-                "fused_erwin_block_bwd": 24, "copy_scale": 0}
-    want_counts = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    print(f"  {TRAIN_STEPS} steps; launches {counts}; expected {want_counts}",
-          flush=True)
+    # the steps are replays of one CUDA graph: the counters rose during its
+    # warm-up and capture, and not on a replay
+    captured = len(trainer.graphs) * (WARMUP + 1)
+    want_counts = {k: v * captured for k, v in PER_STEP.items()}
+    print(f"  {TRAIN_STEPS} steps, replays of {len(trainer.graphs)} graph "
+          f"(captured in {trainer.graphs.capture_s[0]:.3f} s, {WARMUP} "
+          f"warm-up steps thrown away); host launch counters {counts}; "
+          f"expected {want_counts}", flush=True)
     check(counts == want_counts, f"launch counts {counts} != {want_counts}")
     print(f"  calls routed to a plain version {plain_routes}", flush=True)
     check(all(v == 0 for v in plain_routes.values()),
@@ -1245,14 +1286,17 @@ def train_phase(dev):
     events = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     wall_ms = 1e3 * min(walls[1:])
-    print(f"  profiled step: device time {device_ms:.3f} ms in "
+    print(f"  profiled step (a replay): device time {device_ms:.3f} ms in "
           f"{sum(e.count for e in events)} kernels; busy share "
           f"{device_ms / wall_ms:.3f} of the min step wall {wall_ms:.3f} ms",
           flush=True)
     for e in events[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
-    return counts
+    _, replay = profile_launches(trainer.train_step, batch)
+    expect_counts("kernel calls in one replay, from the profiler",
+                  replay["calls"], PER_STEP)
+    return counts, replay["calls"]
 
 
 # ---------------------------------------------------------------------------
@@ -1266,6 +1310,9 @@ COPY_LARGE = (4096, 4096)
 MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=3)
 #: bench_flags' reduced windows: k_lo/k_hi steps and rounds
 FLAGS_STEPS = dict(k_lo=1, k_hi=3, rounds=2)
+#: bench_loop_diag's and profile_step's windows, at the car's 32768 points
+LOOP_DIAG = dict(ks=(1, 3), rounds=1)
+PROFILE_STEP = dict(lo=1, hi=2, rounds=1)
 #: bench_flags' --slice_num past the old G*C gate of the slice kernels
 FLAGS_WIDE_G = 128
 #: the slice kernels' check and the memory probes: ~30x the car's points
@@ -1465,7 +1512,8 @@ def drivers_phase(dev):
     import torch
 
     from haet_torch import bench
-    from haet_torch.benchmarks import bench_flags, mem_sweep
+    from haet_torch.benchmarks import (bench_flags, bench_loop_diag,
+                                       mem_sweep, profile_step)
     from haet_torch.benchmarks import micro_erwin_fused as micro
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
                                         reset_launch_counts)
@@ -1512,6 +1560,15 @@ def drivers_phase(dev):
                       r["launches_per_step"], want)
         expect_counts(f"{name} plain routes per step",
                       r["plain_routes_per_step"], no_routes)
+        check(r["graph_ms_per_step"] is not None
+              and np.isfinite(r["graph_ms_per_step"]),
+              f"{name}: graph step time {r['graph_ms_per_step']}")
+        expect_counts(f"{name} kernel calls per replayed step (profiler)",
+                      r["graph_calls_per_step"], want)
+        print(f"  {name}: ms per step dispatched {r['ms_per_step']:.3f}, "
+              f"graph {r['graph_ms_per_step']:.3f}; device "
+              f"{r['device_ms_per_step']:.3f} and "
+              f"{r['graph_device_ms_per_step']:.3f}", flush=True)
 
     print("phase 7f: haet_torch.bench, 2 rounds", flush=True)
     rec = bench.run(dev, budget_s=0.0, rounds=2)
@@ -1520,7 +1577,28 @@ def drivers_phase(dev):
           f"bench value {rec['value']}")
     check(rec["mfu"] is not None and 0 < rec["mfu"] < 1,
           f"bench mfu {rec['mfu']}")
+    for s in ("dispatch", "graph"):
+        check(np.isfinite(rec[f"{s}_sec_per_step"])
+              and rec[f"{s}_sec_per_step"] > 0,
+              f"bench {s} seconds per step {rec[f'{s}_sec_per_step']}")
+    check(rec["sec_per_step"] == min(rec["dispatch_sec_per_step"],
+                                     rec["graph_sec_per_step"]),
+          "bench does not report the better strategy")
     del rec
+    torch.cuda.empty_cache()
+
+    print(f"phase 7h: bench_loop_diag {LOOP_DIAG}, then profile_step "
+          f"{PROFILE_STEP}", flush=True)
+    diag = bench_loop_diag.run(dev, points=N_PADDED, **LOOP_DIAG)
+    for v, r in diag.items():
+        check(all(np.isfinite(t) and t > 0
+                  for t in r["ms_per_window"].values()),
+              f"bench_loop_diag {v}: windows {r['ms_per_window']}")
+    prof = profile_step.run(dev, points=N_PADDED, **PROFILE_STEP)
+    for name, r in prof.items():
+        check(r["graph_wall_ms"] is not None
+              and np.isfinite(r["graph_wall_ms"]),
+              f"profile_step {name}: graph wall {r['graph_wall_ms']}")
     torch.cuda.empty_cache()
 
     print(f"phase 7g: mem_sweep probes at N = {N_LARGE}, forward only, "
@@ -1645,9 +1723,11 @@ def fit_phase(dev):
 
     from haet_torch.benchmarks.car_train import build_model
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        profile_launches,
                                         reset_launch_counts)
     from haet_torch.train import Checkpointer, MetricsLogger, Trainer
     from haet_torch.train.car import loss_fn_builder, make_batch
+    from haet_torch.train.graphs import WARMUP, signature
     from haet_torch.utils.config import (shapenet_car_config,
                                          shapenet_car_train_config)
 
@@ -1678,9 +1758,17 @@ def fit_phase(dev):
     fit_s = time.perf_counter() - t0
     counts, routes = launch_counts(), plain_route_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    want = expected_launches(steps, FIT_EPOCHS * len(val))
-    expect_counts(f"launches over {steps} steps and {FIT_EPOCHS * len(val)} "
-                  f"eval forwards", counts, want)
+    # fit's steps replay one CUDA graph per training bucket: the host
+    # counters rose in each graph's warm-up and capture, and in the eval
+    # forwards; the launches of the replays are read from the profiler on
+    # the resumed run below
+    graphs = len({signature(b) for b in batches})
+    check(len(whole.graphs) == graphs,
+          f"{len(whole.graphs)} graphs for {graphs} training buckets")
+    want = expected_launches(graphs * (WARMUP + 1), FIT_EPOCHS * len(val))
+    expect_counts(f"host launch counters over {steps} steps ({graphs} "
+                  f"graphs captured) and {FIT_EPOCHS * len(val)} eval "
+                  f"forwards", counts, want)
     expect_counts("plain routes", routes, {k: 0 for k in routes})
     check([r["epoch"] for r in recs] == list(range(FIT_EPOCHS)),
           f"epochs {[r['epoch'] for r in recs]}")
@@ -1729,9 +1817,20 @@ def fit_phase(dev):
     resumed = trainer(seed=SEED + 2)
     check(resumed.maybe_restore(Checkpointer(f"{tmp}/stopped")),
           "nothing to resume")
-    recs2 = resumed.fit(lambda: iter(batches), lambda: iter(evals),
-                        checkpointer=Checkpointer(f"{tmp}/stopped"),
-                        logger=quiet)
+    reset_launch_counts()
+    recs2, device = profile_launches(
+        lambda: resumed.fit(lambda: iter(batches), lambda: iter(evals),
+                            checkpointer=Checkpointer(f"{tmp}/stopped"),
+                            logger=quiet))
+    # the device ran each graph's warm-up steps and then every step as a
+    # replay; the eval forwards are eager
+    expect_counts(f"kernel calls on the device over the resumed epoch's "
+                  f"{len(batches)} steps and {len(val)} eval forward "
+                  f"(profiler)", device["calls"],
+                  expected_launches(len(batches) + WARMUP * graphs,
+                                    len(val)))
+    expect_counts("plain routes", plain_route_counts(),
+                  {k: 0 for k in routes})
     check([r["epoch"] for r in recs2] == [FIT_EPOCHS - 1],
           f"resumed epochs {[r['epoch'] for r in recs2]}")
     identical = compare_states(state_on_cpu(resumed), want_state)
@@ -1742,6 +1841,8 @@ def fit_phase(dev):
     walls = {"bare": [], "fit": []}
     for side in ("bare", "fit", "fit", "bare") * WALL_ROUNDS:
         t = trainer()
+        for b in batches:   # the captures, outside the timed region
+            t.graphs.prepare([b])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if side == "bare":
@@ -1817,6 +1918,262 @@ def drivers_car_phase(dev):
             "eval_time_per_sample": got["time_per_sample"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the train step as CUDA graphs, against the eager step.
+# ---------------------------------------------------------------------------
+
+#: two training buckets, so that the graphs switch from step to step
+GRAPH_POINTS = (30000, N_POINTS)     # buckets 30720 and 32768
+GRAPH_STEPS = 6
+#: graphed against eager: each leaf within this of its max
+GRAPH_RTOL = 1e-6
+SCAN_STEPS = 5
+#: replays (and eager steps) timed for the walls
+WALL_STEPS = 12
+
+
+def graph_batches(n, seeds):
+    """Car-like batches of ``n`` points (surface last), one per seed."""
+    from haet_torch.data.shapenet_car import CarSample
+    from haet_torch.train.car import make_batch
+
+    out = []
+    for seed in seeds:
+        rng = np.random.RandomState(seed)
+        x = rng.randn(n, 7).astype(np.float32)
+        y = rng.randn(n, 4).astype(np.float32)
+        surf = np.zeros(n, bool)
+        surf[-N_SURFACE:] = True
+        out.append(make_batch(CarSample(x[:, :3], x, y, surf)))
+    return out
+
+
+def train_state(trainer, rates: bool = True) -> dict:
+    """Every tensor of the training state, by name: parameters, BatchNorm
+    buffers (``num_batches_tracked`` too), Adam's state and, with
+    ``rates``, the lr and beta1 of the last step."""
+    st = {f"model {k}": v for k, v in trainer.model.state_dict().items()}
+    for i, p in enumerate(trainer.params):
+        for k, v in trainer.optimizer.state[p].items():
+            st[f"adam {i} {k}"] = v
+    if rates:
+        st["lr, beta1"] = trainer.optimizer.hparams
+    return st
+
+
+def hold_states(what, got, want, rates: bool = True) -> bool:
+    """Each of ``got``'s tensors within ``GRAPH_RTOL`` of the max of
+    ``want``'s; returns whether all are bit-identical."""
+    import torch
+
+    got, want = train_state(got, rates), train_state(want, rates)
+    check(sorted(got) == sorted(want), f"{what}: state keys differ")
+    identical, worst = True, (0.0, "")
+    for k, w in want.items():
+        g = got[k]
+        err = float((g.double() - w.double()).abs().max())
+        scale = max(float(w.double().abs().max()), 1e-30)
+        check(err <= GRAPH_RTOL * scale,
+              f"{what}: {k} differs by {err} > {GRAPH_RTOL} x {scale}")
+        worst = max(worst, (err / scale, k))
+        identical = identical and torch.equal(g, w)
+    print(f"  {what}: {len(want)} tensors, largest error relative to its "
+          f"max {worst[0]:.3e} ({worst[1]}); bit-identical {identical}",
+          flush=True)
+    return identical
+
+
+def hold_step(what, got, want, rates) -> bool:
+    """One step's metrics (and the lr and beta1 it applied: ``rates``, the
+    two trainers' ``hparams`` after it) within ``GRAPH_RTOL``."""
+    import torch
+
+    identical = True
+    for k, w in want.items():
+        g, w = float(got[k]), float(w)
+        check(abs(g - w) <= GRAPH_RTOL * abs(w), f"{what}: {k} {g} != {w}")
+        identical = identical and g == w
+    check(torch.equal(*rates), f"{what}: lr, beta1 {rates[0].tolist()} != "
+                               f"{rates[1].tolist()}")
+    return identical
+
+
+def graph_phase(dev):
+    """9a-9e: the car train step as CUDA graphs (``Trainer.train_step``'s
+    default on the card) against the eager step (``eager=True``)."""
+    import copy
+    import gc
+    import tempfile
+
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.ops.kernels import (plain_route_counts,
+                                        profile_launches,
+                                        reset_launch_counts)
+    from haet_torch.train import Checkpointer, Trainer
+    from haet_torch.train.car import bucket_size, loss_fn_builder
+    from haet_torch.utils.config import (shapenet_car_config,
+                                         shapenet_car_train_config)
+
+    cfg = shapenet_car_train_config()
+    check(cfg.cycle_momentum, "cycle_momentum is off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    pair = [graph_batches(n, [SEED + 20 + i])[0]
+            for i, n in enumerate(GRAPH_POINTS)]
+    check([b["x"].shape[1] for b in pair]
+          == [bucket_size(n) for n in GRAPH_POINTS], "buckets")
+
+    def trainer(eager, seed=SEED, steps=2 * GRAPH_STEPS):
+        model = build_model(shapenet_car_config(), dev, seed=seed)
+        return Trainer(model, loss_fn_builder(0.5), cfg, total_steps=steps,
+                       batch_args=lambda b: (b["x"], None), eager=eager)
+
+    print(f"phase 9a: {GRAPH_STEPS} steps, graphed against eager, "
+          f"alternating buckets {[b['x'].shape[1] for b in pair]}",
+          flush=True)
+    graphed, eager = trainer(False), trainer(True)
+    check(graphed.graphs is not None and eager.graphs is None, "modes")
+    hold_states("9a: the two trainers' initial state", graphed, eager)
+    tmp = tempfile.mkdtemp(prefix="haet_graphs_")
+    ck = Checkpointer(tmp)
+    reset_launch_counts()
+    same = True
+    for i in range(GRAPH_STEPS):
+        b = pair[i % 2]
+        mg, me = graphed.train_step(b), eager.train_step(b)
+        rates = (graphed.optimizer.hparams.cpu(),
+                 eager.optimizer.hparams.cpu())
+        same = hold_step(f"9a step {i + 1}", mg, me, rates) and same
+        print(f"  step {i + 1} ({b['x'].shape[1]} points): loss graphed "
+              f"{float(mg['loss']):.8f} eager {float(me['loss']):.8f}; lr, "
+              f"beta1 {rates[0].tolist()}", flush=True)
+        if i == GRAPH_STEPS // 2 - 1:   # for 9d: a checkpoint mid-run
+            ck.save_last(eager.state_dict(), 0)
+    print(f"  every step's metrics bit-identical: {same}; "
+          f"{len(graphed.graphs)} graphs, captured in "
+          f"{[round(t, 3) for t in graphed.graphs.capture_s]} s", flush=True)
+    check(len(graphed.graphs) == 2, f"{len(graphed.graphs)} graphs")
+    hold_states(f"9a: state after {GRAPH_STEPS} steps", graphed, eager)
+    check(all(v == 0 for v in plain_route_counts().values()),
+          f"plain routes {plain_route_counts()}")
+
+    print("phase 9b: one replay's kernels, from the profiler", flush=True)
+    reset_launch_counts()
+    _, replay = profile_launches(graphed.train_step, pair[1])
+    expect_counts("kernel calls in one replay", replay["calls"], PER_STEP)
+    expect_counts("plain routes", plain_route_counts(),
+                  {k: 0 for k in plain_route_counts()})
+    print(f"  CUDA kernels per replay {replay['kernels']} (the port's "
+          f"{sum(replay['launches'].values())}: {replay['launches']}) and "
+          f"{replay['copies']} copies; device {replay['device_ms']:.3f} ms",
+          flush=True)
+    # the same replay twice, from the same state: the slice kernels'
+    # arrival counters, captured once, are back at zero after each replay
+    snapshot = copy.deepcopy(graphed.state_dict())
+    first = graphed.train_step(pair[1])
+    after = {k: v.clone() for k, v in train_state(graphed).items()}
+    graphed.load_state_dict(snapshot)
+    second = graphed.train_step(pair[1])
+    check(all(torch.equal(first[k], second[k]) for k in first)
+          and all(torch.equal(v, after[k])
+                  for k, v in train_state(graphed).items()),
+          "two replays from one state differ")
+    print("  two replays from one state and batch: bit-identical", flush=True)
+
+    print(f"phase 9d: restore step {GRAPH_STEPS // 2}'s eager checkpoint "
+          f"into both trainers, then {GRAPH_STEPS // 2} more steps",
+          flush=True)
+    for t in (graphed, eager):
+        ptrs = [v.data_ptr() for v in train_state(t).values()]
+        check(t.maybe_restore(ck), "no checkpoint")
+        check(ptrs == [v.data_ptr() for v in train_state(t).values()],
+              "a restore moved the training state")
+    # the rates of the last step are no checkpoint's: the graphed trainer
+    # took one more step (9b)
+    hold_states("9d: restored", graphed, eager, rates=False)
+    for i in range(GRAPH_STEPS // 2):
+        b = pair[i % 2]
+        mg, me = graphed.train_step(b), eager.train_step(b)
+        hold_step(f"9d step {i + 1}", mg, me,
+                  (graphed.optimizer.hparams.cpu(),
+                   eager.optimizer.hparams.cpu()))
+    check(len(graphed.graphs) == 2, "a restore captured new graphs")
+    hold_states("9d: after the restore and the steps", graphed, eager)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    print(f"phase 9e: walls, device time and peak memory ({WALL_STEPS} "
+          f"steps each)", flush=True)
+    # Memory, from this phase's start: a replay allocates nothing (its
+    # temporaries live in the graphs' pool, reserved since the capture), so
+    # the graphed step's footprint is the trainers' resident state plus the
+    # pool; the eager step's is that state plus its peak of temporaries.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mib = 2**20
+    resident = (torch.cuda.memory_allocated() - base[0]) / mib
+    pool = (torch.cuda.memory_reserved() - base[1]) / mib - resident
+    walls = {}
+    for name, t in (("graphed", graphed), ("eager", eager)):
+        w = []
+        start = torch.cuda.memory_allocated() / mib
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(WALL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step(pair[1])
+            torch.cuda.synchronize()
+            w.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / mib
+        _, prof = profile_launches(t.train_step, pair[1])
+        wall = float(np.median(w)) * 1e3
+        nodes = prof["kernels"] + prof["copies"]
+        gaps = prof["span_ms"] - prof["device_ms"]
+        walls[name] = {"wall_ms": wall, "min_ms": min(w) * 1e3,
+                       "walls_ms": [x * 1e3 for x in w],
+                       "device_ms": prof["device_ms"],
+                       "span_ms": prof["span_ms"], "gaps_ms": gaps,
+                       "busy": prof["device_ms"] / wall,
+                       "kernels": prof["kernels"],
+                       "copies": prof["copies"],
+                       "step_mb": (pool if name == "graphed"
+                                   else peak - start)}
+        print(f"  {name}: wall median {wall:.3f} ms (min {min(w) * 1e3:.3f}) "
+              f"of {WALL_STEPS}; device {prof['device_ms']:.3f} ms in "
+              f"{prof['kernels']} kernels and {prof['copies']} copies over a "
+              f"span of {prof['span_ms']:.3f} ms (gaps {gaps:.3f} ms, "
+              f"{1e3 * gaps / nodes:.2f} us per node); busy "
+              f"{prof['device_ms'] / wall:.3f}", flush=True)
+    print(f"  memory since phase 9 began: resident (both trainers' state, "
+          f"the graphs' static buffers) {resident:.1f} MiB; the graphs' "
+          f"pool {pool:.1f} MiB; the eager step's temporaries at peak "
+          f"{walls['eager']['step_mb']:.1f} MiB", flush=True)
+    del graphed, eager
+
+    print(f"phase 9c: train_steps of {SCAN_STEPS} against {SCAN_STEPS} "
+          f"graphed train_steps", flush=True)
+    batches = graph_batches(N_POINTS, range(SEED + 30, SEED + 30 + SCAN_STEPS))
+    scan, single = trainer(False), trainer(False)
+    t0 = time.perf_counter()
+    ms = scan.train_steps(batches)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    singles = [single.train_step(b) for b in batches]
+    check(scan.step == single.step == SCAN_STEPS, "steps")
+    for i, m in enumerate(singles):
+        hold_step(f"9c step {i + 1}", {k: v[i] for k, v in ms.items()}, m,
+                  (scan.optimizer.hparams.cpu(),
+                   single.optimizer.hparams.cpu()))
+    print(f"  losses {ms['loss'].tolist()}; one graph of {SCAN_STEPS} steps "
+          f"(capture and first replay {scan_s:.3f} s)", flush=True)
+    hold_states(f"9c: state after {SCAN_STEPS} steps", scan, single)
+    del scan, single
+    torch.cuda.empty_cache()
+    return walls
+
+
 def main() -> int:
     try:
         import torch
@@ -1861,7 +2218,7 @@ def main() -> int:
         del model
         print(f"phase 6: train the ShapeNet-Car preset, {TRAIN_STEPS} steps",
               flush=True)
-        counts = train_phase(dev)
+        counts, replay_calls = train_phase(dev)
         t7 = time.perf_counter()
         records.append(copy_phase(dev))
         driver_shape_phase(dev, records)
@@ -1876,6 +2233,9 @@ def main() -> int:
               f"--which last", flush=True)
         fit.update(drivers_car_phase(dev))
         print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+        t9 = time.perf_counter()
+        graphs = graph_phase(dev)
+        print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1883,9 +2243,11 @@ def main() -> int:
     counts["copy_scale"] = copy_launches
     for r in records:
         r["launches"] = counts[r["name"]]
+        r["replay_launches"] = replay_calls[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]
     print(json.dumps({"kernels": records, "train_steps": TRAIN_STEPS,
-                      "serve_forwards": forwards, "fit": fit}))
+                      "serve_forwards": forwards, "fit": fit,
+                      "graphs": graphs}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,18 +6,22 @@ Counterpart of ``bench.py:76-264``. The model is the car configuration
 (:func:`~haet_torch.utils.config.shapenet_car_config`, 1,757,190 params,
 kernel flags off as the preset sets them), float32, batch 1 of 32768
 points from ``RandomState(0)``; the step is a train-mode forward, MSE,
-backward and ``torch.optim.Adam(lr=1e-3)``.
+backward and ``torch.optim.Adam(lr=1e-3)`` (capturable on the card).
 
-Timing is ``bench.py``'s dispatch strategy (``:130-137``): windows of
-``K_LO``/``K_HI`` = 5/45 chained steps, each ending in a fetch of the last
-loss, one warm-up window of each, then interleaved
-(:func:`.benchmarks.timing.interleaved_minima`); at least ``--rounds``
-rounds, then more until ``--budget_s`` seconds of sampling or 16 rounds;
-seconds per step is the
-difference of the minima over ``k_hi - k_lo``, or ``t_hi / k_hi`` where that
-difference is not positive (``:214-217``). The JAX loop strategy (one jit
-with ``fori_loop``, ``:139-149``) has no eager counterpart; a captured CUDA
-graph would be one, and is queued in ``ROADMAP.md``.
+Timing has ``bench.py``'s two strategies, each in windows of
+``K_LO``/``K_HI`` = 5/45 chained steps ending in a fetch of the last loss:
+dispatch (``:130-137``: the steps launched from Python) and loop
+(``:139-149``: there one jit with a ``fori_loop``, here a CUDA graph of
+one step whose input is tied to the last loss, replayed k times,
+:func:`.benchmarks.timing.graph_loop`). After one warm-up window of each,
+the four kinds of window are interleaved
+(:func:`.benchmarks.timing.interleaved_minima`, ``:203-212``); at least
+``--rounds`` rounds, then more until ``--budget_s`` seconds of sampling or
+16 rounds. A strategy's seconds per step is the difference of its minima
+over ``k_hi - k_lo``, or ``t_hi / k_hi`` where that difference is not
+positive; the record reports the better strategy (``:214-218``) and each
+one's seconds per step. On the CPU there is no CUDA graph: the graph
+fields are null and ``graph_note`` says why.
 
 Prints one JSON line: points per second, ``vs_baseline`` against the
 reference's A100 log (0.430 s per batch of 32768 points, ``bench.py:42``),
@@ -38,7 +42,7 @@ import json
 import numpy as np
 import torch
 
-from .benchmarks.timing import interleaved_minima, per_call
+from .benchmarks.timing import graph_loop, interleaved_minima, per_call
 from .utils.config import shapenet_car_config
 from .utils.env import default_device
 
@@ -56,13 +60,16 @@ PROBE_FLOPS = 2 * PROBE_DIM ** 3 * PROBE_ITERS  # 2.2 TFLOP
 MAX_ROUNDS = 16
 #: steps in the short and long windows (``bench.py:130-137``)
 K_LO, K_HI = 5, 45
+GRAPH_NOTE_CPU = "no CUDA graph on the CPU: dispatch strategy only"
 
 
 def make_train_step(model, y, lr: float = 1e-3):
     """``step(x) -> loss``: forward in train mode, MSE against ``y``,
     backward, Adam (``bench.py:107-119``); each call moves the model's
-    parameters, so chained calls run one after another on the card."""
-    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    parameters, so chained calls run one after another on the card. Adam
+    is capturable on CUDA parameters, so that a CUDA graph may hold the
+    step (:func:`.benchmarks.timing.graph_loop`)."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, capturable=y.is_cuda)
 
     def step(x):
         model.train()
@@ -103,7 +110,12 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
             return out
         return go
 
-    fns = {K_LO: disp(K_LO), K_HI: disp(K_HI)}
+    fns = {("dispatch", k): disp(k) for k in (K_LO, K_HI)}
+    if on_gpu:
+        loss0 = torch.zeros((), device=dev)
+        mk = graph_loop(lambda loss: step(x + 1e-12 * loss), loss0)
+        fns.update({("graph", k): (lambda k=k: mk(k)(loss0))
+                    for k in (K_LO, K_HI)})
     if on_gpu:    # ~2.2 TFLOP a window: minutes on a CPU, for nothing
         g = torch.Generator(device=dev).manual_seed(7)
         pa = (torch.randn(PROBE_DIM, PROBE_DIM, generator=g, device=dev)
@@ -119,8 +131,12 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
         fns = {"probe": probe, **fns}
     best, n_rounds = interleaved_minima(fns, rounds=rounds, budget_s=budget_s,
                                         max_rounds=MAX_ROUNDS)
-    dt, upper = per_call(best[K_LO], best[K_HI], K_LO, K_HI)
+    per_step = {s: per_call(best[(s, K_LO)], best[(s, K_HI)], K_LO, K_HI)
+                for s in ("dispatch", "graph") if (s, K_LO) in best}
+    strategy = min(per_step, key=lambda s: per_step[s][0])
+    dt, upper = per_step[strategy]
     pps = N_POINTS * BATCH / dt
+    graph = per_step.get("graph", (None, None))
 
     flops = step_flops(lambda: step(x))
     mfu = flops / dt / PEAK_F32_FLOPS if on_gpu else None
@@ -134,6 +150,12 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
         "vs_baseline": pps / BASELINE_PPS,
         "sec_per_step": dt,
         "is_upper_bound": upper,
+        "strategy": strategy,
+        "dispatch_sec_per_step": per_step["dispatch"][0],
+        "dispatch_is_upper_bound": per_step["dispatch"][1],
+        "graph_sec_per_step": graph[0],
+        "graph_is_upper_bound": graph[1],
+        "graph_note": None if on_gpu else GRAPH_NOTE_CPU,
         "rounds": n_rounds,
         "dtype": "float32",
         "device": (torch.cuda.get_device_name(dev) if on_gpu

@@ -14,13 +14,17 @@ rotate=45)``; its Erwin stage keeps the constructor defaults (depths
 
 Every variant is built first, then the windows of ``k_lo`` and ``k_hi``
 chained steps (each step's input is tied to the last loss) of all variants
-are interleaved for ``rounds`` rounds; a variant's time per step is the
-difference of its minima over ``k_hi - k_lo`` (or, where the windows
-drifted more than the steps cost, the upper bound ``t_hi / k_hi`` of
-:func:`.timing.per_call`, flagged ``is_upper_bound``, where the JAX driver
-clamped the difference to 1e-9 s). :func:`run` also returns
-each variant's kernel launches and plain routes per step, from the launch
-counters.
+are interleaved for ``rounds`` rounds, in two strategies: dispatched from
+Python, and (on the card) a CUDA graph of one step replayed k times
+(:func:`.timing.graph_loop`, the counterpart of the JAX driver's jitted
+``fori_loop`` windows, ``bench_flags.py:49-76``). A variant's time per step
+in a strategy is the difference of its minima over ``k_hi - k_lo`` (or,
+where the windows drifted more than the steps cost, the upper bound
+``t_hi / k_hi`` of :func:`.timing.per_call`, flagged ``is_upper_bound``,
+where the JAX driver clamped the difference to 1e-9 s). :func:`run` also
+returns each variant's kernel launches and plain routes per dispatched
+step, from the launch counters, and per replayed step, from the profiler
+(:func:`~haet_torch.ops.kernels.profile_launches`).
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 
 from ..bench import make_train_step
 from ..models import ErwinTransformerBlock, HAETransolverIrregularMesh
-from ..ops.kernels import launch_counts, plain_route_counts
+from ..ops.kernels import launch_counts, plain_route_counts, profile_launches
 from ..utils.env import default_device
-from .timing import device_us_per_call, interleaved_minima, per_call
+from .timing import (device_us_per_call, graph_loop, interleaved_minima,
+                     per_call)
 
 VARIANTS = {
     "baseline": {},
@@ -93,10 +98,15 @@ def run(device=None, points: int = 32768, n_layers: int = 2,
         n_hidden: int = 256, slice_num: int = 32, variants=None,
         k_lo: int = 5, k_hi: int = 25, rounds: int = 8) -> dict:
     """Time each variant; returns ``{variant: {"ms_per_step", "mpts_per_s",
-    "is_upper_bound", "device_ms_per_step", "erwin_blocks", "steps",
-    "launches_per_step", "plain_routes_per_step"}}``, with ``steps`` every
-    step the variant ran and ``device_ms_per_step`` None on the CPU."""
+    "is_upper_bound", "device_ms_per_step", "graph_ms_per_step",
+    "graph_is_upper_bound", "graph_device_ms_per_step",
+    "graph_calls_per_step", "erwin_blocks", "steps", "launches_per_step",
+    "plain_routes_per_step"}}``: the first four of the dispatched steps,
+    the ``graph_*`` of the replayed ones (None on the CPU), with ``steps``
+    every dispatched step the variant ran, and ``device_ms_per_step`` None
+    on the CPU."""
     dev = default_device(device)
+    on_gpu = dev.type == "cuda"
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(1, points, 7).astype(np.float32)).to(dev)
     y = torch.from_numpy(rng.randn(1, points, 4).astype(np.float32)).to(dev)
@@ -110,28 +120,46 @@ def run(device=None, points: int = 32768, n_layers: int = 2,
         loss = _Counted(lambda: step(x), 1, tally)()     # the first step
         float(loss)
         mk = k_steps(step, x)
-        built[name] = (model, loss, mk)
+        gk = (graph_loop(lambda v, step=step: step(x + 1e-12 * v), loss)
+              if on_gpu else None)
+        built[name] = (model, loss, mk, gk)
         for k in (k_lo, k_hi):
             # every window starts from the variant's first loss
             fns[(name, k)] = _Counted(lambda k=k, mk=mk, loss=loss:
                                       mk(k)(loss), k, tally)
+            if gk is not None:
+                fns[(name, "graph", k)] = (lambda k=k, gk=gk, loss=loss:
+                                           gk(k)(loss))
         print(f"built {name}", flush=True)
     # one warm-up of each window, then every variant's windows interleaved
     best, _ = interleaved_minima(fns, rounds=rounds)
 
     out = {}
-    for name, (model, loss, mk) in built.items():
+    for name, (model, loss, mk, gk) in built.items():
         dt, upper = per_call(best[(name, k_lo)], best[(name, k_hi)], k_lo,
                              k_hi)
         dev_us = device_us_per_call(
             lambda k: _Counted(mk(k), k, tallies[name]), loss, reps=k_lo,
             device=dev)
+        graph = {"graph_ms_per_step": None, "graph_is_upper_bound": None,
+                 "graph_device_ms_per_step": None,
+                 "graph_calls_per_step": None}
+        if gk is not None:
+            gdt, gupper = per_call(best[(name, "graph", k_lo)],
+                                   best[(name, "graph", k_hi)], k_lo, k_hi)
+            _, prof = profile_launches(gk(k_lo), loss)
+            graph = {"graph_ms_per_step": gdt * 1e3,
+                     "graph_is_upper_bound": gupper,
+                     "graph_device_ms_per_step": prof["device_ms"] / k_lo,
+                     "graph_calls_per_step": {
+                         k: v / k_lo for k, v in prof["calls"].items()}}
         t = tallies[name]
         out[name] = {
             "ms_per_step": dt * 1e3,
             "mpts_per_s": points / dt / 1e6,
             "is_upper_bound": upper,
             "device_ms_per_step": None if dev_us is None else dev_us / 1e3,
+            **graph,
             "erwin_blocks": sum(isinstance(m, ErwinTransformerBlock)
                                 for m in model.modules()),
             "steps": t["steps"],
@@ -141,8 +169,12 @@ def run(device=None, points: int = 32768, n_layers: int = 2,
         }
         shown = ("not measured" if dev_us is None
                  else f"{dev_us / 1e3:8.3f} ms/step")
+        gshown = ("no graph on the CPU" if gk is None else
+                  f"graph {graph['graph_ms_per_step']:8.3f} ms/step, device "
+                  f"{graph['graph_device_ms_per_step']:8.3f} ms/step")
         print(f"{name:18s} {dt * 1e3:8.3f} ms/step "
-              f"{points / dt / 1e6:8.2f} Mpts/s  device {shown}", flush=True)
+              f"{points / dt / 1e6:8.2f} Mpts/s  device {shown}; {gshown}",
+              flush=True)
     return out
 
 

@@ -35,7 +35,7 @@ from ..ops.kernels import launch_counts, reset_launch_counts
 from ..utils.env import default_device
 from ..utils.profiling import device_memory_mb
 
-BF16_TODO = "bf16 is not ported yet (ROADMAP.md, queue 1, item 2: bf16)"
+BF16_TODO = "bf16 is not ported yet (ROADMAP.md, queue 1: bf16)"
 ROOT = Path(__file__).resolve().parents[2]
 PROBE_TIMEOUT_S = 1800
 
@@ -230,7 +230,8 @@ def main(argv=None):
         "kernel_headroom_x": (max_kernel / max_plain
                               if max_plain and max_kernel else None),
         # use_pallas='auto' would switch to the kernels past what the plain
-        # path holds, with a 25% margin (ROADMAP.md, queue 1, item 4)
+        # path holds, with a 25% margin (ROADMAP.md, queue 1:
+        # use_pallas='auto')
         "auto_threshold": int(max_plain * 0.75) if max_plain else None,
     }
     print(json.dumps(summary), flush=True)

@@ -17,8 +17,11 @@ off as there):
 * slice + eidetic + deslice through :mod:`haet_torch.ops.slice_ops`.
 
 Each line chains ``lo``/``hi`` = 5/25 calls through their data and prints
-the wall time per call (:func:`.timing.fmt`) and the card's kernel time
-per call from a profiled window of ``lo`` calls.
+the wall time per call (:func:`.timing.fmt`) of two strategies, the calls
+dispatched from Python and (on the card) a CUDA graph of one call replayed
+``reps`` times (:func:`.timing.graph_loop`, the counterpart of the JAX
+driver's jitted ``fori_loop``, ``profile_step.py:61-66``), and the card's
+kernel time per call from a profiled window of ``lo`` dispatched calls.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..models.haet import init_weights
 from ..ops import slice_ops
 from ..ops.ball_groups import build_erwin_perms
 from ..utils.env import default_device
-from .timing import device_us_per_call, fmt, loop, timed
+from .timing import device_us_per_call, fmt, graph_loop, loop, timed
 
 N_POINTS = 32768
 
@@ -71,7 +74,8 @@ def build_erwin_stage(device, seed: int = 0):
 
 
 def components(dev, points: int) -> dict:
-    """``{line: (make_fn, arg)}`` for :func:`.timing.timed`."""
+    """``{line: (make_fn, arg, body)}``: ``make_fn`` for
+    :func:`.timing.timed` chains ``body`` from ``arg``."""
     rng = np.random.RandomState(0)
 
     def t(a):
@@ -83,7 +87,7 @@ def components(dev, points: int) -> dict:
     step = make_train_step(model, y)
     # the step does not read the carried loss: like the JAX chain
     # (``:95-107``), each step's dependence is on the parameters
-    lines["train step (fwd+bwd+adam)"] = (loop(lambda loss: step(x)),
+    lines["train step (fwd+bwd+adam)"] = (lambda loss: step(x),
                                           torch.zeros((), device=dev))
 
     def fwd_chain(v):
@@ -91,7 +95,7 @@ def components(dev, points: int) -> dict:
         with torch.no_grad():
             return v + 1e-12 * model(v, None).mean()
 
-    lines["model fwd only"] = (loop(fwd_chain), x)
+    lines["model fwd only"] = (fwd_chain, x)
 
     pa = build_physics_attention(dev).eval()
     fx = t(rng.randn(1, points, 256))
@@ -105,8 +109,8 @@ def components(dev, points: int) -> dict:
         g, = torch.autograd.grad(pa(u).mean(), u)
         return (v + 1e-12 * g).detach()
 
-    lines["physics attention fwd"] = (loop(pa_chain), fx)
-    lines["physics attention fwd+bwd"] = (loop(pa_grad_chain), fx)
+    lines["physics attention fwd"] = (pa_chain, fx)
+    lines["physics attention fwd+bwd"] = (pa_grad_chain, fx)
 
     er = build_erwin_stage(dev).eval()
     s = t(rng.randn(8, 32, 32))
@@ -121,8 +125,8 @@ def components(dev, points: int) -> dict:
                                   rotate_angle=45.0, grouping="median")
         return v + 1e-12 * perms.perm[..., :1, None].to(v.dtype)
 
-    lines["erwin stage fwd"] = (loop(er_chain), s)
-    lines["build_erwin_perms"] = (loop(perm_chain), pos)
+    lines["erwin stage fwd"] = (er_chain, s)
+    lines["build_erwin_perms"] = (perm_chain, pos)
 
     xp = t(rng.randn(1, 8, points, 32))
     wsl = t(rng.randn(32, 32))
@@ -134,25 +138,32 @@ def components(dev, points: int) -> dict:
         st = slice_ops.eidetic_states(v, w)
         return v + 1e-12 * slice_ops.deslice(st, w).mean()
 
-    lines["slice+eidetic+deslice fwd"] = (loop(tok_chain), xp)
-    return lines
+    lines["slice+eidetic+deslice fwd"] = (tok_chain, xp)
+    return {name: (loop(body), arg, body)
+            for name, (body, arg) in lines.items()}
 
 
 def run(device=None, points: int = N_POINTS, lo: int = 5, hi: int = 25,
         rounds: int = 5) -> dict:
-    """Time every component; returns ``{line: {"wall_ms", "device_ms"}}``
-    (``device_ms`` None on the CPU; ``wall_ms`` not positive where the
-    windows drifted more than the component costs)."""
+    """Time every component; returns ``{line: {"wall_ms",
+    "graph_wall_ms", "device_ms"}}`` (``graph_wall_ms`` and ``device_ms``
+    None on the CPU; a wall not positive where the windows drifted more
+    than the component costs)."""
     dev = default_device(device)
     out = {}
-    for name, (mk, arg) in components(dev, points).items():
+    for name, (mk, arg, body) in components(dev, points).items():
         wall = timed(mk, arg, lo=lo, hi=hi, rounds=rounds)
+        graph = (timed(graph_loop(body, arg), arg, lo=lo, hi=hi,
+                       rounds=rounds) if dev.type == "cuda" else None)
         dev_us = device_us_per_call(mk, arg, reps=lo, device=dev)
         out[name] = {"wall_ms": wall * 1e3,
+                     "graph_wall_ms": None if graph is None else graph * 1e3,
                      "device_ms": None if dev_us is None else dev_us / 1e3}
         shown = ("not measured" if dev_us is None
                  else f"{dev_us / 1e3:8.3f} ms")
-        print(f"{name:26s}: wall {fmt(wall)}  device {shown}", flush=True)
+        gshown = "no graph on the CPU" if graph is None else fmt(graph)
+        print(f"{name:26s}: wall {fmt(wall)}  graph {gshown}  device "
+              f"{shown}", flush=True)
     return out
 
 

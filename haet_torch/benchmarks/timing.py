@@ -8,16 +8,21 @@ and ``hi`` calls are interleaved, the minimum of each is taken, and
 ``(t_hi - t_lo) / (hi - lo)`` cancels the fixed cost of a window (the
 fetch, the first launch's latency).
 
-The JAX drivers chained the calls inside one jit, so their difference was
-the device's time per call. Eager PyTorch launches every call from the
-host, so here the difference is the time per call of whichever is slower,
-the host issuing kernels or the card running them. :func:`device_us_per_call`
-gives the card's side from a ``torch.profiler`` trace of one window; the
-drivers print both, and where the two differ the wall number is host-bound.
+The JAX drivers chained the calls inside one jit (a ``fori_loop``), so
+their difference was the device's time per call. Dispatched from eager
+PyTorch (:func:`loop`), the host launches every kernel of every call, so
+the difference is the time per call of whichever is slower, the host
+issuing kernels or the card running them. :func:`graph_loop` is the
+counterpart of the jitted loop: one call captured as a CUDA graph and
+replayed ``reps`` times, one host fetch at the end, so the host issues one
+launch per call. :func:`device_us_per_call` gives the card's side from a
+``torch.profiler`` trace of one window; the drivers print each strategy's
+wall beside it.
 """
 
 from __future__ import annotations
 
+import gc
 from time import perf_counter
 
 import torch
@@ -97,6 +102,48 @@ def loop(body):
             for _ in range(reps):
                 x = body(x)
             return x
+        return run
+    return mk
+
+
+def graph_loop(body, example: torch.Tensor, warmup: int = 3):
+    """``make_fn`` for :func:`timed` that chains ``body`` through a CUDA
+    graph: ``v <- body(v)`` on a static copy of the window's argument is
+    captured once, after ``warmup`` eager calls on the capturing stream,
+    and a window of ``reps`` calls copies its argument in and replays the
+    graph ``reps`` times (``bench.py:139-149``: the jitted ``fori_loop``).
+    ``example`` gives the argument's shape, dtype and device (CUDA). Each
+    call's input is the last call's output: for a train step whose input is
+    tied to the last loss (``bench.py:143-146``), ``body`` is ``lambda
+    loss: step(x + 1e-12 * loss)``."""
+    if example.device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA tensor, got one on "
+                         f"{example.device}")
+    static = example.detach().clone()
+    stream = torch.cuda.Stream(static.device)
+    stream.wait_stream(torch.cuda.current_stream(static.device))
+
+    def call():
+        out = body(static)
+        with torch.no_grad():
+            static.copy_(out)
+
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            call()
+    torch.cuda.current_stream(static.device).wait_stream(stream)
+    gc.collect()   # a dead graph freed during the capture would end it
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        call()
+
+    def mk(reps):
+        def run(x):
+            with torch.no_grad():
+                static.copy_(x)
+            for _ in range(reps):
+                graph.replay()
+            return static
         return run
     return mk
 

@@ -30,7 +30,7 @@ from ..utils.profiling import device_memory_mb
 from .timing import interleaved_minima, per_call
 
 SWEEP = (1_000, 10_000, 100_000, 1_000_000, 2_000_000, 3_000_000)
-BF16_TODO = "bf16 is not ported yet (ROADMAP.md, queue 1, item 2: bf16)"
+BF16_TODO = "bf16 is not ported yet (ROADMAP.md, queue 1: bf16)"
 
 
 def benchmark_model(num_points: int, device=None, rounds: int = 4) -> dict:

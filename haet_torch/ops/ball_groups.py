@@ -75,6 +75,21 @@ def rotation_matrix(angle_deg: float, dim: int,
     return torch.tensor(rows, dtype=torch.float32).to(dtype)
 
 
+_ROTATIONS: dict = {}
+
+
+def _device_rotation(angle_deg: float, dim: int, dtype, device):
+    """:func:`rotation_matrix` on ``device``, made once per key: a copy
+    from the host in every forward would synchronise the stream, which a
+    CUDA graph's capture refuses."""
+    key = (angle_deg, dim, dtype, torch.device(device))
+    R = _ROTATIONS.get(key)
+    if R is None:
+        R = _ROTATIONS.setdefault(
+            key, rotation_matrix(angle_deg, dim, dtype).to(device))
+    return R
+
+
 def pad_pow2(x: torch.Tensor, pos: torch.Tensor):
     """Pad the points axis (axis 1) to the next power of two by duplicating
     real points (``idx = [0..n) ++ [0..pad) % n``).
@@ -87,8 +102,7 @@ def pad_pow2(x: torch.Tensor, pos: torch.Tensor):
     mask = (torch.arange(n_pad, device=x.device) < n).expand(B, n_pad)
     if n_pad == n:
         return x, pos, mask
-    idx = torch.cat([torch.arange(n), torch.arange(n_pad - n) % n]
-                    ).to(x.device)
+    idx = torch.arange(n_pad, device=x.device) % n
     return x.index_select(1, idx), pos.index_select(1, idx), mask
 
 
@@ -156,7 +170,7 @@ def build_erwin_perms(pos: torch.Tensor, *, ball_sizes: tuple,
         rot_perms = [None] * num_layers
         rot_inv_perms = [None] * num_layers
     else:
-        R = rotation_matrix(rotate_angle, D, pos.dtype).to(pos.device)
+        R = _device_rotation(rotate_angle, D, pos.dtype, pos.device)
         leaves = _take_points(pos, perm) @ R
         total0 = B * N
         targets = [max(0, int(math.log2(total0 / bs))) for bs in ball_sizes]

@@ -316,17 +316,29 @@ def sm_count(device) -> int:
 
 
 _COUNTERS: dict = {}
+#: counters outgrown by a wider launch, kept: a CUDA graph may hold them
+_RETIRED: list = []
 _COUNTERS_LOCK = threading.Lock()
 
 
 def _counter(device, stream_ptr: int, count: int) -> torch.Tensor:
     """The fast slice_states' arrival counters (one per cloud and slice
     group) for one stream: int32 zeros, which the kernel's last block of
-    each cloud and group resets."""
+    each cloud and group resets, so a CUDA graph that captured them stays
+    right replay after replay. They are allocated outside any capture: a
+    capture that would need a new one raises (warm the kernel up on the
+    capturing stream first)."""
     key = (device.index, stream_ptr)
     with _COUNTERS_LOCK:
         buf = _COUNTERS.get(key)
         if buf is None or buf.numel() < count:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "slice_states: no arrival counter for this stream and "
+                    "width outside the capture; run the step once on the "
+                    "capturing stream before capturing it")
+            if buf is not None:
+                _RETIRED.append(buf)
             buf = torch.zeros(max(count, 64), device=device,
                               dtype=torch.int32)
             _COUNTERS[key] = buf

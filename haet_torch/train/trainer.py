@@ -8,6 +8,11 @@ cycled (``cycle_momentum``) and torch's ``clip_grad_norm_`` copied
 runs is kept (:func:`onecycle_horizon`). :meth:`Trainer.fit` is the JAX
 ``fit`` (``:736-1013``): epochs, eval, the metrics logger, early stopping,
 checkpoints with resume, the divergence guard and the save on SIGTERM.
+On a CUDA device each step is a replay of a CUDA graph
+(:mod:`haet_torch.train.graphs`), the counterpart of the JAX trainer's
+jitted step, and :meth:`Trainer.train_steps` runs K steps as one graph, as
+its ``lax.scan`` does; Adam (:class:`Adam`) therefore reads the learning
+rate and beta1 from a device tensor.
 
 ``sigma_att`` gets no gradient (the distance bias is gradient-free), so
 Adam skips it, as torch does in the reference; the JAX side moves it by
@@ -51,13 +56,144 @@ def onecycle_horizon(cfg: TrainConfig, total_steps: int) -> int:
     return stretched
 
 
+#: the param-group entries a checkpoint sets: the schedule's, not torch
+#: Adam's flags (``capturable``, ``foreach``)
+SCHEDULE_KEYS = ("lr", "betas", "initial_lr", "max_lr", "min_lr",
+                 "max_momentum", "base_momentum")
+
+
+class Adam(torch.optim.Adam):
+    """Adam with each group's learning rate and beta1 read from a tensor on
+    the parameters' device, so that a captured step reads the values of
+    the step it replays.
+
+    ``hparams`` ``[groups, 2]`` float32 holds ``(lr, beta1)`` per group.
+    The param groups keep the Python floats that torch's ``OneCycleLR``
+    writes: with ``cycle_momentum`` it rebinds ``group["betas"]`` to a new
+    tuple of floats at every step, and a captured Adam handed those floats
+    would keep, for ever, the beta1 it saw at capture. So the scheduler is
+    torch's own, and this optimizer is the wrapper: outside a capture
+    :meth:`step` first writes the groups' floats into ``hparams``; inside
+    one the caller has written them (``haet_torch.train.graphs`` copies each
+    step's own row).
+
+    The update is torch's Adam (``eps`` 1e-8, beta2 0.999, no weight decay,
+    the bias corrections of the current beta1 and beta2, in float64, as
+    torch's Adam takes them) in multi-tensor ops whose scalars are device
+    tensors, with ``m = b1 m + (1 - b1) g`` as optax writes it. torch's own
+    step cannot be captured with a Tensor beta1 (torch 2.11's
+    ``_foreach_lerp_`` reads a Tensor weight back to the host). The
+    parameters of a group step together (the step counts of those with a
+    gradient are equal), so one bias correction serves the group, as one
+    multi-tensor launch per op needs. The state of every parameter is
+    allocated here, once, in torch Adam's format, and
+    :meth:`load_state_dict` copies into it: a captured step keeps writing
+    into the same storage for the optimizer's life.
+    """
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, lr=lr)
+        device = self.param_groups[0]["params"][0].device
+        self.hparams = torch.zeros((len(self.param_groups), 2),
+                                   dtype=torch.float32, device=device)
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = {
+                    "step": torch.zeros((), dtype=torch.float32,
+                                        device=p.device),
+                    "exp_avg": torch.zeros_like(
+                        p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(
+                        p, memory_format=torch.preserve_format)}
+
+    @torch.no_grad()
+    def write_hparams(self) -> None:
+        """The groups' current ``(lr, beta1)`` into :attr:`hparams` (two
+        fills per group on the device: no synchronisation)."""
+        for row, group in zip(self.hparams, self.param_groups):
+            row[0].fill_(group["lr"])
+            row[1].fill_(group["betas"][0])
+
+    def host_hparams(self) -> list:
+        """``[[lr, beta1] per group]``: the floats of the next step."""
+        return [[g["lr"], g["betas"][0]] for g in self.param_groups]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("this Adam takes no closure")
+        if not (self.hparams.is_cuda
+                and torch.cuda.is_current_stream_capturing()):
+            self.write_hparams()
+        for row, group in zip(self.hparams, self.param_groups):
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                self._update(params, row[0], row[1], group["betas"][1],
+                             group["eps"])
+
+    def _update(self, params, lr, beta1, beta2: float, eps: float) -> None:
+        grads = [p.grad for p in params]
+        states = [self.state[p] for p in params]
+        m = [st["exp_avg"] for st in states]
+        v = [st["exp_avg_sq"] for st in states]
+        steps = [st["step"] for st in states]
+        torch._foreach_add_(steps, 1.0)
+        torch._foreach_mul_(m, beta1)
+        torch._foreach_add_(m, torch._foreach_mul(grads, 1 - beta1))
+        torch._foreach_mul_(v, beta2)
+        torch._foreach_addcmul_(v, grads, grads, value=1 - beta2)
+        # p += m / denom, denom = (sqrt(v) / sqrt(1 - b2^t) + eps) / step,
+        # step = -lr / (1 - b1^t), the corrections in float64 as torch's
+        # Adam takes them (1 - 0.999 loses 1e-5 of itself in float32)
+        t = steps[0].double()
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_mul_(denom, (1 - beta2 ** t).rsqrt().float())
+        torch._foreach_add_(denom, eps)
+        torch._foreach_mul_(denom, ((1 - beta1.double() ** t)
+                                    / -lr.double()).float())
+        torch._foreach_addcdiv_(params, m, denom)
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a state in torch Adam's format (this class's, or
+        ``torch.optim.Adam``'s, from any device) in place: each state tensor
+        keeps its storage (a state the file lacks, as for a parameter that
+        never had a gradient, is set to zero), and of the saved groups only
+        :data:`SCHEDULE_KEYS` are taken. Raises where the parameters that
+        stepped did not step together."""
+        saved_groups = state_dict["param_groups"]
+        if [len(g["params"]) for g in saved_groups] != [
+                len(g["params"]) for g in self.param_groups]:
+            raise ValueError("the checkpoint's Adam groups do not match "
+                             "this optimizer's parameters")
+        params = [p for g in self.param_groups for p in g["params"]]
+        saved = state_dict["state"]
+        if len({float(st["step"]) for st in saved.values()} - {0.0}) > 1:
+            raise ValueError("the checkpoint's parameters did not step "
+                             "together: this Adam keeps one step count")
+        for i, p in enumerate(params):
+            got = saved.get(i, {})
+            for k, t in self.state[p].items():
+                if k in got:
+                    t.copy_(torch.as_tensor(got[k]))
+                else:
+                    t.zero_()
+        for group, sg in zip(self.param_groups, saved_groups):
+            for k in SCHEDULE_KEYS:
+                if k in sg:
+                    group[k] = (tuple(float(b) for b in sg[k])
+                                if k == "betas" else float(sg[k]))
+
+
 def make_optimizer(cfg: TrainConfig, total_steps: int, params):
     """``(Adam, OneCycleLR)`` over ``params`` for ``total_steps`` optimizer
     steps (``haet_tpu/train/trainer.py:186-244``): beta1 cycles between
     ``max_momentum`` and ``base_momentum`` when ``cycle_momentum``. Call the
-    scheduler's ``step()`` after each optimizer step."""
+    scheduler's ``step()`` after each optimizer step. The Adam is the port's
+    :class:`Adam`, whose steps a CUDA graph can hold."""
     cfg.check_ported()
-    optimizer = torch.optim.Adam(params, lr=cfg.lr)
+    params = list(params)
+    optimizer = Adam(params, lr=cfg.lr)
     scheduler = torch.optim.lr_scheduler.OneCycleLR(
         optimizer, max_lr=cfg.lr,
         total_steps=onecycle_horizon(cfg, total_steps),
@@ -68,6 +204,20 @@ def make_optimizer(cfg: TrainConfig, total_steps: int, params):
     return optimizer, scheduler
 
 
+def flat_views(params) -> torch.Tensor:
+    """One buffer for the gradients of ``params`` (one dtype and device),
+    each parameter's ``grad`` set to its view of it, in order."""
+    dtypes = {(p.dtype, p.device) for p in params}
+    if len(dtypes) != 1:
+        raise ValueError(f"the trained parameters mix dtypes or devices: "
+                         f"{sorted(map(str, dtypes))}")
+    flat = torch.empty(sum(p.numel() for p in params),
+                       dtype=params[0].dtype, device=params[0].device)
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return flat
 
 
 class EarlyStopping:
@@ -158,17 +308,28 @@ class Trainer:
         batch_log_every: log per-batch metrics every K batches (0: never).
         watch_every: log per-parameter gradient norms on one batch every K
             epochs (0: never).
+        eager: on a CUDA device, run each step op by op from Python instead
+            of replaying its CUDA graph (the reference the graphs are held
+            against, and the path :meth:`grad_leaf_norms` takes). On the
+            CPU every step is eager.
 
     Batches are dicts of numpy arrays or tensors; they are moved to the
     model's device. The trainer owns the training state: the model, Adam,
-    OneCycleLR and :attr:`step` (:meth:`state_dict`).
+    OneCycleLR and :attr:`step` (:meth:`state_dict`). Every tensor of it
+    keeps its storage for the trainer's life, the gradients too (allocated
+    by the first step; a parameter that gets none, ``sigma_att``, keeps
+    ``grad`` None): on a CUDA device :meth:`train_step` replays a CUDA
+    graph of the whole step (:class:`~haet_torch.train.graphs.StepGraphs`,
+    the counterpart of ``jax.jit(self._step)``), which reads and writes
+    that storage.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  cfg: TrainConfig, total_steps: int,
                  batch_args: Callable = lambda b: (b["x"], b["fx"]),
                  eval_fn: Optional[Callable] = None,
-                 batch_log_every: int = 0, watch_every: int = 0):
+                 batch_log_every: int = 0, watch_every: int = 0,
+                 eager: bool = False):
         self.model = model
         self.loss_fn = loss_fn
         self.cfg = cfg
@@ -183,6 +344,15 @@ class Trainer:
         self.device = self.params[0].device
         self.step = 0
         self._resume_epoch = None
+        # the parameters that receive a gradient, found by the first step,
+        # and the buffer their gradients are views of
+        self._grad_params = None
+        self._flat_grad = None
+        self.graphs = None
+        if not eager and self.device.type == "cuda":
+            from .graphs import StepGraphs
+
+            self.graphs = StepGraphs(self)
 
     def _on_device(self, batch: dict) -> dict:
         return {k: None if v is None else torch.as_tensor(v).to(self.device)
@@ -200,6 +370,10 @@ class Trainer:
                 "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s state in place (the model's
+        ``load_state_dict`` copies into its tensors,
+        :meth:`Adam.load_state_dict` into its own), so that the captured
+        graphs stay valid."""
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
@@ -232,31 +406,87 @@ class Trainer:
 
         Returns ``{"loss", "grad_norm" (before clipping), **aux}`` as 0-d
         tensors (``haet_tpu/train/trainer.py:569``). The clipped gradients
-        stay on the parameters until the next step.
+        stay on the parameters until the next step. On a CUDA device, unless
+        the trainer is ``eager``, the step is a replay of the batch
+        signature's CUDA graph.
         """
-        batch = self._on_device(batch)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss_fn(self.model(*self.batch_args(batch)), batch)
-        loss.backward()
-        if self.cfg.max_grad_norm is not None:
-            grad_norm = torch.nn.utils.clip_grad_norm_(
-                self.params, self.cfg.max_grad_norm)
-        else:
-            grad_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad) for p in self.params
-                 if p.grad is not None]))
-        self.optimizer.step()
-        # Past the horizon torch's OneCycleLR raises; the JAX schedule
-        # clamps the step to it (haet_tpu/train/trainer.py:66-70), so the
-        # rate and beta1 stay at their values at total_steps, as here. A
-        # run resumed after a preemption re-runs the interrupted epoch
-        # and so takes that many steps more than the horizon.
+        if self.graphs is not None:
+            return {k: v[0] for k, v in self.graphs.run([batch]).items()}
+        metrics = self.step_body(self._on_device(batch))
+        self.advance_schedule()
+        self.step += 1
+        return metrics
+
+    def train_steps(self, batches) -> dict:
+        """Several optimizer steps, ``haet_tpu/train/trainer.py:697-733``:
+        ``batches`` share one signature (keys, shapes and dtypes, as JAX
+        stacks them). Returns each metric stacked ``[K]``. On a CUDA device,
+        unless the trainer is ``eager``, the K steps are one CUDA graph; on
+        the CPU they are K eager steps."""
+        batches = list(batches)
+        if not batches:
+            raise ValueError("train_steps needs at least one batch")
+        from .graphs import signature
+
+        sig = signature(batches[0])
+        if any(signature(b) != sig for b in batches[1:]):
+            raise ValueError("train_steps takes batches of one signature "
+                             "(keys, shapes and dtypes)")
+        if self.graphs is not None:
+            return self.graphs.run(batches)
+        metrics = [self.train_step(b) for b in batches]
+        return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+    def advance_schedule(self) -> None:
+        """OneCycleLR's step after an optimizer step. Past the horizon
+        torch's OneCycleLR raises; the JAX schedule clamps the step to it
+        (haet_tpu/train/trainer.py:66-70), so the rate and beta1 stay at
+        their values at total_steps, as here. A run resumed after a
+        preemption re-runs the interrupted epoch and so takes that many
+        steps more than the horizon."""
         if self.scheduler.last_epoch < self.scheduler.total_steps:
             self.scheduler.step()
-        self.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm.detach(),
-                **{k: v.detach() for k, v in aux.items()}}
+
+    def step_body(self, batch: dict) -> dict:
+        """One step on a batch of tensors on the model's device: the
+        forward in train mode, the loss, the gradients copied into the
+        parameters' gradients, clipping and Adam (OneCycle is the caller's:
+        :meth:`advance_schedule`). The op-by-op step, and the one that
+        :class:`~haet_torch.train.graphs.StepGraphs` captures."""
+        self.model.train()
+        loss, aux = self.loss_fn(self.model(*self.batch_args(batch)), batch)
+        if self._grad_params is None:
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+            self._grad_params = [p for p, g in zip(self.params, grads)
+                                 if g is not None]
+            grads = [g for g in grads if g is not None]
+            self._flat_grad = flat_views(self._grad_params)
+        else:
+            grads = torch.autograd.grad(loss, self._grad_params)
+        # into the gradients allocated by the first step, views of one
+        # buffer: a concatenation is a few launches, where a copy per
+        # parameter (or autograd's accumulation into existing gradients)
+        # is one each
+        torch.cat([g.reshape(-1) for g in grads], out=self._flat_grad)
+        if self.cfg.max_grad_norm is not None:
+            grad_norm = torch.nn.utils.clip_grad_norm_(
+                self._grad_params, self.cfg.max_grad_norm)
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads]))
+        self.optimizer.step()
+        # detached: a live autograd graph would keep the parameters'
+        # gradient accumulators, and the stream they were made on, into
+        # the next step
+        return {k: v.detach() for k, v in
+                {"loss": loss, "grad_norm": grad_norm, **aux}.items()}
+
+    def state_tensors(self) -> list:
+        """Every tensor a step writes: the parameters, the model's buffers
+        (BatchNorm statistics and counters) and Adam's state."""
+        return [*self.model.parameters(), *self.model.buffers(),
+                *(t for st in self.optimizer.state.values()
+                  for t in st.values())]
 
     @torch.inference_mode()
     def eval_step(self, batch: dict) -> dict:
@@ -282,19 +512,19 @@ class Trainer:
         forward and backward on ``batch``, the scalar summary of the
         reference's ``wandb.watch`` histograms (``train.py:192-208``). The
         probe changes no state: the BatchNorm buffers are put back and the
-        gradients dropped, as the JAX probe is a pure function."""
+        parameters' gradients are not touched, as the JAX probe is a pure
+        function. It runs op by op, on a CUDA device too."""
         buffers = {k: v.clone() for k, v in self.model.named_buffers()}
         batch = self._on_device(batch)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
         loss, _ = self.loss_fn(self.model(*self.batch_args(batch)), batch)
-        loss.backward()
-        names = [k for k, p in self.model.named_parameters()
-                 if p.grad is not None]
-        norms = torch.stack([torch.linalg.vector_norm(p.grad)
-                             for p in self.model.parameters()
-                             if p.grad is not None]).cpu().tolist()
-        self.optimizer.zero_grad(set_to_none=True)
+        named = [(k, p) for k, p in self.model.named_parameters()
+                 if p.requires_grad]
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        names = [k for (k, _), g in zip(named, grads) if g is not None]
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads
+                             if g is not None]).cpu().tolist()
         with torch.no_grad():
             for k, v in self.model.named_buffers():
                 v.copy_(buffers[k])
