@@ -157,12 +157,42 @@ Phases (any failed check exits non-zero before the final line):
       graphed ``train_step``s from the same weights: equal metrics and
       state.
 
-Then one JSON line of kernel records, seven of them (``launches`` from
-phase 6's counters, for ``copy_scale`` from the counter after phase 7d's
-run, ``replay_launches`` from the profiler's count of one replay) and
-phase 8's and 9's numbers, the card line, and as the last line ``{"ok":
-true, "device": {...}}``. Imports nothing of JAX or
-``haet_tpu``.
+10. bf16, as the JAX package runs the car preset on its accelerator.
+   a. The four kernels on the path with bf16 ``x_proj`` / ``states`` /
+      ``g_out`` (slice, at ``train_b1`` and ``serve_b1``) and bf16 ``x``,
+      ``pos``, ``dout`` (Erwin, both car block shapes) against their plain
+      versions on the same inputs: bf16 outputs within ``BF16_RTOL`` (one
+      bf16 ulp of max), float32 ones (``m``, ``s``, the float32 states
+      residual, every parameter gradient) as in phases 3 and 3b, the public
+      states the float32 ones rounded, two calls bit-identical, each
+      wrapper call running its kernels and no other kernel (no cast); the
+      device us per call beside the float32 kernels' on the same values,
+      and bounds from the bf16 bytes and the tensor-core passes each
+      product's operand types need.
+   b. The bf16 car model (phase 4's weights) served as in phase 4: 2 + 2
+      + 24 launches per forward, no plain route, the answer the model's
+      bf16 output widened exactly, within ``BF16_SERVE_RTOL`` of the
+      float32 model; the batch-1 forward's wall and device time beside
+      phase 5's.
+   c. Phase 9a, 9b, 9d and 9e with the bf16 model and ``mu_bf16``: graphed
+      equal to eager within ``GRAPH_RTOL``, a replay's calls exactly 2 + 2
+      + 2 + 2 + 24 + 24 and every one a bf16 instantiation, a restore
+      keeping the bf16 first moments' dtype and storage, the walls, device
+      time, kernels, busy share and memory beside phase 9e's. The launch
+      counters are zeroed just before 10c-d's steps after the restore and
+      read just after: exactly 2 + 2 + 2 + 2 + 24 + 24 per eager step (a
+      replay counts nothing), the bf16 records' ``launches``.
+   d. ``car_train --epochs 1 --bf16 1 --mu_bf16 1`` in a subprocess, then
+      ``car_eval --which last``, which evaluates in float32 as the JAX
+      driver does: every metric finite and within ``BF16_METRIC_RTOL`` of
+      ``car_train``'s bf16 evaluation.
+
+Then one JSON line of kernel records, seven float32 ones (``launches``
+from phase 6's counters, for ``copy_scale`` from the counter after phase
+7d's run, ``replay_launches`` from the profiler's count of one replay) and
+six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), phase
+8's, 9's and 10's numbers, the card line, and as the last line ``{"ok":
+true, "device": {...}}``. Imports nothing of JAX or ``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -177,6 +207,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()  # the profiler's loss grows with the process's age
 N_POINTS = 32186          # a ShapeNet-Car sample's point count
 N_PADDED = 32768          # its 2048-point training bucket
 N_SURFACE = 3586          # surface points of a ShapeNet-Car sample
@@ -1009,13 +1040,16 @@ def backward_phase(dev, records):
 # Phase 4: serve the car preset through the kernels.
 # ---------------------------------------------------------------------------
 
+def serve_samples():
+    """The 11 seeded requests of phases 4 and 10b."""
+    rng = np.random.RandomState(SEED)
+    return [rng.randn(N_POINTS, 7).astype(np.float32) for _ in range(11)]
+
+
 def serve_phase(dev):
     import torch
 
     from haet_torch.models import HAETransolverIrregularMesh
-    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
-                                        reset_launch_counts)
-    from haet_torch.serve import BatchingServer, SampleSignature
     from haet_torch.utils.config import shapenet_car_config
 
     kwargs = shapenet_car_config().model_kwargs()
@@ -1037,13 +1071,31 @@ def serve_phase(dev):
     plain.eval()
     model.eval()
 
-    rng = np.random.RandomState(SEED)
-    samples = [rng.randn(N_POINTS, 7).astype(np.float32) for _ in range(11)]
-    sig = SampleSignature(((N_POINTS, 7), None), ("float32", None))
+    samples = serve_samples()
     with torch.inference_mode():  # warm-up: library loads, allocator
         model(torch.from_numpy(samples[0][None]).to(dev))
         torch.cuda.synchronize()
 
+    outs, counts, forwards = drive_server(model, samples, dev)
+    # Agreement with the plain path on the same weights and inputs (the
+    # burst's batch of 4 is compared as that same batch: outputs depend on
+    # the co-batched samples through the global min-max positions).
+    compare_served(outs, samples, plain, dev, "plain path", SERVE_RTOL)
+    return counts, forwards, model, samples[0]
+
+
+def drive_server(model, samples, dev):
+    """``model`` behind a ``BatchingServer`` with the counters zeroed: 4
+    sequential batch-1 requests, then a burst of 7 that forms a batch of
+    4. Checks every answer's shape and finiteness, exactly 2 + 2 + 24
+    kernel launches per forward and no plain route; prints the batch
+    histograms, latencies and throughput. Returns ``(outputs by request,
+    launch counts, forwards)``."""
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.serve import BatchingServer, SampleSignature
+
+    sig = SampleSignature(((N_POINTS, 7), None), ("float32", None))
     reset_launch_counts()
     outs = {}
     lat_seq = []
@@ -1086,19 +1138,6 @@ def serve_phase(dev):
     check(all(v == 0 for v in plain_routes.values()),
           f"some calls left the kernels: {plain_routes}")
 
-    # Agreement with the plain path on the same weights and inputs (the
-    # burst's batch of 4 is compared as that same batch: outputs depend on
-    # the co-batched samples through the global min-max positions).
-    with torch.inference_mode():
-        ref1 = plain(torch.from_numpy(samples[0][None]).to(dev))[0]
-        got1 = torch.from_numpy(outs[0]).to(dev)
-        compare("serve batch-1 vs plain path", got1, ref1, SERVE_RTOL)
-        batch4 = np.stack([samples[i] for i in range(4, 8)])
-        ref4 = plain(torch.from_numpy(batch4).to(dev))
-        got4 = torch.from_numpy(np.stack([outs[i] for i in range(4, 8)])
-                                ).to(dev)
-        compare("serve batch-4 vs plain path", got4, ref4, SERVE_RTOL)
-
     lat_all = stats_seq["latency_p50_s"], stats_burst["latency_p50_s"]
     print(f"  sequential latency per request (s): "
           f"{[round(t, 6) for t in lat_seq]}; p50 {lat_all[0]:.6f}",
@@ -1108,16 +1147,35 @@ def serve_phase(dev):
           flush=True)
     print(f"  sequential throughput {4 / sum(lat_seq):.3f} samples/s",
           flush=True)
-    return counts, forwards, model, samples[0]
+    return outs, counts, forwards
+
+
+def compare_served(outs, samples, ref_model, dev, what, rtol):
+    """The served batch-1 answer (request 0) and the burst's batch of 4
+    (requests 4-7, compared as that batch) against ``ref_model`` on the
+    same inputs, within ``rtol`` of max |ref|; returns the two relative
+    errors."""
+    import torch
+
+    with torch.inference_mode():
+        ref1 = ref_model(torch.from_numpy(samples[0][None]).to(dev))[0]
+        got1 = torch.from_numpy(outs[0]).to(dev)
+        e1 = compare(f"serve batch-1 vs {what}", got1, ref1, rtol)
+        batch4 = np.stack([samples[i] for i in range(4, 8)])
+        ref4 = ref_model(torch.from_numpy(batch4).to(dev))
+        got4 = torch.from_numpy(np.stack([outs[i] for i in range(4, 8)])
+                                ).to(dev)
+        e4 = compare(f"serve batch-4 vs {what}", got4, ref4, rtol)
+    return (e1 / float(ref1.double().abs().max()),
+            e4 / float(ref4.double().abs().max()))
 
 
 def profile_phase(model, sample, dev):
     """Where one batch-1 forward's time goes: device time by kernel
     (torch.profiler) against the forward's wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from haet_torch.utils.profiling import kernel_events
+    from haet_torch.utils.profiling import device_trace, kernel_events
 
     x = torch.from_numpy(sample[None]).to(dev)
     with torch.inference_mode():
@@ -1128,10 +1186,8 @@ def profile_phase(model, sample, dev):
             model(x)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             model(x)
-            torch.cuda.synchronize()
     wall_ms = 1e3 * min(walls)
     events = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -1141,6 +1197,8 @@ def profile_phase(model, sample, dev):
     for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernels": sum(e.count for e in events)}
 
 
 # ---------------------------------------------------------------------------
@@ -1149,11 +1207,9 @@ def profile_phase(model, sample, dev):
 
 def train_phase(dev):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from haet_torch.models import HAETransolverIrregularMesh
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
-                                        profile_launches,
                                         reset_launch_counts)
     from haet_torch.train import Trainer
     from haet_torch.train.graphs import WARMUP
@@ -1161,7 +1217,7 @@ def train_phase(dev):
     from haet_torch.train.car import loss_fn_builder, make_batch
     from haet_torch.utils.config import (shapenet_car_config,
                                          shapenet_car_train_config)
-    from haet_torch.utils.profiling import kernel_events
+    from haet_torch.utils.profiling import device_trace, kernel_events
 
     kwargs = shapenet_car_config().model_kwargs()
     cfg = shapenet_car_train_config()
@@ -1279,10 +1335,8 @@ def train_phase(dev):
           f"{[round(t, 6) for t in plain_walls]} (steps 2-3); peak device "
           f"memory allocated {plain_peak_mb:.1f} MiB", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         trainer.train_step(batch)
-        torch.cuda.synchronize()
     events = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     wall_ms = 1e3 * min(walls[1:])
@@ -1293,9 +1347,8 @@ def train_phase(dev):
     for e in events[:15]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
-    _, replay = profile_launches(trainer.train_step, batch)
-    expect_counts("kernel calls in one replay, from the profiler",
-                  replay["calls"], PER_STEP)
+    replay = replay_calls("kernel calls in one replay, from the profiler",
+                          trainer.train_step, batch)
     return counts, replay["calls"]
 
 
@@ -1498,6 +1551,19 @@ def large_slice_phase(dev):
     probes' size."""
     slice_phase(dev, {"large": (1, 8, N_LARGE, 32, 32)}, timed=False,
                 label="phase 7c")
+
+
+def replay_calls(what, fn, *args) -> dict:
+    """``profile_launches(fn, *args)`` of one graph replay, its kernel
+    calls held to ``PER_STEP``; returns the trace's counts."""
+    from haet_torch.ops.kernels import profile_launches
+
+    _, replay = profile_launches(fn, *args)
+    print(f"  the trace's sentinels took the loss of its first "
+          f"{replay['lost']} device records, {time.perf_counter() - T0:.0f} "
+          f"s into the process", flush=True)
+    expect_counts(what, replay["calls"], PER_STEP)
+    return replay
 
 
 def expect_counts(what, counts, want):
@@ -1868,11 +1934,14 @@ def fit_phase(dev):
             "resume_bit_identical": identical}
 
 
-def drivers_car_phase(dev):
+def drivers_car_phase(dev, epochs: int = DRIVER_EPOCHS, bf16: bool = False):
     """8b: ``car_train --epochs 2`` at full width on the synthetic
     stand-in, in a subprocess, then ``car_eval --which last`` on its
     checkpoints; every metric finite, and ``car_eval`` reproduces
-    ``car_train``'s final metrics at rtol 1e-5."""
+    ``car_train``'s final metrics at rtol 1e-5. With ``bf16`` (phase 10d):
+    ``car_train --bf16 1 --mu_bf16 1``, and ``car_eval`` (float32, as the
+    JAX driver evaluates) within ``BF16_METRIC_RTOL`` of its bf16
+    metrics."""
     import tempfile
 
     from haet_torch.benchmarks import car_eval
@@ -1881,7 +1950,8 @@ def drivers_car_phase(dev):
     tmp = tempfile.mkdtemp(prefix="haet_drivers_")
     common = ["--data_dir", f"{tmp}/absent"]
     cmd = [sys.executable, "-m", "haet_torch.benchmarks.car_train",
-           "--epochs", str(DRIVER_EPOCHS), "--out_dir", tmp, *common]
+           "--epochs", str(epochs), "--out_dir", tmp, *common,
+           *(["--bf16", "1", "--mu_bf16", "1"] if bf16 else [])]
     print(f"  {' '.join(cmd[1:])}", flush=True)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -1905,11 +1975,16 @@ def drivers_car_phase(dev):
                   expected_launches(0, n_val))
     print(f"  car_eval: {got}", flush=True)
     check(sorted(got) == sorted(trained), "metric keys differ")
+    rtol = BF16_METRIC_RTOL if bf16 else 1e-5
+    gaps = {k: abs(v - trained[k]) / abs(trained[k]) for k, v in got.items()
+            if k != "time_per_sample" and trained[k]}
+    print(f"  car_eval against car_train, relative: {gaps}; held to {rtol}",
+          flush=True)
     for k, v in got.items():
         check(np.isfinite(v) and np.isfinite(trained[k]),
               f"non-finite metric {k}")
         if k != "time_per_sample":
-            check(abs(v - trained[k]) <= 1e-5 * abs(trained[k]),
+            check(abs(v - trained[k]) <= rtol * abs(trained[k]),
                   f"car_eval {k} {v} != car_train's {trained[k]}")
     print(f"  time_per_sample: car_train {trained['time_per_sample']:.5f} "
           f"s, car_eval {got['time_per_sample']:.5f} s", flush=True)
@@ -1998,9 +2073,11 @@ def hold_step(what, got, want, rates) -> bool:
     return identical
 
 
-def graph_phase(dev):
+def graph_phase(dev, bf16: bool = False):
     """9a-9e: the car train step as CUDA graphs (``Trainer.train_step``'s
-    default on the card) against the eager step (``eager=True``)."""
+    default on the card) against the eager step (``eager=True``). With
+    ``bf16`` (phase 10c): the car preset in bf16 with ``mu_bf16``, 9a, 9b,
+    9d and 9e only, and every kernel of a replay a bf16 instantiation."""
     import copy
     import gc
     import tempfile
@@ -2008,7 +2085,7 @@ def graph_phase(dev):
     import torch
 
     from haet_torch.benchmarks.car_train import build_model
-    from haet_torch.ops.kernels import (plain_route_counts,
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
                                         profile_launches,
                                         reset_launch_counts)
     from haet_torch.train import Checkpointer, Trainer
@@ -2017,6 +2094,10 @@ def graph_phase(dev):
                                          shapenet_car_train_config)
 
     cfg = shapenet_car_train_config()
+    cfg.mu_bf16 = bf16
+    model_cfg = shapenet_car_config()
+    model_cfg.bf16 = bf16
+    ph = "phase 10c-" if bf16 else "phase 9"
     check(cfg.cycle_momentum, "cycle_momentum is off")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2027,16 +2108,16 @@ def graph_phase(dev):
           == [bucket_size(n) for n in GRAPH_POINTS], "buckets")
 
     def trainer(eager, seed=SEED, steps=2 * GRAPH_STEPS):
-        model = build_model(shapenet_car_config(), dev, seed=seed)
+        model = build_model(model_cfg, dev, seed=seed)
         return Trainer(model, loss_fn_builder(0.5), cfg, total_steps=steps,
                        batch_args=lambda b: (b["x"], None), eager=eager)
 
-    print(f"phase 9a: {GRAPH_STEPS} steps, graphed against eager, "
+    print(f"{ph}a: {GRAPH_STEPS} steps, graphed against eager, "
           f"alternating buckets {[b['x'].shape[1] for b in pair]}",
           flush=True)
     graphed, eager = trainer(False), trainer(True)
     check(graphed.graphs is not None and eager.graphs is None, "modes")
-    hold_states("9a: the two trainers' initial state", graphed, eager)
+    hold_states(f"{ph}a: the two trainers' initial state", graphed, eager)
     tmp = tempfile.mkdtemp(prefix="haet_graphs_")
     ck = Checkpointer(tmp)
     reset_launch_counts()
@@ -2046,7 +2127,7 @@ def graph_phase(dev):
         mg, me = graphed.train_step(b), eager.train_step(b)
         rates = (graphed.optimizer.hparams.cpu(),
                  eager.optimizer.hparams.cpu())
-        same = hold_step(f"9a step {i + 1}", mg, me, rates) and same
+        same = hold_step(f"{ph}a step {i + 1}", mg, me, rates) and same
         print(f"  step {i + 1} ({b['x'].shape[1]} points): loss graphed "
               f"{float(mg['loss']):.8f} eager {float(me['loss']):.8f}; lr, "
               f"beta1 {rates[0].tolist()}", flush=True)
@@ -2056,14 +2137,20 @@ def graph_phase(dev):
           f"{len(graphed.graphs)} graphs, captured in "
           f"{[round(t, 3) for t in graphed.graphs.capture_s]} s", flush=True)
     check(len(graphed.graphs) == 2, f"{len(graphed.graphs)} graphs")
-    hold_states(f"9a: state after {GRAPH_STEPS} steps", graphed, eager)
+    hold_states(f"{ph}a: state after {GRAPH_STEPS} steps", graphed, eager)
     check(all(v == 0 for v in plain_route_counts().values()),
           f"plain routes {plain_route_counts()}")
 
-    print("phase 9b: one replay's kernels, from the profiler", flush=True)
+    print(f"{ph}b: one replay's kernels, from the profiler", flush=True)
     reset_launch_counts()
-    _, replay = profile_launches(graphed.train_step, pair[1])
-    expect_counts("kernel calls in one replay", replay["calls"], PER_STEP)
+    replay = replay_calls("kernel calls in one replay", graphed.train_step,
+                          pair[1])
+    if bf16:   # the slice and Erwin kernels' bf16 instantiations
+        f32_only = [nm for nm in replay["names"]
+                    if "bfloat16" not in nm and "sum_partials" not in nm]
+        print(f"  the port's kernels in the replay: {replay['names']}",
+              flush=True)
+        check(not f32_only, f"float32 kernels in the bf16 step: {f32_only}")
     expect_counts("plain routes", plain_route_counts(),
                   {k: 0 for k in plain_route_counts()})
     print(f"  CUDA kernels per replay {replay['kernels']} (the port's "
@@ -2083,7 +2170,7 @@ def graph_phase(dev):
           "two replays from one state differ")
     print("  two replays from one state and batch: bit-identical", flush=True)
 
-    print(f"phase 9d: restore step {GRAPH_STEPS // 2}'s eager checkpoint "
+    print(f"{ph}d: restore step {GRAPH_STEPS // 2}'s eager checkpoint "
           f"into both trainers, then {GRAPH_STEPS // 2} more steps",
           flush=True)
     for t in (graphed, eager):
@@ -2091,20 +2178,28 @@ def graph_phase(dev):
         check(t.maybe_restore(ck), "no checkpoint")
         check(ptrs == [v.data_ptr() for v in train_state(t).values()],
               "a restore moved the training state")
+        mus = {st["exp_avg"].dtype for st in t.optimizer.state.values()}
+        check(mus == {torch.bfloat16 if bf16 else torch.float32},
+              f"Adam's first moments are {mus} after the restore")
     # the rates of the last step are no checkpoint's: the graphed trainer
     # took one more step (9b)
-    hold_states("9d: restored", graphed, eager, rates=False)
+    hold_states(f"{ph}d: restored", graphed, eager, rates=False)
+    reset_launch_counts()
     for i in range(GRAPH_STEPS // 2):
         b = pair[i % 2]
         mg, me = graphed.train_step(b), eager.train_step(b)
-        hold_step(f"9d step {i + 1}", mg, me,
+        hold_step(f"{ph}d step {i + 1}", mg, me,
                   (graphed.optimizer.hparams.cpu(),
                    eager.optimizer.hparams.cpu()))
+    restored_counts = launch_counts()
+    expect_counts(f"{ph}d launches ({GRAPH_STEPS // 2} eager steps; a "
+                  f"replay counts none)", restored_counts,
+                  expected_launches(GRAPH_STEPS // 2, 0))
     check(len(graphed.graphs) == 2, "a restore captured new graphs")
-    hold_states("9d: after the restore and the steps", graphed, eager)
+    hold_states(f"{ph}d: after the restore and the steps", graphed, eager)
     shutil.rmtree(tmp, ignore_errors=True)
 
-    print(f"phase 9e: walls, device time and peak memory ({WALL_STEPS} "
+    print(f"{ph}e: walls, device time and peak memory ({WALL_STEPS} "
           f"steps each)", flush=True)
     # Memory, from this phase's start: a replay allocates nothing (its
     # temporaries live in the graphs' pool, reserved since the capture), so
@@ -2146,11 +2241,16 @@ def graph_phase(dev):
               f"span of {prof['span_ms']:.3f} ms (gaps {gaps:.3f} ms, "
               f"{1e3 * gaps / nodes:.2f} us per node); busy "
               f"{prof['device_ms'] / wall:.3f}", flush=True)
-    print(f"  memory since phase 9 began: resident (both trainers' state, "
+    print(f"  memory since {ph.rstrip('-')} began: resident (both trainers' "
+          f"state, "
           f"the graphs' static buffers) {resident:.1f} MiB; the graphs' "
           f"pool {pool:.1f} MiB; the eager step's temporaries at peak "
           f"{walls['eager']['step_mb']:.1f} MiB", flush=True)
     del graphed, eager
+    walls["restored_launches"] = restored_counts
+    if bf16:
+        torch.cuda.empty_cache()
+        return walls
 
     print(f"phase 9c: train_steps of {SCAN_STEPS} against {SCAN_STEPS} "
           f"graphed train_steps", flush=True)
@@ -2172,6 +2272,385 @@ def graph_phase(dev):
     del scan, single
     torch.cuda.empty_cache()
     return walls
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: bf16, as the JAX package runs the car preset on its accelerator.
+# ---------------------------------------------------------------------------
+
+#: a bf16 output of a kernel against its plain version on the same bf16
+#: inputs: both compute in float32 and round once to bf16 (8 significant
+#: bits), so they differ by at most one bf16 ulp where their float32 values
+#: straddle a rounding boundary: 2^-7 of each output's max
+BF16_RTOL = 2.0 ** -7
+#: the bf16 car model served against the float32 model with the same
+#: weights, each output within this of max |float32 out|: a CPU rehearsal
+#: of this phase at 1900 points measured 1.7e-2 (batch 1) and 3.2e-2 (the
+#: batch of 4, whose pseudo-positions are normalised over four clouds)
+BF16_SERVE_RTOL = 1e-1
+#: ``car_eval`` (float32) of 10d's ``car_train --bf16 1`` checkpoint
+#: against ``car_train``'s own bf16 evaluation, each metric relative to
+#: itself: a metric averages the bf16 model's rounding over the points;
+#: the CPU test of the same comparison (``tests/test_torch_car_driver.py``,
+#: smoke model) measured up to 2.5e-4
+BF16_METRIC_RTOL = 1e-2
+#: the slice records' shapes: the training batch (timed) and serve batch 1
+BF16_SLICE = ("train_b1", "serve_b1")
+#: the bf16 records' names and the wrapper counter each reads
+BF16_RECORDS = {"slice_states_bf16": "slice_states",
+                "deslice_bf16": "deslice",
+                "slice_states_bwd_bf16": "slice_states_bwd",
+                "deslice_bwd_bf16": "deslice_bwd",
+                "fused_erwin_block_bf16": "fused_erwin_block",
+                "fused_erwin_block_bwd_bf16": "fused_erwin_block_bwd"}
+
+
+def alone(what, fn, reps: int = 10):
+    """``reps`` calls of ``fn()`` under the profiler, after a warm-up: they
+    must run the port's kernels and no other kernel (no cast in front of or
+    behind them). Counted from the trace's per-kernel totals."""
+    import re
+
+    import torch
+
+    from haet_torch.ops.kernels import port_kernel
+    from haet_torch.utils.profiling import device_trace, kernel_events
+
+    fn()
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        for _ in range(reps):
+            fn()
+    ours, other = {}, {}
+    for e in kernel_events(prof):
+        mine = (port_kernel(e.key)[0] is not None
+                or re.search(r"\bsum_partials\b", e.key))
+        (ours if mine else other)[e.key] = e.count
+    print(f"  {what}: {reps} calls ran {sum(ours.values())} of the port's "
+          f"kernels and {sum(other.values())} others", flush=True)
+    check(not other and sum(ours.values()) >= reps,
+          f"{what}: kernels beside the port's: {other}")
+    return sorted(ours)
+
+
+def bf16_slice_phase(dev):
+    """10a, the slice kernels and their backwards in bf16 against their
+    plain versions on the same bf16 inputs, at ``BF16_SLICE``: bf16
+    outputs within ``BF16_RTOL``, float32 outputs (m, s, the float32
+    states, every parameter gradient) as in phases 3 and 3b; the public
+    states the rounding of the float32 ones; two calls bit-identical; each
+    wrapper call runs its kernels and nothing else. At the training batch:
+    device us per call with the L2 flushed beside the float32 kernels' on
+    the same values, and the bound of the bf16 bytes."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    bf = torch.bfloat16
+    recs = {k: {"err": 0.0, "us": {}, "f32_us": {}, "bound_us": {},
+                "names": set()} for k in ("slice_states", "deslice",
+                                          "slice_states_bwd", "deslice_bwd")}
+    for i, tag in enumerate(BF16_SLICE):
+        shape = SLICE_TIMED[tag]
+        b, h, n, c, gs = shape
+        print(f"phase 10a: slice kernels in bf16 ({tag})  x [{b}, {h}, {n}, "
+              f"{c}] bf16, G {gs}", flush=True)
+        x32, ws, bs, wa, ba, st32 = sb.inputs(shape, dev, SEED + 40 + i)
+        gst32, gout32 = sb.grads(shape, dev, SEED + 40 + i)
+        x, st, g_st, g_out = (t.to(bf) for t in (x32, st32, gst32, gout32))
+        with torch.inference_mode():
+            got = sk.slice_states_with_residual(x, ws, bs, wa, ba)
+            again = sk.slice_states_with_residual(x, ws, bs, wa, ba)
+            p32, m, s = sk.slice_states_plain_f32(x, ws, bs, wa, ba)
+            torch.cuda.synchronize()
+            check(got[0].dtype == bf and got[1].dtype == torch.float32,
+                  "slice_states dtypes")
+            r = recs["slice_states"]
+            r["err"] = max(r["err"], compare("states (bf16)", got[0],
+                                             p32.to(bf), BF16_RTOL))
+            for nm, a, w in (("states (float32 residual)", got[1], p32),
+                             ("m", got[2], m), ("s", got[3], s)):
+                compare(nm, a, w, KERNEL_RTOL)
+            check(torch.equal(got[0], got[1].to(bf)),
+                  "the bf16 states are not the float32 states rounded")
+            same = all(torch.equal(a, w) for a, w in zip(got, again))
+            outs = [sk.deslice(x, ws, bs, wa, ba, st, m, s) for _ in (0, 1)]
+            want = sk.deslice_plain(x, ws, bs, wa, ba, st, m, s)
+            torch.cuda.synchronize()
+            check(outs[0].dtype == bf, "deslice dtype")
+            recs["deslice"]["err"] = max(
+                recs["deslice"]["err"],
+                compare("out (bf16)", outs[0], want, BF16_RTOL))
+            same = same and torch.equal(*outs)
+            bwd_args = {
+                "slice_states_bwd": (x, ws, bs, wa, ba, p32, m, s, g_st),
+                "deslice_bwd": (x, ws, bs, wa, ba, st, m, s, g_out)}
+            fns = {"slice_states_bwd": (sk.slice_states_bwd,
+                                        sk.slice_states_bwd_plain),
+                   "deslice_bwd": (sk.deslice_bwd, sk.deslice_bwd_plain)}
+            for kind, (fn, plain_fn) in fns.items():
+                a_k = bwd_args[kind]
+                got_b, again_b = fn(*a_k), fn(*a_k)
+                want_b = plain_fn(*a_k)
+                torch.cuda.synchronize()
+                for name, a, w in zip(SLICE_BWD_GRADS[kind], got_b, want_b):
+                    low = name in ("dx", "dstates")
+                    check(a.dtype == (bf if low else torch.float32),
+                          f"{kind} {name} is {a.dtype}")
+                    err = compare(f"{kind} {name}", a, w,
+                                  BF16_RTOL if low else slice_bwd_rtol(name))
+                    recs[kind]["err"] = max(recs[kind]["err"], err)
+                same = same and all(torch.equal(a, w)
+                                    for a, w in zip(got_b, again_b))
+            print(f"  two calls bit-identical (the forwards' outputs and "
+                  f"every gradient): {same}", flush=True)
+            check(same, f"bf16 slice kernels at {tag} are not deterministic")
+            calls = {
+                "slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
+                "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s),
+                "slice_states_bwd": lambda: sk.slice_states_bwd(
+                    *bwd_args["slice_states_bwd"]),
+                "deslice_bwd": lambda: sk.deslice_bwd(
+                    *bwd_args["deslice_bwd"])}
+            for kind, fn in calls.items():
+                recs[kind]["names"].update(alone(f"{kind} bf16", fn))
+            print("  each bf16 call runs the port's kernels and no other "
+                  "kernel", flush=True)
+            if tag != "train_b1":
+                continue
+            f32_calls = {
+                "slice_states": lambda: sk.slice_states(x32, ws, bs, wa, ba),
+                "deslice": lambda: sk.deslice(x32, ws, bs, wa, ba, st32, m,
+                                              s),
+                "slice_states_bwd": lambda: sk.slice_states_bwd(
+                    x32, ws, bs, wa, ba, p32, m, s, gst32),
+                "deslice_bwd": lambda: sk.deslice_bwd(
+                    x32, ws, bs, wa, ba, st32, m, s, gout32)}
+            plain_calls = {
+                "slice_states": lambda: sk.slice_states_plain(
+                    x, ws, bs, wa, ba),
+                "deslice": lambda: sk.deslice_plain(x, ws, bs, wa, ba, st,
+                                                    m, s),
+                "slice_states_bwd": lambda: sk.slice_states_bwd_plain(
+                    *bwd_args["slice_states_bwd"]),
+                "deslice_bwd": lambda: sk.deslice_bwd_plain(
+                    *bwd_args["deslice_bwd"])}
+            for kind, fn in calls.items():
+                r = recs[kind]
+                us, _ = sb.flushed_us(fn, 30, None)
+                us32, _ = sb.flushed_us(f32_calls[kind], 30, None)
+                bound = sb.bound_us(kind, shape, isz=2)
+                r["us"][tag], r["f32_us"][tag] = us, us32
+                r["bound_us"][tag] = bound[0]
+                r["ms"] = cuda_ms(fn)
+                r["plain_ms"] = cuda_ms(plain_calls[kind], reps=5)
+                r["bound"] = (bound[0] / 1e3, bound[1])
+                print(f"  {kind} bf16: device {us:.2f} us per call (profiler,"
+                      f" L2 flushed) against {us32:.2f} us in float32; bound "
+                      f"{bound[0]:.2f} us ({bound[1]}; the bf16 bytes, the "
+                      f"passes of each product's operand types), "
+                      f"{bound[0] / us:.0%} of it", flush=True)
+                print_times(r["ms"], r["plain_ms"], r["bound"])
+        del x, x32, st, st32, g_out, gout32
+        torch.cuda.empty_cache()
+    replaces = {"slice_states": "haet_tpu/ops/pallas/slice_kernels.py:73",
+                "deslice": "haet_tpu/ops/pallas/slice_kernels.py:125",
+                "slice_states_bwd": "haet_tpu/ops/pallas/slice_kernels.py:327",
+                "deslice_bwd": "haet_tpu/ops/pallas/slice_kernels.py:448"}
+    return [kernel_record(f"{k}_bf16", "haet_torch/csrc/slice_kernels.cu",
+                          replaces[k], r["err"], r["ms"], r["plain_ms"],
+                          r["bound"], dtype="bfloat16",
+                          device_us_per_call=r["us"],
+                          float32_device_us_per_call=r["f32_us"],
+                          bound_us=r["bound_us"],
+                          kernel_names=sorted(r["names"]))
+            for k, r in recs.items()]
+
+
+def bf16_erwin_phase(dev):
+    """10a, the fused Erwin block forward and backward in bf16 (``x``,
+    ``pos``, ``dout``; the parameters float32) at both car block shapes
+    against the plain block on the same inputs: out, dx and dpos within
+    ``BF16_RTOL``, every parameter gradient within ``KERNEL_RTOL``; two
+    calls bit-identical; each call runs the port's kernels alone; device us
+    per call beside the float32 kernels'."""
+    import torch
+
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 50)
+    out = {k: {"err": 0.0, "us": {}, "f32_us": {}, "names": set(),
+               "ms": [], "plain_ms": [], "bound": []}
+           for k in ("fwd", "bwd")}
+    for n_e, c_e, ball, weight in ((32, 32, 32, 16), (16, 64, 16, 8)):
+        print(f"phase 10a: fused_erwin_block in bf16  x [8, {n_e}, {c_e}] "
+              f"bf16, 8 heads, ball {ball}", flush=True)
+        xe32, pe32, params, kw = erwin_inputs(dev, g, n_e, c_e, ball)
+        xe, pe = xe32.to(bf), pe32.to(bf)
+        dout = torch.randn(xe.shape, generator=g).to(dev).to(bf)
+        # no_grad, not inference_mode: the plain backward is autograd
+        with torch.no_grad():
+            o_k = [eb.fused_erwin_block(xe, pe, params, **kw) for _ in (0, 1)]
+            o_p = eb.erwin_block_plain(xe, pe, params, **kw)
+            torch.cuda.synchronize()
+            check(o_k[0].dtype == bf, "Erwin out dtype")
+            out["fwd"]["err"] = max(out["fwd"]["err"], compare(
+                "out (bf16)", o_k[0], o_p, BF16_RTOL))
+            b_k = [eb.fused_erwin_block_bwd(xe, pe, dout, params, **kw)
+                   for _ in (0, 1)]
+            b_p = eb.erwin_block_bwd_plain(xe, pe, dout, params, **kw)
+            torch.cuda.synchronize()
+            for name, a, w in (("dx", b_k[0][0], b_p[0]),
+                               ("dpos", b_k[0][1], b_p[1]),
+                               *((k, b_k[0][2][k], b_p[2][k])
+                                 for k in eb.GRAD_NAMES)):
+                low = name in ("dx", "dpos")
+                check(a.dtype == (bf if low else torch.float32),
+                      f"Erwin {name} is {a.dtype}")
+                out["bwd"]["err"] = max(out["bwd"]["err"], compare(
+                    f"{name}", a, w, BF16_RTOL if low else KERNEL_RTOL))
+            same = torch.equal(*o_k) and all(
+                torch.equal(a, w) for a, w in
+                zip((b_k[0][0], b_k[0][1], *b_k[0][2].values()),
+                    (b_k[1][0], b_k[1][1], *b_k[1][2].values())))
+            print(f"  two calls bit-identical (out, dx, dpos, gradients): "
+                  f"{same}", flush=True)
+            check(same, "bf16 Erwin kernels are not deterministic")
+            fns = {"fwd": (lambda: eb.fused_erwin_block(xe, pe, params, **kw),
+                           lambda: eb.fused_erwin_block(xe32, pe32, params,
+                                                        **kw),
+                           lambda: eb.erwin_block_plain(xe, pe, params, **kw),
+                           ERWIN_FWD_KERNELS),
+                   "bwd": (lambda: eb.fused_erwin_block_bwd(
+                               xe, pe, dout, params, **kw),
+                           lambda: eb.fused_erwin_block_bwd(
+                               xe32, pe32, dout.float(), params, **kw),
+                           lambda: eb.erwin_block_bwd_plain(
+                               xe, pe, dout, params, **kw),
+                           ERWIN_BWD_KERNELS)}
+            w_elems, flops = erwin_work(n_e, c_e, ball)
+            rows, pts = 8 * n_e * c_e, 8 * n_e * 3
+            bounds = {"fwd": bound_ms(2 * (2 * rows + pts) + 4 * w_elems,
+                                      flops),
+                      "bwd": bound_ms(2 * (3 * rows + 2 * pts)
+                                      + 4 * (2 * w_elems - 8), 3 * flops)}
+            for k, (fn, fn32, plain_fn, names) in fns.items():
+                r = out[k]
+                r["names"].update(alone(f"Erwin {k} bf16", fn))
+                us, us32 = device_us(fn, names), device_us(fn32, names)
+                r["us"][f"n{n_e}_c{c_e}"] = us
+                r["f32_us"][f"n{n_e}_c{c_e}"] = us32
+                r["ms"].append((cuda_ms(fn), weight))
+                r["plain_ms"].append((cuda_ms(plain_fn), weight))
+                r["bound"].append((bounds[k], weight))
+                print(f"  {k} bf16: device {us:.2f} us per call (profiler) "
+                      f"against {us32:.2f} us in float32; bound "
+                      f"{bounds[k][0] * 1e3:.3f} us ({bounds[k][1]})",
+                      flush=True)
+    mix = lambda xs: sum(t * w for t, w in xs) / 24  # noqa: E731
+    recs = []
+    for k, name, line in (("fwd", "fused_erwin_block_bf16", 163),
+                          ("bwd", "fused_erwin_block_bwd_bf16", 187)):
+        r = out[k]
+        bound = (mix([(bd[0], w) for bd, w in r["bound"]]),
+                 "bytes" if all(bd[1] == "bytes" for bd, _ in r["bound"])
+                 else "operations")
+        recs.append(kernel_record(
+            name, "haet_torch/csrc/erwin_block.cu",
+            f"haet_tpu/ops/pallas/erwin_block.py:{line}", r["err"],
+            mix(r["ms"]), mix(r["plain_ms"]), bound, dtype="bfloat16",
+            device_us_per_call=r["us"], float32_device_us_per_call=r["f32_us"],
+            kernel_names=sorted(r["names"])))
+    return recs
+
+
+def bf16_serve_phase(dev):
+    """10b: the bf16 car model (both kernel flags; phase 4's weights)
+    behind a ``BatchingServer``, as phase 4 drives it: launches 2 + 2 + 24
+    per forward, no plain route, the answers the exact float32 widening of
+    the model's bf16 output and within ``BF16_SERVE_RTOL`` of the float32
+    model on the same weights; the batch-1 forward's wall and device
+    time. Returns ``(launch counts, forwards, profile)``."""
+    import torch
+
+    from haet_torch.models import HAETransolverIrregularMesh
+    from haet_torch.utils.config import shapenet_car_config
+
+    kwargs = shapenet_car_config().model_kwargs()
+    kwargs.update(use_pallas=True, use_pallas_erwin=True, device=dev,
+                  seed=SEED)
+    model = HAETransolverIrregularMesh(**kwargs)
+    g = torch.Generator().manual_seed(SEED + 1)   # phase 4's perturbation
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+    low = HAETransolverIrregularMesh(**{**kwargs, "dtype": torch.bfloat16})
+    low.load_state_dict(model.state_dict())
+    model.eval()
+    low.eval()
+    samples = serve_samples()
+    x0 = torch.from_numpy(samples[0][None]).to(dev)
+    with torch.inference_mode():   # warm-up
+        direct = low(x0)[0]
+        torch.cuda.synchronize()
+    check(direct.dtype == torch.bfloat16, "the bf16 model's output dtype")
+    outs, counts, forwards = drive_server(low, samples, dev)
+    check(outs[0].dtype == np.float32 and np.array_equal(
+        outs[0], direct.float().cpu().numpy()),
+        "the served answer is not the model's bf16 output widened")
+    print("  the served batch-1 answer is the model's bf16 output, widened "
+          "exactly", flush=True)
+    rel = compare_served(outs, samples, model, dev, "the float32 model",
+                         BF16_SERVE_RTOL)
+    print("phase 10b: profile one bf16 batch-1 forward", flush=True)
+    prof = profile_phase(low, samples[0], dev)
+    del model, low
+    torch.cuda.empty_cache()
+    return counts, forwards, {**prof, "rel_err_vs_float32": rel}
+
+
+def bf16_phase(dev):
+    """Phase 10: the bf16 kernels (10a), serving (10b), training (10c) and
+    the drivers (10d). The bf16 records' ``launches`` are 10c-d's counts:
+    the eager steps after the restore. Returns ``(records, summary)``."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("phase 10a: the kernels on the path in bf16", flush=True)
+    records = bf16_slice_phase(dev) + bf16_erwin_phase(dev)
+    t_a = time.perf_counter() - t0
+    print("phase 10b: serve the ShapeNet-Car preset in bf16", flush=True)
+    _, forwards, served = bf16_serve_phase(dev)
+    walls = graph_phase(dev, bf16=True)
+    for r in records:
+        r["launches"] = walls["restored_launches"][BF16_RECORDS[r["name"]]]
+    print("phase 10d: car_train --epochs 1 --bf16 1 --mu_bf16 1, then "
+          "car_eval --which last (float32)", flush=True)
+    drivers = drivers_car_phase(dev, epochs=1, bf16=True)
+    torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s (10a {t_a:.1f} s)",
+          flush=True)
+    return records, {"serve_forwards": forwards, "serve": served,
+                     "graphs": walls, "drivers": drivers}
+
+
+def print_bf16_beside_f32(bf16, f32_walls, f32_profile) -> None:
+    """Phase 10's step and serve numbers beside phases 9e's and 5's."""
+    for name in ("graphed", "eager"):
+        b, f = bf16["graphs"][name], f32_walls[name]
+        print(f"  10c {name} step, bf16 against float32 (9e): wall "
+              f"{b['wall_ms']:.3f} / {f['wall_ms']:.3f} ms, device "
+              f"{b['device_ms']:.3f} / {f['device_ms']:.3f} ms, kernels "
+              f"{b['kernels']} / {f['kernels']}, busy {b['busy']:.3f} / "
+              f"{f['busy']:.3f}, memory {b['step_mb']:.1f} / "
+              f"{f['step_mb']:.1f} MiB", flush=True)
+    served = bf16["serve"]
+    print(f"  10b batch-1 forward, bf16 against float32 (phase 5): wall "
+          f"{served['wall_ms']:.3f} / {f32_profile['wall_ms']:.3f} ms, "
+          f"device {served['device_ms']:.3f} / {f32_profile['device_ms']:.3f}"
+          f" ms", flush=True)
 
 
 def main() -> int:
@@ -2214,7 +2693,7 @@ def main() -> int:
         print("phase 4: serve the ShapeNet-Car preset", flush=True)
         serve_counts, forwards, model, sample = serve_phase(dev)
         print("phase 5: profile one batch-1 forward", flush=True)
-        profile_phase(model, sample, dev)
+        f32_profile = profile_phase(model, sample, dev)
         del model
         print(f"phase 6: train the ShapeNet-Car preset, {TRAIN_STEPS} steps",
               flush=True)
@@ -2236,6 +2715,8 @@ def main() -> int:
         t9 = time.perf_counter()
         graphs = graph_phase(dev)
         print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+        bf16_records, bf16 = bf16_phase(dev)
+        print_bf16_beside_f32(bf16, graphs, f32_profile)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2245,9 +2726,10 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
         r["replay_launches"] = replay_calls[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]
-    print(json.dumps({"kernels": records, "train_steps": TRAIN_STEPS,
+    print(json.dumps({"kernels": records + bf16_records,
+                      "train_steps": TRAIN_STEPS,
                       "serve_forwards": forwards, "fit": fit,
-                      "graphs": graphs}))
+                      "graphs": graphs, "bf16": bf16}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

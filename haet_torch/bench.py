@@ -4,9 +4,11 @@
 
 Counterpart of ``bench.py:76-264``. The model is the car configuration
 (:func:`~haet_torch.utils.config.shapenet_car_config`, 1,757,190 params,
-kernel flags off as the preset sets them), float32, batch 1 of 32768
-points from ``RandomState(0)``; the step is a train-mode forward, MSE,
-backward and ``torch.optim.Adam(lr=1e-3)`` (capturable on the card).
+kernel flags off as the preset sets them), in bf16 on the card and float32
+on the CPU, as ``bench.py:95`` builds it in bf16 on its accelerator and
+float32 on the CPU; batch 1 of 32768 points from ``RandomState(0)``; the
+step is a train-mode forward, MSE, backward and
+``torch.optim.Adam(lr=1e-3)`` (capturable on the card).
 
 Timing has ``bench.py``'s two strategies, each in windows of
 ``K_LO``/``K_HI`` = 5/45 chained steps ending in a fetch of the last loss:
@@ -27,8 +29,8 @@ Prints one JSON line: points per second, ``vs_baseline`` against the
 reference's A100 log (0.430 s per batch of 32768 points, ``bench.py:42``),
 the step's FLOPs from ``torch.utils.flop_counter.FlopCounterMode`` (the
 products it sees, on the plain path this step runs), MFU against the card's
-float32 peak outside the tensor cores (67 TFLOP/s: TF32 is off by policy,
-:mod:`haet_torch.utils.env`), and a chip-share probe: a chain of 128 bf16
+dense bf16 peak (989 TFLOP/s, as ``bench.py`` takes its chip's bf16
+peak), and a chip-share probe: a chain of 128 bf16
 2048x2048 products through ``torch.matmul``, interleaved with the rounds,
 against 0.8 x 989 TFLOP/s (H100 SXM dense bf16, data sheet). The MFU and
 probe fields are null on the CPU.
@@ -50,8 +52,6 @@ N_POINTS = 32768
 BATCH = 1
 BASELINE_SEC_PER_BATCH = 0.430  # A100, the reference's training log
 BASELINE_PPS = N_POINTS * BATCH / BASELINE_SEC_PER_BATCH
-#: H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
-PEAK_F32_FLOPS = 67e12
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PROBE_DIM = 2048
@@ -95,7 +95,9 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
     """Measure; returns the JSON record."""
     dev = default_device(device)
     on_gpu = dev.type == "cuda"
-    model = shapenet_car_config().build(device=dev, seed=0)
+    cfg = shapenet_car_config()
+    cfg.bf16 = on_gpu
+    model = cfg.build(device=dev, seed=0)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(
         rng.randn(BATCH, N_POINTS, 7).astype(np.float32)).to(dev)
@@ -139,7 +141,7 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
     graph = per_step.get("graph", (None, None))
 
     flops = step_flops(lambda: step(x))
-    mfu = flops / dt / PEAK_F32_FLOPS if on_gpu else None
+    mfu = flops / dt / PEAK_BF16_FLOPS if on_gpu else None
     probe_tflops = PROBE_FLOPS / best["probe"] / 1e12 if on_gpu else None
     quiet = 0.8 * PEAK_BF16_FLOPS / 1e12
     share = min(1.0, probe_tflops / quiet) if on_gpu else None
@@ -157,7 +159,7 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
         "graph_is_upper_bound": graph[1],
         "graph_note": None if on_gpu else GRAPH_NOTE_CPU,
         "rounds": n_rounds,
-        "dtype": "float32",
+        "dtype": "bfloat16" if cfg.bf16 else "float32",
         "device": (torch.cuda.get_device_name(dev) if on_gpu
                    else str(dev)),
         "mfu": mfu,

@@ -15,7 +15,9 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
   of two trees;
 * :mod:`.car_train`, :mod:`.car_eval` -- the ShapeNet-Car training run and
   its evaluation from a checkpoint;
-* :mod:`.timing` -- the interleaved differential timing they share.
+* :mod:`.timing` -- the interleaved differential timing they share;
+* :mod:`.trace_loss` -- the device records a profiler trace loses as
+  its process ages, and whether ``device_trace``'s sentinels take them.
 
 Each runs as ``python -m haet_torch.benchmarks.<name>``; ``--device cpu``
 runs it on the CPU, which is only plumbing: no CPU time is a device metric.

@@ -7,10 +7,11 @@ Counterpart of ``benchmarks/bench_flags.py:29-119``. Variants:
 slice kernels) and ``pallas-erwin`` (``use_pallas_erwin=True``: the Erwin
 block kernels). Model: ``HAETransolverIrregularMesh(space_dim=7, fun_dim=0,
 out_dim=4, n_layers, n_hidden, n_head=8, slice_num, mlp_ratio=2,
-rotate=45)``; its Erwin stage keeps the constructor defaults (depths
-2/2/2, so 6 blocks per layer, and Erwin mlp_ratio 2). Step: train mode,
-``torch.optim.Adam(lr=1e-3)`` and plain MSE on ``x, y`` from
-``RandomState(0)``, float32.
+rotate=45)``, in bf16 on the card and float32 on the CPU as the JAX driver
+builds it (``bench_flags.py:108``); its Erwin stage keeps the constructor
+defaults (depths 2/2/2, so 6 blocks per layer, and Erwin mlp_ratio 2).
+Step: train mode, ``torch.optim.Adam(lr=1e-3)`` and plain MSE on ``x, y``
+from ``RandomState(0)``.
 
 Every variant is built first, then the windows of ``k_lo`` and ``k_hi``
 chained steps (each step's input is tied to the last loss) of all variants
@@ -51,11 +52,15 @@ VARIANTS = {
 
 def build_model(variant: str, n_layers: int = 2, n_hidden: int = 256,
                 slice_num: int = 32, device=None, seed: int = 0):
-    """The driver's model for ``variant`` (``bench_flags.py:104-108``)."""
+    """The driver's model for ``variant`` (``bench_flags.py:104-108``): in
+    bf16 on the card, float32 on the CPU."""
+    dev = default_device(device)
     return HAETransolverIrregularMesh(
         space_dim=7, fun_dim=0, out_dim=4, n_layers=n_layers,
         n_hidden=n_hidden, n_head=8, slice_num=slice_num, mlp_ratio=2,
-        rotate=45, **VARIANTS[variant], device=device, seed=seed)
+        rotate=45, **VARIANTS[variant],
+        dtype=torch.bfloat16 if dev.type == "cuda" else None, device=dev,
+        seed=seed)
 
 
 def k_steps(step, x):

@@ -18,7 +18,8 @@ variants, each in windows of k steps ending in one fetch of the last loss:
 
 Model and step as the JAX script: the car-width HAET (``space_dim=7``, 2
 layers, n_hidden 256, 8 heads, G 32, ``mlp_ratio=2``, ``rotate=45``,
-kernel flags off), float32, MSE against ``y`` and Adam(1e-3), one sample of
+kernel flags off), in bf16 on the card and float32 on the CPU
+(``bench_loop_diag.py:40``), MSE against ``y`` and Adam(1e-3), one sample of
 ``--points`` points from ``RandomState(0)``. After one warm-up window of
 each, the windows are interleaved for ``--rounds`` rounds; the driver
 prints each window's least ms and, per variant, the seconds per step from
@@ -76,7 +77,9 @@ def run(device=None, points: int = 32768, ks=(5, 45), rounds: int = 4,
     ks = sorted(ks)
     model = HAETransolverIrregularMesh(
         space_dim=7, fun_dim=0, out_dim=4, n_layers=2, n_hidden=256,
-        n_head=8, slice_num=32, mlp_ratio=2, rotate=45, device=dev, seed=0)
+        n_head=8, slice_num=32, mlp_ratio=2, rotate=45,
+        dtype=torch.bfloat16 if dev.type == "cuda" else None, device=dev,
+        seed=0)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(1, points, 7).astype(np.float32)).to(dev)
     y = torch.from_numpy(rng.randn(1, points, 4).astype(np.float32)).to(dev)

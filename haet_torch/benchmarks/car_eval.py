@@ -13,7 +13,9 @@ driver's eval ``Trainer`` exists only to hold its state. ``--save_preds``
 writes each sample's denormalised prediction and target to
 ``<out_dir>/results/{i}_pred.npy`` and ``{i}_gt.npy``. ``--smoke`` resets
 the Erwin sizing as ``car_train --smoke`` does; the widths come from
-``--n_hidden``, ``--n_layers`` and ``--slice_num``.
+``--n_hidden``, ``--n_layers`` and ``--slice_num``. It evaluates in
+float32, as the JAX driver does, whatever dtype ``car_train`` computed in:
+the checkpoint's parameters are float32 either way.
 
 Not ported yet, and raising with their ``ROADMAP.md`` item:
 ``--export_artifact`` and ``--export_point_buckets`` (queue 1: serving

@@ -21,9 +21,14 @@ padded to its 2048-point bucket, assembled in a background thread
 (``--resume``) therefore replays epoch 0's order from its first resumed
 epoch on. ``Trainer.fit`` resumes exactly for a given order.
 
+``--bf16 1`` builds the model in the bf16 compute dtype over float32
+parameters and ``--mu_bf16 1`` stores Adam's first moment in bf16, as the
+JAX driver's flags do (``benchmarks/car_train.py:136-137``); both default
+to 0, as there.
+
 The card is the default device; ``--device cpu`` runs on the CPU. ``--dp``,
-``--tp``, ``--pp``, ``--multihost``, ``--bf16 1`` and ``--mu_bf16 1`` are
-not ported yet and raise, naming their ``ROADMAP.md`` item.
+``--tp``, ``--pp`` and ``--multihost`` are not ported yet and raise, naming
+their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -37,8 +42,7 @@ from ..data import Prefetcher, shapenet_car
 from ..models import HAETransolverIrregularMesh
 from ..train import Checkpointer, MetricsLogger, Trainer
 from ..train.car import evaluate, loss_fn_builder, make_batch
-from ..utils.config import (BF16_TODO, MU_BF16_TODO, shapenet_car_config,
-                            shapenet_car_train_config)
+from ..utils.config import shapenet_car_config, shapenet_car_train_config
 from ..utils.env import default_device
 
 PARALLEL_TODO = "{} is not ported yet (ROADMAP.md, queue 1: parallel)"
@@ -62,13 +66,16 @@ def check_mesh_args(args) -> None:
 
 
 def model_config(args):
-    """The car preset's model config sized by ``args`` (``--smoke`` resets
-    the preset's pinned 8-head Erwin sizing to the defaults, which scale
-    with ``n_head``)."""
+    """The car preset's model config sized by ``args``, in bf16 with
+    ``car_train --bf16 1`` (``car_eval`` has no such flag and builds it in
+    float32, as the JAX driver does; ``--smoke`` resets the preset's
+    pinned 8-head Erwin sizing to the defaults, which scale with
+    ``n_head``)."""
     cfg = shapenet_car_config()
     cfg.n_hidden = args.n_hidden
     cfg.n_layers = args.n_layers
     cfg.slice_num = args.slice_num
+    cfg.bf16 = bool(getattr(args, "bf16", 0))
     if args.smoke:
         cfg.n_head = 4
         cfg.enc_num_heads = cfg.enc_depths = None
@@ -107,15 +114,12 @@ def print_metrics(metrics: dict) -> None:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     check_mesh_args(args)
-    if args.bf16:
-        raise NotImplementedError(BF16_TODO)
-    if args.mu_bf16:
-        raise NotImplementedError(MU_BF16_TODO)
     dev = default_device(args.device)
     cfg = model_config(args)
     train_cfg = shapenet_car_train_config()
     train_cfg.epochs = args.epochs
     train_cfg.lr = args.lr
+    train_cfg.mu_bf16 = bool(args.mu_bf16)
 
     train_s, val_s, coef, is_synth = load_fold(args)
     if is_synth:
@@ -167,7 +171,8 @@ def parse_args(argv=None):
     p.add_argument("--n_layers", type=int, default=2)
     p.add_argument("--slice_num", type=int, default=32)
     p.add_argument("--bf16", type=int, default=0)
-    p.add_argument("--mu_bf16", type=int, default=0)
+    p.add_argument("--mu_bf16", type=int, default=0,
+                   help="store Adam's first moment in bfloat16")
     p.add_argument("--out_dir", type=str, default="./runs")
     p.add_argument("--prefetch", type=int, default=2,
                    help="background batch prefetch depth (0 disables)")

@@ -69,16 +69,14 @@ def kernel_us(fn, reps: int, names=None):
     back-to-back calls after 3 warm-ups: the device time of the kernels
     whose names contain one of ``names`` (every kernel when None) from a
     ``torch.profiler`` trace, and the events' time of a second window."""
-    from torch.profiler import ProfilerActivity, profile
+    from ..utils.profiling import device_trace
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0

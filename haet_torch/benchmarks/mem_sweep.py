@@ -9,8 +9,9 @@ G]`` slice weights to device memory; the plain path does. For each path the
 sweep doubles N from ``--start`` until a probe fails, then bisects, where a
 probe is a 1-layer forward (or forward+backward with ``--grad 1``) of the
 reference's velocity-mem-checker model (space_dim 3, fun_dim 1, n_hidden
-256, 8 heads, G 32), float32, in a fresh process, so that an OOM cannot
-leave a fragmented caching allocator to the next probe.
+256, 8 heads, G 32), in bf16 as ``pallas_mem_sweep.run_probe`` builds it
+(``:34,51``), in a fresh process, so that an OOM cannot leave a fragmented
+caching allocator to the next probe.
 
 A probe prints one JSON line with ``peak_memory_mb``
 (``torch.cuda.max_memory_allocated``) and the slice-kernel launches it made;
@@ -35,31 +36,29 @@ from ..ops.kernels import launch_counts, reset_launch_counts
 from ..utils.env import default_device
 from ..utils.profiling import device_memory_mb
 
-BF16_TODO = "bf16 is not ported yet (ROADMAP.md, queue 1: bf16)"
 ROOT = Path(__file__).resolve().parents[2]
 PROBE_TIMEOUT_S = 1800
 
 
 def build_model(use_pallas: bool, slice_num: int = 32, device=None,
-                seed: int = 0):
+                seed: int = 0, bf16: bool = True):
     """The probe's model (``pallas_mem_sweep.py:47-52``)."""
     return HAETransolverIrregularMesh(
         space_dim=3, fun_dim=1, out_dim=1, n_layers=1, n_hidden=256,
         n_head=8, slice_num=slice_num, mlp_ratio=2, rotate=45,
-        use_pallas=use_pallas, device=device, seed=seed)
+        use_pallas=use_pallas, dtype=torch.bfloat16 if bf16 else None,
+        device=device, seed=seed)
 
 
-def run_probe(num_points: int, use_pallas: bool, bf16: bool = False,
+def run_probe(num_points: int, use_pallas: bool, bf16: bool = True,
               grad: bool = False, slice_num: int = 32, device=None) -> dict:
     """One forward (or forward+backward when ``grad``) at ``num_points``;
     prints and returns the probe's record."""
-    if bf16:
-        raise NotImplementedError(BF16_TODO)
     dev = default_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    model = build_model(use_pallas, slice_num, dev).eval()
+    model = build_model(use_pallas, slice_num, dev, bf16=bf16).eval()
     rng = np.random.RandomState(0)
     x = torch.from_numpy(
         rng.rand(1, num_points, 3).astype(np.float32)).to(dev)
@@ -81,6 +80,7 @@ def run_probe(num_points: int, use_pallas: bool, bf16: bool = False,
         "pallas": use_pallas,
         "grad": grad,
         "slice_num": slice_num,
+        "dtype": "bfloat16" if bf16 else "float32",
         "ok": ok,
         "first_call_seconds": time.perf_counter() - t0,
         "peak_memory_mb": device_memory_mb(dev),
@@ -186,7 +186,6 @@ def main(argv=None):
     p.add_argument("--slice_num", type=int, default=32)
     p.add_argument("--grad", type=int, default=0,
                    help="probe forward+backward instead of forward only")
-    p.add_argument("--bf16", type=int, default=0)
     p.add_argument("--start", type=int, default=1_000_000)
     p.add_argument("--limit", type=int, default=128_000_000)
     p.add_argument("--only", type=str, default=None,
@@ -196,8 +195,6 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card")
     args = p.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(BF16_TODO)
     if args.probe is not None:
         rec = run_probe(args.probe, bool(args.pallas), grad=bool(args.grad),
                         slice_num=args.slice_num, device=args.device)

@@ -3,8 +3,9 @@
     python -m haet_torch.benchmarks.profile_step [--device cpu]
 
 Counterpart of ``benchmarks/profile_step.py:69-190``, with the same
-components at the same shapes (N = 32768 points, float32, kernel flags
-off as there):
+components at the same shapes (N = 32768 points, kernel flags off as
+there), in bf16 on the card and float32 on the CPU, as the JAX driver
+computes in bf16 on its accelerator (``:76``):
 
 * the car train step (forward in train mode, MSE, backward, Adam) of the
   car configuration (1,757,190 params);
@@ -44,45 +45,49 @@ from .timing import device_us_per_call, fmt, graph_loop, loop, timed
 N_POINTS = 32768
 
 
-def build_car_model(device, seed: int = 0):
+def build_car_model(device, seed: int = 0, dtype=None):
     """The car configuration as ``profile_step.py:83-87`` spells it."""
     return HAETransolverIrregularMesh(
         space_dim=7, fun_dim=0, out_dim=4, n_layers=2, n_hidden=256,
         n_head=8, slice_num=32, mlp_ratio=2, rotate=45,
         enc_num_heads=(8, 8), enc_depths=(4, 4), dec_num_heads=(8,),
-        dec_depths=(4,), erwin_mlp_ratio=4, embed=True, device=device,
-        seed=seed)
+        dec_depths=(4,), erwin_mlp_ratio=4, embed=True, dtype=dtype,
+        device=device, seed=seed)
 
 
-def build_physics_attention(device, seed: int = 0):
+def build_physics_attention(device, seed: int = 0, dtype=None):
     """``profile_step.py:123-125``, with the reference init."""
     pa = PhysicsAttentionIrregularMesh(dim=256, heads=8, dim_head=32,
-                                       slice_num=32, mlp_ratio=2, rotate=45)
+                                       slice_num=32, mlp_ratio=2, rotate=45,
+                                       dtype=dtype)
     init_weights(pa, torch.Generator().manual_seed(seed))
     return pa.to(device)
 
 
-def build_erwin_stage(device, seed: int = 0):
+def build_erwin_stage(device, seed: int = 0, dtype=None):
     """``profile_step.py:147-151``, with the reference init."""
     er = ErwinTransformer(
         c_in=32, c_hidden=(32, 64), ball_sizes=(32, 16),
         enc_num_heads=(4, 8), enc_depths=(2, 2), dec_num_heads=(4,),
         dec_depths=(2,), strides=(2,), rotate=45, mp_steps=0, embed=False,
-        mlp_ratio=2, dimensionality=3)
+        mlp_ratio=2, dimensionality=3, dtype=dtype)
     init_weights(er, torch.Generator().manual_seed(seed))
     return er.to(device)
 
 
 def components(dev, points: int) -> dict:
     """``{line: (make_fn, arg, body)}``: ``make_fn`` for
-    :func:`.timing.timed` chains ``body`` from ``arg``."""
+    :func:`.timing.timed` chains ``body`` from ``arg``; bf16 on the card
+    (the activations the components take in, the model's compute dtype)."""
     rng = np.random.RandomState(0)
+    dt = torch.bfloat16 if dev.type == "cuda" else None
 
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    def t(a, low=False):
+        v = torch.from_numpy(a.astype(np.float32)).to(dev)
+        return v.to(dt) if low and dt is not None else v
 
     lines = {}
-    model = build_car_model(dev)
+    model = build_car_model(dev, dtype=dt)
     x, y = t(rng.randn(1, points, 7)), t(rng.randn(1, points, 4))
     step = make_train_step(model, y)
     # the step does not read the carried loss: like the JAX chain
@@ -93,12 +98,12 @@ def components(dev, points: int) -> dict:
     def fwd_chain(v):
         model.train()
         with torch.no_grad():
-            return v + 1e-12 * model(v, None).mean()
+            return v + 1e-12 * model(v, None).mean().to(v.dtype)
 
     lines["model fwd only"] = (fwd_chain, x)
 
-    pa = build_physics_attention(dev).eval()
-    fx = t(rng.randn(1, points, 256))
+    pa = build_physics_attention(dev, dtype=dt).eval()
+    fx = t(rng.randn(1, points, 256), low=True)
 
     def pa_chain(v):
         with torch.no_grad():
@@ -106,14 +111,14 @@ def components(dev, points: int) -> dict:
 
     def pa_grad_chain(v):
         u = v.detach().requires_grad_()
-        g, = torch.autograd.grad(pa(u).mean(), u)
+        g, = torch.autograd.grad(pa(u).float().mean(), u)
         return (v + 1e-12 * g).detach()
 
     lines["physics attention fwd"] = (pa_chain, fx)
     lines["physics attention fwd+bwd"] = (pa_grad_chain, fx)
 
-    er = build_erwin_stage(dev).eval()
-    s = t(rng.randn(8, 32, 32))
+    er = build_erwin_stage(dev, dtype=dt).eval()
+    s = t(rng.randn(8, 32, 32), low=True)
     pos = t(rng.rand(8, 32, 3))
 
     def er_chain(v):
@@ -128,13 +133,14 @@ def components(dev, points: int) -> dict:
     lines["erwin stage fwd"] = (er_chain, s)
     lines["build_erwin_perms"] = (perm_chain, pos)
 
-    xp = t(rng.randn(1, 8, points, 32))
+    xp = t(rng.randn(1, 8, points, 32), low=True)
     wsl = t(rng.randn(32, 32))
 
     def tok_chain(v):
         w = slice_ops.rep_slice_weights(
-            v @ wsl, torch.full(v.shape[:-1] + (1,), 0.5, device=dev),
-            1e-6)
+            v.float() @ wsl,
+            torch.full(v.shape[:-1] + (1,), 0.5, device=dev), 1e-6)
+        w = w.to(v.dtype)
         st = slice_ops.eidetic_states(v, w)
         return v + 1e-12 * slice_ops.deslice(st, w).mean()
 

@@ -68,45 +68,83 @@ def card_line() -> str:
 KINDS = ("slice_states", "deslice", "slice_states_bwd", "deslice_bwd")
 
 
-def work(kind: str, b: int, h: int, n: int, c: int, g: int):
-    """``(bytes, FLOP)`` of one call: each input read once, each output
-    written once; 2 FLOP per multiply-add of the products the call runs.
-    Forwards: the logits (and ``tau``) and the weighted sum or the output
-    product. slice_states_bwd reads x, the parameters, the states, their
-    gradient and ``(m, s)`` and writes dx and the parameters' gradients;
-    its products are the logits, ``x G^T``, ``w G^``, ``dpre Ws^T`` and
-    ``x^T dpre`` (and ``tau``, ``draw Wa^T``, ``x^T draw``). deslice_bwd
-    reads x and g_out and writes dx and dstates as well; its two passes run
-    seven products (the logits and ``g_out states^T`` in both, ``w^T g_out``
-    in the first, ``dpre Ws^T`` and ``x^T dpre`` in the second) and ``tau``
-    twice."""
+#: the products of each call: ``(width, operands)``, ``width`` the
+#: multiply-adds per point (``"cg"`` C·G, ``"c"`` C) and ``operands`` how
+#: many of its two operands take ``x_proj``'s dtype (``x_proj``, the
+#: states, the gradients ``g_out`` and ``g_states``; the rest are float32).
+#: Forwards: the logits (``x Ws``), the weighted sum ``E^T x`` or the output
+#: ``W states``, and ``tau`` (``x Wa``). slice_states_bwd: the logits,
+#: ``x G^T``, ``w G^``, ``dpre Ws^T``, ``x^T dpre``, and ``tau``, ``draw
+#: Wa^T``, ``x^T draw``. deslice_bwd, two passes: the logits and ``g_out
+#: states^T`` in both, ``w^T g_out`` in the first, ``dpre Ws^T`` and ``x^T
+#: dpre`` in the second, ``tau`` twice, ``draw Wa^T`` and ``x^T draw``.
+PRODUCTS = {
+    "slice_states": (("cg", 1), ("cg", 1), ("c", 1)),
+    "deslice": (("cg", 1), ("cg", 1), ("c", 1)),
+    "slice_states_bwd": (("cg", 1), ("cg", 2), ("cg", 1), ("cg", 0),
+                         ("cg", 1), ("c", 1), ("c", 0), ("c", 1)),
+    "deslice_bwd": (("cg", 1), ("cg", 1), ("cg", 2), ("cg", 2), ("cg", 1),
+                    ("cg", 0), ("cg", 1), ("c", 1), ("c", 1), ("c", 0),
+                    ("c", 1)),
+}
+
+
+def tf32_passes(operands: int, isz: int) -> float:
+    """Tensor-core time of one product in TF32 passes, exact for its
+    operand types: 3xTF32 for float32 operands (three passes); a bf16
+    operand is exact in TF32, so the low part of its split is zero and two
+    passes remain; two bf16 operands take one bf16 pass, at twice the TF32
+    rate."""
+    if isz == 4:
+        return TF32_PASSES
+    return (TF32_PASSES, 2, 0.5)[operands]
+
+
+def work(kind: str, b: int, h: int, n: int, c: int, g: int, isz: int = 4):
+    """``(bytes, FLOP, TF32 FLOP)`` of one call: each input read once,
+    each output written once, ``x_proj`` and the tensors in its dtype (the
+    states, ``out``, the gradients ``g_out``, ``dx``, ``dstates`` and the
+    states' gradient) ``isz`` bytes an element (4 float32, 2 bf16), the
+    rest float32 (slice_states writes its float32 states, the residual, and
+    with bf16 their bf16 copy); 2 FLOP per multiply-add of the call's
+    :data:`PRODUCTS`, and those FLOP weighted by their :func:`tf32_passes`.
+    slice_states_bwd reads x, the parameters, the states, their gradient
+    and ``(m, s)`` and writes dx and the parameters' gradients; deslice_bwd
+    reads x and g_out and writes dx and dstates as well."""
     bh = b * h
-    params = c * g + g + c + 1
-    rows = bh * n * c            # one [B, H, N, C] tensor
-    small = bh * g * c + 2 * bh * g  # the states, m and s
+    params = 4 * (c * g + g + c + 1)
+    rows = isz * bh * n * c      # one [B, H, N, C] tensor
+    st = bh * g * c              # the states' elements
+    ms = 4 * 2 * bh * g          # m and s
+    width = {"cg": c * g, "c": c}
+    flops = sum(2 * bh * n * width[w] for w, _ in PRODUCTS[kind])
+    tf32 = sum(2 * bh * n * width[w] * tf32_passes(k, isz)
+               for w, k in PRODUCTS[kind])
     if kind == "slice_states":
-        return 4 * (rows + params + small), 2 * bh * n * (2 * c * g + c)
-    if kind == "deslice":
-        return 4 * (2 * rows + params + small), 2 * bh * n * (2 * c * g + c)
-    if kind == "slice_states_bwd":
-        return (4 * (2 * rows + 2 * params + small + bh * g * c),
-                2 * bh * n * (5 * c * g + 3 * c))
-    return (4 * (3 * rows + 2 * params + small + bh * g * c),
-            2 * bh * n * (7 * c * g + 4 * c))
+        nbytes = rows + params + 4 * st + (isz if isz != 4 else 0) * st + ms
+    elif kind == "deslice":
+        nbytes = 2 * rows + params + isz * st + ms
+    elif kind == "slice_states_bwd":   # x, dx; the float32 states, g_states
+        nbytes = 2 * rows + 2 * params + 4 * st + ms + isz * st
+    else:
+        nbytes = 3 * rows + 2 * params + 2 * isz * st + ms
+    return nbytes, flops, tf32
 
 
-def bound_us(kind: str, shape, float32_only: bool = False) -> tuple:
+def bound_us(kind: str, shape, float32_only: bool = False,
+             isz: int = 4) -> tuple:
     """``(us, "bytes" or "operations")``: the least time the card could
     take for one call, the larger of the bytes' time and the operations'
-    at the fastest rate of a precision the port accepts for them: 3xTF32
-    on the tensor cores (three TF32 passes per product, as the kernels do
-    them), or float32 FMA, whichever is faster. ``float32_only``: the bound
-    at the float32 FMA rate alone, printed as context."""
-    nbytes, flops = work(kind, *shape)
+    at the fastest rate of a precision the port accepts for them: on the
+    tensor cores, each product in the passes its operand types need
+    (:func:`tf32_passes`), or float32 FMA, whichever is faster.
+    ``float32_only``: the bound at the float32 FMA rate alone, printed as
+    context."""
+    nbytes, flops, tf32 = work(kind, *shape, isz=isz)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
     t_ops = flops / F32_FLOP_PER_S * 1e6
     if not float32_only:
-        t_ops = min(t_ops, TF32_PASSES * flops / TF32_FLOP_PER_S * 1e6)
+        t_ops = min(t_ops, tf32 / TF32_FLOP_PER_S * 1e6)
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -143,18 +181,16 @@ def flushed_us(fn, reps: int, names=("slice",)) -> tuple:
     trace of ``reps`` calls, each after a pass of ``bitwise_not`` over
     :data:`FLUSH_BYTES`: the kernels whose names contain one of ``names``,
     or every kernel but the flush's when ``names`` is None."""
-    from torch.profiler import ProfilerActivity, profile
+    from ..utils.profiling import device_trace
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for _ in range(reps):
             torch.bitwise_not(flush, out=flush)
             fn()
-        torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0

@@ -152,17 +152,13 @@ def device_us_per_call(make_fn, *args, reps: int, device) -> float | None:
     """The card's kernel time per call, in microseconds, over one window of
     ``reps`` chained calls (``make_fn`` as for :func:`timed`), from a
     ``torch.profiler`` trace; None on the CPU, which has no such time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..utils.profiling import kernel_events
+    from ..utils.profiling import device_trace, kernel_events
 
     if torch.device(device).type != "cuda":
         return None
     fn = make_fn(reps)
     fetch(fn(*args))                       # warm-up outside the trace
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         fetch(fn(*args))
-        torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in kernel_events(prof))
     return total_us / reps

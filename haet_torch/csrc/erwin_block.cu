@@ -1,5 +1,9 @@
 // One whole Erwin transformer block, forward and backward, for Hopper
-// (sm_90a), float32.
+// (sm_90a), computed in float32. x, pos and dout are read, and out, dx and
+// dpos written, in float32 or bf16 (the model's compute dtype, as the JAX
+// kernel reads and writes them): bf16 is widened once where it is staged
+// into shared memory and rounded once where the result is stored. The
+// parameters and their gradients are float32.
 //
 // Forward: replaces the Pallas TPU kernel _fwd_kernel of
 // haet_tpu/ops/pallas/erwin_block.py (called from _fused_block_impl):
@@ -59,14 +63,18 @@
 //     sqrt(|d|^2 + 1e-12), as the plain path does.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int NT = 256;         // threads per CTA
 constexpr int MAX_CLUSTER = 8;  // portable cluster size
@@ -207,21 +215,53 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// dst[i * dst_ld + j] = src[i * src_ld + j] for i < rows, j < cols: by
-// cp.async into shared memory (the caller commits and waits), by plain
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// dst[i * dst_ld + j] = src[i * src_ld + j] for i < rows, j < cols. float32:
+// by cp.async into shared memory (the caller commits and waits), by plain
 // loads and stores into a buffer the layout put in the global scratch.
-__device__ __forceinline__ void stage(float* dst, int dst_ld,
-                                      const float* src, int src_ld, int rows,
-                                      int cols) {
-  const bool shared = __isShared(dst);
+// bf16: read, widened and stored by each thread, SB elements of it in
+// flight at once (the caller issues it after its cp.async groups, so that
+// it overlaps them).
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int dst_ld, const T* src,
+                                      int src_ld, int rows, int cols) {
   const FastDiv fcols(cols);
-  for (int e = threadIdx.x; e < rows * cols; e += NT) {
-    const int i = fcols.div(e), j = e - i * cols;
-    const float* s = src + static_cast<size_t>(i) * src_ld + j;
-    if (shared)
-      cp_async4(dst + i * dst_ld + j, s);
-    else
-      dst[i * dst_ld + j] = *s;
+  if constexpr (std::is_same_v<T, float>) {
+    const bool shared = __isShared(dst);
+    for (int e = threadIdx.x; e < rows * cols; e += NT) {
+      const int i = fcols.div(e), j = e - i * cols;
+      const float* s = src + static_cast<size_t>(i) * src_ld + j;
+      if (shared)
+        cp_async4(dst + i * dst_ld + j, s);
+      else
+        dst[i * dst_ld + j] = *s;
+    }
+  } else {
+    constexpr int SB = 8;
+    for (int e0 = threadIdx.x; e0 < rows * cols; e0 += SB * NT) {
+      float v[SB];
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int e = e0 + u * NT;
+        if (e < rows * cols) {
+          const int i = fcols.div(e), j = e - i * cols;
+          v[u] = __bfloat162float(src[static_cast<size_t>(i) * src_ld + j]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SB; ++u) {
+        const int e = e0 + u * NT;
+        if (e < rows * cols) {
+          const int i = fcols.div(e), j = e - i * cols;
+          dst[i * dst_ld + j] = v[u];
+        }
+      }
+    }
   }
 }
 
@@ -653,9 +693,9 @@ __device__ __forceinline__ void gather(const Cx& x, int b, int n, int w,
 // res[r * ld + col0 + j] + (bias[j] + that sum). The K loads of an element
 // are in flight together (a load from a peer's shared memory takes
 // hundreds of cycles).
-template <class Cx>
+template <class Cx, typename D>
 __device__ __forceinline__ void pull_rows(const Cx& x, int b, int n, int ld,
-                                       int col0, int w, float* dst,
+                                       int col0, int w, D* dst,
                                        int dst_ld, const float* res,
                                        const float* bias) {
   const FastDiv fw(w);
@@ -670,7 +710,7 @@ __device__ __forceinline__ void pull_rows(const Cx& x, int b, int n, int ld,
     for (int q = 0; q < MAX_CLUSTER; ++q)
       if (q < x.k) acc += v[q];
     if (bias != nullptr) acc = res[i] + (bias[j] + acc);
-    dst[r * dst_ld + col0 + j] = acc;
+    dst[r * dst_ld + col0 + j] = from_f32<D>(acc);
   }
 }
 
@@ -782,10 +822,10 @@ __device__ Ctx<SMEM> make_ctx(const Layout& L, float* sm, float* scratch,
   return x;
 }
 
-template <bool SMEM>
+template <bool SMEM, typename T>
 __global__ void __launch_bounds__(NT)
-erwin_block_fwd(const float* __restrict__ xin, const float* __restrict__ pos,
-                float* __restrict__ out, float* scratch, BlockParams p,
+erwin_block_fwd(const T* __restrict__ xin, const T* __restrict__ pos,
+                T* __restrict__ out, float* scratch, BlockParams p,
                 Dims D, Layout L) {
   extern __shared__ float sm[];
   const auto x = make_ctx<SMEM>(L, sm, scratch, 3);
@@ -795,11 +835,14 @@ erwin_block_fwd(const float* __restrict__ xin, const float* __restrict__ pos,
   const Slice sc = slice_of(c, x.rank, x.k);
   const Slice sh = slice_of(D.hidden, x.rank, x.k);
   const Slice sp = slice_of(D.heads * n, x.rank, x.k);
-  const float* xb = xin + cloud * n * c;
-  const float* pb = pos + cloud * n * d;
+  constexpr bool F32 = std::is_same_v<T, float>;
+  const T* xb = xin + cloud * n * c;
+  const T* pb = pos + cloud * n * d;
   const BlockParams v = stage_vectors(p, x, F_VEC, D);
-  stage(x.own(F_X), ldc, xb, c, n, c);
-  stage(x.own(F_POS), d, pb, d, n, d);
+  if constexpr (F32) {
+    stage(x.own(F_X), ldc, xb, c, n, c);
+    stage(x.own(F_POS), d, pb, d, n, d);
+  }
   cp_async_commit();
   const Weights w = stage_weights(p, x, F_WQKVH, F_WQKV, D, s3, sc, sh,
                                   sp.lo >> D.ln,
@@ -807,6 +850,10 @@ erwin_block_fwd(const float* __restrict__ xin, const float* __restrict__ pos,
                                                (sp.lo >> D.ln) + 1
                                          : 0);
   cp_async_commit();
+  if constexpr (!F32) {  // widened while the weights' copies fly
+    stage(x.own(F_X), ldc, xb, c, n, c);
+    stage(x.own(F_POS), d, pb, d, n, d);
+  }
   cp_async_wait<1>();
   __syncthreads();
 
@@ -900,11 +947,11 @@ enum ParamGrad {
   G_B2, G_W3, G_B3
 };
 
-template <bool SMEM>
+template <bool SMEM, typename T>
 __global__ void __launch_bounds__(NT)
-erwin_block_bwd(const float* __restrict__ xin, const float* __restrict__ pos,
-                const float* __restrict__ dout, float* __restrict__ dx,
-                float* __restrict__ dpos, float* __restrict__ partials,
+erwin_block_bwd(const T* __restrict__ xin, const T* __restrict__ pos,
+                const T* __restrict__ dout, T* __restrict__ dx,
+                T* __restrict__ dpos, float* __restrict__ partials,
                 float* scratch, BlockParams p, Dims D, Layout L) {
   extern __shared__ float sm[];
   const auto x = make_ctx<SMEM>(L, sm, scratch, 4);
@@ -923,9 +970,13 @@ erwin_block_bwd(const float* __restrict__ xin, const float* __restrict__ pos,
   const int np = param_offsets(c, d, hidden, go);
   float* part = partials + cloud * static_cast<size_t>(np);
   const BlockParams v = stage_vectors(p, x, B_VEC, D);
-  stage(x.own(B_X), ldc, xin + cloud * n * c, c, n, c);
-  stage(x.own(B_GD), ldc, dout + cloud * n * c, c, n, c);
-  stage(x.own(B_POS), d, pos + cloud * n * d, d, n, d);
+  auto stage_inputs = [&] {
+    stage(x.own(B_X), ldc, xin + cloud * n * c, c, n, c);
+    stage(x.own(B_GD), ldc, dout + cloud * n * c, c, n, c);
+    stage(x.own(B_POS), d, pos + cloud * n * d, d, n, d);
+  };
+  constexpr bool F32 = std::is_same_v<T, float>;
+  if constexpr (F32) stage_inputs();
   cp_async_commit();
   const int lnb = D.ln - D.lbs;
   const Weights w = stage_weights(p, x, B_WQKVH, B_WQKV, D, s3, sc, sh,
@@ -934,6 +985,7 @@ erwin_block_bwd(const float* __restrict__ xin, const float* __restrict__ pos,
                                                (su.lo >> lnb) + 1
                                          : 0);
   cp_async_commit();
+  if constexpr (!F32) stage_inputs();  // widened while the weights' fly
 
   float* xs = x.own(B_X);       // [n, ldc] x
   float* gd = x.own(B_GD);      // [n, ldc] dout, then dx1
@@ -1072,22 +1124,23 @@ erwin_block_bwd(const float* __restrict__ xin, const float* __restrict__ pos,
     ps[i] = acc;
   }
   __syncthreads();
-  float* dxb = dx + cloud * n * c;
+  T* dxb = dx + cloud * n * c;
   const FastDiv fcw(sc.w());
   for (int e = threadIdx.x; e < n * sc.w(); e += NT) {
     const int r = fcw.div(e), j = sc.lo + e - r * sc.w();
     const float rr = r1[r];
-    dxb[r * c + j] = gd[r * ldc + j] + dz[r * ldc + j] * v.g1[j] * rr -
-                     xs[r * ldc + j] * (rowdot[r] * rr * rr * rr / c);
+    dxb[r * c + j] = from_f32<T>(
+        gd[r * ldc + j] + dz[r * ldc + j] * v.g1[j] * rr -
+        xs[r * ldc + j] * (rowdot[r] * rr * rr * rr / c));
   }
-  float* dpb = dpos + cloud * n * d;
+  T* dpb = dpos + cloud * n * d;
   const Slice sd = slice_of(n * d, x.rank, x.k);
   for (int i = sd.lo + threadIdx.x; i < sd.hi; i += NT) {
     const int r = D.fd.div(i), k = i - r * d;
     const int b0 = r & ~(bs - 1);
     float sum = 0.f;
     for (int j = 0; j < bs; ++j) sum += ps[(b0 + j) * d + k];
-    dpb[i] = ps[i] - sum / bs;
+    dpb[i] = from_f32<T>(ps[i] - sum / bs);
   }
   x.sync();  // no CTA leaves while a peer still reads its partial
 }
@@ -1174,34 +1227,42 @@ const char* haet_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x/out [clouds, n, c]; pos [clouds, n, d]; weights in torch Linear layout
-// ([out, in]); sigma [heads]. bs divides n. cluster: CTAs per cloud (K).
+// x/out [clouds, n, c]; pos [clouds, n, d], float32 or, with bf16_io,
+// bfloat16; weights in torch Linear layout ([out, in]), float32; sigma
+// [heads]. bs divides n. cluster: CTAs per cloud (K).
 // layout: NFWD offsets, NFWD shared-memory flags and the scratch stride, from
 // erwin_block.py:fwd_layout, which also gives smem; scratch
 // [clouds * K, stride] or null when nothing spills.
-int haet_erwin_block_fwd_f32(
-    const float* x, const float* pos, float* out, float* scratch,
+int haet_erwin_block_fwd(
+    const void* x, const void* pos, void* out, float* scratch,
     const float* g1, const float* wpe, const float* bpe, const float* wqkv,
     const float* bqkv, const float* sigma, const float* wo, const float* bo,
     const float* g2, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* w3, const float* b3, int clouds, int n,
     int c, int d, int heads, int bs, int hidden, int use_dist_bias,
-    int cluster, const int* layout, int smem, void* stream) {
+    int cluster, const int* layout, int smem, int bf16_io, void* stream) {
   Layout L;
   bool all_smem;
   if (cluster < 1 || cluster > MAX_CLUSTER ||
       !read_layout(layout, NFWD, &L, &all_smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kernel = all_smem ? erwin_block_fwd<true> : erwin_block_fwd<false>;
-  cudaError_t err = ensure_smem(kernel, all_smem ? 0 : 1, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   BlockParams p{g1, wpe, bpe, wqkv, bqkv, sigma, wo, bo, g2,
                 w1, b1, w2, b2, w3, b3};
   const Dims D = make_dims(n, c, d, heads, bs, hidden, use_dist_bias);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       clouds, cluster, smem, static_cast<cudaStream_t>(stream), attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, x, pos, out, scratch, p, D, L);
+  auto launch = [&](auto type) -> cudaError_t {
+    using T = decltype(type);
+    auto* kernel =
+        all_smem ? erwin_block_fwd<true, T> : erwin_block_fwd<false, T>;
+    cudaError_t e = ensure_smem(kernel, all_smem ? 0 : 1, smem);
+    if (e != cudaSuccess) return e;
+    return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                              static_cast<const T*>(pos),
+                              static_cast<T*>(out), scratch, p, D, L);
+  };
+  cudaError_t err = bf16_io ? launch(bf16{}) : launch(0.f);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1210,24 +1271,21 @@ int haet_erwin_block_fwd_f32(
 // [clouds, P] and grads [P] in PARAM_NAMES order without sigma (P from
 // param_offsets, checked against np); layout (NBWD entries), scratch and
 // smem as the forward's, from erwin_block.py:bwd_layout.
-int haet_erwin_block_bwd_f32(
-    const float* x, const float* pos, const float* dout, float* dx,
-    float* dpos, float* partials, float* grads, float* scratch,
+int haet_erwin_block_bwd(
+    const void* x, const void* pos, const void* dout, void* dx,
+    void* dpos, float* partials, float* grads, float* scratch,
     const float* g1, const float* wpe, const float* bpe, const float* wqkv,
     const float* bqkv, const float* sigma, const float* wo, const float* bo,
     const float* g2, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* w3, const float* b3, int clouds, int n,
     int c, int d, int heads, int bs, int hidden, int use_dist_bias, int np,
-    int cluster, const int* layout, int smem, void* stream) {
+    int cluster, const int* layout, int smem, int bf16_io, void* stream) {
   int go[14];
   Layout L;
   bool all_smem;
   if (np != param_offsets(c, d, hidden, go) || cluster < 1 ||
       cluster > MAX_CLUSTER || !read_layout(layout, NBWD, &L, &all_smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* kernel = all_smem ? erwin_block_bwd<true> : erwin_block_bwd<false>;
-  cudaError_t err = ensure_smem(kernel, all_smem ? 2 : 3, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   BlockParams p{g1, wpe, bpe, wqkv, bqkv, sigma, wo, bo, g2,
                 w1, b1, w2, b2, w3, b3};
   const Dims D = make_dims(n, c, d, heads, bs, hidden, use_dist_bias);
@@ -1235,8 +1293,19 @@ int haet_erwin_block_bwd_f32(
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       cluster_config(clouds, cluster, smem, st, attr);
-  err = cudaLaunchKernelEx(&cfg, kernel, x, pos, dout, dx, dpos, partials,
-                           scratch, p, D, L);
+  auto launch = [&](auto type) -> cudaError_t {
+    using T = decltype(type);
+    auto* kernel =
+        all_smem ? erwin_block_bwd<true, T> : erwin_block_bwd<false, T>;
+    cudaError_t e = ensure_smem(kernel, all_smem ? 2 : 3, smem);
+    if (e != cudaSuccess) return e;
+    return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                              static_cast<const T*>(pos),
+                              static_cast<const T*>(dout),
+                              static_cast<T*>(dx), static_cast<T*>(dpos),
+                              partials, scratch, p, D, L);
+  };
+  cudaError_t err = bf16_io ? launch(bf16{}) : launch(0.f);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -90,9 +90,12 @@
 // kernels (haet_trace_read), -DHAET_SLICE_NO_MMA replaces each mma.sync by
 // one integer and one float operation on the same registers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -223,15 +226,51 @@ __host__ __device__ constexpr int ring_floats() {
   return WARPS * STAGES * TR * row_stride<CM>();
 }
 
+using bf16 = __nv_bfloat16;
+
+// The element types the kernels read x, g_out and the states in, and write
+// out, dx and the public states in: float32, or bf16 (the JAX model's bf16
+// compute dtype). Everything else, the arithmetic, the residuals m and s,
+// the weights and the partial sums, is float32: bf16 is widened where it
+// is read and rounded (to nearest even) where it is stored.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// Whether rows of c elements of T move as 16-byte chunks: c a multiple of
+// the chunk and every pointer 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ bool vec_ok(int c, uintptr_t ptrs) {
+  return c % (16 / static_cast<int>(sizeof(T))) == 0 && (ptrs & 15) == 0;
+}
+
 // rows [row0, row0 + rows) of one cloud's x (row stride c) into a slot of
-// TR rows; columns c..CM-1 of the slot are left alone.
-template <int CM>
-__device__ __forceinline__ void load_tile(float* slot, const float* xb,
+// TR rows; columns c..CM-1 of the slot are left alone. A bf16 tile with
+// vec moves as it lies in device memory, rows*c contiguous values packed
+// at the start of the slot, and convert_tile widens it in place once it
+// has arrived; without vec it is read, widened and stored here.
+template <int CM, typename T>
+__device__ __forceinline__ void load_tile(float* slot, const T* xb,
                                           int row0, int rows, int c,
                                           bool vec, int lane) {
   constexpr int CS = row_stride<CM>();
-  const float* src = xb + static_cast<size_t>(row0) * c;
-  if (vec && c == CM) {
+  const T* src = xb + static_cast<size_t>(row0) * c;
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (vec) {
+      for (int i = lane; i < rows * c / 8; i += 32)
+        cp16(slot + 4 * i, reinterpret_cast<const float*>(src + 8 * i));
+    } else {
+      for (int i = lane; i < rows * c; i += 32) {
+        const int r = i / c, k = i - r * c;
+        slot[r * CS + k] = to_f32(src[i]);
+      }
+    }
+  } else if (vec && c == CM) {
     constexpr int Q = CM / 4;
     for (int i = lane; i < rows * Q; i += 32) {
       const int r = i / Q, k = i - r * Q;
@@ -247,6 +286,100 @@ __device__ __forceinline__ void load_tile(float* slot, const float* xb,
     for (int i = lane; i < rows * c; i += 32) {
       const int r = i / c, k = i - r * c;
       cp4(slot + r * CS + k, src + i);
+    }
+  }
+}
+
+// A bf16 tile that load_tile packed into the slot, widened in place into
+// the slot's float32 rows, after its copies have arrived (cp_wait and
+// __syncwarp): every lane reads its 16-byte chunks (8 values, a part of
+// one row as c is a multiple of 8) into registers, the warp syncs, and
+// each lane stores its chunks as two float4 (conflict-free at CS = CM + 4).
+// The packed values may have covered padding columns, which are zeroed
+// again. A no-op for float32 tiles and for bf16 tiles loaded without vec.
+template <int CM, typename T>
+__device__ __forceinline__ void convert_tile(float* slot, int rows, int c,
+                                             bool vec, int lane) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (!vec) return;
+    constexpr int CS = row_stride<CM>(), PER_LANE = TR * CM / 8 / 32;
+    const int chunks = rows * c / 8;
+    uint4 v[PER_LANE];
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) {
+      const int i = lane + 32 * u;
+      if (i < chunks) v[u] = reinterpret_cast<const uint4*>(slot)[i];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < PER_LANE; ++u) {
+      const int i = lane + 32 * u;
+      if (i < chunks) {
+        const int e = 8 * i, r = e / c;
+        float* d = slot + r * CS + e - r * c;
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[u]);
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        const float2 e2 = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
+        *reinterpret_cast<float4*>(d) = make_float4(a.x, a.y, b.x, b.y);
+        *reinterpret_cast<float4*>(d + 4) = make_float4(e2.x, e2.y, f.x, f.y);
+      }
+    }
+    if (c < CM)
+      for (int r = lane; r < TR; r += 32)
+        for (int k = c; k < CM; ++k) slot[r * CS + k] = 0.f;
+    __syncwarp();
+  }
+}
+
+// The first c columns of the slot's rows out to device memory at dst (row
+// stride c): plus acc (float32, the earlier launches' or ranges' sums)
+// unless first; into acc unless last, else into out (T). For float32, acc
+// and out are the same tensor.
+template <int CM, typename T>
+__device__ __forceinline__ void store_tile(const float* slot, float* acc,
+                                           T* out, size_t off, int rows,
+                                           int c, bool vec, bool first,
+                                           bool last, int lane) {
+  constexpr int CS = row_stride<CM>();
+  constexpr int V = std::is_same_v<T, float> ? 4 : 8;
+  float* a = acc + off;
+  T* o = out + off;
+  if (vec) {
+    const int q = c / V;
+    for (int i = lane; i < rows * q; i += 32) {
+      const int r = i / q, k = V * (i - r * q), e = r * c + k;
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(slot + r * CS + k + j);
+        v[j] = t.x, v[j + 1] = t.y, v[j + 2] = t.z, v[j + 3] = t.w;
+        if (!first) {
+          const float4 u = *reinterpret_cast<const float4*>(a + e + j);
+          v[j] += u.x, v[j + 1] += u.y, v[j + 2] += u.z, v[j + 3] += u.w;
+        }
+      }
+      if (!last) {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(a + e + j) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      } else if constexpr (std::is_same_v<T, float>) {
+        *reinterpret_cast<float4*>(o + e) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        __nv_bfloat162 h[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        *reinterpret_cast<uint4*>(o + e) = *reinterpret_cast<const uint4*>(h);
+      }
+    }
+  } else {
+    for (int i = lane; i < rows * c; i += 32) {
+      const int r = i / c, k = i - r * c;
+      float v = slot[r * CS + k];
+      if (!first) v += a[i];
+      if (last) o[i] = from_f32<T>(v);
+      else a[i] = v;
     }
   }
 }
@@ -339,16 +472,16 @@ __device__ __forceinline__ void stage_params(
 // covers rows [blockIdx.x * span, min(n, (blockIdx.x + 1) * span)) of cloud
 // blockIdx.y, for slices [blockIdx.z * GP, + GP); its warp w takes tiles w,
 // w + WARPS, ... of TR rows.
-template <int CM, int GP>
+template <int CM, int GP, typename T>
 __global__ void __launch_bounds__(NTF, 1)
-slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
+slice_states_fast(const T* __restrict__ x, const float* __restrict__ ws,
                   const float* __restrict__ bs, const float* __restrict__ wa,
                   const float* __restrict__ ba, float* __restrict__ part_m,
                   float* __restrict__ part_s, float* __restrict__ part_acc,
                   int* __restrict__ counter, float* __restrict__ states,
-                  float* __restrict__ m_out, float* __restrict__ s_out,
-                  int n, int c, int g, int span, float base_temp,
-                  float shift) {
+                  bf16* __restrict__ states_lo, float* __restrict__ m_out,
+                  float* __restrict__ s_out, int n, int c, int g, int span,
+                  float base_temp, float shift) {
   constexpr int MB = GP / 16, KB = CM / 8, NC = CM / 8;
   constexpr int Q = CM / 4, CS = row_stride<CM>(), SW = CM + 8;
   extern __shared__ __align__(16) float sm[];
@@ -365,8 +498,8 @@ slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
   const int grp = bh * gridDim.z + blockIdx.z;
   const int row_begin = blockIdx.x * span;
   const int rows_blk = min(span, n - row_begin);
-  const float* xb = x + static_cast<size_t>(bh) * n * c;
-  const bool vec = (c & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const T* xb = x + static_cast<size_t>(bh) * n * c;
+  const bool vec = vec_ok<T>(c, reinterpret_cast<uintptr_t>(x));
 
   float* ws_s = ring + ring_floats<CM>();  // [CM][ws_stride]
   float* bs_s = ws_s + CM * ws_stride<GP>();  // [GP]
@@ -388,8 +521,8 @@ slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
     for (int j = 0; j < STAGES - 1; ++j) {
       if (j < my_tiles) {
         const int r0 = first_row + j * STRIDE;
-        load_tile<CM>(my_ring + j * TR * CS, xb, r0, min(TR, n - r0), c, vec,
-                      lane);
+        load_tile<CM, T>(my_ring + j * TR * CS, xb, r0, min(TR, n - r0), c,
+                         vec, lane);
       }
       cp_commit();
     }
@@ -443,16 +576,17 @@ slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
     const int jn = j + STAGES - 1;
     if (jn < my_tiles) {
       const int r0 = first_row + jn * STRIDE;
-      load_tile<CM>(my_ring + (jn % STAGES) * TR * CS, xb, r0,
-                    min(TR, n - r0), c, vec, lane);
+      load_tile<CM, T>(my_ring + (jn % STAGES) * TR * CS, xb, r0,
+                       min(TR, n - r0), c, vec, lane);
     }
     cp_commit();
     HAET_TRACE(if (j) tc_ += clock64() - tb_; const long long ta_ = clock64();)
     cp_wait<STAGES - 1>();
     __syncwarp();
     HAET_TRACE(tb_ = clock64(); tw_ += tb_ - ta_;)
-    const float* slot = my_ring + (j % STAGES) * TR * CS;
+    float* slot = my_ring + (j % STAGES) * TR * CS;
     const int rows = min(TR, n - (first_row + j * STRIDE));
+    convert_tile<CM, T>(slot, rows, c, vec, lane);
     const float it_row = row_inv_tau<CM>(slot, wa_s, ba0, base_temp, 1.f,
                                          lane);
     // The tile's four blocks of 8 rows (b): Z^T and the logits of all of
@@ -606,15 +740,22 @@ slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
     return v;
   };
 
-  // the outputs of this block's slices
-  float* st_out = states + (static_cast<size_t>(bh) * g + g0) * c;
+  // the outputs of this block's slices: the float32 states and, for a bf16
+  // x, their bf16 copy (the public output; the float32 states are the
+  // backward's residual)
+  const size_t st0 = (static_cast<size_t>(bh) * g + g0) * c;
+  float* st_out = states + st0;
+  auto put_state = [&](int e, float v) {
+    st_out[e] = v;
+    if (states_lo) states_lo[st0 + e] = __float2bfloat16_rn(v);
+  };
   float* m_o = m_out + static_cast<size_t>(bh) * g + g0;
   float* s_o = s_out + static_cast<size_t>(bh) * g + g0;
   if (per_cloud == 1) {  // one block per cloud: write the outputs directly
     for (int e = tid; e < gb * c; e += NTF) {
       const int gi = e / c, k = e - gi * c;
       const float sg = block_sum(gi);
-      st_out[e] = block_acc(gi, k) / (sg > 0.f ? sg : 1.f) / NORM;
+      put_state(e, block_acc(gi, k) / (sg > 0.f ? sg : 1.f) / NORM);
     }
     for (int gi = tid; gi < gb; gi += NTF) {
       m_o[gi] = bmax[gi];
@@ -698,7 +839,7 @@ slice_states_fast(const float* __restrict__ x, const float* __restrict__ ws,
     const int gi = e / CM, k = e - gi * CM;
     if (e < GP * CM && gi < gb && k < c) {
       const float sg = fsum[gi];
-      st_out[gi * c + k] = v[i] / (sg > 0.f ? sg : 1.f) / NORM;
+      put_state(gi * c + k, v[i] / (sg > 0.f ? sg : 1.f) / NORM);
     }
   }
   if (tid == 0) counter[grp] = 0;  // ready for the next call on this stream
@@ -749,14 +890,16 @@ __device__ __forceinline__ void stage_params_rt(
 // hold GH slices and are rebuilt from shared memory for each group of GH
 // slices in turn, the groups' products summed in the output fragments.
 // GPC: gp known at compile time (32 or 64, every G <= 64: the staging's
-// loads unrolled and the group loop fixed), or 0 (wider G).
-template <int CM, int GH, int GPC>
+// loads unrolled and the group loop fixed), or 0 (wider G). The ranges'
+// sums meet in acc (float32; out itself for a float32 out), and the last
+// range writes out.
+template <int CM, int GH, int GPC, typename T>
 __global__ void __launch_bounds__(NTF, 1)
-deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
+deslice_fast(const T* __restrict__ x, const float* __restrict__ ws,
              const float* __restrict__ bs, const float* __restrict__ wa,
-             const float* __restrict__ ba, const float* __restrict__ st,
+             const float* __restrict__ ba, const T* __restrict__ st,
              const float* __restrict__ m, const float* __restrict__ s,
-             float* __restrict__ out, int n, int c, int g, int gp_arg,
+             T* out, float* acc, int n, int c, int g, int gp_arg,
              int span, float base_temp, float shift) {
   constexpr int NB = GH / 8, KB = CM / 8, NC = CM / 8;
   constexpr int Q = CM / 4, CS = row_stride<CM>();
@@ -774,11 +917,10 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
   const int row_begin = blockIdx.x * span;
   const int rows_blk = min(span, n - row_begin);
   const size_t cloud = static_cast<size_t>(bh) * n * c;
-  const float* xb = x + cloud;
-  float* ob = out + cloud;
-  const bool vec = (c & 3) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(x) |
-                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const T* xb = x + cloud;
+  const bool vec = vec_ok<T>(c, reinterpret_cast<uintptr_t>(x) |
+                                    reinterpret_cast<uintptr_t>(out) |
+                                    reinterpret_cast<uintptr_t>(acc));
 
   const int wsl = gp + 1;                  // row stride of the staged Ws
   float* ws_s = ring + ring_floats<CM>();  // [CM][gp + 1]
@@ -803,9 +945,8 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
     if (rg > 0) __syncthreads();  // every warp is done with the last range
     const int gw = min(gp, g - g0);
     const int ngrp = GPC > 0 ? GPC / GH : (gw + GH - 1) / GH;
-    const bool accumulate = rg > 0;
     const size_t sg0 = static_cast<size_t>(bh) * g + g0;  // this range's
-    const float* stb = st + sg0 * c;                        // first slice
+    const T* stb = st + sg0 * c;                            // first slice
     const int first = min(gp, GS) * CM;  // staged states entries of the start
     float sv[RS], sj[RS], mj;
     // the weights', the first states' and m's and the first tiles' loads in
@@ -815,7 +956,7 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
       for (int r = 0; r < RS; ++r) {
         const int i = tid + r * NTF, sl = i / CM, ch = i - sl * CM;
         const bool in = i < first && sl < gw && ch < c;
-        sv[r] = in ? stb[sl * c + ch] : 0.f;
+        sv[r] = in ? to_f32(stb[sl * c + ch]) : 0.f;
         sj[r] = in ? s[sg0 + sl] : 1.f;
       }
       mj = tid < gw ? m[sg0 + tid] : 0.f;
@@ -823,8 +964,8 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
       for (int j = 0; j < STAGES - 1; ++j) {
         if (j < my_tiles) {
           const int r0 = first_row + j * STRIDE;
-          load_tile<CM>(my_ring + j * TR * CS, xb, r0, min(TR, n - r0), c, vec,
-                        lane);
+          load_tile<CM, T>(my_ring + j * TR * CS, xb, r0, min(TR, n - r0), c,
+                           vec, lane);
         }
         cp_commit();
       }
@@ -846,7 +987,7 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
       float v = 0.f;
       if (sl < gw && ch < c) {
         const float sd = s[sg0 + sl];
-        v = stb[sl * c + ch] / (sd > 0.f ? sd : 1.f);
+        v = to_f32(stb[sl * c + ch]) / (sd > 0.f ? sd : 1.f);
       }
       st_s[sl * (CM + 4) + ch] = v;
     }
@@ -895,8 +1036,8 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
       const int jn = j + STAGES - 1;
       if (jn < my_tiles) {
         const int r0 = first_row + jn * STRIDE;
-        load_tile<CM>(my_ring + (jn % STAGES) * TR * CS, xb, r0,
-                      min(TR, n - r0), c, vec, lane);
+        load_tile<CM, T>(my_ring + (jn % STAGES) * TR * CS, xb, r0,
+                         min(TR, n - r0), c, vec, lane);
       }
       cp_commit();
       HAET_TRACE(if (j) tc_ += clock64() - tb_;
@@ -907,6 +1048,7 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
       float* slot = my_ring + (j % STAGES) * TR * CS;
       const int row0 = first_row + j * STRIDE;
       const int rows = min(TR, n - row0);
+      convert_tile<CM, T>(slot, rows, c, vec, lane);
       const float it_row = row_inv_tau<CM>(slot, wa_s, ba0, base_temp, L2E,
                                            lane);
       for (int r16 = 0; r16 < rows; r16 += 16) {
@@ -965,25 +1107,8 @@ deslice_fast(const float* __restrict__ x, const float* __restrict__ ws,
         }
       }
       __syncwarp();
-      float* dst = ob + static_cast<size_t>(row0) * c;
-      if (vec) {
-        const int q = c >> 2;
-        for (int i = lane; i < rows * q; i += 32) {
-          const int r = i / q, k = i - r * q;
-          float4 v = *reinterpret_cast<const float4*>(slot + r * CS + 4 * k);
-          float4* d = reinterpret_cast<float4*>(dst + r * c + 4 * k);
-          if (accumulate) {
-            const float4 u = *d;
-            v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
-          }
-          *d = v;
-        }
-      } else {
-        for (int i = lane; i < rows * c; i += 32) {
-          const int r = i / c, k = i - r * c;
-          dst[i] = accumulate ? dst[i] + slot[r * CS + k] : slot[r * CS + k];
-        }
-      }
+      store_tile<CM, T>(slot, acc, out, cloud + static_cast<size_t>(row0) * c,
+                        rows, c, vec, rg == 0, rg == ranges - 1, lane);
     }
     HAET_TRACE(if (my_tiles) tc_ += clock64() - tb_; t2_ = clock64();)
     cp_wait<0>();
@@ -1486,15 +1611,19 @@ __device__ __forceinline__ uint4 split_pair(float v0, float v1) {
 // deslice's); tsum the first pass's sums (chain modes: t and S of cloud b,
 // slice w * BW + i at ((w * bh + b) * BW + i) * (CM + 2) + CM and + 1); m,
 // s [bh, g]. Outputs: part [windows][bh][per_cloud][bwd_part_floats]; dx
-// [bh, n, c] and the scratch q [bh, n] (chain modes).
-template <int CM, int MODE>
+// [bh, n, c] and the scratch q [bh, n] (chain modes). x, g_out, bmat and dx
+// are T; the windows' dx sums meet in dacc (float32; dx itself for a
+// float32 dx), and the last window writes dx. MODE is the last template
+// argument: the profiler's name of a launch tells the mode by it
+// (haet_torch/ops/kernels/__init__.py:KERNEL_NAMES).
+template <typename T, int CM, int MODE>
 __global__ void __launch_bounds__(NTF, 1)
-slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
+slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
                const float* __restrict__ ws, const float* __restrict__ bs,
                const float* __restrict__ wa, const float* __restrict__ ba,
-               const float* __restrict__ bmat, const float* __restrict__ tsum,
+               const T* __restrict__ bmat, const float* __restrict__ tsum,
                const float* __restrict__ m, const float* __restrict__ s,
-               float* __restrict__ part, float* __restrict__ dx,
+               float* __restrict__ part, T* dx, float* dacc,
                float* __restrict__ qbuf, int n, int c, int g, int span,
                int win0, int flags, float base_temp, float shift) {
   constexpr bool CHAIN = !bwd_sums(MODE);      // the chain to x and the
@@ -1514,13 +1643,14 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
   const int row_begin = blockIdx.x * span;
   const int rows_blk = min(span, n - row_begin);
   const size_t cloud = static_cast<size_t>(bh) * n * c;
-  const float* xb = x + cloud;
-  const float* gb = GOUT ? gout + cloud : nullptr;
-  float* dxb = CHAIN ? dx + cloud : nullptr;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) |
-                         (GOUT ? reinterpret_cast<uintptr_t>(gout) : 0) |
-                         (CHAIN ? reinterpret_cast<uintptr_t>(dx) : 0);
-  const bool vec = (c & 3) == 0 && (ptrs & 15) == 0;
+  const T* xb = x + cloud;
+  const T* gb = GOUT ? gout + cloud : nullptr;
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(x) |
+      (GOUT ? reinterpret_cast<uintptr_t>(gout) : 0) |
+      (CHAIN ? reinterpret_cast<uintptr_t>(dx) |
+                   reinterpret_cast<uintptr_t>(dacc) : 0);
+  const bool vec = vec_ok<T>(c, ptrs);
 
   float* ring_x = sm;                           // [WARPS][STAGES][TR][CS]
   float* ring_g = ring_x + ring_floats<CM>();   // the same, if GOUT
@@ -1546,11 +1676,11 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
   constexpr int STRIDE = WARPS * TR;
   auto load = [&](int jt) {  // tile jt of this warp into its ring slots
     const int r0 = first_row + jt * STRIDE, rows = min(TR, n - r0);
-    load_tile<CM>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c, vec,
-                  lane);
+    load_tile<CM, T>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c, vec,
+                     lane);
     if constexpr (GOUT)
-      load_tile<CM>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c, vec,
-                    lane);
+      load_tile<CM, T>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c, vec,
+                       lane);
   };
 
   if (c < CM) {  // padding columns must read as zeros
@@ -1567,12 +1697,12 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
   // The window's Ws and G-side matrix, split, in fragment order; per slice
   // bs - shift, finite m (+inf past G: w = 0), 1 / s and u.
   const float bscale = GOUT ? 1.f : 1.f / NORM;
-  const float* bmw = bmat + (static_cast<size_t>(bh) * g + w0) * c;
+  const T* bmw = bmat + (static_cast<size_t>(bh) * g + w0) * c;
   auto wsv = [&](int k, int sl) {
     return k < c && sl < gw ? ws[k * g + w0 + sl] : 0.f;
   };
   auto bmv = [&](int sl, int k) {
-    return k < c && sl < gw ? bmw[sl * c + k] * bscale : 0.f;
+    return k < c && sl < gw ? to_f32(bmw[sl * c + k]) * bscale : 0.f;
   };
   for (int e = tid; e < KB * NB * 32; e += NTF) {
     // b0, b1 of k-block kb, slice block nb: channels Q*tig + 2*kb (+ 1),
@@ -1640,9 +1770,12 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
     cp_wait<STAGES - 1>();
     __syncwarp();
     float* slot = my_x + (j % STAGES) * TR * CS;
-    const float* gslot = GOUT ? my_g + (j % STAGES) * TR * CS : slot;
     const int row0 = first_row + j * STRIDE;
     const int rows = min(TR, n - row0);
+    convert_tile<CM, T>(slot, rows, c, vec, lane);
+    if constexpr (GOUT)
+      convert_tile<CM, T>(my_g + (j % STAGES) * TR * CS, rows, c, vec, lane);
+    const float* gslot = GOUT ? my_g + (j % STAGES) * TR * CS : slot;
     float raw_l, it_l;
     row_raw_tau<CM>(slot, wa_s, ba0, base_temp, lane, raw_l, it_l);
     for (int r16 = 0; r16 < rows; r16 += 16) {
@@ -1851,27 +1984,9 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
       }
       __syncwarp();  // the buffer is free for the next 16 rows
     }
-    if constexpr (CHAIN) {  // the tile's dx (added to the earlier windows')
-      float* dst = dxb + static_cast<size_t>(row0) * c;
-      if (vec) {
-        const int q = c >> 2;
-        for (int i = lane; i < rows * q; i += 32) {
-          const int r = i / q, k = i - r * q;
-          float4 v = *reinterpret_cast<const float4*>(slot + r * CS + 4 * k);
-          float4* d = reinterpret_cast<float4*>(dst + r * c + 4 * k);
-          if (!first) {
-            const float4 u = *d;
-            v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
-          }
-          *d = v;
-        }
-      } else {
-        for (int i = lane; i < rows * c; i += 32) {
-          const int r = i / c, k = i - r * c;
-          dst[i] = first ? slot[r * CS + k] : dst[i] + slot[r * CS + k];
-        }
-      }
-    }
+    if constexpr (CHAIN)  // the tile's dx (added to the earlier windows')
+      store_tile<CM, T>(slot, dacc, dx, cloud + static_cast<size_t>(row0) * c,
+                        rows, c, vec, first, last, lane);
   }
   cp_wait<0>();
   __syncthreads();  // the rings are free: the warps' partials go there
@@ -1927,11 +2042,13 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
 // chain, rows [wr][rw] of dWs^T and dbs, then dWa, dba): dWs [c][g] (out),
 // dbs [g] (o2), and from the last window dWa [c] (o3), dba (o4). SUM_STATES
 // (b = window * bh + cloud, rows [wr][rw] of dstates, t and sum_n w):
-// out[b][j], and dstates [bh][g][c] (o2, if not null).
+// out[b][j], and dstates [bh][g][c] (o2, float32, or o2h, bf16, if not
+// null).
 constexpr int SUM_PARAMS = 1, SUM_STATES = 2;
 
 struct SumOut {
   float *out, *o2, *o3, *o4;
+  bf16* o2h;
   int mode, c, g, cm, rw, bh, windows, wr;
 };
 
@@ -1974,8 +2091,11 @@ sum_partials(const float* __restrict__ part, int parts, int len, SumOut o) {
     if (sl < o.g && col == o.cm) o.o2[sl] = v;
   } else if (o.mode == SUM_STATES) {
     const int win = b / o.bh, cloud = b - win * o.bh, sl = win * o.wr + row;
-    if (o.o2 && sl < o.g && col < o.c)
-      o.o2[(static_cast<size_t>(cloud) * o.g + sl) * o.c + col] = v;
+    const size_t e = (static_cast<size_t>(cloud) * o.g + sl) * o.c + col;
+    if (sl < o.g && col < o.c) {
+      if (o.o2) o.o2[e] = v;
+      if (o.o2h) o.o2h[e] = __float2bfloat16_rn(v);
+    }
   }
 }
 
@@ -2299,58 +2419,65 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
-template <int CM, int GP>
-cudaError_t launch_states(const float* x, const float* ws, const float* bs,
+template <int CM, int GP, typename T>
+cudaError_t launch_states(const void* x, const float* ws, const float* bs,
                           const float* wa, const float* ba, float* part_m,
                           float* part_s, float* part_acc, int* counter,
-                          float* states, float* m, float* s, int bh, int n,
-                          int c, int g, int per_cloud, int span,
-                          float base_temp, float shift, size_t smem,
+                          float* states, bf16* states_lo, float* m, float* s,
+                          int bh, int n, int c, int g, int per_cloud,
+                          int span, float base_temp, float shift, size_t smem,
                           cudaStream_t st) {
   static size_t allowed = 0;
-  cudaError_t err = allow_smem(slice_states_fast<CM, GP>, smem, &allowed);
+  cudaError_t err = allow_smem(slice_states_fast<CM, GP, T>, smem, &allowed);
   if (err != cudaSuccess) return err;
   const int groups = (g + GP - 1) / GP;
-  slice_states_fast<CM, GP><<<dim3(per_cloud, bh, groups), NTF, smem, st>>>(
-      x, ws, bs, wa, ba, part_m, part_s, part_acc, counter, states, m, s, n,
-      c, g, span, base_temp, shift);
+  slice_states_fast<CM, GP, T>
+      <<<dim3(per_cloud, bh, groups), NTF, smem, st>>>(
+          static_cast<const T*>(x), ws, bs, wa, ba, part_m, part_s, part_acc,
+          counter, states, states_lo, m, s, n, c, g, span, base_temp, shift);
   return cudaGetLastError();
 }
 
-template <int CM, int GH, int GPC>
-cudaError_t launch_deslice(const float* x, const float* ws, const float* bs,
+template <int CM, int GH, int GPC, typename T>
+cudaError_t launch_deslice(const void* x, const float* ws, const float* bs,
                            const float* wa, const float* ba,
-                           const float* states, const float* m,
-                           const float* s, float* out, int bh, int n, int c,
-                           int g, int gp, int per_cloud, int span,
-                           float base_temp, float shift, size_t smem,
-                           cudaStream_t st) {
+                           const void* states, const float* m,
+                           const float* s, void* out, float* acc, int bh,
+                           int n, int c, int g, int gp, int per_cloud,
+                           int span, float base_temp, float shift,
+                           size_t smem, cudaStream_t st) {
   static size_t allowed = 0;
-  cudaError_t err = allow_smem(deslice_fast<CM, GH, GPC>, smem, &allowed);
+  cudaError_t err =
+      allow_smem(deslice_fast<CM, GH, GPC, T>, smem, &allowed);
   if (err != cudaSuccess) return err;
-  deslice_fast<CM, GH, GPC><<<dim3(per_cloud, bh), NTF, smem, st>>>(
-      x, ws, bs, wa, ba, states, m, s, out, n, c, g, gp, span, base_temp,
-      shift);
+  deslice_fast<CM, GH, GPC, T><<<dim3(per_cloud, bh), NTF, smem, st>>>(
+      static_cast<const T*>(x), ws, bs, wa, ba,
+      static_cast<const T*>(states), m, s, static_cast<T*>(out), acc, n, c,
+      g, gp, span, base_temp, shift);
   return cudaGetLastError();
 }
 
-template <int CM, int MODE>
-cudaError_t launch_bwd(const float* x, const float* gout, const float* ws,
+template <int CM, int MODE, typename T>
+cudaError_t launch_bwd(const void* x, const void* gout, const float* ws,
                        const float* bs, const float* wa, const float* ba,
-                       const float* bmat, const float* tsum, const float* m,
-                       const float* s, float* part, float* dx, float* qbuf,
-                       int bh, int n, int c, int g, int per_cloud, int span,
-                       int win0, int windows, int flags, float base_temp,
-                       float shift, size_t smem, cudaStream_t stream) {
+                       const void* bmat, const float* tsum, const float* m,
+                       const float* s, float* part, void* dx, float* dacc,
+                       float* qbuf, int bh, int n, int c, int g,
+                       int per_cloud, int span, int win0, int windows,
+                       int flags, float base_temp, float shift, size_t smem,
+                       cudaStream_t stream) {
   if (smem != sizeof(float) * bwd_smem_floats<CM, MODE>())
     return cudaErrorInvalidValue;
   static size_t allowed = 0;
-  cudaError_t err = allow_smem(slice_bwd_fast<CM, MODE>, smem, &allowed);
+  cudaError_t err =
+      allow_smem(slice_bwd_fast<T, CM, MODE>, smem, &allowed);
   if (err != cudaSuccess) return err;
-  slice_bwd_fast<CM, MODE>
+  slice_bwd_fast<T, CM, MODE>
       <<<dim3(per_cloud, bh, windows), NTF, smem, stream>>>(
-          x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, qbuf, n, c, g,
-          span, win0, flags, base_temp, shift);
+          static_cast<const T*>(x), static_cast<const T*>(gout), ws, bs, wa,
+          ba, static_cast<const T*>(bmat), tsum, m, s, part,
+          static_cast<T*>(dx), dacc, qbuf, n, c, g, span, win0, flags,
+          base_temp, shift);
   return cudaGetLastError();
 }
 
@@ -2414,54 +2541,72 @@ int haet_trace_read(unsigned long long* dst) {
 }
 #endif
 
-// The fast slice_states, one launch. Shapes: x [bh, n, c]; ws [c, g];
-// bs [g]; wa [c]; ba [1]; part_m/part_s [bh, Z, per_cloud, GP];
+// The fast slice_states, one launch. Shapes: x [bh, n, c], float32 or,
+// with bf16, bfloat16; ws [c, g]; bs [g]; wa [c]; ba [1];
+// part_m/part_s [bh, Z, per_cloud, GP];
 // part_acc [bh, Z, per_cloud, GP, CM] (GP = held_slices, Z = ceil(g / GP)
 // slice groups; unused when per_cloud is 1); counter [bh, Z] int32, zero
-// on entry and left zero; states [bh, g, c]; m/s [bh, g].
+// on entry and left zero; states [bh, g, c] float32 and, with bf16, its
+// bfloat16 copy states_lo (null otherwise); m/s [bh, g].
 // per_cloud * span >= n > (per_cloud - 1) * span; smem is the wrapper's
 // count of dynamic shared memory, checked here.
-int haet_slice_states_f32(const float* x, const float* ws, const float* bs,
-                          const float* wa, const float* ba, float* part_m,
-                          float* part_s, float* part_acc, int* counter,
-                          float* states, float* m, float* s, int bh, int n,
-                          int c, int g, int per_cloud, int span,
-                          float base_temp, float shift, int smem,
-                          void* stream) {
+int haet_slice_states(const void* x, const float* ws, const float* bs,
+                      const float* wa, const float* ba, float* part_m,
+                      float* part_s, float* part_acc, int* counter,
+                      float* states, void* states_lo, float* m, float* s,
+                      int bh, int n, int c, int g, int per_cloud, int span,
+                      float base_temp, float shift, int smem, int bf16_io,
+                      void* stream) {
   const int cm = fast_cm(c), gp = held_slices(cm, g);
-  if (!cm || static_cast<size_t>(smem) != states_smem(cm, gp, per_cloud))
+  if (!cm || static_cast<size_t>(smem) != states_smem(cm, gp, per_cloud) ||
+      (bf16_io != 0) != (states_lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define HAET_CASE(CM, GP)                                                  \
-  case CM * 100 + GP:                                                      \
-    return static_cast<int>(launch_states<CM, GP>(                         \
-        x, ws, bs, wa, ba, part_m, part_s, part_acc, counter, states, m, s, \
-        bh, n, c, g, per_cloud, span, base_temp, shift, smem, st));
+  bf16* lo = static_cast<bf16*>(states_lo);
+#define HAET_CASE(CM, GP)                                                   \
+  case CM * 100 + GP:                                                       \
+    return static_cast<int>(                                                \
+        bf16_io ? launch_states<CM, GP, bf16>(                              \
+                      x, ws, bs, wa, ba, part_m, part_s, part_acc, counter, \
+                      states, lo, m, s, bh, n, c, g, per_cloud, span,       \
+                      base_temp, shift, smem, st)                           \
+                : launch_states<CM, GP, float>(                             \
+                      x, ws, bs, wa, ba, part_m, part_s, part_acc, counter, \
+                      states, lo, m, s, bh, n, c, g, per_cloud, span,       \
+                      base_temp, shift, smem, st));
   switch (cm * 100 + gp) { HAET_FAST_CASES(HAET_CASE) }
 #undef HAET_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The fast deslice, one launch, its slices staged in ranges of gp (a
-// multiple of held_slices). Shapes: x/out [bh, n, c]; ws [c, g]; bs [g];
-// wa [c]; ba [1]; states [bh, g, c]; m/s [bh, g]; the cut of N as above.
-int haet_deslice_f32(const float* x, const float* ws, const float* bs,
-                     const float* wa, const float* ba, const float* states,
-                     const float* m, const float* s, float* out, int bh,
-                     int n, int c, int g, int gp, int per_cloud, int span,
-                     float base_temp, float shift, int smem, void* stream) {
+// multiple of held_slices). Shapes: x/out [bh, n, c] and states [bh, g, c],
+// float32 or, with bf16, bfloat16; ws [c, g]; bs [g]; wa [c]; ba [1];
+// m/s [bh, g]; the cut of N as above. acc [bh, n, c] float32: where the
+// ranges' sums meet (out itself for float32; unused, may be null, with one
+// range).
+int haet_deslice(const void* x, const float* ws, const float* bs,
+                 const float* wa, const float* ba, const void* states,
+                 const float* m, const float* s, void* out, float* acc,
+                 int bh, int n, int c, int g, int gp, int per_cloud, int span,
+                 float base_temp, float shift, int smem, int bf16_io,
+                 void* stream) {
   const int cm = fast_cm(c), gh = held_slices(cm, g);
   if (!cm || gp < gh || gp % gh ||
       static_cast<size_t>(smem) != deslice_smem(cm, gp) ||
-      static_cast<size_t>(smem) > MAX_SMEM)
+      static_cast<size_t>(smem) > MAX_SMEM || (gp < g && acc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int gpc = (gp == 32 || gp == 64) && gp >= g ? gp : 0;
-#define HAET_CASE(CM, GH, GPC)                                           \
-  case CM * 10000 + GH * 100 + GPC:                                      \
-    return static_cast<int>(launch_deslice<CM, GH, GPC>(                 \
-        x, ws, bs, wa, ba, states, m, s, out, bh, n, c, g, gp, per_cloud, \
-        span, base_temp, shift, smem, st));
+#define HAET_CASE(CM, GH, GPC)                                             \
+  case CM * 10000 + GH * 100 + GPC:                                        \
+    return static_cast<int>(                                               \
+        bf16_io ? launch_deslice<CM, GH, GPC, bf16>(                       \
+                      x, ws, bs, wa, ba, states, m, s, out, acc, bh, n, c, \
+                      g, gp, per_cloud, span, base_temp, shift, smem, st)  \
+                : launch_deslice<CM, GH, GPC, float>(                      \
+                      x, ws, bs, wa, ba, states, m, s, out, acc, bh, n, c, \
+                      g, gp, per_cloud, span, base_temp, shift, smem, st));
   switch (cm * 10000 + gh * 100 + gpc) { HAET_DESLICE_CASES(HAET_CASE) }
 #undef HAET_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -2526,26 +2671,35 @@ int haet_deslice_generic_f32(const float* x, const float* ws,
 // slice_states' chain, 1: deslice's first pass, 2: its chain, 3:
 // slice_states' first pass), for C <= 32, over `windows` windows of BW
 // slices from window win0 (grid z); flags: 1 first window, 2 last window
-// (the chain modes). Shapes as at slice_bwd_fast; smem is the wrapper's
-// count, checked here.
-int haet_slice_bwd_f32(int mode, const float* x, const float* gout,
-                       const float* ws, const float* bs, const float* wa,
-                       const float* ba, const float* bmat, const float* tsum,
-                       const float* m, const float* s, float* part,
-                       float* dx, float* qbuf, int bh, int n, int c, int g,
-                       int per_cloud, int span, int win0, int windows,
-                       int flags, float base_temp, float shift, int smem,
-                       void* stream) {
+// (the chain modes). x, gout, bmat and dx float32 or, with bf16, bfloat16;
+// dacc float32, where the chain's windows add up their dx (dx itself for
+// float32; may be null with one window). Shapes as at slice_bwd_fast;
+// smem is the wrapper's count, checked here.
+int haet_slice_bwd(int mode, const void* x, const void* gout,
+                   const float* ws, const float* bs, const float* wa,
+                   const float* ba, const void* bmat, const float* tsum,
+                   const float* m, const float* s, float* part, void* dx,
+                   float* dacc, float* qbuf, int bh, int n, int c, int g,
+                   int per_cloud, int span, int win0, int windows, int flags,
+                   float base_temp, float shift, int smem, int bf16_io,
+                   void* stream) {
   const int cm = fast_cm(c);
-  if (!cm || windows < 1 || win0 < 0 || (win0 + windows - 1) * BW >= g)
+  if (!cm || windows < 1 || win0 < 0 || (win0 + windows - 1) * BW >= g ||
+      ((mode == BWD_STATES || mode == BWD_CHAIN) && flags != 3 &&
+       dacc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t str = static_cast<cudaStream_t>(stream);
-#define HAET_CASE(MODE, CM)                                               \
-  case MODE * 100 + CM:                                                   \
-    return static_cast<int>(launch_bwd<CM, MODE>(                         \
-        x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, qbuf, bh, n, \
-        c, g, per_cloud, span, win0, windows, flags, base_temp, shift,    \
-        smem, str));
+#define HAET_CASE(MODE, CM)                                                  \
+  case MODE * 100 + CM:                                                      \
+    return static_cast<int>(                                                 \
+        bf16_io ? launch_bwd<CM, MODE, bf16>(                                \
+                      x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx,   \
+                      dacc, qbuf, bh, n, c, g, per_cloud, span, win0,        \
+                      windows, flags, base_temp, shift, smem, str)           \
+                : launch_bwd<CM, MODE, float>(                               \
+                      x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx,   \
+                      dacc, qbuf, bh, n, c, g, per_cloud, span, win0,        \
+                      windows, flags, base_temp, shift, smem, str));
 #define HAET_CASES(MODE) HAET_CASE(MODE, 8) HAET_CASE(MODE, 16) \
   HAET_CASE(MODE, 32)
   switch (mode * 100 + cm) {
@@ -2589,15 +2743,17 @@ int haet_slice_bwd_generic_f32(int mode, const float* x, const float* gout,
 // The sum over p < parts, in a fixed order, of part[b][p][j], for
 // `batches` rows b of `len` floats, put where `mode` says (SumOut, windows
 // of wr slices): the backward's parameter gradients (dWs, dbs, dWa, dba in
-// their own layouts) or dstates beside the first pass's full sums.
-int haet_sum_partials_f32(const float* part, float* out, float* o2,
-                          float* o3, float* o4, int batches, int parts,
-                          int len, int mode, int c, int g, int cm, int rw,
-                          int bh, int wr, void* stream) {
+// their own layouts) or dstates beside the first pass's full sums: in
+// float32 (o2) or bfloat16 (o2h), either may be null.
+int haet_sum_partials(const float* part, float* out, float* o2, float* o3,
+                      float* o4, void* o2h, int batches, int parts, int len,
+                      int mode, int c, int g, int cm, int rw, int bh, int wr,
+                      void* stream) {
   if (batches < 1 || parts < 1 || (mode != SUM_PARAMS && mode != SUM_STATES)
       || wr < 1 || len < wr * rw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const SumOut o{out, o2, o3, o4, mode, c, g, cm, rw, bh, batches, wr};
+  const SumOut o{out, o2, o3, o4, static_cast<bf16*>(o2h), mode, c, g, cm,
+                 rw, bh, batches, wr};
   sum_partials<<<dim3((len + 31) / 32, batches), NT, 0,
                  static_cast<cudaStream_t>(stream)>>>(part, parts, len, o);
   return static_cast<int>(cudaGetLastError());

@@ -1,3 +1,4 @@
 """Reusable model components of the PyTorch port."""
 
-from .mlp import MLP, SwiGLU, get_activation, trunc_normal_  # noqa: F401
+from .mlp import (MLP, Linear, SwiGLU, get_activation,  # noqa: F401
+                  trunc_normal_)

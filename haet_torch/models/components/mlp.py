@@ -5,6 +5,11 @@ Counterparts of ``haet_tpu/models/components/mlp.py`` (reference
 reference's torch module names, so the state_dict keys are the reference
 schema: ``linear_pre.0`` (Linear inside a Sequential with the activation),
 ``linear_{i}``, ``linear_post``; SwiGLU ``w1``/``w2``/``w3``.
+
+``dtype`` is the compute dtype of flax's ``nn.Dense(dtype=...)``
+(:mod:`haet_torch.ops.dense`): None for the float32 model, or
+``torch.bfloat16``, where each Linear and activation computes in bf16 over
+float32 parameters.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.dense import linear
 from ...ops.kernels.erwin_block import swiglu
 
 # Activation registry (reference models/components/mlp.py:11-20), plain
@@ -67,21 +73,38 @@ def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]):
         nn.init.zeros_(layer.bias)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` with float32 parameters that computes in ``dtype``
+    (flax's ``nn.Dense(dtype=...)``; None: float32). Its state-dict keys
+    are ``nn.Linear``'s."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype=None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias, self.compute_dtype)
+
+
 class MLP(nn.Module):
     """Pre-Linear + act, ``n_layers`` hidden layers (optional residual),
-    post-Linear."""
+    post-Linear, each Linear in ``dtype``."""
 
     def __init__(self, n_input: int, n_hidden: int, n_output: int,
-                 n_layers: int = 1, act: str = "gelu", res: bool = True):
+                 n_layers: int = 1, act: str = "gelu", res: bool = True,
+                 dtype=None):
         super().__init__()
         self.n_layers = n_layers
         self.res = res
         self.act = get_activation(act)
-        self.linear_pre = nn.Sequential(nn.Linear(n_input, n_hidden),
+        self.linear_pre = nn.Sequential(Linear(n_input, n_hidden,
+                                               dtype=dtype),
                                         Activation(act))
         for i in range(n_layers):
-            setattr(self, f"linear_{i}", nn.Linear(n_hidden, n_hidden))
-        self.linear_post = nn.Linear(n_hidden, n_output)
+            setattr(self, f"linear_{i}", Linear(n_hidden, n_hidden,
+                                                dtype=dtype))
+        self.linear_post = Linear(n_hidden, n_output, dtype=dtype)
 
     def forward(self, x):
         x = self.linear_pre(x)
@@ -92,14 +115,16 @@ class MLP(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    """``w3(w2(x) * silu(w1(x)))``."""
+    """``w3(w2(x) * silu(w1(x)))`` in ``dtype``."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.w1 = nn.Linear(dim, hidden_dim)
         self.w2 = nn.Linear(dim, hidden_dim)
         self.w3 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x):
         return swiglu(x, self.w1.weight, self.w1.bias, self.w2.weight,
-                      self.w2.bias, self.w3.weight, self.w3.bias)
+                      self.w2.bias, self.w3.weight, self.w3.bias,
+                      dtype=self.dtype)

@@ -21,6 +21,14 @@ records it), so a run can show that no block of its path left the kernels.
 
 Pooling and unpooling normalise with :class:`FlaxBatchNorm1d`, which in
 train mode updates its running variance as flax does.
+
+``dtype`` is the compute dtype (``haet_tpu/models/erwin.py``'s flax
+``dtype``; None for float32, or ``torch.bfloat16``): the Linears compute in
+it, the RMSNorms and BatchNorms normalise in float32 and return it
+(:mod:`haet_torch.ops.dense`), and the ball attention takes its logits and
+softmax in float32. The parameters and BatchNorm statistics stay float32.
+The fused block computes in float32 whatever ``dtype``, and reads and
+writes its activations in it, as the JAX kernel does.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ from torch import nn
 
 from ..ops.ball_groups import (MORTON_TODO, ErwinPerms, build_erwin_perms,
                                effective_ball_size)
+from ..ops.dense import normalized
 from ..ops.kernels.erwin_block import (BWD_PLAIN_ROUTES, PLAIN_ROUTES,
                                        ball_msa, eligible, fused_erwin_block)
-from .components.mlp import SwiGLU
+from .components.mlp import Linear, SwiGLU
 
 MPNN_TODO = ("MPNN message passing (mp_steps > 0) is not ported yet "
              "(ROADMAP.md, queue 1: MPNN and neighbors)")
@@ -62,10 +71,12 @@ class BallMSA(nn.Module):
     """Ball multi-head self-attention (reference ``attention.py:12-91``)."""
 
     def __init__(self, dim: int, num_heads: int, ball_size: int,
-                 dimensionality: int = 3, use_dist_bias: bool = True):
+                 dimensionality: int = 3, use_dist_bias: bool = True,
+                 dtype=None):
         super().__init__()
         self.num_heads = num_heads
         self.ball_size = ball_size
+        self.dtype = dtype
         self.pe_proj = nn.Linear(dimensionality, dim)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -76,7 +87,8 @@ class BallMSA(nn.Module):
         return ball_msa(x, pos, self.pe_proj.weight, self.pe_proj.bias,
                         self.qkv.weight, self.qkv.bias, self.sigma_att,
                         self.proj.weight, self.proj.bias,
-                        ball_size=self.ball_size, num_heads=self.num_heads)
+                        ball_size=self.ball_size, num_heads=self.num_heads,
+                        dtype=self.dtype)
 
 
 class ErwinTransformerBlock(nn.Module):
@@ -85,18 +97,20 @@ class ErwinTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, ball_size: int,
                  mlp_ratio: int, dimensionality: int = 3,
-                 use_dist_bias: bool = True, use_pallas: bool = False):
+                 use_dist_bias: bool = True, use_pallas: bool = False,
+                 dtype=None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.ball_size = ball_size
         self.use_dist_bias = use_dist_bias
         self.use_pallas = use_pallas
+        self.dtype = dtype
         self.norm1 = nn.RMSNorm(dim, eps=1e-6)
         self.BMSA = BallMSA(dim, num_heads, ball_size, dimensionality,
-                            use_dist_bias)
+                            use_dist_bias, dtype)
         self.norm2 = nn.RMSNorm(dim, eps=1e-6)
-        self.swiglu = SwiGLU(dim, dim * mlp_ratio)
+        self.swiglu = SwiGLU(dim, dim * mlp_ratio, dtype)
 
     def fused_ok(self, x, pos) -> bool:
         return eligible(x.shape[1], x.shape[2], self.num_heads, self.dim,
@@ -113,8 +127,8 @@ class ErwinTransformerBlock(nn.Module):
             if torch.is_grad_enabled() and (
                     x.requires_grad or self.norm1.weight.requires_grad):
                 BWD_PLAIN_ROUTES.add()
-        x = x + self.BMSA(self.norm1(x), pos)
-        return x + self.swiglu(self.norm2(x))
+        x = x + self.BMSA(normalized(self.norm1, x, self.dtype), pos)
+        return x + self.swiglu(normalized(self.norm2, x, self.dtype))
 
 
 class FlaxBatchNorm1d(nn.BatchNorm1d):
@@ -125,13 +139,18 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     statistics, as torch does, but updates ``running_var`` with the
     **biased** batch variance, where torch uses the unbiased one:
     ``running = 0.9 running + 0.1 batch``. The state-dict keys are
-    ``nn.BatchNorm1d``'s.
+    ``nn.BatchNorm1d``'s. With a compute ``dtype`` the statistics and the
+    normalisation are float32 and the output is cast to it.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, dtype=None):
         super().__init__(num_features, eps=eps, momentum=0.1)
+        self.compute_dtype = dtype
 
     def forward(self, x):
+        return normalized(self._normalize, x, self.compute_dtype)
+
+    def _normalize(self, x):
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
@@ -149,12 +168,13 @@ class BallPooling(nn.Module):
     BatchNorm eps 1e-5 over the flattened ``[B*N, C]`` rows."""
 
     def __init__(self, in_dim: int, out_dim: int, stride: int,
-                 dimensionality: int = 3):
+                 dimensionality: int = 3, dtype=None):
         super().__init__()
         self.stride = stride
         if stride > 1:
-            self.proj = nn.Linear(stride * (in_dim + dimensionality), out_dim)
-            self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5)
+            self.proj = Linear(stride * (in_dim + dimensionality), out_dim,
+                               dtype=dtype)
+            self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5, dtype=dtype)
 
     def forward(self, node: Node) -> Node:
         if self.stride == 1:
@@ -178,13 +198,13 @@ class BallUnpooling(nn.Module):
     ``pooling.py:43-72``)."""
 
     def __init__(self, in_dim: int, out_dim: int, stride: int,
-                 dimensionality: int = 3):
+                 dimensionality: int = 3, dtype=None):
         super().__init__()
         self.stride = stride
         self.out_dim = out_dim
-        self.proj = nn.Linear(in_dim + stride * dimensionality,
-                              stride * out_dim)
-        self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5)
+        self.proj = Linear(in_dim + stride * dimensionality,
+                           stride * out_dim, dtype=dtype)
+        self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5, dtype=dtype)
 
     def forward(self, node: Node) -> Node:
         children = node.children
@@ -211,7 +231,7 @@ class BasicLayer(nn.Module):
                  stride: Optional[int], in_dim: int, out_dim: int,
                  num_heads: int, ball_size: int, mlp_ratio: int, rotate: bool,
                  dimensionality: int = 3, use_dist_bias: bool = True,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, dtype=None):
         super().__init__()
         self.direction = direction
         self.ball_size = ball_size
@@ -219,14 +239,15 @@ class BasicLayer(nn.Module):
         hidden_dim = in_dim if direction == "down" else out_dim
         if direction == "up" and stride is not None:
             self.unpool = BallUnpooling(in_dim, hidden_dim, stride,
-                                        dimensionality)
+                                        dimensionality, dtype)
         self.blocks = nn.ModuleList([
             ErwinTransformerBlock(hidden_dim, num_heads, ball_size, mlp_ratio,
-                                  dimensionality, use_dist_bias, use_pallas)
+                                  dimensionality, use_dist_bias, use_pallas,
+                                  dtype)
             for _ in range(depth)])
         if direction == "down" and stride is not None:
             self.pool = BallPooling(hidden_dim, out_dim, stride,
-                                    dimensionality)
+                                    dimensionality, dtype)
 
     def forward(self, node: Node) -> Node:
         if hasattr(self, "unpool"):
@@ -256,11 +277,11 @@ class ErwinEmbedding(nn.Module):
     (``mp_steps > 0``) is not ported yet."""
 
     def __init__(self, c_in: int, c_hidden: int, mp_steps: int,
-                 dimensionality: int = 3):
+                 dimensionality: int = 3, dtype=None):
         super().__init__()
         if mp_steps > 0:
             raise NotImplementedError(MPNN_TODO)
-        self.embed_fn = nn.Linear(c_in, c_hidden)
+        self.embed_fn = Linear(c_in, c_hidden, dtype=dtype)
 
     def forward(self, x, pos):
         return self.embed_fn(x)
@@ -285,7 +306,8 @@ class ErwinTransformer(nn.Module):
                  rotate: int = 45, mlp_ratio: int = 4,
                  dimensionality: int = 3, mp_steps: int = 3,
                  embed: bool = True, use_dist_bias: bool = True,
-                 use_pallas_blocks: bool = False, grouping: str = "median"):
+                 use_pallas_blocks: bool = False, grouping: str = "median",
+                 dtype=None):
         super().__init__()
         if not (len(enc_num_heads) == len(enc_depths) == len(ball_sizes)
                 and len(dec_num_heads) == len(dec_depths) == len(strides)
@@ -301,11 +323,11 @@ class ErwinTransformer(nn.Module):
         self.grouping = grouping
         if embed:
             self.embed = ErwinEmbedding(c_in, c_hidden[0], mp_steps,
-                                        dimensionality)
+                                        dimensionality, dtype)
         common = dict(mlp_ratio=mlp_ratio, rotate=rotate > 0,
                       dimensionality=dimensionality,
                       use_dist_bias=use_dist_bias,
-                      use_pallas=use_pallas_blocks)
+                      use_pallas=use_pallas_blocks, dtype=dtype)
         num_layers = len(enc_depths) - 1
         self.encoder = nn.ModuleList([
             BasicLayer("down", enc_depths[i], strides[i], c_hidden[i],

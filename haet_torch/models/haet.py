@@ -8,6 +8,12 @@ on the last block, over the physics-attention tokenizer.
 Call: ``model(x [B, N, space_dim], fx [B, N, fun_dim] or None)`` ->
 ``[B, N, out_dim]``. The 2D/3D variants, ``Time_Input`` and
 ``use_checkpoint`` are queued in ``ROADMAP.md`` and raise here.
+
+``dtype`` (None or ``torch.bfloat16``) is the JAX model's compute dtype
+(``ModelConfig.bf16``): every Linear computes in it over float32
+parameters, the LayerNorms normalise in float32 and return it. The float32
+placeholder promotes the residual stream to float32, as in JAX, and the
+output is in the compute dtype.
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.dense import normalized
 from ..utils.env import default_device
-from .components.mlp import MLP, init_linear
+from .components.mlp import MLP, Linear, init_linear
 from .erwin import BallMSA
 from .physics_attention import PhysicsAttentionIrregularMesh
 
@@ -61,34 +68,40 @@ class TransolverErwinBlock(nn.Module):
     def __init__(self, num_heads: int, hidden_dim: int, dropout: float,
                  act: str = "gelu", mlp_ratio: int = 4,
                  last_layer: bool = False, out_dim: int = 1,
-                 attn_kwargs: Optional[dict] = None):
+                 attn_kwargs: Optional[dict] = None, dtype=None):
         super().__init__()
         akw = dict(attn_kwargs or {})
         akw.setdefault("dim_head", hidden_dim // num_heads)
         akw.setdefault("mlp_ratio", mlp_ratio)
         self.last_layer = last_layer
+        self.dtype = dtype
         self.ln_1 = nn.LayerNorm(hidden_dim, eps=1e-5)
         self.Attn = PhysicsAttentionIrregularMesh(
-            dim=hidden_dim, heads=num_heads, dropout=dropout, **akw)
+            dim=hidden_dim, heads=num_heads, dropout=dropout, dtype=dtype,
+            **akw)
         self.ln_2 = nn.LayerNorm(hidden_dim, eps=1e-5)
         self.mlp = MLP(hidden_dim, hidden_dim * mlp_ratio, hidden_dim,
-                       n_layers=0, res=False, act=act)
+                       n_layers=0, res=False, act=act, dtype=dtype)
         if last_layer:
             self.ln_3 = nn.LayerNorm(hidden_dim, eps=1e-5)
-            self.mlp2 = nn.Linear(hidden_dim, out_dim)
+            self.mlp2 = Linear(hidden_dim, out_dim, dtype=dtype)
+
+    def _ln(self, ln, fx):
+        return normalized(ln, fx, self.dtype)
 
     def forward(self, fx):
-        fx = self.Attn(self.ln_1(fx)) + fx
-        fx = self.mlp(self.ln_2(fx)) + fx
+        fx = self.Attn(self._ln(self.ln_1, fx)) + fx
+        fx = self.mlp(self._ln(self.ln_2, fx)) + fx
         if self.last_layer:
-            return self.mlp2(self.ln_3(fx))
+            return self.mlp2(self._ln(self.ln_3, fx))
         return fx
 
 
 class HAETransolverIrregularMesh(nn.Module):
     """Irregular point-cloud HAET.
 
-    Constructor arguments are the JAX model's (``haet.py:112-156``).
+    Constructor arguments are the JAX model's (``haet.py:112-156``),
+    ``dtype`` (None or ``torch.bfloat16``) the compute dtype.
     ``device=None`` means CUDA (raises without a card); parameters are
     initialised on the CPU from ``torch.Generator().manual_seed(seed)`` and
     then moved, so a seed gives the same weights on every device.
@@ -111,8 +124,8 @@ class HAETransolverIrregularMesh(nn.Module):
                  erwin_mlp_ratio: Optional[int] = None,
                  use_checkpoint: bool = False, use_dist_bias: bool = True,
                  grouping: str = "median", orthogonal_slice_init: bool = True,
-                 use_pallas=False, use_pallas_erwin: bool = False, *,
-                 device=None, seed: int = 0):
+                 use_pallas=False, use_pallas_erwin: bool = False,
+                 dtype=None, *, device=None, seed: int = 0):
         super().__init__()
         if Time_Input:
             raise NotImplementedError(TIME_INPUT_TODO)
@@ -123,8 +136,9 @@ class HAETransolverIrregularMesh(nn.Module):
         self.unified_pos = unified_pos
         self.ref = ref
         in_dim = (ref * ref if unified_pos else space_dim) + fun_dim
+        self.dtype = dtype
         self.preprocess = MLP(in_dim, n_hidden * 2, n_hidden, n_layers=0,
-                              res=False, act=act)
+                              res=False, act=act, dtype=dtype)
         self.placeholder = nn.Parameter(torch.empty(n_hidden))
         attn_kwargs = dict(
             slice_num=slice_num, c_hidden=c_hidden, ball_sizes=ball_sizes,
@@ -142,7 +156,8 @@ class HAETransolverIrregularMesh(nn.Module):
             TransolverErwinBlock(n_head, n_hidden, dropout, act=act,
                                  mlp_ratio=mlp_ratio,
                                  last_layer=(i == n_layers - 1),
-                                 out_dim=out_dim, attn_kwargs=attn_kwargs)
+                                 out_dim=out_dim, attn_kwargs=attn_kwargs,
+                                 dtype=dtype)
             for i in range(n_layers)])
         self.init_weights(torch.Generator().manual_seed(seed))
         self.to(device)

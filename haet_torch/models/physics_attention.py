@@ -17,6 +17,14 @@ pseudo-positions are computed without gradient, as JAX stops it
 The Erwin pseudo-positions are min-max normalised over the WHOLE flattened
 ``B*H*G`` token batch (``:344-351``, reference ``:228-234``), so a sample's
 output depends on the samples batched with it; the port keeps this.
+
+``dtype`` is the compute dtype (None or ``torch.bfloat16``), as the JAX
+module's: ``in_project_x`` and ``to_out`` compute in it, so ``x_proj``,
+the states, the pseudo-positions and the output are in it. The slice
+parameters are float32, so the plain path's logits and softmax promote to
+float32 (``:320-335``), and its ``[B, H, N, G]`` weights are stored in the
+compute dtype; the kernels take ``x_proj`` in the compute dtype and upcast
+it inside (:mod:`haet_torch.ops.kernels.slice_kernels`).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from torch import nn
 from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
 from ..ops.kernels import slice_kernels as sk
+from .components.mlp import Linear
 from .erwin import ErwinTransformer
 
 AUTO_TODO = ("use_pallas='auto' is not ported yet: its 1.7M-point threshold "
@@ -59,7 +68,8 @@ class PhysicsAttentionIrregularMesh(nn.Module):
                  decode: bool = True, mlp_ratio: int = 4, mp_steps: int = 0,
                  embed: bool = False, use_dist_bias: bool = True,
                  grouping: str = "median", orthogonal_slice_init: bool = True,
-                 use_pallas=False, use_pallas_erwin: bool = False):
+                 use_pallas=False, use_pallas_erwin: bool = False,
+                 dtype=None):
         super().__init__()
         if use_pallas == "auto":
             raise NotImplementedError(AUTO_TODO)
@@ -76,7 +86,7 @@ class PhysicsAttentionIrregularMesh(nn.Module):
         self.orthogonal_slice_init = orthogonal_slice_init
         g, h, dh = slice_num, heads, dim_head
         inner = dim_head * heads
-        self.in_project_x = nn.Linear(dim, inner)
+        self.in_project_x = Linear(dim, inner, dtype=dtype)
         self.in_project_slice = nn.Linear(dh, g)
         self.ada_temp_linear = nn.Linear(dh, 1)
         self.erwin = ErwinTransformer(
@@ -94,8 +104,10 @@ class PhysicsAttentionIrregularMesh(nn.Module):
             rotate=rotate, mlp_ratio=mlp_ratio,
             dimensionality=self.dimensionality, mp_steps=mp_steps,
             embed=embed, use_dist_bias=use_dist_bias,
-            use_pallas_blocks=use_pallas_erwin, grouping=grouping)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+            use_pallas_blocks=use_pallas_erwin, grouping=grouping,
+            dtype=dtype)
+        self.to_out = nn.Sequential(Linear(inner, dim, dtype=dtype),
+                                    nn.Dropout(dropout))
 
     def _slice_params(self):
         """``(Ws [C, G], bs [G], Wa [C, 1], ba [1])`` in the JAX layout."""
@@ -117,10 +129,14 @@ class PhysicsAttentionIrregularMesh(nn.Module):
             states, m_res, s_res = sk.slice_states(
                 x_proj, ws, bs, wa, ba, self.base_temp, self.epsilon)
         else:
-            tau = slice_ops.ada_temp(self.ada_temp_linear(x_proj),
-                                     self.base_temp)
-            logits = self.in_project_slice(x_proj)
-            w = slice_ops.rep_slice_weights(logits, tau, self.epsilon)
+            # float32 parameters: the logits and softmax promote to float32
+            # (x_proj @ w_ada + b_ada in JAX); the weights are stored in the
+            # compute dtype
+            xf = x_proj.float()
+            tau = slice_ops.ada_temp(self.ada_temp_linear(xf), self.base_temp)
+            logits = self.in_project_slice(xf)
+            w = slice_ops.rep_slice_weights(logits, tau, self.epsilon).to(
+                x_proj.dtype)
             states = slice_ops.eidetic_states(x_proj, w)      # [B, H, G, Dh]
 
         # (2) Erwin over B*H clouds of G tokens; pseudo-positions are the

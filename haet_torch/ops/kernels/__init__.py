@@ -117,12 +117,13 @@ def port_kernel(name: str):
 def count_kernels(names) -> dict:
     """From CUDA kernel names in launch order: ``{"calls": {port kernel:
     wrapper calls}, "launches": {port kernel: CUDA kernels}, "kernels":
-    every kernel, "other": kernels that are not the port's}``, keyed as
+    every kernel, "other": kernels that are not the port's, "names": the
+    port's kernel names, each once, sorted}``, keyed as
     :func:`launch_counts`. Raises on a ``sum_partials`` that follows no
     slice backward."""
     calls = dict.fromkeys(counters(), 0)
     launches = dict.fromkeys(counters(), 0)
-    owner, total = None, 0
+    owner, total, seen = None, 0, set()
     for name in names:
         total += 1
         port, is_call = port_kernel(name)
@@ -135,8 +136,9 @@ def count_kernels(names) -> dict:
         owner = port
         launches[port] += 1
         calls[port] += is_call
+        seen.add(name)
     return {"calls": calls, "launches": launches, "kernels": total,
-            "other": total - sum(launches.values())}
+            "other": total - sum(launches.values()), "names": sorted(seen)}
 
 
 def profile_launches(fn, *args):
@@ -144,17 +146,18 @@ def profile_launches(fn, *args):
     device synchronised before the trace ends, and :func:`count_kernels` of
     the CUDA kernels it ran, replays of CUDA graphs included, plus
     ``"copies"``, the memory copies and sets on the device,
-    ``"device_ms"``, the device time of both, and ``"span_ms"``, from the
-    first one's start to the last one's end. Raises when the trace holds a
-    graph launch but no kernel: the profiler would then not see inside
-    graphs."""
+    ``"device_ms"``, the device time of both, ``"span_ms"``, from the
+    first one's start to the last one's end, and ``"lost"``, the device
+    records the profiler dropped, all of them sentinels
+    (:func:`haet_torch.utils.profiling.device_trace`). Raises when the
+    trace holds a graph launch but no kernel: the profiler would then not
+    see inside graphs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from ...utils.profiling import device_trace
+
+    with device_trace() as prof:
         out = fn(*args)
-        torch.cuda.synchronize()
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
@@ -171,4 +174,5 @@ def profile_launches(fn, *args):
     counts["span_ms"] = ((max(e.time_range.end for e in device)
                           - min(e.time_range.start for e in device)) / 1e3
                          if device else 0.0)
+    counts["lost"] = prof.lost
     return out, counts

@@ -20,6 +20,11 @@ Parameters are passed as the block's own ``named_parameters()`` dict, in
 torch layout (``norm1.weight``, ``BMSA.qkv.weight`` ``[3C, C]``, ...), as the
 JAX function takes its flax param subtree; :class:`ErwinBlockFn` takes them
 as separate tensors in :data:`PARAM_NAMES` order, so autograd tracks each.
+They are float32; ``x``, ``pos`` and ``dout`` are float32 or bf16
+(:data:`IO_DTYPES`, the model's compute dtype), and the kernels and the
+plain version compute in float32 whatever they are, returning ``out``,
+``dx`` and ``dpos`` in their dtype (``haet_tpu/ops/pallas/erwin_block.py:
+32-33``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ball_groups import effective_ball_size
+from ..dense import linear
 from . import LaunchCounter, _build
 
 LAUNCHES = LaunchCounter()
@@ -42,6 +48,11 @@ BWD_LAUNCHES = LaunchCounter()
 #: those of them recorded for autograd, whose backward is the plain block's
 PLAIN_ROUTES = LaunchCounter()
 BWD_PLAIN_ROUTES = LaunchCounter()
+
+#: element types of ``x``, ``pos`` and ``dout`` and of what the kernels
+#: write for them (``out``, ``dx``, ``dpos``); the parameters and their
+#: gradients are float32
+IO_DTYPES = (torch.float32, torch.bfloat16)
 
 #: dynamic shared memory a block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -221,12 +232,15 @@ def _plan(n: int, c: int, d: int, hidden: int, heads: int, bs: int) -> _Plan:
 # ---------------------------------------------------------------------------
 
 def ball_msa(x, pos, pe_w, pe_b, qkv_w, qkv_b, sigma, proj_w, proj_b, *,
-             ball_size: int, num_heads: int):
+             ball_size: int, num_heads: int, dtype=None):
     """Ball multi-head self-attention (``haet_tpu/models/erwin.py:61-131``).
 
     ``x: [B, N, C]``, ``pos: [B, N, D]``; ``sigma`` is ``sigma_att``
     ``[1, H, 1, 1]`` or None (no distance bias). The bias
-    ``sigma * cdist`` is computed without gradient.
+    ``sigma * cdist`` is computed without gradient. The Linears compute in
+    ``dtype`` (:func:`~haet_torch.ops.dense.linear`); the logits and the
+    softmax are float32 (the JAX einsum's ``preferred_element_type``), and
+    the attention weights are cast to ``v``'s dtype for the product.
     """
     B, N, C = x.shape
     D = pos.shape[-1]
@@ -235,10 +249,10 @@ def ball_msa(x, pos, pe_w, pe_b, qkv_w, qkv_b, sigma, proj_w, proj_b, *,
     h, hd = num_heads, C // num_heads
     pos_b = pos.reshape(B, nb, bs, D)
     rel_pos = pos_b - pos_b.mean(dim=2, keepdim=True)
-    x = x + F.linear(rel_pos.reshape(B, N, D), pe_w, pe_b)
-    qkv = F.linear(x, qkv_w, qkv_b).reshape(B, nb, bs, 3, h, hd)
+    x = x + linear(rel_pos.reshape(B, N, D), pe_w, pe_b, dtype)
+    qkv = linear(x, qkv_w, qkv_b, dtype).reshape(B, nb, bs, 3, h, hd)
     q, k, v = (qkv[:, :, :, i].movedim(3, 2) for i in range(3))
-    logits = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
     if sigma is not None:
         with torch.no_grad():
             diff = pos_b[:, :, :, None, :] - pos_b[:, :, None, :, :]
@@ -246,13 +260,15 @@ def ball_msa(x, pos, pe_w, pe_b, qkv_w, qkv_b, sigma, proj_w, proj_b, *,
             bias = sigma.detach().reshape(1, 1, h, 1, 1) * dist[:, :, None]
         logits = logits + bias
     attn = torch.softmax(logits, dim=-1)
-    out = (attn @ v).movedim(2, 3).reshape(B, N, C)
-    return F.linear(out, proj_w, proj_b)
+    out = attn.to(v.dtype).float() @ v.float()
+    out = out.movedim(2, 3).reshape(B, N, C).to(x.dtype)
+    return linear(out, proj_w, proj_b, dtype)
 
 
-def swiglu(x, w1, b1, w2, b2, w3, b3):
-    """``w3(w2(x) * silu(w1(x)))``."""
-    return F.linear(F.linear(x, w2, b2) * F.silu(F.linear(x, w1, b1)), w3, b3)
+def swiglu(x, w1, b1, w2, b2, w3, b3, dtype=None):
+    """``w3(w2(x) * silu(w1(x)))``, the Linears in ``dtype``."""
+    return linear(linear(x, w2, b2, dtype) * F.silu(linear(x, w1, b1, dtype)),
+                  w3, b3, dtype)
 
 
 def rms_norm(x, weight):
@@ -261,18 +277,23 @@ def rms_norm(x, weight):
 
 def erwin_block_plain(x, pos, params: dict, *, ball_size: int,
                       num_heads: int, use_dist_bias: bool = True):
-    """Plain version of :func:`fused_erwin_block`."""
+    """Plain version of :func:`fused_erwin_block`: the whole block in
+    float32 from float32 parameters, whatever the dtype of ``x`` and
+    ``pos``, and the output in ``x``'s dtype, as the fused kernels compute
+    (``haet_tpu/ops/pallas/erwin_block.py:32-33``)."""
     p = params
     sigma = p["BMSA.sigma_att"] if use_dist_bias else None
-    x = x + ball_msa(rms_norm(x, p["norm1.weight"]), pos,
-                     p["BMSA.pe_proj.weight"], p["BMSA.pe_proj.bias"],
-                     p["BMSA.qkv.weight"], p["BMSA.qkv.bias"], sigma,
-                     p["BMSA.proj.weight"], p["BMSA.proj.bias"],
-                     ball_size=ball_size, num_heads=num_heads)
-    return x + swiglu(rms_norm(x, p["norm2.weight"]),
+    x32, pos32 = x.float(), pos.float()
+    x1 = x32 + ball_msa(rms_norm(x32, p["norm1.weight"]), pos32,
+                        p["BMSA.pe_proj.weight"], p["BMSA.pe_proj.bias"],
+                        p["BMSA.qkv.weight"], p["BMSA.qkv.bias"], sigma,
+                        p["BMSA.proj.weight"], p["BMSA.proj.bias"],
+                        ball_size=ball_size, num_heads=num_heads)
+    out = x1 + swiglu(rms_norm(x1, p["norm2.weight"]),
                       p["swiglu.w1.weight"], p["swiglu.w1.bias"],
                       p["swiglu.w2.weight"], p["swiglu.w2.bias"],
                       p["swiglu.w3.weight"], p["swiglu.w3.bias"])
+    return out.to(x.dtype)
 
 
 def erwin_block_bwd_plain(x, pos, dout, params: dict, *, ball_size: int,
@@ -338,12 +359,17 @@ def _checked(what, x, pos, params, num_heads, use_dist_bias, dout=None):
         if name == "BMSA.sigma_att" and not use_dist_bias:
             continue
         tensors[name] = params[name]
+    if x.dtype not in IO_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in tensors.items():
         want = shapes[name]
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, expected {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        # x, pos and dout in one dtype, the kernel's element type; the
+        # parameters float32, as the JAX kernel reads them
+        dtype = x.dtype if name in ("x", "pos", "dout") else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(want)}")
@@ -369,15 +395,18 @@ def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
     """Run one Erwin block through the fused kernel.
 
     Args:
-        x: ``[B, N, C]`` float32 features (B = clouds).
-        pos: ``[B, N, D]`` float32 positions.
+        x: ``[B, N, C]`` features (B = clouds), float32 or bfloat16.
+        pos: ``[B, N, D]`` positions, in ``x``'s dtype.
         params: the block's ``named_parameters()`` (:data:`PARAM_NAMES`;
             ``BMSA.sigma_att`` only read when ``use_dist_bias``).
         ball_size: requested ball size (clamped to the cloud like BallMSA).
 
-    Returns ``[B, N, C]``. On CUDA tensors it goes through
-    :class:`ErwinBlockFn`, so its backward is the backward kernel. Raises on
-    a CUDA shape outside :func:`eligible`.
+    Returns ``[B, N, C]`` in ``x``'s dtype, computed in float32 from the
+    float32 parameters (the kernels widen bf16 as they stage it and round
+    once at the store). On CUDA tensors it goes through
+    :class:`ErwinBlockFn`, so its backward is the backward kernel, whose
+    ``dx`` and ``dpos`` are in the inputs' dtype and parameter gradients
+    float32. Raises on a CUDA shape outside :func:`eligible`.
     """
     if _device(x, "fused_erwin_block") == "cpu":
         return erwin_block_plain(x, pos, params, ball_size=ball_size,
@@ -409,10 +438,11 @@ def _fused_fwd(x, pos, params, ball_size, num_heads, use_dist_bias):
     out = torch.empty_like(x)
     scratch = _scratch(plan.fwd, b, x.device)
     lib = _lib()
-    status = lib.haet_erwin_block_fwd_f32(
+    status = lib.haet_erwin_block_fwd(
         x.data_ptr(), pos.data_ptr(), out.data_ptr(), _ptr(scratch), *ptrs,
         b, n, c, d, num_heads, bs, hidden, int(use_dist_bias), CLUSTER,
-        plan.fwd_ints, plan.fwd.smem, _stream(x.device))
+        plan.fwd_ints, plan.fwd.smem, int(x.dtype == torch.bfloat16),
+        _stream(x.device))
     _build.check(lib, status, "fused_erwin_block")
     LAUNCHES.add()
     return out
@@ -447,12 +477,12 @@ def fused_erwin_block_bwd(x, pos, dout, params: dict, *, ball_size: int,
     grads = torch.empty(np_, device=dev, dtype=torch.float32)
     scratch = _scratch(plan.bwd, b, dev)
     lib = _lib()
-    status = lib.haet_erwin_block_bwd_f32(
+    status = lib.haet_erwin_block_bwd(
         x.data_ptr(), pos.data_ptr(), dout.data_ptr(), dx.data_ptr(),
         dpos.data_ptr(), partials.data_ptr(), grads.data_ptr(),
         _ptr(scratch), *ptrs, b, n, c, d, num_heads, bs, hidden,
         int(use_dist_bias), np_, CLUSTER, plan.bwd_ints, plan.bwd.smem,
-        _stream(dev))
+        int(x.dtype == torch.bfloat16), _stream(dev))
     _build.check(lib, status, "fused_erwin_block_bwd")
     BWD_LAUNCHES.add()
     return dx, dpos, {k: g.view(shape) for k, g, shape in
@@ -489,11 +519,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("erwin_block")
     if not getattr(lib, "_haet_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.haet_erwin_block_fwd_f32.argtypes = (
-            [P] * 19 + [I] * 9 + [ctypes.POINTER(I), I, P])
-        lib.haet_erwin_block_fwd_f32.restype = I
-        lib.haet_erwin_block_bwd_f32.argtypes = (
-            [P] * 23 + [I] * 10 + [ctypes.POINTER(I), I, P])
-        lib.haet_erwin_block_bwd_f32.restype = I
+        lib.haet_erwin_block_fwd.argtypes = (
+            [P] * 19 + [I] * 9 + [ctypes.POINTER(I), I, I, P])
+        lib.haet_erwin_block_fwd.restype = I
+        lib.haet_erwin_block_bwd.argtypes = (
+            [P] * 23 + [I] * 10 + [ctypes.POINTER(I), I, I, P])
+        lib.haet_erwin_block_bwd.restype = I
         lib._haet_typed = True
     return lib

@@ -24,6 +24,17 @@ widths; wider heads (C up to :data:`MAX_GENERIC_C`) take the generic
 kernels, which split N into :data:`CHUNK`-point blocks (slice_states) or
 ``generic_plan`` rows (deslice) and the slices into groups.
 
+Dtypes (the JAX kernels' contract, ``slice_kernels.py:187-200,316-323``):
+``x_proj`` is float32 or bfloat16, the model's compute dtype, and the
+kernels widen it as it arrives in shared memory. slice_states returns the
+states in ``x_proj``'s dtype and float32 ``m`` and ``s``, and keeps the
+float32 states as the backward's residual; deslice takes ``states`` in
+``x_proj``'s dtype and returns ``out`` in it; the backwards return ``dx``
+and ``dstates`` in their inputs' dtypes and float32 parameter gradients.
+All arithmetic is float32. The fast kernels read and write bf16
+themselves; for heads wider than 32 the wrapper widens a bf16 input to
+float32 before the generic kernels and rounds their outputs after.
+
 Gradients: :class:`SliceStatesFn` and :class:`DesliceFn` wrap the forwards,
 and their backwards are :func:`slice_states_bwd` and :func:`deslice_bwd`,
 the hand-derived passes over N of the JAX ``custom_vjp``
@@ -370,14 +381,24 @@ def _denom(s):
 
 def slice_states_plain(x_proj, w_slice, b_slice, w_ada, b_ada,
                        base_temp: float = 0.5, epsilon: float = 1e-6):
-    """Plain version of :func:`slice_states` (materialises ``[B,H,N,G]``)."""
+    """Plain version of :func:`slice_states` (materialises ``[B,H,N,G]``):
+    the states in ``x_proj``'s dtype, ``m`` and ``s`` float32."""
+    states, m, s = slice_states_plain_f32(x_proj, w_slice, b_slice, w_ada,
+                                          b_ada, base_temp, epsilon)
+    return states.to(x_proj.dtype), m, s
+
+
+def slice_states_plain_f32(x_proj, w_slice, b_slice, w_ada, b_ada,
+                           base_temp: float = 0.5, epsilon: float = 1e-6):
+    """:func:`slice_states_plain` with the states in the float32 they are
+    accumulated in: the backward's residual (``_slice_states_impl_f32`` of
+    the JAX code)."""
     z = _logits(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
     m = z.amax(dim=2)                                           # [B,H,G]
     e = torch.exp(z - _m_safe(m)[:, :, None, :])
     s = e.sum(dim=2)
     acc = torch.einsum("bhng,bhnc->bhgc", e, x_proj.float())
-    states = acc / _denom(s)[..., None] / _NORM
-    return states.to(x_proj.dtype), m, s
+    return acc / _denom(s)[..., None] / _NORM, m, s
 
 
 def deslice_plain(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
@@ -390,11 +411,16 @@ def deslice_plain(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
     return out.to(x_proj.dtype)
 
 
-def _check(name, t, shape, device):
+#: element types of ``x_proj`` (and of the states, ``out``, ``g_out`` and
+#: the gradients that go with it)
+IO_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name, t, shape, device, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -408,7 +434,10 @@ def _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada):
     b, h, n, c = x_proj.shape
     g = w_slice.shape[-1]
     dev = x_proj.device
-    _check("x_proj", x_proj, (b, h, n, c), dev)
+    if x_proj.dtype not in IO_DTYPES:
+        raise TypeError(f"x_proj must be float32 or bfloat16, got "
+                        f"{x_proj.dtype}")
+    _check("x_proj", x_proj, (b, h, n, c), dev, x_proj.dtype)
     _check("w_slice", w_slice, (c, g), dev)
     _check("b_slice", b_slice, (g,), dev)
     _check("w_ada", w_ada, (c, 1), dev)
@@ -441,10 +470,12 @@ def slice_states(x_proj, w_slice, b_slice, w_ada, b_ada,
     (:class:`SliceStatesFn`).
 
     Args:
-        x_proj: ``[B, H, N, C]`` float32, contiguous.
-        w_slice/b_slice: ``[C, G]``, ``[G]``; w_ada/b_ada: ``[C, 1]``, ``[1]``.
+        x_proj: ``[B, H, N, C]`` float32 or bfloat16, contiguous.
+        w_slice/b_slice: ``[C, G]``, ``[G]``; w_ada/b_ada: ``[C, 1]``, ``[1]``
+            (float32).
 
-    Returns ``(states [B,H,G,C], m [B,H,G], s [B,H,G])``.
+    Returns ``(states [B,H,G,C], m [B,H,G], s [B,H,G])``: the states in
+    ``x_proj``'s dtype, ``m`` and ``s`` float32.
     """
     return SliceStatesFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada,
                                base_temp, epsilon)
@@ -454,18 +485,25 @@ def deslice(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
             base_temp: float = 0.5, epsilon: float = 1e-6):
     """Fused deslice: ``out[b,h,n,:] = sum_g w[b,h,n,g] states[b,h,g,:]``
     with ``w`` recomputed from the ``(m, s)`` residuals of
-    :func:`slice_states`. Returns ``[B, H, N, C]``, differentiable in every
-    input but ``m`` and ``s`` (:class:`DesliceFn`)."""
+    :func:`slice_states`. ``states`` in ``x_proj``'s dtype. Returns ``[B, H,
+    N, C]`` in it, differentiable in every input but ``m`` and ``s``
+    (:class:`DesliceFn`)."""
     return DesliceFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
                            s, base_temp, epsilon)
 
 
-def _slice_states_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
-                      epsilon):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+def slice_states_with_residual(x_proj, w_slice, b_slice, w_ada, b_ada,
+                               base_temp: float = 0.5,
+                               epsilon: float = 1e-6):
+    """:func:`slice_states`' forward without autograd, the kernel on a CUDA
+    tensor and the plain version on a CPU tensor: ``(states in x_proj's
+    dtype, the float32 states, m, s)``; the float32 states are the
+    backward's residual, and for a bf16 ``x_proj`` the public states are
+    their rounding."""
     args = (x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
     if not _on_card(x_proj, "slice_states"):
-        return slice_states_plain(*args)
+        states, m, s = slice_states_plain_f32(*args)
+        return states.to(x_proj.dtype), states, m, s
     return _slice_states_kernel(*args)
 
 
@@ -474,8 +512,13 @@ def _slice_states_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     bh = b * h
     dev = x_proj.device
+    low = x_proj.dtype == torch.bfloat16
     geom = launch_geometry("slice_states", bh, n, c, g, sm_count(dev))
     states = torch.empty((b, h, g, c), device=dev, dtype=torch.float32)
+    # the public bf16 copy, written by the fast kernel beside the float32
+    # states (the residual)
+    states_lo = (torch.empty_like(states, dtype=torch.bfloat16)
+                 if low and geom.route == "fast" else None)
     m = torch.empty((b, h, g), device=dev, dtype=torch.float32)
     s = torch.empty_like(m)
     lib = _lib()
@@ -491,22 +534,25 @@ def _slice_states_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
     part_s = torch.empty_like(part_m)
     part_acc = torch.empty((rows, geom.per_cloud, pg, pc), device=dev,
                            dtype=torch.float32)
-    head = (x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
+    x_in = x_proj if geom.route == "fast" else x_proj.float()
+    head = (x_in.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
             w_ada.data_ptr(), b_ada.data_ptr(), part_m.data_ptr(),
             part_s.data_ptr(), part_acc.data_ptr())
-    tail = (states.data_ptr(), m.data_ptr(), s.data_ptr(), bh, n, c, g)
     if geom.route == "fast":
-        status = lib.haet_slice_states_f32(
+        status = lib.haet_slice_states(
             *head, _counter(dev, stream.value, bh * geom.groups).data_ptr(),
-            *tail,
-            geom.per_cloud, geom.span, base_temp, _shift(epsilon),
-            geom.smem, stream)
+            states.data_ptr(), _ptr(states_lo), m.data_ptr(), s.data_ptr(),
+            bh, n, c, g, geom.per_cloud, geom.span, base_temp,
+            _shift(epsilon), geom.smem, int(low), stream)
     else:
         status = lib.haet_slice_states_generic_f32(
-            *head, *tail, CHUNK, base_temp, _shift(epsilon), stream)
+            *head, states.data_ptr(), m.data_ptr(), s.data_ptr(), bh, n, c,
+            g, CHUNK, base_temp, _shift(epsilon), stream)
+        if low:
+            states_lo = states.to(torch.bfloat16)
     _build.check(lib, status, "slice_states")
     SLICE_STATES_LAUNCHES.add()
-    return states, m, s
+    return (states if states_lo is None else states_lo), states, m, s
 
 
 def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
@@ -523,22 +569,35 @@ def _deslice_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
                     base_temp, epsilon):
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     dev = x_proj.device
-    _check("states", states, (b, h, g, c), dev)
+    _check("states", states, (b, h, g, c), dev, x_proj.dtype)
     _check("m", m, (b, h, g), dev)
     _check("s", s, (b, h, g), dev)
+    low = x_proj.dtype == torch.bfloat16
     out = torch.empty_like(x_proj)
     lib = _lib()
     geom = launch_geometry("deslice", b * h, n, c, g, sm_count(dev))
-    args = (x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
-            w_ada.data_ptr(), b_ada.data_ptr(), states.data_ptr(),
-            m.data_ptr(), s.data_ptr(), out.data_ptr(), b * h, n, c, g)
     if geom.route == "fast":
-        status = lib.haet_deslice_f32(
-            *args, geom.slices, geom.per_cloud, geom.span, base_temp,
-            _shift(epsilon), geom.smem, _stream(dev))
+        # the staged ranges' sums meet in float32: out itself, or a scratch
+        # for a bf16 out staged in more than one range
+        acc = out
+        if low:
+            acc = (torch.empty_like(out, dtype=torch.float32)
+                   if geom.groups > 1 else None)
+        status = lib.haet_deslice(
+            x_proj.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
+            w_ada.data_ptr(), b_ada.data_ptr(), states.data_ptr(),
+            m.data_ptr(), s.data_ptr(), out.data_ptr(), _ptr(acc), b * h, n,
+            c, g, geom.slices, geom.per_cloud, geom.span, base_temp,
+            _shift(epsilon), geom.smem, int(low), _stream(dev))
     else:
+        x_in, st_in, wide = x_proj.float(), states.float(), out.float()
         status = lib.haet_deslice_generic_f32(
-            *args, base_temp, _shift(epsilon), _stream(dev))
+            x_in.data_ptr(), w_slice.data_ptr(), b_slice.data_ptr(),
+            w_ada.data_ptr(), b_ada.data_ptr(), st_in.data_ptr(),
+            m.data_ptr(), s.data_ptr(), wide.data_ptr(), b * h, n, c, g,
+            base_temp, _shift(epsilon), _stream(dev))
+        if low:
+            out = wide.to(torch.bfloat16)
     _build.check(lib, status, "deslice")
     DESLICE_LAUNCHES.add()
     return out
@@ -547,16 +606,18 @@ def _deslice_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
 class SliceStatesFn(torch.autograd.Function):
     """:func:`slice_states` with :func:`slice_states_bwd` as its backward
     (the JAX ``custom_vjp``, ``slice_kernels.py:316-383``): the backward
-    kernel on CUDA tensors. The float32 states are the residual; a gradient
-    arriving on ``m`` or ``s`` is dropped, as the JAX backward drops it."""
+    kernel on CUDA tensors. The float32 states are the residual, whatever
+    the dtype of the states it returns (a bf16 round trip there would put
+    bf16 error into every point's gradient, ADVICE r2); a gradient arriving
+    on ``m`` or ``s`` is dropped, as the JAX backward drops it."""
 
     @staticmethod
     def forward(ctx, x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
                 epsilon):
-        states, m, s = _slice_states_fwd(x_proj, w_slice, b_slice, w_ada,
-                                         b_ada, base_temp, epsilon)
-        ctx.save_for_backward(x_proj, w_slice, b_slice, w_ada, b_ada, states,
-                              m, s)
+        states, states_f32, m, s = slice_states_with_residual(
+            x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
+        ctx.save_for_backward(x_proj, w_slice, b_slice, w_ada, b_ada,
+                              states_f32, m, s)
         ctx.consts = (base_temp, epsilon)
         ctx.mark_non_differentiable(m, s)
         return states, m, s
@@ -763,13 +824,13 @@ def _ptr(t) -> int:
 
 
 def _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, grad,
-               grad_name, grad_shape):
+               grad_name, grad_shape, states_dtype):
     b, h, n, c, g = _check_inputs(x_proj, w_slice, b_slice, w_ada, b_ada)
     dev = x_proj.device
-    _check("states", states, (b, h, g, c), dev)
+    _check("states", states, (b, h, g, c), dev, states_dtype)
     _check("m", m, (b, h, g), dev)
     _check("s", s, (b, h, g), dev)
-    _check(grad_name, grad, grad_shape(b, h, n, c, g), dev)
+    _check(grad_name, grad, grad_shape(b, h, n, c, g), dev, x_proj.dtype)
     return b, h, n, c, g
 
 
@@ -778,15 +839,23 @@ def _bwd_launch(lib, kernel, geom, tensors, shape, win0, windows, flags,
     """One launch of a backward kernel in ``kernel``'s mode (the fast one
     over ``windows`` windows from ``win0`` with the window ``flags``, or
     the generic one); ``tensors`` are ``(x, g_out, Ws, bs, Wa, ba, bmat,
-    tsum, m, s, part, dx, q)``, None where the mode reads none."""
+    tsum, m, s, part, dx, dacc, q)``, None where the mode reads none
+    (``dacc``, where a chain's windows add up dx in float32, only for the
+    fast kernel, whose x, g_out, bmat and dx may be bf16; the generic one's
+    are float32)."""
     bh, n, c, g = shape
-    head = (BWD_MODES[kernel], *(_ptr(t) for t in tensors), bh, n, c, g,
-            geom.per_cloud, geom.span)
-    tail = (base_temp, _shift(epsilon), geom.smem, stream)
+    ptrs = [_ptr(t) for t in tensors]
+    tail = (base_temp, _shift(epsilon), geom.smem)
     if geom.route == "fast":
-        status = lib.haet_slice_bwd_f32(*head, win0, windows, flags, *tail)
+        low = tensors[0].dtype == torch.bfloat16
+        status = lib.haet_slice_bwd(
+            BWD_MODES[kernel], *ptrs, bh, n, c, g, geom.per_cloud, geom.span,
+            win0, windows, flags, *tail, int(low), stream)
     else:
-        status = lib.haet_slice_bwd_generic_f32(*head, *tail)
+        del ptrs[12]
+        status = lib.haet_slice_bwd_generic_f32(
+            BWD_MODES[kernel], *ptrs, bh, n, c, g, geom.per_cloud, geom.span,
+            *tail, stream)
     _build.check(lib, status, kernel)
 
 
@@ -799,11 +868,15 @@ SUM_MODES = {"params": 1, "states": 2}
 def _sum_partials(lib, part, batches: int, parts: int, stream, mode, outs,
                   shape):
     """``part [batches, parts, len]`` summed over ``parts`` in a fixed
-    order into ``outs`` (see ``SumOut`` in the CUDA source); ``shape`` is
-    ``(c, g, dbs column, row stride, bh, slices per window)``."""
+    order into ``outs`` (see ``SumOut`` in the CUDA source: the second a
+    float32 or bf16 dstates); ``shape`` is ``(c, g, dbs column, row
+    stride, bh, slices per window)``."""
     length = part.numel() // (batches * parts)
-    status = lib.haet_sum_partials_f32(
-        part.data_ptr(), *(_ptr(t) for t in outs), batches, parts, length,
+    out, o2, o3, o4 = outs
+    low = o2 is not None and o2.dtype == torch.bfloat16
+    status = lib.haet_sum_partials(
+        part.data_ptr(), _ptr(out), None if low else _ptr(o2), _ptr(o3),
+        _ptr(o4), _ptr(o2) if low else None, batches, parts, length,
         SUM_MODES[mode], *shape, stream)
     _build.check(lib, status, "sum_partials")
 
@@ -832,8 +905,8 @@ def _first_pass_sums(lib, kernel, tensors, shape, base_temp, epsilon, stream,
     f32 = dict(device=dev, dtype=torch.float32)
     part = torch.empty((windows * bh, geom.per_cloud, wr * rw), **f32)
     _bwd_launch(lib, kernel, geom,
-                (*tensors[:7], None, *tensors[7:], part, None, None), shape,
-                0, windows, 0, base_temp, epsilon, stream)
+                (*tensors[:7], None, *tensors[7:], part, None, None, None),
+                shape, 0, windows, 0, base_temp, epsilon, stream)
     tsum = torch.empty((windows * bh, wr * rw), **f32)
     _sum_partials(lib, part, windows * bh, geom.per_cloud, stream, "states",
                   (tsum, dstates, None, None), (c, g, col, rw, bh, wr))
@@ -857,8 +930,14 @@ def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
     part = torch.empty((windows, bh * geom.per_cloud, wr * rw + col + 1),
                        **f32)
     dx = torch.empty_like(x_proj)
+    # the windows' dx sums meet in float32: dx itself, or a scratch for a
+    # bf16 dx of more than one window
+    dacc = dx
+    if x_proj.dtype != torch.float32:
+        dacc = torch.empty_like(dx, dtype=torch.float32) if windows > 1 \
+            else None
     q = torch.empty(bh * n, **f32) if geom.groups > 1 else None
-    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, q)
+    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, dacc, q)
     for w in range(windows):
         flags = (1 if w == 0 else 0) | (2 if w == windows - 1 else 0)
         _bwd_launch(lib, kernel, geom, ptrs, shape, w, 1, flags, base_temp,
@@ -877,15 +956,19 @@ def _slice_states_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states,
     and the sum of its partials."""
     b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
                                states, m, s, g_states, "g_states",
-                               lambda b, h, n, c, g: (b, h, g, c))
+                               lambda b, h, n, c, g: (b, h, g, c),
+                               torch.float32)
     lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
-    tensors = (x_proj, None, w_slice, b_slice, w_ada, b_ada, g_states, m, s)
+    generic_low = fast_widths(c, g) is None and x_proj.dtype != torch.float32
+    x_in, g_in = ((x_proj.float(), g_states.float()) if generic_low
+                  else (x_proj, g_states))
+    tensors = (x_in, None, w_slice, b_slice, w_ada, b_ada, g_in, m, s)
     tsum = _first_pass_sums(lib, "slice_states_bwd_sums", tensors, shape,
                             base_temp, epsilon, stream)
-    grads = _chain_grads(lib, "slice_states_bwd", tensors, tsum, shape,
-                         base_temp, epsilon, stream)
+    dx, *grads = _chain_grads(lib, "slice_states_bwd", tensors, tsum, shape,
+                              base_temp, epsilon, stream)
     SLICE_STATES_BWD_LAUNCHES.add()
-    return grads
+    return (dx.to(x_proj.dtype), *grads)
 
 
 def _deslice_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
@@ -895,17 +978,21 @@ def _deslice_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
     the sum of its partials."""
     b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
                                states, m, s, g_out, "g_out",
-                               lambda b, h, n, c, g: (b, h, n, c))
+                               lambda b, h, n, c, g: (b, h, n, c),
+                               x_proj.dtype)
     lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
-    tensors = (x_proj, g_out, w_slice, b_slice, w_ada, b_ada, states, m, s)
+    generic_low = fast_widths(c, g) is None and x_proj.dtype != torch.float32
+    x_in, g_in, st_in = ((x_proj.float(), g_out.float(), states.float())
+                         if generic_low else (x_proj, g_out, states))
+    tensors = (x_in, g_in, w_slice, b_slice, w_ada, b_ada, st_in, m, s)
     dstates = torch.empty((b, h, g, c), device=x_proj.device,
-                          dtype=torch.float32)
+                          dtype=st_in.dtype)
     tsum = _first_pass_sums(lib, "deslice_bwd_sums", tensors, shape,
                             base_temp, epsilon, stream, dstates)
-    grads = _chain_grads(lib, "deslice_bwd", tensors, tsum, shape, base_temp,
-                         epsilon, stream)
+    dx, *grads = _chain_grads(lib, "deslice_bwd", tensors, tsum, shape,
+                              base_temp, epsilon, stream)
     DESLICE_BWD_LAUNCHES.add()
-    return (*grads, dstates)
+    return (dx.to(x_proj.dtype), *grads, dstates.to(states.dtype))
 
 
 def _lib() -> ctypes.CDLL:
@@ -916,24 +1003,24 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the seven entry points
     set (once)."""
     if not getattr(lib, "_haet_typed", False):
-        lib.haet_slice_states_f32.argtypes = (
-            [_P] * 12 + [_I] * 6 + [_F, _F, _I, _P])
-        lib.haet_deslice_f32.argtypes = (
-            [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P])
+        lib.haet_slice_states.argtypes = (
+            [_P] * 13 + [_I] * 6 + [_F, _F, _I, _I, _P])
+        lib.haet_deslice.argtypes = (
+            [_P] * 10 + [_I] * 7 + [_F, _F, _I, _I, _P])
         lib.haet_slice_states_generic_f32.argtypes = (
             [_P] * 11 + [_I] * 5 + [_F, _F, _P])
         lib.haet_deslice_generic_f32.argtypes = (
             [_P] * 9 + [_I] * 4 + [_F, _F, _P])
-        lib.haet_slice_bwd_f32.argtypes = (
-            [_I] + [_P] * 13 + [_I] * 9 + [_F, _F, _I, _P])
+        lib.haet_slice_bwd.argtypes = (
+            [_I] + [_P] * 14 + [_I] * 9 + [_F, _F, _I, _I, _P])
         lib.haet_slice_bwd_generic_f32.argtypes = (
             [_I] + [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P])
-        lib.haet_sum_partials_f32.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-        for fn in (lib.haet_slice_states_f32, lib.haet_deslice_f32,
+        lib.haet_sum_partials.argtypes = [_P] * 6 + [_I] * 10 + [_P]
+        for fn in (lib.haet_slice_states, lib.haet_deslice,
                    lib.haet_slice_states_generic_f32,
-                   lib.haet_deslice_generic_f32, lib.haet_slice_bwd_f32,
+                   lib.haet_deslice_generic_f32, lib.haet_slice_bwd,
                    lib.haet_slice_bwd_generic_f32,
-                   lib.haet_sum_partials_f32):
+                   lib.haet_sum_partials):
             fn.restype = _I
         lib._haet_typed = True
     return lib

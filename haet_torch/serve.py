@@ -40,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .utils.env import default_device
+from .utils.env import default_device, host_numpy
 
 __all__ = ["BatchingServer", "SampleSignature", "ServerStats"]
 
@@ -267,7 +267,9 @@ class BatchingServer:
                 self._deliver(r.future, Future.set_result, out[i])
 
     def _run_batch(self, reqs) -> np.ndarray:
-        """Stack, run the model, and fetch the batch to the host."""
+        """Stack, run the model, and fetch the batch to the host: a bf16
+        model's output as the exact float32 widening of its values
+        (:func:`~haet_torch.utils.env.host_numpy`)."""
         args = []
         for j, a0 in enumerate(reqs[0].args):
             if a0 is None:
@@ -277,7 +279,7 @@ class BatchingServer:
                 args.append(torch.from_numpy(batch).to(self.device))
         with torch.inference_mode():
             out = self.model(*args)
-        return out.cpu().numpy()
+        return host_numpy(out)
 
     # -- lifecycle ------------------------------------------------------
 

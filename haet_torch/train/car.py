@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..data.shapenet_car import CarSample, pad_sample
+from ..utils.env import host_numpy
 
 BUCKET = 2048
 
@@ -53,11 +54,12 @@ def loss_fn_builder(reg: float):
 
 def predict(model, batch: dict) -> np.ndarray:
     """The model's eval-mode output for a batch, on the host:
-    ``[B, n_pad, 4]``."""
+    ``[B, n_pad, 4]``; a bf16 model's as the exact float32 widening of its
+    values (:func:`~haet_torch.utils.env.host_numpy`)."""
     x = torch.from_numpy(batch["x"]).to(next(model.parameters()).device)
     model.eval()
     with torch.inference_mode():
-        return model(x, None).cpu().numpy()
+        return host_numpy(model(x, None))
 
 
 def evaluate(model, samples, coef, logger=None) -> dict:

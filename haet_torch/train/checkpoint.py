@@ -23,6 +23,8 @@ import re
 
 import torch
 
+from ..utils.env import host_numpy
+
 _EPOCH_RE = re.compile(r"^epoch_(\d+)\.pt$")
 
 
@@ -173,14 +175,16 @@ class Checkpointer:
 
     def restore_raw(self, name: str = "last"):
         """:meth:`restore` onto the host with every tensor a numpy array,
-        for reading a checkpoint without a model or a device."""
+        for reading a checkpoint without a model or a device; a bf16 tensor
+        (the first moment under ``mu_bf16``) as the exact float32 widening
+        of its values (:func:`~haet_torch.utils.env.host_numpy`)."""
         state = self.restore(name, map_location="cpu")
         return None if state is None else _to_numpy(state)
 
 
 def _to_numpy(tree):
     if isinstance(tree, torch.Tensor):
-        return tree.numpy()
+        return host_numpy(tree)
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -2,8 +2,11 @@
 
 The statistics are computed on the host with numpy, as in the reference
 (torch's ``std`` is the unbiased estimator, ``ddof=1``). ``encode`` and
-``decode`` take numpy arrays or tensors; a tensor gets the statistics in
-its own dtype and on its own device.
+``decode`` take numpy arrays or tensors; a tensor gets the statistics on
+its own device, in its own dtype or float32 if wider (a bf16 tensor meets
+float32 statistics and promotes, as a bf16 JAX array meets the numpy
+float32 ones). A bf16 tensor reaches the host as the exact float32
+widening of its values.
 """
 
 from __future__ import annotations
@@ -11,19 +14,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.env import host_numpy
+
 
 def _like(stat, x):
     """``stat`` as ``x``'s kind: a tensor of ``x``'s dtype and device for a
     tensor, the numpy array otherwise."""
     if isinstance(x, torch.Tensor):
-        return torch.as_tensor(np.asarray(stat), dtype=x.dtype,
-                               device=x.device)
+        return torch.as_tensor(
+            np.asarray(stat), dtype=torch.promote_types(x.dtype,
+                                                        torch.float32),
+            device=x.device)
     return stat
 
 
 def _host(x):
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    return host_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class IdentityTransformer:

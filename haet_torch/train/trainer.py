@@ -89,22 +89,49 @@ class Adam(torch.optim.Adam):
     allocated here, once, in torch Adam's format, and
     :meth:`load_state_dict` copies into it: a captured step keeps writing
     into the same storage for the optimizer's life.
+
+    ``mu_dtype=torch.bfloat16`` is optax's ``adam(mu_dtype=bfloat16)``
+    (``TrainConfig.mu_bf16``): the first moment is stored in bf16, and each
+    step computes it in float32 from the stored value and the float32
+    gradient, takes the update from that float32 value and rounds only the
+    stored copy (to nearest even); the second moment stays float32. The
+    group's bf16 moments are views of one buffer, so the step widens,
+    updates and rounds them in a few whole-buffer launches. A parameter
+    without a gradient counts as a zero gradient there (its moment decays
+    by beta1, as under optax, where every parameter has a gradient; the
+    port's ``sigma_att``, the only such parameter, keeps a zero moment).
     """
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, mu_dtype=None):
         super().__init__(params, lr=lr)
         device = self.param_groups[0]["params"][0].device
         self.hparams = torch.zeros((len(self.param_groups), 2),
                                    dtype=torch.float32, device=device)
+        self.mu_dtype = mu_dtype
+        #: per group, the buffer of its bf16 first moments (``mu_dtype``)
+        self._mu = []
         for group in self.param_groups:
-            for p in group["params"]:
+            ps = group["params"]
+            if mu_dtype is not None:
+                flat = torch.zeros(sum(p.numel() for p in ps), dtype=mu_dtype,
+                                   device=device)
+                self._mu.append(flat)
+                mus = [t.view_as(p) for t, p in
+                       zip(flat.split([p.numel() for p in ps]), ps)]
+            else:
+                mus = [torch.zeros_like(p, memory_format=torch.preserve_format)
+                       for p in ps]
+            for p, mu in zip(ps, mus):
                 self.state[p] = {
                     "step": torch.zeros((), dtype=torch.float32,
                                         device=p.device),
-                    "exp_avg": torch.zeros_like(
-                        p, memory_format=torch.preserve_format),
+                    "exp_avg": mu,
                     "exp_avg_sq": torch.zeros_like(
                         p, memory_format=torch.preserve_format)}
+        # zeros standing in for a missing gradient (views: no launch)
+        self._zero = (torch.zeros(max(p.numel() for g in self.param_groups
+                                      for p in g["params"]), device=device)
+                      if mu_dtype is not None else None)
 
     @torch.no_grad()
     def write_hparams(self) -> None:
@@ -125,21 +152,42 @@ class Adam(torch.optim.Adam):
         if not (self.hparams.is_cuda
                 and torch.cuda.is_current_stream_capturing()):
             self.write_hparams()
-        for row, group in zip(self.hparams, self.param_groups):
+        for i, (row, group) in enumerate(zip(self.hparams,
+                                             self.param_groups)):
             params = [p for p in group["params"] if p.grad is not None]
             if params:
+                m = (self._mu_step(i, group["params"], row[1])
+                     if self.mu_dtype is not None else None)
                 self._update(params, row[0], row[1], group["betas"][1],
-                             group["eps"])
+                             group["eps"], m)
 
-    def _update(self, params, lr, beta1, beta2: float, eps: float) -> None:
+    def _mu_step(self, i: int, params: list, beta1) -> dict:
+        """The first moments of group ``i`` (``mu_dtype``): ``m = b1 m + (1
+        - b1) g`` in float32 from the stored bf16 values, the stored copy
+        rounded from it; returns ``{parameter: its float32 m}`` (views)."""
+        g = torch.cat([(p.grad if p.grad is not None
+                        else self._zero[:p.numel()]).reshape(-1)
+                       for p in params])
+        m = self._mu[i].float()
+        m.mul_(beta1)
+        m.add_(g * (1 - beta1))
+        self._mu[i].copy_(m)
+        return {p: t.view_as(p) for p, t in
+                zip(params, m.split([p.numel() for p in params]))}
+
+    def _update(self, params, lr, beta1, beta2: float, eps: float,
+                mu=None) -> None:
         grads = [p.grad for p in params]
         states = [self.state[p] for p in params]
-        m = [st["exp_avg"] for st in states]
         v = [st["exp_avg_sq"] for st in states]
         steps = [st["step"] for st in states]
         torch._foreach_add_(steps, 1.0)
-        torch._foreach_mul_(m, beta1)
-        torch._foreach_add_(m, torch._foreach_mul(grads, 1 - beta1))
+        if mu is None:
+            m = [st["exp_avg"] for st in states]
+            torch._foreach_mul_(m, beta1)
+            torch._foreach_add_(m, torch._foreach_mul(grads, 1 - beta1))
+        else:  # computed in float32 by _mu_step
+            m = [mu[p] for p in params]
         torch._foreach_mul_(v, beta2)
         torch._foreach_addcmul_(v, grads, grads, value=1 - beta2)
         # p += m / denom, denom = (sqrt(v) / sqrt(1 - b2^t) + eps) / step,
@@ -193,7 +241,8 @@ def make_optimizer(cfg: TrainConfig, total_steps: int, params):
     :class:`Adam`, whose steps a CUDA graph can hold."""
     cfg.check_ported()
     params = list(params)
-    optimizer = Adam(params, lr=cfg.lr)
+    optimizer = Adam(params, lr=cfg.lr,
+                     mu_dtype=torch.bfloat16 if cfg.mu_bf16 else None)
     scheduler = torch.optim.lr_scheduler.OneCycleLR(
         optimizer, max_lr=cfg.lr,
         total_steps=onecycle_horizon(cfg, total_steps),

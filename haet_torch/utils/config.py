@@ -3,7 +3,9 @@
 ``ModelConfig`` and ``TrainConfig`` are ``haet_tpu/utils/config.py``'s
 field for field, so one config describes the same model and the same
 training in both packages. :meth:`ModelConfig.build` returns the torch
-model; only the irregular variant is ported so far.
+model; only the irregular variant is ported so far. ``ModelConfig.bf16``
+builds it with the bf16 compute dtype over float32 parameters, and
+``TrainConfig.mu_bf16`` stores Adam's first moment in bf16, as in JAX.
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
-BF16_TODO = "bf16=True is not ported yet (ROADMAP.md, queue 1: bf16)"
-MU_BF16_TODO = "mu_bf16=True is not ported yet (ROADMAP.md, queue 1: bf16)"
+import torch
+
 TRAINER_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: Trainer and "
                 "drivers)")
 VARIANT_TODO = ("the {} variant is not ported yet (ROADMAP.md, queue 1: "
@@ -62,11 +64,10 @@ class ModelConfig:
 
     def model_kwargs(self) -> dict:
         """Constructor kwargs of :class:`HAETransolverIrregularMesh` for
-        this config (what :meth:`build` passes)."""
+        this config (what :meth:`build` passes); ``bf16`` becomes
+        ``dtype=torch.bfloat16``."""
         if self.variant != "irregular":
             raise NotImplementedError(VARIANT_TODO.format(self.variant))
-        if self.bf16:
-            raise NotImplementedError(BF16_TODO)
         if self.shard_axes is not None:
             raise NotImplementedError(
                 "shard_axes is not ported yet (ROADMAP.md, queue 1: parallel)")
@@ -74,6 +75,7 @@ class ModelConfig:
         for k in ("variant", "H", "W", "D", "pallas_auto_threshold", "bf16",
                   "shard_axes"):
             kw.pop(k)
+        kw["dtype"] = torch.bfloat16 if self.bf16 else None
         return kw
 
     def build(self, device=None, seed: int = 0):
@@ -104,7 +106,8 @@ class TrainConfig:
     """``haet_tpu/utils/config.py:TrainConfig``, field for field.
 
     The port's ``Trainer`` runs Adam with OneCycle (``cycle_momentum``
-    included) and torch's gradient clipping, and ``Trainer.fit`` the
+    included; ``mu_bf16`` stores the first moment in bf16) and torch's
+    gradient clipping, and ``Trainer.fit`` the
     training loop with early stopping, periodic checkpoints
     (``checkpoint_every``), ``stop_on_nonfinite`` and ``preempt_save``;
     :meth:`check_ported` raises for the settings it does not run yet.
@@ -150,8 +153,6 @@ class TrainConfig:
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.accum_steps != 1:
             raise NotImplementedError(TRAINER_TODO.format("accum_steps > 1"))
-        if self.mu_bf16:
-            raise NotImplementedError(MU_BF16_TODO)
 
 
 def shapenet_car_train_config() -> TrainConfig:

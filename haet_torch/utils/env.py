@@ -10,6 +10,13 @@ rest of the model in full float32. On the card a float32 matmul is full
 float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False, and a
 cuDNN op only while ``torch.backends.cudnn.allow_tf32`` is False (its default
 is True), so both are stated here and set by :func:`default_device`.
+
+The bf16 model (``ModelConfig.bf16``) takes its dense products in bf16, as
+XLA's bf16 dots do: bf16 operands, float32 accumulation, one rounding of
+the result. cuBLAS may otherwise reduce a split-K bf16 product's partial
+sums in bf16, so ``torch.backends.cuda.matmul.
+allow_bf16_reduced_precision_reduction`` is False too
+(:data:`ALLOW_BF16_REDUCED_REDUCTION`).
 """
 
 from __future__ import annotations
@@ -18,12 +25,17 @@ import torch
 
 #: the float32 policy: no TF32 anywhere (matches ``Precision.HIGHEST``)
 ALLOW_TF32 = False
+#: the bf16 policy: bf16 products accumulate in float32 throughout
+ALLOW_BF16_REDUCED_REDUCTION = False
 
 
 def set_precision_policy() -> None:
-    """Apply :data:`ALLOW_TF32` to PyTorch's matmul and cuDNN switches."""
+    """Apply :data:`ALLOW_TF32` to PyTorch's matmul and cuDNN switches and
+    :data:`ALLOW_BF16_REDUCED_REDUCTION` to its bf16 matmuls."""
     torch.backends.cuda.matmul.allow_tf32 = ALLOW_TF32
     torch.backends.cudnn.allow_tf32 = ALLOW_TF32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        ALLOW_BF16_REDUCED_REDUCTION)
 
 
 def default_device(device=None) -> torch.device:
@@ -41,3 +53,12 @@ def default_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU explicitly")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def host_numpy(t: torch.Tensor):
+    """``t`` as a numpy array on the host. numpy has no bf16, so a bf16
+    tensor comes back as the exact float32 widening of its values (the JAX
+    package returns ``ml_dtypes`` bf16 arrays, which the port does not
+    depend on): the values are identical, only the dtype differs."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

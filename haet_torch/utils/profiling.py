@@ -11,7 +11,11 @@ and the CUDA caching allocator:
   (``torch.cuda.max_memory_allocated``), or None where there is none (the
   CPU), as the JAX helper returns None where a device has no memory stats;
 * :func:`host_rss_mb` -- host resident set size from ``/proc``;
-* :func:`kernel_events` -- a profile's device kernels by name.
+* :func:`kernel_events` -- a profile's device kernels by name;
+* :func:`device_trace` -- a ``torch.profiler`` trace of host and card
+  with a margin of :data:`TRACE_MARGIN_S` on both sides and
+  :data:`SENTINELS` launches of a sentinel kernel before the traced work,
+  the one every device measurement of the port takes.
 
 A host clock around asynchronous CUDA work measures the enqueue: end a
 timed region with ``torch.cuda.synchronize()`` or a host fetch of a value
@@ -25,6 +29,74 @@ import os
 import time
 
 import torch
+
+
+#: seconds a device trace leaves between its opening and the first launch,
+#: and between the card's end of the work and its closing: the profiler
+#: keeps a record only inside its window, and the card's timestamps were
+#: seen to land milliseconds early (``benchmarks/trace_loss.py``)
+TRACE_MARGIN_S = 0.1
+#: launches of a one-thread kernel (``torch.cuda._sleep(0)``, named
+#: :data:`SENTINEL_KERNEL`) between the margin and the traced work. On the
+#: H100's machine a trace also loses its first device records, the more
+#: the longer its process has run (``benchmarks/trace_loss.py``): the
+#: sentinels take that loss, and a trace that lost them all raises rather
+#: than count short.
+SENTINELS = 128
+SENTINEL_KERNEL = "spin_kernel"
+
+
+class DeviceTrace:
+    """The profile of a :func:`device_trace`: ``events()`` and
+    ``key_averages()`` as ``torch.profiler.profile``'s, without the
+    sentinels; ``lost``, the sentinel records the profiler dropped, is set
+    by :meth:`finish` once the trace has closed."""
+
+    def __init__(self, prof):
+        self.prof = prof
+        self.lost = None
+
+    def finish(self) -> None:
+        """Count the sentinels that reached the profile; raises when none
+        did, since the loss may then reach into the traced work."""
+        seen = sum(SENTINEL_KERNEL in e.name for e in self.prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        self.lost = SENTINELS - seen
+        if not seen:
+            raise RuntimeError(
+                f"the profiler dropped all {SENTINELS} sentinel records "
+                f"that open the trace: its count of the traced work may "
+                f"be short")
+
+    def events(self) -> list:
+        return [e for e in self.prof.events()
+                if SENTINEL_KERNEL not in e.name]
+
+    def key_averages(self) -> list:
+        return [e for e in self.prof.key_averages()
+                if SENTINEL_KERNEL not in e.key]
+
+
+@contextlib.contextmanager
+def device_trace():
+    """``torch.profiler.profile`` of the host and the card, opened
+    :data:`TRACE_MARGIN_S` and :data:`SENTINELS` sentinel kernels before
+    the traced work and closed that margin after the card has finished it;
+    yields a :class:`DeviceTrace`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+        trace = DeviceTrace(prof)
+        yield trace
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    trace.finish()
 
 
 @contextlib.contextmanager

@@ -21,6 +21,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -32,7 +33,7 @@ import torch
 from haet_torch import bench
 from haet_torch.benchmarks import bench_flags, mem_sweep, profile_step
 from haet_torch.benchmarks import micro_erwin_fused as micro
-from haet_torch.benchmarks import timing
+from haet_torch.benchmarks import timing, trace_loss
 from haet_torch.benchmarks import velocity_mem_checker as velocity
 from haet_torch.models import HAETransolverIrregularMesh as TModel
 from haet_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -367,6 +368,43 @@ def test_step_timer_matches_jax(tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
+class FakeProfile:
+    """A finished profile whose first ``lost`` device records are gone, as
+    the card's profiler drops them late in a process."""
+
+    def __init__(self, lost):
+        cuda = torch.autograd.DeviceType.CUDA
+        names = ([tprof.SENTINEL_KERNEL + "(long)"] * tprof.SENTINELS
+                 + ["slice_states_fast<32, 32, float>", "Memset (Device)"])
+        self.device = [types.SimpleNamespace(name=n, key=n, device_type=cuda)
+                       for n in names[lost:]]
+        self.host = [types.SimpleNamespace(
+            name="cudaLaunchKernel", key="cudaLaunchKernel",
+            device_type=torch.autograd.DeviceType.CPU)]
+
+    def events(self):
+        return self.host + self.device
+
+    def key_averages(self):
+        return self.events()
+
+
+@pytest.mark.parametrize("lost", [0, 5, tprof.SENTINELS - 1,
+                                  tprof.SENTINELS, tprof.SENTINELS + 1])
+def test_device_trace_sentinels_take_the_profilers_loss(lost):
+    trace = tprof.DeviceTrace(FakeProfile(lost))
+    if lost >= tprof.SENTINELS:
+        with pytest.raises(RuntimeError, match="sentinel"):
+            trace.finish()
+        return
+    trace.finish()
+    assert trace.lost == lost
+    for events in (trace.events(), trace.key_averages()):
+        assert [e.name for e in events] == [
+            "cudaLaunchKernel", "slice_states_fast<32, 32, float>",
+            "Memset (Device)"]
+
+
 # ---------------------------------------------------------------------------
 # Every driver on the CPU at toy sizes (plumbing).
 # ---------------------------------------------------------------------------
@@ -376,6 +414,10 @@ def test_drivers_need_a_card_unless_told_cpu(monkeypatch):
     for run in (micro.run, bench_flags.run, profile_step.run, bench.run):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trace_loss.main([])
+    with pytest.raises(RuntimeError, match="no CPU form"):
+        trace_loss.run(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mem_sweep.run_probe(64, True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -435,11 +477,14 @@ def test_mem_sweep_main_cpu(monkeypatch, capsys, tmp_path):
     assert mem_sweep.main(["--probe", "256", "--pallas", "1", "--device",
                            "cpu"]) == 0
     probe = json.loads(capsys.readouterr().out.splitlines()[-1])
+    # the probe runs bf16, as pallas_mem_sweep.run_probe does
     assert probe["ok"] and probe["peak_memory_mb"] is None
-    with pytest.raises(NotImplementedError, match="bf16"):
-        mem_sweep.main(["--bf16", "1"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        mem_sweep.run_probe(64, True, bf16=True, device="cpu")
+    assert probe["dtype"] == "bfloat16"
+    for bf16 in (True, False):
+        rec = mem_sweep.run_probe(64, True, bf16=bf16, grad=True,
+                                  device="cpu")
+        assert rec["ok"]
+        assert rec["dtype"] == ("bfloat16" if bf16 else "float32")
 
     def probe_fn(n, use_pallas, *a, **k):
         ok = n <= (4_000_000 if use_pallas else 2_000_000)

@@ -399,11 +399,12 @@ def test_benchmark_bounds_of_the_backwards():
     for kind, mb, bound, tf32, f32 in (
             ("slice_states_bwd", 67.1, 20.0, 16.6, 40.8),
             ("deslice_bwd", 100.7, 30.0, 23.2, 57.1)):
-        nbytes, flops = slice_bench.work(kind, *shape)
+        nbytes, flops, tf32_flops = slice_bench.work(kind, *shape)
         assert abs(nbytes / 1e6 - mb) < 0.1  # the [B, H, N, C] tensors
         us, by = slice_bench.bound_us(kind, shape)
         assert by == "bytes" and abs(us - bound) < 0.1
-        assert round(3 * flops / slice_bench.TF32_FLOP_PER_S * 1e6, 1) == tf32
+        assert tf32_flops == 3 * flops
+        assert round(tf32_flops / slice_bench.TF32_FLOP_PER_S * 1e6, 1) == tf32
         us, by = slice_bench.bound_us(kind, shape, float32_only=True)
         assert by == "operations" and round(us, 1) == f32
     assert set(slice_bench.KINDS) == {"slice_states", "deslice",

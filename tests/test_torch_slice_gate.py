@@ -379,3 +379,26 @@ def test_benchmark_bounds_and_medians():
                                                "deslice": 4.0}}
     with pytest.raises(SystemExit, match="no CUDA device"):
         slice_bench.measure(Path("."), 1)
+
+
+def test_benchmark_bounds_in_bf16():
+    """The bf16 bounds at the training batch: the bytes of a bf16 ``x``
+    halve, and each product takes the tensor-core passes its operand types
+    need (a bf16 operand's 3xTF32 low part is zero: two passes; two bf16
+    operands: one bf16 pass at twice the TF32 rate), so slice_states_bwd,
+    with a float32 product of its own (``dpre Ws^T``), is the one bound by
+    operations; the FLOP are the float32 kernels' either way."""
+    shape = slice_bench.SHAPES["train_b1"]
+    assert slice_bench.tf32_passes(0, 4) == slice_bench.tf32_passes(2, 4) \
+        == slice_bench.TF32_PASSES == 3
+    assert [slice_bench.tf32_passes(k, 2) for k in (0, 1, 2)] == [3, 2, 0.5]
+    want = {"slice_states": (5.02, "bytes"), "deslice": (10.02, "bytes"),
+            "slice_states_bwd": (10.54, "operations"),
+            "deslice_bwd": (15.04, "bytes")}
+    for kind, (us, by) in want.items():
+        got = slice_bench.bound_us(kind, shape, isz=2)
+        assert got[1] == by and abs(got[0] - us) < 0.01, (kind, got)
+        f32 = slice_bench.work(kind, *shape)
+        low = slice_bench.work(kind, *shape, isz=2)
+        assert low[1] == f32[1] and low[2] < f32[2] == 3 * f32[1]
+        assert slice_bench.bound_us(kind, shape)[0] > got[0]

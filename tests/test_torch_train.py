@@ -100,13 +100,38 @@ def test_train_config_matches_jax():
     (dict(schedule="cosine_annealing"), "cosine_annealing"),
     (dict(schedule="constant"), "constant"),
     (dict(accum_steps=2), "accum_steps"),
-    (dict(mu_bf16=True), "mu_bf16"),
 ])
 def test_unported_train_settings_raise(change, match):
     cfg = dataclasses.replace(shapenet_car_train_config(), **change)
     with pytest.raises(NotImplementedError, match=match) as e:
         make_optimizer(cfg, 10, [torch.zeros(1, requires_grad=True)])
     assert "ROADMAP.md" in str(e.value)
+
+
+def test_mu_bf16_stores_the_first_moment_in_bf16():
+    """``TrainConfig(mu_bf16=True)`` builds: Adam's first moments are bf16
+    views of one buffer per group, the second moments and the parameters
+    float32, and a step moves the parameters and rounds the stored moment
+    from its float32 value."""
+    cfg = dataclasses.replace(shapenet_car_train_config(), mu_bf16=True)
+    params = [torch.nn.Parameter(torch.linspace(-1, 1, 6).reshape(2, 3)),
+              torch.nn.Parameter(torch.ones(4))]
+    opt, _ = make_optimizer(cfg, 10, params)
+    mus = [opt.state[p]["exp_avg"] for p in params]
+    assert [m.dtype for m in mus] == [torch.bfloat16] * 2
+    assert mus[0].untyped_storage().data_ptr() == \
+        mus[1].untyped_storage().data_ptr()
+    assert {opt.state[p]["exp_avg_sq"].dtype for p in params} == \
+        {torch.float32}
+    before = [p.detach().clone() for p in params]
+    for p in params:
+        p.grad = torch.full_like(p, 0.3)
+    opt.step()
+    beta1 = opt.param_groups[0]["betas"][0]
+    want = (1 - torch.tensor(beta1, dtype=torch.float32)) * 0.3
+    for p, m, b in zip(params, mus, before):
+        assert torch.equal(m, want.to(torch.bfloat16).expand_as(m))
+        assert not torch.equal(p.detach(), b)
 
 
 @pytest.mark.parametrize("change", [dict(early_stop_patience=7),

@@ -96,7 +96,6 @@ def test_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(bf16=True), "bf16"),
     (dict(variant="structured_2d"), "structured_2d"),
     (dict(use_pallas="auto"), "auto"),
     (dict(Time_Input=True), "Time_Input"),
@@ -106,6 +105,32 @@ def test_unported_options_raise(change, match):
     cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
     with pytest.raises(NotImplementedError, match=match):
         cfg.build(device="cpu")
+
+
+def test_bf16_car_model_loads_float32_params(car_variables):
+    """``ModelConfig(bf16=True)`` builds the car model in the bf16 compute
+    dtype over float32 parameters and buffers, as the JAX bf16 model keeps
+    its parameter tree float32, and the JAX variables load into it key for
+    key."""
+    cfg = dataclasses.replace(tcfg.shapenet_car_config(), bf16=True)
+    assert cfg.model_kwargs()["dtype"] is torch.bfloat16
+    m = cfg.build(device="cpu")
+    assert sum(p.numel() for p in m.parameters()) == CAR_PARAMS
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    assert {v.dtype for k, v in m.state_dict().items()
+            if not k.endswith("num_batches_tracked")} == {torch.float32}
+    jm = dataclasses.replace(jcfg.shapenet_car_config().model,
+                             bf16=True).build()
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            np.zeros((1, 64, 7), np.float32))
+    assert {str(s.dtype) for s in jax.tree_util.tree_leaves(shapes)} == \
+        {"float32"}
+    assert jax.tree_util.tree_map(lambda s: s.shape, shapes) == \
+        jax.tree_util.tree_map(lambda v: v.shape, car_variables)
+    with torch.inference_mode():   # the seeded init's weights
+        out = m.eval()(torch.zeros(1, 64, 7))
+    assert out.dtype == torch.bfloat16 and bool(out.float().isfinite().all())
+    load_jax_variables(m, car_variables)  # strict=True
 
 
 def test_decode_false_raises():
