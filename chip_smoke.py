@@ -49,14 +49,15 @@ Phases (any failed check exits non-zero before the final line):
    autograd functions (``SliceStatesFn``, ``DesliceFn``) against autograd
    of the plain versions at ``train_b1``.
 4. Serve: the car preset (2 layers, n_hidden 256, G 32, 1,757,190 params,
-   seeded random weights) on the card with both kernel flags set, behind a
-   ``BatchingServer`` with signature ``x [32186, 7] f32, fx None`` and batch
-   sizes (1, 2, 4). Sequential requests (``max_delay_s=0``) and a concurrent
-   burst that forms a batch of 4. Checks shapes, finiteness, agreement with
-   the plain path on the same weights and inputs, that the kernel launch
-   counters rose by exactly 2 + 2 + 24 per forward, and that nothing was
-   routed to a plain version.
-5. Profile one batch-1 forward: device time by kernel against wall time.
+   seeded random weights) on the card with both kernel flags set, exported
+   (``haet_torch.export``) for ``x [32186, 7] f32, fx None`` at batch sizes
+   (1, 2, 4) and loaded back behind a ``BatchingServer``. Sequential
+   requests (``max_delay_s=0``) and a concurrent burst that forms a batch of
+   4. Checks shapes, finiteness, agreement with the plain path on the same
+   weights and inputs, that the kernel launch counters rose by exactly 2 +
+   2 + 24 per forward, and that nothing was routed to a plain version.
+5. Profile one eager batch-1 forward: device time by kernel against the
+   wall and the host time (the call's return, before the synchronize).
 6. Train: the car preset at full width with both flags set takes 5
    ``Trainer.train_step``s (Adam + OneCycle + clip 1.0, the masked car
    loss, train-mode BatchNorm) on a seeded synthetic sample of 32186 points
@@ -169,11 +170,11 @@ Phases (any failed check exits non-zero before the final line):
       device us per call beside the float32 kernels' on the same values,
       and bounds from the bf16 bytes and the tensor-core passes each
       product's operand types need.
-   b. The bf16 car model (phase 4's weights) served as in phase 4: 2 + 2
-      + 24 launches per forward, no plain route, the answer the model's
-      bf16 output widened exactly, within ``BF16_SERVE_RTOL`` of the
-      float32 model; the batch-1 forward's wall and device time beside
-      phase 5's.
+   b. The bf16 car model (phase 4's weights) exported and served as in
+      phase 4: 2 + 2 + 24 launches per forward, no plain route, the answer
+      the bf16 program's output widened exactly, within
+      ``BF16_SERVE_RTOL`` of the float32 model; the eager batch-1
+      forward's wall, host and device time beside phase 5's.
    c. Phase 9a, 9b, 9d and 9e with the bf16 model and ``mu_bf16``: graphed
       equal to eager within ``GRAPH_RTOL``, a replay's calls exactly 2 + 2
       + 2 + 2 + 24 + 24 and every one a bf16 instantiation, a restore
@@ -187,12 +188,40 @@ Phases (any failed check exits non-zero before the final line):
       driver does: every metric finite and within ``BF16_METRIC_RTOL`` of
       ``car_train``'s bf16 evaluation.
 
+11. The serving path over exported programs, at the car preset's full
+   width, on ``last`` of phase 8b's ``car_train`` run.
+   a. ``car_eval --export_artifact --export_point_buckets 32768,34816``:
+      six programs (batch sizes 1, 2, 4 per bucket), each one's export
+      time; then a fresh process (``chip_smoke.py --load-bundle``, no model
+      code imported) loads each, binds ``last`` and runs it on a seeded
+      input: load and bind time, exactly 2 + 2 + 24 launches and device
+      calls (``profile_launches``), no plain route, and the answer within
+      ``PROGRAM_RTOL`` of the eager model on the same weights and input.
+   b. ``BatchingServer(pad_to_points=True, pipeline_depth=2)``: a ragged
+      sample of 32186 points rides the 32768 bucket, is truncated back and
+      equals the eager model on the padded input (its deviation from the
+      exact-N forward printed, not held: padding is not output-exact); 8
+      requests form two batches of 4, bit for bit equal at depth 1 and 2;
+      2 + 2 + 24 launches per forward.
+   c. ``reload`` of perturbed weights while two clients keep submitting:
+      no request fails, the requests after it answer with the new weights,
+      a structurally wrong state is refused and the new weights keep
+      serving.
+   d. ``python -m haet_torch.serve_http --pad_to_points 1`` in a
+      subprocess on a free port: ``/healthz``, ``/predict`` equal to the
+      in-process server, ``/metrics`` with the latency summary's ``_count``
+      and ``_sum``, ``POST /reload``, then SIGTERM while a request waits in
+      the batcher: the request is answered and the process exits 0.
+   e. ``micro_serving_latency`` and ``micro_serving_server`` with short
+      windows (bf16, as on the JAX package's chip): every number finite.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
 7d's run, ``replay_launches`` from the profiler's count of one replay) and
 six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), phase
-8's, 9's and 10's numbers, the card line, and as the last line ``{"ok":
-true, "device": {...}}``. Imports nothing of JAX or ``haet_tpu``.
+5's, 8's, 9's, 10's and 11's numbers, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -1076,7 +1105,7 @@ def serve_phase(dev):
         model(torch.from_numpy(samples[0][None]).to(dev))
         torch.cuda.synchronize()
 
-    outs, counts, forwards = drive_server(model, samples, dev)
+    outs, counts, forwards, _ = drive_server(model, samples, dev)
     # Agreement with the plain path on the same weights and inputs (the
     # burst's batch of 4 is compared as that same batch: outputs depend on
     # the co-batched samples through the global min-max positions).
@@ -1084,22 +1113,44 @@ def serve_phase(dev):
     return counts, forwards, model, samples[0]
 
 
+def export_bundle(model, dev, root):
+    """``model``'s batch family (1, 2, 4) for ``x [32186, 7], fx None``
+    exported under ``root`` and loaded back (``haet_torch.export``); prints
+    the export and load times."""
+    from haet_torch.export import ServingBundle
+    from haet_torch.serve import export_batch_family
+
+    x1 = np.zeros((1, N_POINTS, 7), np.float32)
+    t0 = time.perf_counter()
+    export_batch_family(root, model, None, (x1, None), batch_sizes=(1, 2, 4))
+    t1 = time.perf_counter()
+    bundle = ServingBundle.load(root, device=dev)
+    print(f"  exported batch sizes (1, 2, 4) in {t1 - t0:.1f} s, loaded in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return bundle
+
+
 def drive_server(model, samples, dev):
-    """``model`` behind a ``BatchingServer`` with the counters zeroed: 4
-    sequential batch-1 requests, then a burst of 7 that forms a batch of
-    4. Checks every answer's shape and finiteness, exactly 2 + 2 + 24
-    kernel launches per forward and no plain route; prints the batch
-    histograms, latencies and throughput. Returns ``(outputs by request,
-    launch counts, forwards)``."""
+    """``model`` exported as a batch family (1, 2, 4) behind a
+    ``BatchingServer`` with the counters zeroed: 4 sequential batch-1
+    requests, then a burst of 7 that forms a batch of 4. Checks every
+    answer's shape and finiteness, exactly 2 + 2 + 24 kernel launches per
+    forward and no plain route; prints the batch histograms, latencies and
+    throughput. Returns ``(outputs by request, launch counts, forwards,
+    bundle)``."""
+    import tempfile
+
     from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
                                         reset_launch_counts)
-    from haet_torch.serve import BatchingServer, SampleSignature
+    from haet_torch.serve import BatchingServer
 
-    sig = SampleSignature(((N_POINTS, 7), None), ("float32", None))
+    with tempfile.TemporaryDirectory(prefix="haet_bundle_") as root:
+        bundle = export_bundle(model, dev, root)
+    variables = model.state_dict()
     reset_launch_counts()
     outs = {}
     lat_seq = []
-    with BatchingServer(model, {sig: (1, 2, 4)}, max_delay_s=0.0,
+    with BatchingServer(bundle, variables, max_delay_s=0.0,
                         device=dev) as srv:
         for i in range(4):
             t0 = time.perf_counter()
@@ -1107,7 +1158,7 @@ def drive_server(model, samples, dev):
             lat_seq.append(time.perf_counter() - t0)
         stats_seq = srv.stats.snapshot()
     t_burst = time.perf_counter()
-    with BatchingServer(model, {sig: (1, 2, 4)}, max_delay_s=2.0,
+    with BatchingServer(bundle, variables, max_delay_s=2.0,
                         device=dev) as srv:
         futs = {i: srv.submit(samples[i], None) for i in range(4, 11)}
         for i, f in futs.items():
@@ -1116,7 +1167,6 @@ def drive_server(model, samples, dev):
     t_burst = time.perf_counter() - t_burst
     counts = launch_counts()
     plain_routes = plain_route_counts()
-
     forwards = stats_seq["dispatches"] + stats_burst["dispatches"]
     print(f"  sequential batch histogram {stats_seq['batch_histogram']}; "
           f"burst batch histogram {stats_burst['batch_histogram']}",
@@ -1147,7 +1197,7 @@ def drive_server(model, samples, dev):
           flush=True)
     print(f"  sequential throughput {4 / sum(lat_seq):.3f} samples/s",
           flush=True)
-    return outs, counts, forwards
+    return outs, counts, forwards, bundle
 
 
 def compare_served(outs, samples, ref_model, dev, what, rtol):
@@ -1179,25 +1229,27 @@ def profile_phase(model, sample, dev):
 
     x = torch.from_numpy(sample[None]).to(dev)
     with torch.inference_mode():
-        walls = []
+        walls, hosts = [], []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             model(x)
+            hosts.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         with device_trace() as prof:
             model(x)
-    wall_ms = 1e3 * min(walls)
+    wall_ms, host_ms = 1e3 * min(walls), 1e3 * min(hosts)
     events = kernel_events(prof)
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"  forward wall {wall_ms:.3f} ms (min of 5); device time "
+    print(f"  forward wall {wall_ms:.3f} ms, host {host_ms:.3f} ms (the "
+          f"call's return, before the synchronize; min of 5); device time "
           f"{device_ms:.3f} ms in {sum(e.count for e in events)} kernels; "
           f"device busy share {device_ms / wall_ms:.3f}", flush=True)
     for e in events[:12]:
         print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
+    return {"wall_ms": wall_ms, "host_ms": host_ms, "device_ms": device_ms,
             "kernels": sum(e.count for e in events)}
 
 
@@ -1934,14 +1986,16 @@ def fit_phase(dev):
             "resume_bit_identical": identical}
 
 
-def drivers_car_phase(dev, epochs: int = DRIVER_EPOCHS, bf16: bool = False):
+def drivers_car_phase(dev, epochs: int = DRIVER_EPOCHS, bf16: bool = False,
+                      keep: bool = False):
     """8b: ``car_train --epochs 2`` at full width on the synthetic
     stand-in, in a subprocess, then ``car_eval --which last`` on its
     checkpoints; every metric finite, and ``car_eval`` reproduces
     ``car_train``'s final metrics at rtol 1e-5. With ``bf16`` (phase 10d):
     ``car_train --bf16 1 --mu_bf16 1``, and ``car_eval`` (float32, as the
     JAX driver evaluates) within ``BF16_METRIC_RTOL`` of its bf16
-    metrics."""
+    metrics. With ``keep`` the run's directory stays, for phase 11, and
+    the result names it (``run_dir``)."""
     import tempfile
 
     from haet_torch.benchmarks import car_eval
@@ -1988,9 +2042,11 @@ def drivers_car_phase(dev, epochs: int = DRIVER_EPOCHS, bf16: bool = False):
                   f"car_eval {k} {v} != car_train's {trained[k]}")
     print(f"  time_per_sample: car_train {trained['time_per_sample']:.5f} "
           f"s, car_eval {got['time_per_sample']:.5f} s", flush=True)
-    shutil.rmtree(tmp, ignore_errors=True)
+    if not keep:
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"train_time_per_sample": trained["time_per_sample"],
-            "eval_time_per_sample": got["time_per_sample"]}
+            "eval_time_per_sample": got["time_per_sample"],
+            **({"run_dir": tmp} if keep else {})}
 
 
 # ---------------------------------------------------------------------------
@@ -2596,12 +2652,16 @@ def bf16_serve_phase(dev):
         direct = low(x0)[0]
         torch.cuda.synchronize()
     check(direct.dtype == torch.bfloat16, "the bf16 model's output dtype")
-    outs, counts, forwards = drive_server(low, samples, dev)
+    outs, counts, forwards, bundle = drive_server(low, samples, dev)
+    program = bundle.bind(low.state_dict()).predict(samples[0][None], None)
+    check(program.dtype == torch.bfloat16, "the bf16 program's output dtype")
     check(outs[0].dtype == np.float32 and np.array_equal(
-        outs[0], direct.float().cpu().numpy()),
-        "the served answer is not the model's bf16 output widened")
-    print("  the served batch-1 answer is the model's bf16 output, widened "
-          "exactly", flush=True)
+        outs[0], program[0].float().cpu().numpy()),
+        "the served answer is not the bf16 program's output widened")
+    print("  the served batch-1 answer is the bf16 program's output, "
+          "widened exactly; the program against the eager bf16 model: "
+          f"max abs {float((program - direct).abs().max()):.3e}",
+          flush=True)
     rel = compare_served(outs, samples, model, dev, "the float32 model",
                          BF16_SERVE_RTOL)
     print("phase 10b: profile one bf16 batch-1 forward", flush=True)
@@ -2651,6 +2711,489 @@ def print_bf16_beside_f32(bf16, f32_walls, f32_profile) -> None:
           f"{served['wall_ms']:.3f} / {f32_profile['wall_ms']:.3f} ms, "
           f"device {served['device_ms']:.3f} / {f32_profile['device_ms']:.3f}"
           f" ms", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the serving path over exported programs.
+# ---------------------------------------------------------------------------
+
+#: the point buckets ``car_eval --export_point_buckets`` writes, at the
+#: batch sizes of the JAX driver's family: six programs
+SERVE_BUCKETS = (32768, 34816)
+SERVE_BATCHES = (1, 2, 4)
+#: a served program against the eager model on the same weights and inputs
+#: (another process, another trace of the same float32 forward)
+PROGRAM_RTOL = 1e-4
+
+
+def program_input(shape) -> np.ndarray:
+    """The seeded input of a program of ``shape`` in phase 11a (the fresh
+    process and this one make the same)."""
+    return np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+
+
+def load_bundle_main(argv) -> int:
+    """11a's fresh process (``chip_smoke.py --load-bundle BUNDLE CKPT OUT
+    DEVICE``): imports no model code; loads each program of the bundle, binds
+    the ``last`` checkpoint, runs it once on its seeded input with the
+    launch counters zeroed and once under the profiler, and writes the
+    answers to ``OUT`` (npz). Prints one JSON line: each program's load and
+    bind time, first call, counters and device calls."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from haet_torch.export import load_artifact
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        profile_launches,
+                                        reset_launch_counts)
+    from haet_torch.serve_http import _load_variables
+
+    bundle_dir, ckpt, out, device = argv
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    variables = _load_variables(ckpt, "last")
+    rec = {"variables_s": time.perf_counter() - t0, "programs": {},
+           "models_imported": "haet_torch.models" in sys.modules}
+    answers = {}
+    for name in sorted(os.listdir(bundle_dir)):
+        t0 = time.perf_counter()
+        em = load_artifact(os.path.join(bundle_dir, name), device=dev)
+        t1 = time.perf_counter()
+        fn = em.bind(variables)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        x = program_input(em.input_shapes[0])
+        reset_launch_counts()
+        y = fn(x, None)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = launch_counts()
+        _, prof = profile_launches(fn, x, None)
+        answers[name] = y.float().cpu().numpy()
+        rec["programs"][name] = {
+            "shape": em.input_shapes[0], "load_s": t1 - t0,
+            "bind_s": t2 - t1, "first_call_s": t3 - t2,
+            "launches": counts, "calls": prof["calls"],
+            "plain_routes": plain_route_counts(), "lost": prof["lost"],
+            "device_ms": prof["device_ms"]}
+    np.savez(out, **answers)
+    rec["models_imported"] = "haet_torch.models" in sys.modules
+    print(json.dumps(rec))
+    return 0
+
+
+def served_model(dev, ckpt):
+    """The eager car model (float32, both kernel flags) with ``last``."""
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.train import Checkpointer
+    from haet_torch.utils.config import shapenet_car_config
+
+    state = Checkpointer(ckpt).restore("last", map_location=dev)["model"]
+    model = build_model(shapenet_car_config(), dev)
+    model.load_state_dict(state)
+    model.eval()
+    return model, {k: v.detach().clone() for k, v in state.items()}
+
+
+def eager(model, x, dev):
+    import torch
+
+    with torch.inference_mode():
+        return model(torch.from_numpy(x).to(dev), None)
+
+
+def export_phase(dev, ckpt, root):
+    """11a: ``car_eval --export_artifact --export_point_buckets`` on the
+    ``car_train`` checkpoint (phase 8b's): six programs, each one's export
+    time; then a fresh process loads and binds them (no model code), and
+    each answer is held to the eager model within ``PROGRAM_RTOL`` and
+    counts exactly 2 + 2 + 24 kernel calls, no plain route."""
+    import os
+    import tempfile
+
+    import torch
+
+    from haet_torch import export as hexport
+    from haet_torch.benchmarks import car_eval
+
+    times = {}
+    save = hexport.save_artifact
+
+    def timed(path, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = save(path, *args, **kwargs)
+        times[os.path.basename(path)] = time.perf_counter() - t0
+        return out
+
+    hexport.save_artifact = timed
+    try:
+        car_eval.main(["--data_dir", f"{ckpt}/absent", "--which", "last",
+                       "--checkpoint_dir", ckpt, "--export_artifact", root,
+                       "--export_point_buckets",
+                       ",".join(map(str, SERVE_BUCKETS))])
+    finally:
+        hexport.save_artifact = save
+    check(len(times) == len(SERVE_BUCKETS) * len(SERVE_BATCHES),
+          f"car_eval exported {sorted(times)}")
+    for name, t in sorted(times.items()):
+        print(f"  exported {name} in {t:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix="haet_answers_") as td:
+        npz = os.path.join(td, "answers.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--load-bundle",
+             root, ckpt, npz, str(dev)], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"the fresh process failed:\n{proc.stderr[-3000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        answers = dict(np.load(npz))
+    check(not res["models_imported"],
+          "the fresh process imported haet_torch.models")
+    print(f"  fresh process ({wall:.1f} s, no model code imported): "
+          f"checkpoint read in {res['variables_s']:.2f} s", flush=True)
+    model, state = served_model(dev, ckpt)
+    for name, r in sorted(res["programs"].items()):
+        print(f"  {name}: load {r['load_s']:.3f} s, bind {r['bind_s']:.3f} "
+              f"s, first call {r['first_call_s']:.3f} s, device "
+              f"{r['device_ms']:.3f} ms (trace lost {r['lost']})",
+              flush=True)
+        expect_counts(f"11a {name} launches", r["launches"], PER_FORWARD)
+        expect_counts(f"11a {name} device calls", r["calls"], PER_FORWARD)
+        check(all(v == 0 for v in r["plain_routes"].values()),
+              f"{name}: plain routes {r['plain_routes']}")
+        want = eager(model, program_input(r["shape"]), dev)
+        r["rel_err"] = compare(f"11a {name} against the eager model",
+                               torch.from_numpy(answers[name]).to(dev), want,
+                               PROGRAM_RTOL) / float(want.abs().max())
+    return {"export_s": times, "programs": res["programs"]}, model, state
+
+
+def ragged_phase(dev, bundle, model, state):
+    """11b: ``pad_to_points`` and ``pipeline_depth`` over the bundle. A
+    ragged sample of 32186 points rides the 32768 bucket, is truncated
+    back, and equals the eager model on the padded input (its deviation
+    from the exact-N forward printed); 8 requests form two batches of 4,
+    depth 1 and depth 2 bit for bit equal; 2 + 2 + 24 launches per served
+    forward (read before the eager references run)."""
+    import torch
+
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from haet_torch.serve import BatchingServer
+
+    rng = np.random.RandomState(SEED + 11)
+    ragged = rng.randn(N_POINTS, 7).astype(np.float32)
+    samples = [rng.randn(N_POINTS, 7).astype(np.float32) for _ in range(8)]
+    reset_launch_counts()
+    with BatchingServer(bundle, state, max_delay_s=0.0, pad_to_points=True,
+                        pipeline_depth=2, device=dev) as srv:
+        got = srv.predict(ragged, None, timeout=300)
+        snap = srv.stats.snapshot()
+    outs, hists = {}, {}
+    for depth in (1, 2):
+        with BatchingServer(bundle, state, max_delay_s=60.0,
+                            pad_to_points=True, pipeline_depth=depth,
+                            device=dev) as srv:
+            futs = [srv.submit(x, None) for x in samples]
+            outs[depth] = np.stack([f.result(timeout=300) for f in futs])
+            hists[depth] = srv.stats.snapshot()["batch_histogram"]
+    expect_counts("11b launches (5 served forwards)", launch_counts(),
+                  expected_launches(0, 5))
+    pad = SERVE_BUCKETS[0] - N_POINTS
+    check(got.shape == (N_POINTS, 4), f"ragged answer shape {got.shape}")
+    check(snap["padded_points"] == pad and snap["batch_histogram"] == {1: 1},
+          f"ragged dispatch {snap}")
+
+    def padded(x):
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+    want = eager(model, padded(ragged)[None], dev)[0, :N_POINTS]
+    compare(f"11b ragged {N_POINTS} -> {SERVE_BUCKETS[0]} against the eager "
+            "model on the padded input", torch.from_numpy(got).to(dev), want,
+            PROGRAM_RTOL)
+    exact = eager(model, ragged[None], dev)[0].double().cpu().numpy()
+    dev_rel = float(np.linalg.norm(got - exact) / np.linalg.norm(exact))
+    dev_max = float(np.abs(got - exact).max() / np.abs(exact).max())
+    print(f"  pad_to_points deviation from the exact-N forward (not "
+          f"output-exact, as the JAX server documents): rel-L2 "
+          f"{dev_rel:.6f}, max abs / max {dev_max:.6f}", flush=True)
+    print(f"  8 requests: depth 1 histogram {hists[1]}, depth 2 "
+          f"{hists[2]}", flush=True)
+    check(hists[1] == hists[2] == {4: 2}, "no two batches of 4")
+    check(np.array_equal(outs[1], outs[2]),
+          "pipeline_depth 1 and 2 answer differently")
+    batch = np.stack([padded(x) for x in samples[:4]])
+    compare("11b burst batch of 4 against the eager model on that batch",
+            torch.from_numpy(outs[2][:4]).to(dev),
+            eager(model, batch, dev)[:, :N_POINTS], PROGRAM_RTOL)
+    return {"pad_deviation_rel_l2": dev_rel, "pad_deviation_max": dev_max,
+            "padded_points": pad}
+
+
+def reload_phase(dev, bundle, model, state):
+    """11c: ``reload`` on a depth-2 server while two clients keep
+    submitting one sample: no request fails, every request submitted after
+    ``reload`` returned answers with the new weights (within
+    ``PROGRAM_RTOL`` of the eager model with them), and a structurally wrong
+    state raises while the new weights keep serving."""
+    import threading
+
+    import torch
+
+    from haet_torch.serve import BatchingServer
+
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.randn(N_POINTS, 7).astype(np.float32)
+    g = torch.Generator().manual_seed(SEED + 12)
+    new = {k: (v + 0.01 * torch.randn(v.shape, generator=g).to(v.device)
+               if v.is_floating_point() else v) for k, v in state.items()}
+    srv = BatchingServer(bundle, state, max_delay_s=0.0, pad_to_points=True,
+                         pipeline_depth=2, device=dev)
+    futs, errs = [], []
+    stop, lock = threading.Event(), threading.Lock()
+
+    def client():
+        try:
+            while not stop.is_set():
+                f = srv.submit(x, None)
+                with lock:
+                    futs.append(f)
+                f.result(timeout=300)
+        except Exception as e:  # noqa: BLE001 - checked below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client) for _ in range(2)]
+    try:
+        old = srv.predict(x, None, timeout=300)
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        srv.reload(new)
+        t_reload = time.perf_counter() - t0
+        with lock:
+            n_at = len(futs) + 2  # the clients' next submits may be either
+        deadline = time.perf_counter() + 120
+        while len(futs) < n_at + 8 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        answers = [f.result(timeout=300) for f in futs]
+        now = srv.predict(x, None, timeout=300)
+        bad = dict(new)
+        bad.pop(next(iter(bad)))
+        try:
+            srv.reload(bad)
+            refused = False
+        except ValueError as e:
+            refused = "variables tree mismatch" in str(e)
+        after = srv.predict(x, None, timeout=300)
+    finally:
+        stop.set()
+        srv.close()
+    check(not errs, f"requests failed during reload: {errs}")
+    check(refused, "a structurally wrong state was not refused")
+    check(np.array_equal(after, now), "the refused reload changed the answers")
+    model.load_state_dict(new)
+    padded = np.concatenate([x, np.repeat(x[-1:], SERVE_BUCKETS[0] -
+                                          N_POINTS, axis=0)])
+    want = eager(model, padded[None], dev)[0, :N_POINTS]
+    model.load_state_dict(state)
+    compare("11c after reload against the eager model with the new weights",
+            torch.from_numpy(now).to(dev), want, PROGRAM_RTOL)
+    moved = float(np.abs(now - old).max())
+    check(moved > 1e-3, f"the new weights moved the answer by {moved}")
+    late = answers[n_at:]
+    check(len(late) > 0, "no request after the reload")
+    for i, a in enumerate(late):
+        check(float(np.abs(a - now).max()) <= PROGRAM_RTOL * float(
+            np.abs(now).max()), f"request {n_at + i} after the reload is "
+              "not the new weights'")
+    print(f"  reload in {t_reload * 1e3:.1f} ms under traffic: "
+          f"{len(answers)} requests, none failed, {len(late)} after it all "
+          f"with the new weights (the answer moved {moved:.3e}); a wrong "
+          "state refused, the new weights kept", flush=True)
+    return {"reload_ms": t_reload * 1e3, "requests": len(answers)}
+
+
+def http_phase(dev, bundle_dir, ckpt, bundle, state):
+    """11d: ``python -m haet_torch.serve_http`` in a subprocess on a free
+    port: ``/healthz``; ``/predict`` equal to the in-process server;
+    ``/metrics`` with ``_count`` and ``_sum``; ``POST /reload``; SIGTERM
+    while a request waits in the batcher: it is answered, exit 0."""
+    import io
+    import signal
+    import socket
+    import threading
+    import urllib.request
+
+    from haet_torch.serve import BatchingServer
+
+    def post(base, path, body):
+        req = urllib.request.Request(base + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+
+    def predict(base, x):
+        buf = io.BytesIO()
+        np.savez(buf, arg0=x)
+        status, body = post(base, "/predict", buf.getvalue())
+        check(status == 200, f"/predict answered {status}")
+        with np.load(io.BytesIO(body)) as z:
+            return z["output"]
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "haet_torch.serve_http", "--bundle",
+           bundle_dir, "--checkpoint", ckpt, "--which", "last", "--port",
+           str(port), "--pad_to_points", "1", "--max_delay_ms", "1500",
+           "--device", str(dev)]
+    print(f"  {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        up = False
+        while not up and time.perf_counter() - t0 < 300:
+            if proc.poll() is not None:
+                check(False, "serve_http exited early:\n"
+                      f"{proc.stdout.read()[-3000:]}")
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=5) as r:
+                    up = r.read() == b"ok"
+            except OSError:
+                time.sleep(0.5)
+        check(up, "serve_http never answered /healthz")
+        print(f"  /healthz ok after {time.perf_counter() - t0:.1f} s "
+              "(load, bind, warm-up of 6 programs)", flush=True)
+        x = np.random.RandomState(SEED + 13).randn(N_POINTS, 7).astype(
+            np.float32)
+        got = predict(base, x)
+        with BatchingServer(bundle, state, max_delay_s=0.0,
+                            pad_to_points=True, device=dev) as srv:
+            want = srv.predict(x, None, timeout=300)
+        err = float(np.abs(got - want).max())
+        print(f"  /predict against the in-process server: max abs {err:.3e}"
+              f" (bit for bit: {bool(err == 0.0)})", flush=True)
+        check(err <= PROGRAM_RTOL * float(np.abs(want).max()),
+              "/predict differs from the in-process server")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        lines = dict(ln.rsplit(" ", 1) for ln in metrics.splitlines()
+                     if ln and not ln.startswith("#"))
+        count = lines.get("haet_request_latency_seconds_count")
+        total = lines.get("haet_request_latency_seconds_sum")
+        print(f"  /metrics: latency summary _count {count}, _sum {total}",
+              flush=True)
+        check(count is not None and int(count) >= 1 and total is not None
+              and float(total) > 0, "/metrics lacks _count/_sum")
+        status, body = post(base, "/reload", json.dumps(
+            {"which": "last"}).encode())
+        check(status == 200 and json.loads(body) == {"reloaded": "last"},
+              f"/reload answered {status} {body[:200]}")
+        result = {}
+
+        def inflight():
+            try:
+                result["out"] = predict(base, x)
+            except Exception as e:  # noqa: BLE001 - checked below
+                result["err"] = e
+
+        t = threading.Thread(target=inflight)
+        t.start()
+        time.sleep(0.5)   # the request waits in the 1.5 s window
+        proc.send_signal(signal.SIGTERM)
+        t.join(timeout=300)
+        rc = proc.wait(timeout=300)
+        tail = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    check("err" not in result and "out" in result,
+          f"the in-flight request failed: {result}")
+    check(float(np.abs(result["out"] - got).max()) <= PROGRAM_RTOL * float(
+        np.abs(got).max()), "the drained answer differs")
+    check(rc == 0, f"serve_http exited {rc} after SIGTERM:\n{tail[-2000:]}")
+    print(f"  SIGTERM with a request in flight: answered, exit {rc}",
+          flush=True)
+    return {"predict_max_abs_vs_in_process": err}
+
+
+def micro_serving_phase(dev):
+    """11e: the two serving drivers with short windows: every number of
+    their JSON finite."""
+    from haet_torch.benchmarks import (micro_serving_latency,
+                                       micro_serving_server)
+
+    def numbers(d):
+        for v in d.values():
+            if isinstance(v, dict):
+                yield from numbers(v)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                yield v
+
+    lat = micro_serving_latency.main(["--rounds", "2", "--samples", "10"])
+    srv = micro_serving_server.main(["--requests", "16", "--rounds", "1"])
+    for name, res in (("micro_serving_latency", lat),
+                      ("micro_serving_server", srv)):
+        check(all(np.isfinite(v) for v in numbers(res)),
+              f"{name}: a non-finite number")
+    check(all(lat[k]["device_latency_s"] > 0 for k in
+              ("aot", "aot_bound", "eager")),
+          "micro_serving_latency: no traced device time")
+    print(f"  micro_serving_latency aot_bound e2e p50 "
+          f"{lat['aot_bound']['e2e_p50_s'] * 1e3:.3f} ms, p95 "
+          f"{lat['aot_bound']['e2e_p95_s'] * 1e3:.3f} ms, steady state "
+          f"{lat['aot_bound']['steady_state_s'] * 1e3:.3f} ms per call, "
+          f"device {lat['aot_bound']['device_latency_s'] * 1e3:.3f} ms; "
+          f"micro_serving_server samples/s sequential_b1 "
+          f"{srv['sequential_b1_rps']:.2f}, batched {srv['batched_rps']:.2f}"
+          f", batched_pd2 {srv['batched_pd2_rps']:.2f}", flush=True)
+    return {"latency": lat, "server": srv}
+
+
+def serving_phase(dev, run_dir):
+    """Phase 11: the serving path of the exported car model, 11a-11e."""
+    import tempfile
+
+    import torch
+
+    from haet_torch.export import ServingBundle
+
+    ckpt = f"{run_dir}/checkpoints/car"
+    root = tempfile.mkdtemp(prefix="haet_serving_")
+    try:
+        t0 = time.perf_counter()
+        print("phase 11a: car_eval --export_artifact --export_point_buckets "
+              f"{','.join(map(str, SERVE_BUCKETS))}, then a fresh process",
+              flush=True)
+        out, model, state = export_phase(dev, ckpt, root)
+        bundle = ServingBundle.load(root, device=dev)
+        print("phase 11b: pad_to_points and pipeline_depth", flush=True)
+        out["ragged"] = ragged_phase(dev, bundle, model, state)
+        print("phase 11c: reload under traffic", flush=True)
+        out["reload"] = reload_phase(dev, bundle, model, state)
+        print("phase 11d: serve_http in a subprocess", flush=True)
+        out["http"] = http_phase(dev, root, ckpt, bundle, state)
+        del model, bundle
+        torch.cuda.empty_cache()
+        print("phase 11e: the serving drivers", flush=True)
+        out["drivers"] = micro_serving_phase(dev)
+        print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -2710,13 +3253,16 @@ def main() -> int:
         fit = fit_phase(dev)
         print(f"phase 8b: car_train --epochs {DRIVER_EPOCHS}, then car_eval "
               f"--which last", flush=True)
-        fit.update(drivers_car_phase(dev))
+        fit.update(drivers_car_phase(dev, keep=True))
+        run_dir = fit.pop("run_dir")
         print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
         t9 = time.perf_counter()
         graphs = graph_phase(dev)
         print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
         bf16_records, bf16 = bf16_phase(dev)
         print_bf16_beside_f32(bf16, graphs, f32_profile)
+        serving = serving_phase(dev, run_dir)
+        print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2729,7 +3275,8 @@ def main() -> int:
     print(json.dumps({"kernels": records + bf16_records,
                       "train_steps": TRAIN_STEPS,
                       "serve_forwards": forwards, "fit": fit,
-                      "graphs": graphs, "bf16": bf16}))
+                      "graphs": graphs, "bf16": bf16, "serving": serving,
+                      "serve_profile": f32_profile}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2738,4 +3285,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--load-bundle"]:
+        sys.exit(load_bundle_main(sys.argv[2:]))
     sys.exit(main())

@@ -7,9 +7,10 @@ over from the JAX package only through :mod:`haet_torch.utils.weights`.
 
 The Pallas TPU kernels on the served and trained paths are hand-written
 CUDA kernels for ``sm_90a`` under ``haet_torch/csrc/``, built with ``nvcc``
-at first use (:mod:`haet_torch.ops.kernels._build`), each inside a
-``torch.autograd.Function``. Each wrapper launches its kernel on a CUDA
-tensor and runs its plain PyTorch version on a CPU tensor.
+at first use (:mod:`haet_torch.ops.kernels._build`); the forwards are
+``haet::`` operators (which exported programs call, :mod:`haet_torch.export`)
+inside ``torch.autograd.Function`` s. Each wrapper launches its kernel on a
+CUDA tensor and runs its plain PyTorch version on a CPU tensor.
 """
 
 from .utils.env import default_device  # noqa: F401

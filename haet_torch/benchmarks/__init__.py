@@ -14,7 +14,10 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
 * :mod:`.copy_scale` -- the copy kernel against ``torch.mul``, and an A/B
   of two trees;
 * :mod:`.car_train`, :mod:`.car_eval` -- the ShapeNet-Car training run and
-  its evaluation from a checkpoint;
+  its evaluation from a checkpoint (and its serving programs);
+* :mod:`.micro_serving_latency`, :mod:`.micro_serving_server` -- batch-1
+  latency through an exported program, and the batching server's
+  samples/s per mode;
 * :mod:`.timing` -- the interleaved differential timing they share;
 * :mod:`.trace_loss` -- the device records a profiler trace loses as
   its process ages, and whether ``device_trace``'s sentinels take them.

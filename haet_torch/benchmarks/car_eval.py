@@ -17,9 +17,17 @@ the Erwin sizing as ``car_train --smoke`` does; the widths come from
 float32, as the JAX driver does, whatever dtype ``car_train`` computed in:
 the checkpoint's parameters are float32 either way.
 
+``--export_artifact DIR`` then writes the evaluated model's eval forward as a
+serving artifact (:mod:`haet_torch.export`) at the first validation
+sample's shape, padded to its 2048-point bucket: ``DIR/b1_n{N}``, batch 1.
+With ``--export_point_buckets 32768,34816`` it writes a point-bucket family
+instead (:func:`haet_torch.serve.export_point_family`, batch sizes 1, 2
+and 4 per bucket) under ``DIR``, which ``serve_http --pad_to_points 1``
+serves to a ragged fold. Each manifest records the fold and the checkpoint
+the weights came from.
+
 Not ported yet, and raising with their ``ROADMAP.md`` item:
-``--export_artifact`` and ``--export_point_buckets`` (queue 1: serving
-features), ``--torch_checkpoint``, ``--visualize``, ``--scatter`` and
+``--torch_checkpoint``, ``--visualize``, ``--scatter`` and
 ``--max_slice_figs`` (queue 1: the rest of the drivers and utils).
 """
 
@@ -35,16 +43,11 @@ from ..train.car import evaluate, make_batch, predict
 from ..utils.env import default_device
 from .car_train import build_model, load_fold, model_config
 
-SERVING_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: serving "
-                "features)")
 UTILS_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: the rest of the "
               "drivers and utils)")
 
 
 def check_unported(args) -> None:
-    for flag in ("export_artifact", "export_point_buckets"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(SERVING_TODO.format(f"--{flag}"))
     for flag in ("torch_checkpoint", "max_slice_figs"):
         if getattr(args, flag) is not None:
             raise NotImplementedError(UTILS_TODO.format(f"--{flag}"))
@@ -87,7 +90,34 @@ def main(argv=None) -> dict:
                     coef.decode_y(s.y))
         print(f"per-sample predictions -> {results_dir} "
               f"({len(val_s)} samples)", flush=True)
+
+    if args.export_artifact:
+        export(args, model, val_s[0])
     return metrics
+
+
+def export(args, model, sample) -> str:
+    """The serving artifact or point-bucket family of ``--export_artifact``
+    (``benchmarks/car_eval.py:166-205``) over ``model``'s weights."""
+    from ..export import save_artifact
+    from ..serve import export_point_family
+
+    x = make_batch(sample)["x"]
+    provenance = {"fold_id": args.fold_id, "checkpoint": args.which}
+    if args.export_point_buckets:
+        buckets = sorted(int(b) for b in args.export_point_buckets.split(","))
+        path = export_point_family(
+            args.export_artifact, model, model.state_dict(), (x, None),
+            point_buckets=buckets, batch_sizes=(1, 2, 4),
+            extra_manifest=provenance)
+        print(f"serving point-bucket family ({buckets}) -> {path}",
+              flush=True)
+    else:
+        path = save_artifact(
+            os.path.join(args.export_artifact, f"b1_n{x.shape[1]}"), model,
+            model.state_dict(), (x, None), extra_manifest=provenance)
+        print(f"serving artifact -> {path}", flush=True)
+    return path
 
 
 def parse_args(argv=None):
@@ -113,8 +143,11 @@ def parse_args(argv=None):
                    help="save per-sample denormalised pred/gt .npy dumps "
                         "into out_dir/results")
     p.add_argument("--out_dir", type=str, default="./runs")
-    p.add_argument("--export_artifact", type=str, default=None)
-    p.add_argument("--export_point_buckets", type=str, default=None)
+    p.add_argument("--export_artifact", type=str, default=None,
+                   help="write a serving artifact (or, with "
+                        "--export_point_buckets, a bucket family) here")
+    p.add_argument("--export_point_buckets", type=str, default=None,
+                   help="comma-separated point buckets, e.g. 32768,34816")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")

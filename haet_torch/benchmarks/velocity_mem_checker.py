@@ -6,7 +6,9 @@ Counterpart of ``benchmarks/velocity_mem_checker.py:28-107`` (the
 reference's ``velocity-mem-checker.py``): a 1-layer irregular model
 (n_hidden 256, 8 heads, G 32), in bf16 unless ``--bf16 0`` (the JAX
 driver's default, ``:93``), at N in {1e3, 1e4, 1e5, 1e6, 2e6, 3e6}. Per
-N, windows of 2 and ``max(16, min(256, 4e6 // N))`` forwards, each fed the last one's output (``fx + 0 * out``), are
+N, windows of :data:`N_LO` and ``max(HI_MIN, min(HI_MAX, 4e6 // N))``
+forwards (2 and 16-256), each fed the last one's output (``fx + 0 *
+out``), are
 interleaved for ``rounds`` rounds, and seconds per forward is the
 difference of the minima (or the hi window's mean where that is not
 positive, flagged ``is_upper_bound``). Peak memory is
@@ -30,6 +32,8 @@ from ..utils.profiling import device_memory_mb
 from .timing import interleaved_minima, per_call
 
 SWEEP = (1_000, 10_000, 100_000, 1_000_000, 2_000_000, 3_000_000)
+#: the short window's forwards, and the bounds of the long one's
+N_LO, HI_MIN, HI_MAX = 2, 16, 256
 
 
 def benchmark_model(num_points: int, device=None, rounds: int = 4,
@@ -45,8 +49,8 @@ def benchmark_model(num_points: int, device=None, rounds: int = 4,
         rng.rand(1, num_points, 3).astype(np.float32)).to(dev)
     fx = torch.from_numpy(
         rng.rand(1, num_points, 1).astype(np.float32)).to(dev)
-    n_lo = 2
-    n_hi = max(16, min(256, 4_000_000 // num_points))
+    n_lo = N_LO
+    n_hi = max(HI_MIN, min(HI_MAX, 4_000_000 // num_points))
 
     def chain(n_iters):
         def run():

@@ -81,7 +81,11 @@ _ROTATIONS: dict = {}
 def _device_rotation(angle_deg: float, dim: int, dtype, device):
     """:func:`rotation_matrix` on ``device``, made once per key: a copy
     from the host in every forward would synchronise the stream, which a
-    CUDA graph's capture refuses."""
+    CUDA graph's capture refuses. Under ``torch.export`` the matrix is made
+    anew and becomes a constant of the program (a tensor made while
+    tracing is a fake one, which the cache must not keep)."""
+    if torch.compiler.is_exporting():
+        return rotation_matrix(angle_deg, dim, dtype).to(device)
     key = (angle_deg, dim, dtype, torch.device(device))
     R = _ROTATIONS.get(key)
     if R is None:

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the port, with their plain versions.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
-version on CPU tensors. Every wrapper keeps a launch counter that rises by
+version on CPU tensors; the three forwards are also the operators
+``haet::slice_states``, ``haet::deslice`` and ``haet::erwin_block``
+(:func:`define_op`), registered when this package is imported, which
+``torch.export`` records and an exported program calls. Every wrapper keeps a launch counter that rises by
 one per kernel launch (never on the plain path), so a run can show that its
 main path went through the kernels. The counters count calls from the
 host: a CUDA graph's capture counts once and its replays not at all.
@@ -34,6 +37,29 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+
+
+#: the ``haet`` operator libraries: a registration lasts as long as its
+#: ``torch.library.Library`` object
+_LIBRARIES: list = []
+
+
+def define_op(name: str, schema: str, impl, fake):
+    """Register the operator ``haet::<name><schema>``: ``impl`` for CPU and
+    CUDA tensors (it picks the kernel or the plain version itself) and
+    ``fake`` for tracing (``torch.export`` runs it on fake tensors, which
+    have no data pointer to launch on). Returns the operator. A plain
+    ``torch.library.Library`` registration: ``torch.library.custom_op``'s
+    Python layers cost several times its dispatch on every call."""
+    import torch
+
+    lib = torch.library.Library("haet", "FRAGMENT")
+    lib.define(name + schema)
+    for key in ("CPU", "CUDA"):
+        lib.impl(name, impl, key)
+    torch.library.register_fake(f"haet::{name}", fake, lib=lib)
+    _LIBRARIES.append(lib)
+    return getattr(torch.ops.haet, name).default
 
 
 def counters() -> dict:
@@ -176,3 +202,9 @@ def profile_launches(fn, *args):
                          if device else 0.0)
     counts["lost"] = prof.lost
     return out, counts
+
+
+# Importing the kernel modules registers their forwards as the operators
+# ``haet::slice_states``, ``haet::deslice`` and ``haet::erwin_block``, which
+# an exported program (``haet_torch.export``) calls by name.
+from . import erwin_block, slice_kernels  # noqa: E402,F401

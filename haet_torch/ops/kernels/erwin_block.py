@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from ..ball_groups import effective_ball_size
 from ..dense import linear
-from . import LaunchCounter, _build
+from . import LaunchCounter, _build, define_op
 
 LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
@@ -403,19 +403,47 @@ def fused_erwin_block(x, pos, params: dict, *, ball_size: int,
 
     Returns ``[B, N, C]`` in ``x``'s dtype, computed in float32 from the
     float32 parameters (the kernels widen bf16 as they stage it and round
-    once at the store). On CUDA tensors it goes through
-    :class:`ErwinBlockFn`, so its backward is the backward kernel, whose
-    ``dx`` and ``dpos`` are in the inputs' dtype and parameter gradients
-    float32. Raises on a CUDA shape outside :func:`eligible`.
+    once at the store). When autograd records the call, CUDA tensors go
+    through :class:`ErwinBlockFn`, whose backward is the backward kernel
+    (``dx`` and ``dpos`` in the inputs' dtype, parameter gradients
+    float32), and CPU tensors through autograd of :func:`erwin_block_plain`;
+    otherwise the operator ``haet::erwin_block`` runs alone (eval,
+    inference, ``torch.export``). Raises on a CUDA shape outside
+    :func:`eligible`.
     """
+    kind = _device(x, "fused_erwin_block")
+    plist = [None if k == "BMSA.sigma_att" and not use_dist_bias
+             else params[k] for k in PARAM_NAMES]
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, pos, *plist)):
+        if kind == "cpu":
+            return erwin_block_plain(x, pos, params, ball_size=ball_size,
+                                     num_heads=num_heads,
+                                     use_dist_bias=use_dist_bias)
+        return ErwinBlockFn.apply(ball_size, num_heads, use_dist_bias, x,
+                                  pos, *plist)
+    return erwin_block_op(x, pos, plist, ball_size, num_heads, use_dist_bias)
+
+
+def _erwin_block_impl(x, pos, params, ball_size, num_heads, use_dist_bias):
+    """The block's forward: the kernel on CUDA tensors,
+    :func:`erwin_block_plain` on CPU tensors. ``params`` in
+    :data:`PARAM_NAMES` order, ``sigma_att`` None without the distance
+    bias."""
+    p = dict(zip(PARAM_NAMES, params))
     if _device(x, "fused_erwin_block") == "cpu":
-        return erwin_block_plain(x, pos, params, ball_size=ball_size,
+        return erwin_block_plain(x, pos, p, ball_size=ball_size,
                                  num_heads=num_heads,
                                  use_dist_bias=use_dist_bias)
-    return ErwinBlockFn.apply(
-        ball_size, num_heads, use_dist_bias, x, pos,
-        *(None if k == "BMSA.sigma_att" and not use_dist_bias else params[k]
-          for k in PARAM_NAMES))
+    return _fused_fwd(x, pos, p, ball_size, num_heads, use_dist_bias)
+
+
+#: the operator ``haet::erwin_block`` (a fake tensor has no data pointer to
+#: launch on: ``torch.export`` sees the operator and its fake)
+erwin_block_op = define_op(
+    "erwin_block", "(Tensor x, Tensor pos, Tensor?[] params, int ball_size, "
+    "int num_heads, bool use_dist_bias) -> Tensor", _erwin_block_impl,
+    lambda x, *args: torch.empty_like(x))
 
 
 def _scratch(layout: Layout, clouds: int, device):
@@ -499,11 +527,11 @@ class ErwinBlockFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ball_size, num_heads, use_dist_bias, x, pos, *params):
-        p = dict(zip(PARAM_NAMES, params))
         ctx.save_for_backward(x, pos, *params)
         ctx.cfg = dict(ball_size=ball_size, num_heads=num_heads,
                        use_dist_bias=use_dist_bias)
-        return _fused_fwd(x, pos, p, ball_size, num_heads, use_dist_bias)
+        return erwin_block_op(x, pos, list(params), ball_size, num_heads,
+                              use_dist_bias)
 
     @staticmethod
     def backward(ctx, dout):

@@ -60,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LaunchCounter, _build
+from . import LaunchCounter, _build, define_op
 
 #: warps per block of the fast kernels, rows per warp tile, ring slots per
 #: warp (``WARPS``, ``TR``, ``STAGES`` in the CUDA source)
@@ -464,10 +464,18 @@ def _stream(device) -> ctypes.c_void_p:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _needs_grad(*tensors) -> bool:
+    """True when autograd records this call: the autograd functions then
+    run the ops, otherwise the ops run alone (eval, inference and
+    ``torch.export``, which must see the ops, not the functions' bodies)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def slice_states(x_proj, w_slice, b_slice, w_ada, b_ada,
                  base_temp: float = 0.5, epsilon: float = 1e-6):
     """Fused eidetic states, differentiable in ``states``
-    (:class:`SliceStatesFn`).
+    (:class:`SliceStatesFn`) when autograd records the call; otherwise the
+    operator ``haet::slice_states`` alone.
 
     Args:
         x_proj: ``[B, H, N, C]`` float32 or bfloat16, contiguous.
@@ -477,8 +485,13 @@ def slice_states(x_proj, w_slice, b_slice, w_ada, b_ada,
     Returns ``(states [B,H,G,C], m [B,H,G], s [B,H,G])``: the states in
     ``x_proj``'s dtype, ``m`` and ``s`` float32.
     """
-    return SliceStatesFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada,
-                               base_temp, epsilon)
+    _on_card(x_proj, "slice_states")  # raises off cuda and cpu
+    if _needs_grad(x_proj, w_slice, b_slice, w_ada, b_ada):
+        return SliceStatesFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada,
+                                   base_temp, epsilon)
+    states, m, s, _ = slice_states_op(x_proj, w_slice, b_slice, w_ada, b_ada,
+                                      base_temp, epsilon)
+    return states, m, s
 
 
 def deslice(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
@@ -487,9 +500,14 @@ def deslice(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
     with ``w`` recomputed from the ``(m, s)`` residuals of
     :func:`slice_states`. ``states`` in ``x_proj``'s dtype. Returns ``[B, H,
     N, C]`` in it, differentiable in every input but ``m`` and ``s``
-    (:class:`DesliceFn`)."""
-    return DesliceFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
-                           s, base_temp, epsilon)
+    (:class:`DesliceFn`) when autograd records the call; otherwise the
+    operator ``haet::deslice`` alone."""
+    _on_card(x_proj, "deslice")  # raises off cuda and cpu
+    if _needs_grad(x_proj, w_slice, b_slice, w_ada, b_ada, states):
+        return DesliceFn.apply(x_proj, w_slice, b_slice, w_ada, b_ada,
+                               states, m, s, base_temp, epsilon)
+    return deslice_op(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
+                      base_temp, epsilon)
 
 
 def slice_states_with_residual(x_proj, w_slice, b_slice, w_ada, b_ada,
@@ -500,11 +518,71 @@ def slice_states_with_residual(x_proj, w_slice, b_slice, w_ada, b_ada,
     dtype, the float32 states, m, s)``; the float32 states are the
     backward's residual, and for a bf16 ``x_proj`` the public states are
     their rounding."""
+    states, m, s, residual = slice_states_op(
+        x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
+    return states, (residual if residual.numel() else states), m, s
+
+
+# The forwards as the operators ``haet::slice_states`` and ``haet::deslice``
+# (:func:`~haet_torch.ops.kernels.define_op`), so that one entry serves
+# training (the autograd functions call them), eval and ``torch.export``;
+# the fakes give the kernels' exact outputs. An operator's outputs may not
+# alias one another, so slice_states returns its float32 residual only
+# where it differs from the public states (bf16 ``x_proj``) and an empty
+# tensor otherwise.
+
+def _slice_states_impl(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
+                       epsilon):
+    """``(states in x_proj's dtype, m, s, residual)``: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor; ``residual`` is the float32
+    states for a bf16 ``x_proj`` and empty for a float32 one."""
     args = (x_proj, w_slice, b_slice, w_ada, b_ada, base_temp, epsilon)
-    if not _on_card(x_proj, "slice_states"):
-        states, m, s = slice_states_plain_f32(*args)
-        return states.to(x_proj.dtype), states, m, s
-    return _slice_states_kernel(*args)
+    if _on_card(x_proj, "slice_states"):
+        states, states_f32, m, s = _slice_states_kernel(*args)
+    else:
+        states_f32, m, s = slice_states_plain_f32(*args)
+        states = states_f32.to(x_proj.dtype)
+    if states is states_f32:
+        states_f32 = states_f32.new_empty(0)
+    return states, m, s, states_f32
+
+
+def _slice_states_fake(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
+                       epsilon):
+    b, h, _, c = x_proj.shape
+    g = w_slice.shape[-1]
+    states = x_proj.new_empty((b, h, g, c))
+    m = x_proj.new_empty((b, h, g), dtype=torch.float32)
+    residual = x_proj.new_empty(
+        (0,) if x_proj.dtype == torch.float32 else (b, h, g, c),
+        dtype=torch.float32)
+    return states, m, torch.empty_like(m), residual
+
+
+def _deslice_impl(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
+                  base_temp, epsilon):
+    """``out [B, H, N, C]`` in ``x_proj``'s dtype: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, base_temp,
+            epsilon)
+    if _on_card(x_proj, "deslice"):
+        return _deslice_kernel(*args)
+    return deslice_plain(*args)
+
+
+def _deslice_fake(x_proj, *args):
+    return torch.empty_like(x_proj)
+
+
+_HEAD = ("(Tensor x_proj, Tensor w_slice, Tensor b_slice, Tensor w_ada, "
+         "Tensor b_ada, ")
+slice_states_op = define_op(
+    "slice_states", _HEAD + "float base_temp, float epsilon) -> "
+    "(Tensor, Tensor, Tensor, Tensor)", _slice_states_impl,
+    _slice_states_fake)
+deslice_op = define_op(
+    "deslice", _HEAD + "Tensor states, Tensor m, Tensor s, float base_temp, "
+    "float epsilon) -> Tensor", _deslice_impl, _deslice_fake)
 
 
 def _slice_states_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
@@ -553,16 +631,6 @@ def _slice_states_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, base_temp,
     _build.check(lib, status, "slice_states")
     SLICE_STATES_LAUNCHES.add()
     return (states if states_lo is None else states_lo), states, m, s
-
-
-def _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
-                 base_temp, epsilon):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, base_temp,
-            epsilon)
-    if not _on_card(x_proj, "deslice"):
-        return deslice_plain(*args)
-    return _deslice_kernel(*args)
 
 
 def _deslice_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s,
@@ -640,8 +708,8 @@ class DesliceFn(torch.autograd.Function):
         ctx.save_for_backward(x_proj, w_slice, b_slice, w_ada, b_ada, states,
                               m, s)
         ctx.consts = (base_temp, epsilon)
-        return _deslice_fwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
-                            s, base_temp, epsilon)
+        return deslice_op(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
+                          s, base_temp, epsilon)
 
     @staticmethod
     def backward(ctx, g_out):

@@ -502,6 +502,15 @@ def test_mem_sweep_main_cpu(monkeypatch, capsys, tmp_path):
 
 
 def test_velocity_main_cpu(monkeypatch, capsys):
+    # the checker's plumbing on a narrow model, in windows of 2 and 4
+    # chained forwards in place of 2 and 256 (the widths and the window
+    # change nothing of what is checked here)
+    monkeypatch.setattr(velocity, "HAETransolverIrregularMesh",
+                        lambda **kw: TModel(**{**kw, "n_hidden": 32,
+                                               "n_head": 4,
+                                               "slice_num": 16}))
+    monkeypatch.setattr(velocity, "HI_MIN", 4)
+    monkeypatch.setattr(velocity, "HI_MAX", 4)
     res = velocity.main(["--device", "cpu", "--max_points", "1000",
                          "--rounds", "1"])
     assert [r["num_points"] for r in res] == [1000]

@@ -42,7 +42,8 @@ from haet_torch.ops import ball_groups as tbg
 from haet_torch.ops.dense import linear
 from haet_torch.ops.kernels import count_kernels
 from haet_torch.ops.kernels import slice_kernels as tsk
-from haet_torch.serve import BatchingServer, SampleSignature
+from haet_torch.export import ServingBundle
+from haet_torch.serve import BatchingServer, export_batch_family
 from haet_torch.train import Checkpointer, Trainer
 from haet_torch.train import car as tcar
 from haet_torch.train.trainer import Adam
@@ -182,8 +183,9 @@ def test_slice_backwards_bf16_match_jax(slice_data, kind):
     pt = [_t(d[k]).requires_grad_() for k in PARAMS]
     if kind == "slice_states":
         gj = _j(d["g_st"], True)
-        _, vjp = jax.vjp(lambda x, *p: jsk.slice_states(x, *p)[0], xj, *pj)
-        want = vjp(gj)
+        want = jax.jit(lambda x, p, g: jax.vjp(
+            lambda x, *p: jsk.slice_states(x, *p)[0], x, *p)[1](g))(
+                xj, pj, gj)
         states, _, _ = tsk.slice_states(xt, *pt)
         states.backward(_t(d["g_st"], True))
         got = [xt.grad, *(p.grad for p in pt)]
@@ -191,9 +193,9 @@ def test_slice_backwards_bf16_match_jax(slice_data, kind):
     else:
         _, m_j, s_j = jsk.slice_states(xj, *pj)
         stj = _j(d["st"], True)
-        _, vjp = jax.vjp(lambda x, st, *p: jsk.deslice(x, *p, st, m_j, s_j),
-                         xj, stj, *pj)
-        want = vjp(_j(d["g_out"], True))
+        want = jax.jit(lambda x, st, p, g: jax.vjp(
+            lambda x, st, *p: jsk.deslice(x, *p, st, m_j, s_j), x, st,
+            *p)[1](g))(xj, stj, pj, _j(d["g_out"], True))
         stt = _t(d["st"], True).requires_grad_()
         out = tsk.deslice(xt, *pt, stt, _t(_np(m_j)), _t(_np(s_j)))
         out.backward(_t(d["g_out"], True))
@@ -229,8 +231,13 @@ def test_erwin_block_bf16_matches_jax(n, c, ball, heads):
     params = variables["params"]
     fn = lambda x, pos, p: jeb.fused_erwin_block(  # noqa: E731
         x, pos, p, ball_size=ball, num_heads=heads, use_dist_bias=True)
-    out_j, vjp = jax.vjp(fn, _j(x, True), _j(pos, True), params)
-    dx_j, dpos_j, dparams_j = vjp(_j(dout, True))
+    @jax.jit
+    def fwd_bwd(x, pos, p, dout):
+        out, vjp = jax.vjp(fn, x, pos, p)
+        return (out, *vjp(dout))
+
+    out_j, dx_j, dpos_j, dparams_j = fwd_bwd(_j(x, True), _j(pos, True),
+                                             params, _j(dout, True))
     assert str(out_j.dtype) == "bfloat16" and str(dx_j.dtype) == "bfloat16"
 
     blk = _port_block(c, heads, ball, variables)
@@ -662,17 +669,20 @@ def test_bf16_checkpoint_round_trip(tmp_path):
                                       saved[i]["exp_avg"].float().numpy())
 
 
-def test_bf16_host_outputs_are_exact():
-    """The server's and ``car.predict``'s host outputs of a bf16 model:
-    float32 arrays equal to the model's bf16 output value for value."""
+def test_bf16_host_outputs_are_exact(tmp_path):
+    """The server's (over the bf16 model's exported program) and
+    ``car.predict``'s host outputs of a bf16 model: float32 arrays equal to
+    the model's bf16 output value for value."""
     tm = TModel(**MODEL, dtype=BF, device="cpu").eval()
     rng = np.random.RandomState(9)
     x = rng.randn(N_PAD, 7).astype(np.float32)
     with torch.inference_mode():
         direct = tm(torch.from_numpy(x[None]))
     assert direct.dtype == BF
-    sig = SampleSignature(((N_PAD, 7), None), ("float32", None))
-    with BatchingServer(tm, {sig: (1,)}, device="cpu") as srv:
+    export_batch_family(str(tmp_path), tm, None, (x[None], None),
+                        batch_sizes=(1,))
+    bundle = ServingBundle.load(str(tmp_path), device="cpu")
+    with BatchingServer(bundle, tm.state_dict(), device="cpu") as srv:
         served = srv.predict(x, None, timeout=120)
     assert served.dtype == np.float32
     np.testing.assert_array_equal(served, direct[0].float().numpy())

@@ -17,11 +17,15 @@ G 16, 2 epochs), both kernel flags set (their plain versions on the CPU):
   first moment stored in bf16), and ``car_eval``, in float32 as the JAX
   driver evaluates, reproduces ``car_train --mu_bf16 1``'s metrics and
   comes within ``BF16_METRIC_RTOL`` of ``car_train --bf16 1``'s;
+* ``car_eval --export_artifact`` (with and without
+  ``--export_point_buckets``) writes programs that answer as the evaluated
+  model, their manifests naming the fold and the checkpoint;
 * the flags that wait for a later item raise ``NotImplementedError``
   naming it, and without ``--device`` and without a card both drivers
   raise.
 """
 
+import json
 import os
 
 import numpy as np
@@ -29,6 +33,8 @@ import pytest
 import torch
 
 from haet_torch.benchmarks import car_eval, car_train
+from haet_torch.export import load_artifact
+from haet_torch.train import Checkpointer
 from test_torch_car_data import build_car_dataset
 
 METRICS = ("rel_l2_press", "rel_l2_velo", "rmse_press", "rmse_velo",
@@ -193,17 +199,58 @@ def test_car_train_bf16_flags_train(flag, tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--export_artifact", "x"], "serving features"),
-    (["--export_point_buckets", "30720"], "serving features"),
     (["--torch_checkpoint", "x.pt"], "drivers and utils"),
     (["--visualize"], "drivers and utils"),
     (["--scatter"], "drivers and utils"),
     (["--max_slice_figs", "2"], "drivers and utils"),
-])
+], ids=[f"argv{i}-drivers and utils" for i in range(2, 6)])
 def test_car_eval_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match) as e:
         car_eval.main(["--device", "cpu"] + argv)
     assert "ROADMAP.md" in str(e.value)
+
+
+@pytest.mark.parametrize("buckets", [None, "4096"],
+                         ids=["artifact", "point_buckets"])
+def test_car_eval_exports(fixture_run, buckets, capsys):
+    """``car_eval --export_artifact``: the evaluated weights' batch-1
+    program at the first validation sample's bucket, or with
+    ``--export_point_buckets`` a family of batch sizes 1, 2, 4 per bucket;
+    each manifest names the fold and the checkpoint, and each program
+    answers as the evaluated model (the ``last`` checkpoint)."""
+    out = fixture_run["root"] / f"export_{buckets is not None}"
+    ck = os.path.join(fixture_run["out"], "checkpoints", "car")
+    if not os.path.exists(os.path.join(ck, "last.pt")):
+        _run(car_train.main, fixture_run["train_args"], capsys)
+    argv = fixture_run["common"] + SMOKE_EVAL + [
+        "--checkpoint_dir", ck, "--which", "last",
+        "--export_artifact", str(out)]
+    if buckets:
+        argv += ["--export_point_buckets", buckets]
+    _, printed = _run(car_eval.main, argv, capsys)
+    manifests = {d: json.load(open(out / d / "manifest.json"))
+                 for d in sorted(os.listdir(out))}
+    shapes = sorted(tuple(m["input_shapes"][0]) for m in manifests.values())
+    if buckets:
+        assert "serving point-bucket family ([4096])" in printed
+        assert shapes == [(1, 4096, 7), (2, 4096, 7), (4, 4096, 7)]
+        assert all(m["point_bucket"] == 4096 for m in manifests.values())
+    else:
+        assert "serving artifact ->" in printed and len(shapes) == 1
+        assert shapes[0][0] == 1 and shapes[0][1] % 2048 == 0
+    state = Checkpointer(ck).restore("last")["model"]
+    model = car_train.build_model(car_eval.model_config(
+        car_eval.parse_args(argv)), "cpu")
+    model.load_state_dict(state)
+    model.eval()
+    for m in manifests.values():
+        assert m["checkpoint"] == "last" and m["fold_id"] == 0
+    first = min(manifests, key=lambda d: manifests[d]["input_shapes"])
+    em = load_artifact(str(out / first), device="cpu")
+    x = np.random.RandomState(0).randn(*shapes[0]).astype(np.float32)
+    with torch.inference_mode():
+        want = model(torch.from_numpy(x), None)
+    torch.testing.assert_close(em.bind(state)(x), want, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("main", [car_train.main, car_eval.main],

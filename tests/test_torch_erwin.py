@@ -23,6 +23,7 @@ from haet_tpu.models.erwin import ErwinTransformer as JErwin
 from haet_tpu.models.erwin import ErwinTransformerBlock as JBlock
 from haet_tpu.ops import ball_groups as jbg
 from haet_tpu.ops.pallas import erwin_block as jeb
+from test_torch_model import init_like
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,8 +59,9 @@ def test_block_matches_jax(n, c, ball, heads, use_dist_bias):
     kw = dict(dim=c, num_heads=heads, ball_size=ball, mlp_ratio=4,
               dimensionality=3, use_dist_bias=use_dist_bias)
     variables = jax.jit(JBlock(**kw).init)(jax.random.PRNGKey(1), x, pos)
-    ref = np.asarray(JBlock(**kw).apply(variables, x, pos))
-    fused = np.asarray(JBlock(use_pallas=True, **kw).apply(variables, x, pos))
+    ref = np.asarray(jax.jit(JBlock(**kw).apply)(variables, x, pos))
+    fused = np.asarray(jax.jit(JBlock(use_pallas=True, **kw).apply)(
+        variables, x, pos))
     np.testing.assert_allclose(fused, ref, rtol=2e-5, atol=2e-5)
 
     xt, pt = torch.from_numpy(x), torch.from_numpy(pos)
@@ -132,13 +134,10 @@ def test_erwin_stage_matches_jax():
               embed=True, dimensionality=3)
     x, pos = _mk(2, 64, 16, 3, seed=5)
     jm = JErwin(**kw)
-    variables = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(2), x,
-                                                pos))
-    rng = np.random.RandomState(7)
-    stats = jax.tree_util.tree_map(
-        lambda a: a + 0.1 * rng.rand(*a.shape).astype(np.float32),
-        variables["batch_stats"])
-    variables = {"params": variables["params"], "batch_stats": stats}
+    # numpy weights on the init's shape tree (no init compile): the init's
+    # distributions perturbed, BatchNorm statistics moved off (0, 1)
+    variables = init_like(jax.eval_shape(jm.init, jax.random.PRNGKey(2), x,
+                                         pos), np.random.RandomState(7), 32)
     ref = np.asarray(jax.jit(jm.apply)(variables, x, pos))
     sd = {k[len("erwin."):]: v
           for k, v in from_jax_variables(_prefixed(variables)).items()}

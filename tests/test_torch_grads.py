@@ -101,7 +101,7 @@ def _jax_grads(d):
         return (jnp.sum(states * d["g_states"])
                 + jnp.sum(out * d["g_out"]))
     args = [jnp.asarray(d[k]) for k in (*SLICE_ARGS, "st")]
-    return jax.grad(loss, argnums=tuple(range(6)))(*args)
+    return jax.jit(jax.grad(loss, argnums=tuple(range(6))))(*args)
 
 
 def _torch_grads(d, slice_states, deslice):

@@ -51,7 +51,8 @@ def test_port_files_are_found():
     assert {"chip_smoke.py", "serve.py", "erwin_block.py",
             "slice_kernels.py", "trainer.py", "car.py", "checkpoint.py",
             "shapenet_car.py", "vtk_io.py", "car_train.py",
-            "car_eval.py"} <= names
+            "car_eval.py", "export.py", "serve_http.py",
+            "micro_serving_latency.py", "micro_serving_server.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -75,6 +76,9 @@ def test_imports_with_jax_blocked():
             "import haet_torch.data.preprocess_car\n"
             "import haet_torch.benchmarks.car_train\n"
             "import haet_torch.benchmarks.car_eval\n"
+            "import haet_torch.export, haet_torch.serve_http\n"
+            "import haet_torch.benchmarks.micro_serving_latency\n"
+            "import haet_torch.benchmarks.micro_serving_server\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -250,14 +250,17 @@ def _jax_vjps(d):
     """``jax.vjp`` of the Pallas ``slice_states`` (cotangent on the states)
     and ``deslice`` (on its output, with the residuals of that forward),
     tile 128."""
-    args = [jnp.asarray(d[k]) for k in ("x", "ws", "bs", "wa", "ba")]
-    (_, m, s), vjp = jax.vjp(lambda *a: jsk.slice_states(*a, 0.5, 1e-6,
-                                                         128), *args)
-    ss = vjp((jnp.asarray(d["g_states"]), jnp.zeros_like(m),
-              jnp.zeros_like(s)))
-    _, vjp = jax.vjp(lambda *a: jsk.deslice(*a, m, s, 0.5, 1e-6, 128),
-                     *args, jnp.asarray(d["st"]))
-    ds = vjp(jnp.asarray(d["g_out"]))
+    @jax.jit
+    def vjps(args, g_states, st, g_out):
+        (_, m, s), vjp = jax.vjp(lambda *a: jsk.slice_states(*a, 0.5, 1e-6,
+                                                             128), *args)
+        ss = vjp((g_states, jnp.zeros_like(m), jnp.zeros_like(s)))
+        _, vjp = jax.vjp(lambda *a: jsk.deslice(*a, m, s, 0.5, 1e-6, 128),
+                         *args, st)
+        return ss, vjp(g_out)
+
+    ss, ds = vjps([jnp.asarray(d[k]) for k in ("x", "ws", "bs", "wa", "ba")],
+                  *(jnp.asarray(d[k]) for k in ("g_states", "st", "g_out")))
     return [np.asarray(v) for v in ss], [np.asarray(v) for v in ds]
 
 
