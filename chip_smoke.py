@@ -215,12 +215,49 @@ Phases (any failed check exits non-zero before the final line):
    e. ``micro_serving_latency`` and ``micro_serving_server`` with short
       windows (bf16, as on the JAX package's chip): every number finite.
 
+12. The structured-mesh PDE slice: the Darcy preset
+   (``HAETransolverStructuredMesh2D``, 8 layers, n_hidden 128, 8 heads, G
+   64 at C 16, Erwin at d 2 with SwiGLU hidden C) and the PDE drivers.
+   a. The Erwin kernels, forward and backward, at the Darcy block shapes
+      (``DARCY_ERWIN``: 32 clouds of 64 tokens, C 16, 4 heads, balls of
+      32; of 32 tokens, C 32, 8 heads, balls of 16) against the plain
+      block: out, dx, dpos and the 14 parameter gradients within
+      ``KERNEL_RTOL``, two calls bit-identical, device us per call beside
+      the bound at d 2 and the plain version's time; untimed, the same
+      shapes at d 3 (``exp_3d``).
+   b. The slice kernels and their backwards at ``[4, 8, 7225, 16]`` G 64
+      as phases 3 and 3b hold them, timed with the L2 flushed; untimed at
+      ``[4, 8, 32768, 16]`` G 64.
+   c. The Darcy preset at full width on the synthetic 85 x 85 stand-in
+      (batch 4, AdamW + OneCycle, both kernel flags, seeded weights
+      perturbed by 0.05 N(0, 1)): the eval forward within ``SERVE_RTOL``
+      of the plain path (8 + 8 + 48 launches); two eager steps from one
+      state bit-identical; five graphed steps against five eager ones
+      within ``GRAPH_RTOL``, 8 + 8 + 48 forward and 8 + 8 + 48 backward
+      launches per eager step and per replay (the profiler), no plain
+      route; the graphed step's wall, device time, kernels, top kernels
+      and the eager step's temporaries; ``use_checkpoint``: gradients
+      within ``CHECKPOINT_RTOL`` of the plain step's, the BatchNorm
+      statistics equal and updated once, the forward kernels launched
+      twice, the temporaries and the graphed step's wall and device time
+      beside the plain step's, a graphed checkpointed step equal to the
+      eager one; ``accum_steps`` 2 graphed against eager (16 + 16 + 96
+      launches each way per step) and its deviation from the full batch
+      (printed: batch-coupled); dropout 0.1: a graphed step equal to the
+      eager one from one generator state, two replays drawing different
+      masks, a replay from the first one's generator state equal to it.
+   d. ``exp_darcy`` (the stand-in), ``exp_pipe``, ``exp_airfoil``,
+      ``exp_elas`` (the fixtures) and ``exp_3d`` (32^3, ``use_checkpoint``)
+      for one epoch at full width: a finite ``rel_err``, every kernel of
+      the path launched, no plain route.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
-7d's run, ``replay_launches`` from the profiler's count of one replay) and
-six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), phase
-5's, 8's, 9's, 10's and 11's numbers, the card line, and as the last line
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+7d's run, ``replay_launches`` from the profiler's count of one replay),
+six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps) and six
+at the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step),
+phase 5's, 8's, 9's, 10's, 11's and 12's numbers, the card line, and as
+the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
 ``haet_tpu``.
 """
 
@@ -316,13 +353,13 @@ ERWIN_FWD_KERNELS = ("erwin_block_fwd",)
 ERWIN_BWD_KERNELS = ("erwin_block_bwd", "erwin_block_sum_partials")
 
 
-def erwin_launch_line(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8):
+def erwin_launch_line(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8, d=3):
     """The Erwin kernels' launch shape at one block shape: the grid of
     ``clouds`` clusters of ``CLUSTER`` CTAs, and each kernel's dynamic
     shared memory and global scratch per CTA."""
     from haet_torch.ops.kernels import erwin_block as eb
 
-    args = (n_e, c_e, 3, mlp_ratio * c_e, heads, min(ball, n_e))
+    args = (n_e, c_e, d, mlp_ratio * c_e, heads, min(ball, n_e))
     fwd, bwd = eb.fwd_layout(*args), eb.bwd_layout(*args)
     return (f"grid {clouds * eb.CLUSTER} CTAs = {clouds} clouds x cluster "
             f"K {eb.CLUSTER}, 256 threads; shared memory per CTA fwd "
@@ -374,16 +411,19 @@ ERWIN_EDGES = ((128, 32, 32), (64, 64, 16), (512, 32, 32), (512, 64, 16),
                (16, 512, 16))
 
 
-def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8):
+def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8,
+                 d=3):
     """Seeded inputs and weights of one Erwin block shape (``clouds``
-    clouds, ``heads`` heads, SwiGLU ``mlp_ratio`` * C), drawn from ``g``."""
+    clouds, ``heads`` heads, SwiGLU ``mlp_ratio`` * C, positions of ``d``
+    dimensions), drawn from ``g``."""
     import torch
 
     from haet_torch.models.erwin import ErwinTransformerBlock
     from haet_torch.ops.kernels import erwin_block as eb
 
     torch.manual_seed(SEED)
-    blk = ErwinTransformerBlock(c_e, heads, ball, mlp_ratio).to(dev)
+    blk = ErwinTransformerBlock(c_e, heads, ball, mlp_ratio,
+                                dimensionality=d).to(dev)
     with torch.no_grad():
         for p in blk.parameters():
             p.copy_(0.2 * torch.randn(p.shape, generator=g).to(dev))
@@ -391,34 +431,45 @@ def erwin_inputs(dev, g, n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8):
             -1.0 + 0.01 * torch.randn(1, heads, 1, 1, generator=g).to(dev))
     params = dict(blk.named_parameters())
     xe = torch.randn(clouds, n_e, c_e, generator=g).to(dev)
-    pe = torch.rand(clouds, n_e, 3, generator=g).to(dev)
+    pe = torch.rand(clouds, n_e, d, generator=g).to(dev)
     check(eb.eligible(n_e, c_e, heads, c_e, mlp_ratio * c_e),
           f"n {n_e} / C {c_e} / {heads} heads is outside the kernel's gate")
     return xe, pe, params, dict(ball_size=ball, num_heads=heads,
                                 use_dist_bias=True)
 
 
-def erwin_work(n_e, c_e, ball, heads=8, mlp_ratio=4):
-    """``(weight elements, forward FLOP)`` of one Erwin block call on 8
-    clouds of ``n_e`` points (``heads`` heads, SwiGLU ``mlp_ratio`` * C)."""
+def erwin_work(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8, d=3):
+    """``(weight elements, forward FLOP)`` of one Erwin block call on
+    ``clouds`` clouds of ``n_e`` points (``heads`` heads, SwiGLU
+    ``mlp_ratio`` * C, positions of ``d`` dimensions)."""
     hid = mlp_ratio * c_e
     hd = c_e // heads
-    w_elems = (c_e + c_e * 3 + c_e + 3 * c_e * c_e + 3 * c_e + heads
+    w_elems = (c_e + c_e * d + c_e + 3 * c_e * c_e + 3 * c_e + heads
                + c_e * c_e + c_e + c_e + 2 * (hid * c_e + hid)
                + c_e * hid + c_e)
-    flops = 2 * 8 * n_e * (3 * c_e + 3 * c_e * c_e
-                           + heads * ball * hd * 2
-                           + c_e * c_e + 3 * hid * c_e)
+    flops = 2 * clouds * n_e * (d * c_e + 3 * c_e * c_e
+                                + heads * ball * hd * 2
+                                + c_e * c_e + 3 * hid * c_e)
     return w_elems, flops
 
 
-def erwin_bwd_bound(n_e, c_e, ball, heads=8, mlp_ratio=4):
+def erwin_fwd_bound(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8, d=3):
+    """Bound of one forward call: reads x, pos and the weights, writes
+    out."""
+    w_elems, flops = erwin_work(n_e, c_e, ball, heads, mlp_ratio, clouds, d)
+    return bound_ms(4 * (2 * clouds * n_e * c_e + clouds * n_e * d
+                         + w_elems), flops)
+
+
+def erwin_bwd_bound(n_e, c_e, ball, heads=8, mlp_ratio=4, clouds=8, d=3):
     """Bound of one backward call: reads x, pos, dout and the weights;
     writes dx, dpos and the gradients of every weight but sigma;
     recomputes the forward and does its two backward products per forward
     product."""
-    w_elems, fwd_flops = erwin_work(n_e, c_e, ball, heads, mlp_ratio)
-    nbytes = 4 * (3 * 8 * n_e * c_e + 2 * 8 * n_e * 3 + 2 * w_elems - heads)
+    w_elems, fwd_flops = erwin_work(n_e, c_e, ball, heads, mlp_ratio, clouds,
+                                    d)
+    nbytes = 4 * (3 * clouds * n_e * c_e + 2 * clouds * n_e * d
+                  + 2 * w_elems - heads)
     return bound_ms(nbytes, 3 * fwd_flops)
 
 
@@ -650,9 +701,7 @@ def kernel_phase(dev):
             dev_us[f"n{n_e}_c{c_e}"] = device_us(fn, ERWIN_FWD_KERNELS)
             plain_times.append((cuda_ms(
                 lambda: eb.erwin_block_plain(xe, pe, params, **kw)), weight))
-        w_elems, flops = erwin_work(n_e, c_e, ball)
-        nbytes = 4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems)
-        bounds.append((bound_ms(nbytes, flops), weight))
+        bounds.append((erwin_fwd_bound(n_e, c_e, ball), weight))
         print_times(times[-1][0], plain_times[-1][0], bounds[-1][0])
         print(f"  device {dev_us[f'n{n_e}_c{c_e}']:.2f} us per call "
               f"(profiler)", flush=True)
@@ -1578,9 +1627,8 @@ def driver_shape_phase(dev, records):
                plain_bwd_ms(xe, pe, dout, params, kw))
         bwd_us = device_us(lambda: eb.fused_erwin_block_bwd(
             xe, pe, dout, params, **kw), ERWIN_BWD_KERNELS)
-        w_elems, flops = erwin_work(n_e, c_e, ball, heads, ratio)
-        bounds = {"fused_erwin_block": bound_ms(
-                      4 * (2 * 8 * n_e * c_e + 8 * n_e * 3 + w_elems), flops),
+        bounds = {"fused_erwin_block": erwin_fwd_bound(n_e, c_e, ball, heads,
+                                                       ratio),
                   "fused_erwin_block_bwd": erwin_bwd_bound(n_e, c_e, ball,
                                                            heads, ratio)}
         times = {"fused_erwin_block": (fwd, err_f, fwd_us),
@@ -3148,14 +3196,15 @@ def micro_serving_phase(dev):
                       ("micro_serving_server", srv)):
         check(all(np.isfinite(v) for v in numbers(res)),
               f"{name}: a non-finite number")
-    check(all(lat[k]["device_latency_s"] > 0 for k in
+    check(all(lat[k]["kernel_time_s"] > 0 for k in
               ("aot", "aot_bound", "eager")),
-          "micro_serving_latency: no traced device time")
+          "micro_serving_latency: no traced kernel time")
     print(f"  micro_serving_latency aot_bound e2e p50 "
           f"{lat['aot_bound']['e2e_p50_s'] * 1e3:.3f} ms, p95 "
           f"{lat['aot_bound']['e2e_p95_s'] * 1e3:.3f} ms, steady state "
-          f"{lat['aot_bound']['steady_state_s'] * 1e3:.3f} ms per call, "
-          f"device {lat['aot_bound']['device_latency_s'] * 1e3:.3f} ms; "
+          f"(device_latency_s) "
+          f"{lat['aot_bound']['device_latency_s'] * 1e3:.3f} ms per call, "
+          f"kernels {lat['aot_bound']['kernel_time_s'] * 1e3:.3f} ms; "
           f"micro_serving_server samples/s sequential_b1 "
           f"{srv['sequential_b1_rps']:.2f}, batched {srv['batched_rps']:.2f}"
           f", batched_pd2 {srv['batched_pd2_rps']:.2f}", flush=True)
@@ -3194,6 +3243,553 @@ def serving_phase(dev, run_dir):
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(run_dir, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the structured-mesh PDE slice, the Darcy preset at full width.
+# ---------------------------------------------------------------------------
+
+#: B*H clouds of the PDE presets' Erwin stage (batch 4 x 8 heads)
+PDE_CLOUDS = 32
+#: the Darcy preset's Erwin block shapes ``tag: (n, C, ball, heads,
+#: launches per step)`` at d 2 and SwiGLU hidden C (``mlp_ratio`` 1), G 64
+#: slices of C 16: encoder0 and decoder0 (64 tokens in two balls of 32, 4
+#: heads of width 4; 2 + 2 blocks a layer) and the bottleneck (32 tokens in
+#: two balls of 16, 8 heads; 2 blocks a layer), 8 layers
+DARCY_ERWIN = {"darcy_n64_c16": (64, 16, 32, 4, 32),
+               "darcy_n32_c32": (32, 32, 16, 8, 16)}
+#: the same block shapes at d 3: ``exp_3d`` at 32^3 (untimed)
+VOLUME_ERWIN = {"heat3d_n64_c16": (64, 16, 32, 4, 0),
+                "heat3d_n32_c32": (32, 32, 16, 8, 0)}
+#: the slice kernels' shapes ``(B, H, N, C, G)``: the Darcy batch of 4 on
+#: the 85 x 85 grid (timed) and ``exp_3d``'s on 32^3 (untimed)
+DARCY_SLICE = {"darcy_b4": (4, 8, 85 * 85, 16, 64)}
+#: the preset's downsampling of the 421^2 grid: 85 x 85
+DARCY_DOWNSAMPLE = 5
+VOLUME_SLICE = {"heat3d_b4": (4, 8, 32 ** 3, 16, 64)}
+#: kernel launches per train step of the Darcy preset
+DARCY_PER_STEP = {"slice_states": 8, "deslice": 8, "slice_states_bwd": 8,
+                  "deslice_bwd": 8, "fused_erwin_block": 48,
+                  "fused_erwin_block_bwd": 48, "copy_scale": 0}
+DARCY_FORWARD = ("slice_states", "deslice", "fused_erwin_block")
+DARCY_STEPS = 5
+#: use_checkpoint against the plain step: each gradient within this of
+#: its leaf's max (the recompute runs the same kernels on the same values)
+CHECKPOINT_RTOL = 1e-6
+
+
+def pde_erwin_phase(dev):
+    """12a: the Erwin kernels, forward and backward, at the Darcy block
+    shapes (d 2, SwiGLU hidden C, 32 clouds) against the plain block: out,
+    dx, dpos and all 14 parameter gradients within ``KERNEL_RTOL`` of each
+    output's max, two calls bit-identical, device us per call beside the
+    bound at d 2 and the plain version's time; then, untimed, the 3D
+    preset's shapes (d 3). Returns the ``*_darcy`` records."""
+    import torch
+
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    g = torch.Generator().manual_seed(SEED + 60)
+    out = {k: {"err": 0.0, "us": {}, "ms": [], "plain_ms": [], "bound": []}
+           for k in ("fwd", "bwd")}
+    shapes = [(tag, *v, 2) for tag, v in DARCY_ERWIN.items()]
+    shapes += [(tag, *v, 3) for tag, v in VOLUME_ERWIN.items()]
+    for tag, n_e, c_e, ball, heads, weight, d in shapes:
+        print(f"phase 12a: fused_erwin_block fwd/bwd ({tag})  x "
+              f"[{PDE_CLOUDS}, {n_e}, {c_e}], {heads} heads, ball {ball}, d "
+              f"{d}, SwiGLU {c_e}; "
+              f"{erwin_launch_line(n_e, c_e, ball, heads, 1, PDE_CLOUDS, d)}",
+              flush=True)
+        xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball, heads, 1,
+                                          PDE_CLOUDS, d)
+        dout = torch.randn(xe.shape, generator=g).to(dev)
+        with torch.inference_mode():
+            o_k = [eb.fused_erwin_block(xe, pe, params, **kw) for _ in (0, 1)]
+            o_p = eb.erwin_block_plain(xe, pe, params, **kw)
+            torch.cuda.synchronize()
+            err_f = compare("out", o_k[0], o_p, KERNEL_RTOL)
+        b_k = [eb.fused_erwin_block_bwd(xe, pe, dout, params, **kw)
+               for _ in (0, 1)]
+        b_p = eb.erwin_block_bwd_plain(xe, pe, dout, params, **kw)
+        torch.cuda.synchronize()
+        err_b = max([compare("dx", b_k[0][0], b_p[0], KERNEL_RTOL),
+                     compare("dpos", b_k[0][1], b_p[1], KERNEL_RTOL)]
+                    + [compare(f"d {k}", b_k[0][2][k], b_p[2][k],
+                               KERNEL_RTOL) for k in eb.GRAD_NAMES])
+        same = torch.equal(*o_k) and all(
+            torch.equal(a, w) for a, w in
+            zip((b_k[0][0], b_k[0][1], *b_k[0][2].values()),
+                (b_k[1][0], b_k[1][1], *b_k[1][2].values())))
+        print(f"  two calls bit-identical (out, dx, dpos, 14 gradients): "
+              f"{same}", flush=True)
+        check(same, f"Erwin kernels at {tag} are not deterministic")
+        out["fwd"]["err"] = max(out["fwd"]["err"], err_f)
+        out["bwd"]["err"] = max(out["bwd"]["err"], err_b)
+        if not weight:
+            continue
+        with torch.inference_mode():
+            fwd = (lambda: eb.fused_erwin_block(xe, pe, params, **kw),
+                   lambda: eb.erwin_block_plain(xe, pe, params, **kw))
+            out["fwd"]["ms"].append((cuda_ms(fwd[0]), weight))
+            out["fwd"]["plain_ms"].append((cuda_ms(fwd[1]), weight))
+            out["fwd"]["us"][tag] = device_us(fwd[0], ERWIN_FWD_KERNELS)
+        bwd = lambda: eb.fused_erwin_block_bwd(  # noqa: E731
+            xe, pe, dout, params, **kw)
+        out["bwd"]["ms"].append((cuda_ms(bwd), weight))
+        out["bwd"]["plain_ms"].append((plain_bwd_ms(xe, pe, dout, params,
+                                                    kw), weight))
+        out["bwd"]["us"][tag] = device_us(bwd, ERWIN_BWD_KERNELS)
+        args = (n_e, c_e, ball, heads, 1, PDE_CLOUDS, d)
+        out["fwd"]["bound"].append((erwin_fwd_bound(*args), weight))
+        out["bwd"]["bound"].append((erwin_bwd_bound(*args), weight))
+        for k in ("fwd", "bwd"):
+            bd = out[k]["bound"][-1][0]
+            print(f"  {k}: device {out[k]['us'][tag]:.2f} us per call "
+                  f"(profiler); events {out[k]['ms'][-1][0]:.4f} ms, plain "
+                  f"{out[k]['plain_ms'][-1][0]:.4f} ms; bound "
+                  f"{bd[0] * 1e3:.3f} us ({bd[1]})", flush=True)
+    total = sum(w for *_, w in DARCY_ERWIN.values())
+    mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
+    recs = []
+    for k, name, line in (("fwd", "fused_erwin_block_darcy", 163),
+                          ("bwd", "fused_erwin_block_bwd_darcy", 187)):
+        r = out[k]
+        bound = (mix([(bd[0], w) for bd, w in r["bound"]]),
+                 "bytes" if all(bd[1] == "bytes" for bd, _ in r["bound"])
+                 else "operations")
+        recs.append(kernel_record(
+            name, "haet_torch/csrc/erwin_block.cu",
+            f"haet_tpu/ops/pallas/erwin_block.py:{line}", r["err"],
+            mix(r["ms"]), mix(r["plain_ms"]), bound,
+            device_us_per_call=r["us"],
+            per_shape_ms={t: ms for t, (ms, _) in zip(DARCY_ERWIN, r["ms"])}))
+    return recs
+
+
+def pde_slice_phase(dev):
+    """12b: the slice forwards and backwards at the Darcy batch
+    (``DARCY_SLICE``, G 64 at C 16) as phases 3 and 3b hold them, timed,
+    and untimed at the 3D preset's (``VOLUME_SLICE``). Returns the
+    ``*_darcy`` records."""
+    recs = slice_phase(dev, DARCY_SLICE, timed=True, label="phase 12b")
+    recs += slice_bwd_phase(dev, DARCY_SLICE, timed=True, label="phase 12b")
+    slice_phase(dev, VOLUME_SLICE, timed=False, label="phase 12b")
+    slice_bwd_phase(dev, VOLUME_SLICE, timed=False, label="phase 12b")
+    for r in recs:
+        r["name"] += "_darcy"
+    return recs
+
+
+def darcy_setup(dev):
+    """The Darcy preset at full width (8 layers, n_hidden 128, 8 heads, G
+    64, ``unified_pos`` ref 8, batch 4, AdamW + OneCycle) on the synthetic
+    85 x 85 stand-in (``load_darcy`` of an empty directory: 32 training
+    and 16 test samples), normalised as ``exp_darcy`` does; ``build(...)``
+    makes a trainer with both kernel flags and seeded weights perturbed by
+    0.05 N(0, 1), the same for every call."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.benchmarks.exp_darcy import darcy_loss
+    from haet_torch.data.pde_datasets import load_darcy
+    from haet_torch.data.synthetic import batch_iter
+    from haet_torch.train import Trainer
+    from haet_torch.train.normalizer import UnitTransformer
+    from haet_torch.utils.config import darcy_config
+
+    cfg = darcy_config(DARCY_DOWNSAMPLE)
+    with tempfile.TemporaryDirectory() as empty:
+        data = load_darcy(empty, 32, 16, DARCY_DOWNSAMPLE)
+    s = data["s"]
+    check(data["synthetic"] and s == cfg.model.H == cfg.model.W,
+          "the Darcy stand-in")
+    x_norm = UnitTransformer(data["train"]["x"])
+    y_norm = UnitTransformer(data["train"]["y"])
+    sets = {k: {"pos": data[k]["pos"],
+                "fx": x_norm.encode(data[k]["x"])[..., None].astype(
+                    np.float32),
+                "y": data[k]["y"].astype(np.float32)}
+            for k in ("train", "test")}
+    loss_fn, eval_fn = darcy_loss(
+        s, torch.tensor(np.float32(y_norm.mean.squeeze()), device=dev),
+        torch.tensor(np.float32(y_norm.std.squeeze()), device=dev))
+    bs = cfg.train.batch_size
+    batches = list(batch_iter(sets["train"], bs, True, 1)())
+
+    def build(eager=False, flags=True, train=None, **model):
+        mc = dataclasses.replace(cfg.model, **model)
+        net = (build_model(mc, dev, seed=SEED) if flags
+               else mc.build(dev, seed=SEED))
+        g = torch.Generator().manual_seed(SEED + 3)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+        tc = dataclasses.replace(cfg.train, **(train or {}))
+        return Trainer(net, loss_fn, tc, total_steps=4 * len(batches),
+                       batch_args=lambda b: (b["pos"], b["fx"]),
+                       eval_fn=eval_fn, eager=eager)
+
+    return cfg, sets, batches, build
+
+
+def step_grads(trainer) -> dict:
+    """The parameters' gradients after a step, by name (None: none)."""
+    return {k: None if p.grad is None else p.grad.detach().clone()
+            for k, p in trainer.model.named_parameters()}
+
+
+def hold_grads(what, got, want, rtol) -> bool:
+    """Every gradient of ``got`` within ``rtol`` of its leaf's max in
+    ``want`` (the same leaves without one); returns whether all are
+    bit-identical."""
+    import torch
+
+    identical, worst = True, (0.0, "")
+    for k, w in want.items():
+        g = got[k]
+        check((g is None) == (w is None), f"{what}: {k} gradient presence")
+        if w is None:
+            continue
+        err = float((g.double() - w.double()).abs().max())
+        scale = max(float(w.double().abs().max()), 1e-30)
+        check(err <= rtol * scale, f"{what}: {k} differs by {err} > {rtol} "
+                                   f"x {scale}")
+        worst = max(worst, (err / scale, k))
+        identical = identical and torch.equal(g, w)
+    print(f"  {what}: largest gradient error relative to its leaf's max "
+          f"{worst[0]:.3e} ({worst[1]}); bit-identical {identical}",
+          flush=True)
+    return identical
+
+
+def eager_step_counts(trainer, batch) -> dict:
+    """The launch counters of one eager step, zeroed just before it."""
+    import torch
+
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return launch_counts()
+
+
+def step_peak_mib(trainer, batch) -> float:
+    """The peak of device memory above what was allocated before one step
+    (its temporaries), MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - start) / 2**20
+
+
+def darcy_phase(dev):
+    """12c: the Darcy preset at full width, its eval forward against the
+    plain path, graphed steps against eager ones with their kernel counts,
+    walls, device time and memory, then ``use_checkpoint``,
+    ``accum_steps`` 2 and dropout. Returns ``(launches of one eager step,
+    summary)``."""
+    import copy
+    import gc
+
+    import torch
+
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        profile_launches,
+                                        reset_launch_counts)
+    from haet_torch.utils.profiling import device_trace, kernel_events
+
+    cfg, sets, batches, build = darcy_setup(dev)
+    per_fwd = {k: (v if k in DARCY_FORWARD else 0)
+               for k, v in DARCY_PER_STEP.items()}
+    out = {}
+
+    print("phase 12c: the eval forward against the plain path", flush=True)
+    graphed = build()
+    n_params = graphed.num_params()
+    plain = build(eager=True, flags=False)
+    test = {k: torch.from_numpy(v[:4]).to(dev)
+            for k, v in sets["test"].items()}
+    with torch.inference_mode():
+        graphed.model.eval()
+        plain.model.eval()
+        reset_launch_counts()
+        got = graphed.model(test["pos"], test["fx"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = plain.model(test["pos"], test["fx"])
+    expect_counts("launches of one eval forward", counts, per_fwd)
+    out["eval_max_abs_err"] = compare("eval out", got, want, SERVE_RTOL)
+    del plain, got, want
+    print(f"  {n_params} parameters; {len(batches)} batches of "
+          f"{cfg.train.batch_size} over {cfg.model.H} x {cfg.model.W}",
+          flush=True)
+
+    print(f"phase 12c: {DARCY_STEPS} graphed steps against eager ones",
+          flush=True)
+    eager = build(eager=True)
+    hold_states("phase 12c: the two trainers' initial state", graphed, eager)
+    # determinism first: two eager steps from one state (the conv's
+    # backward in cuDNN sums in a fixed order only under the policy's
+    # ``cudnn.deterministic``)
+    snapshot = copy.deepcopy(eager.state_dict())
+    first = {k: float(v) for k, v in eager.train_step(batches[0]).items()}
+    g_first = step_grads(eager)
+    eager.load_state_dict(snapshot)
+    second = {k: float(v) for k, v in eager.train_step(batches[0]).items()}
+    identical = first == second and all(
+        (a is None and g_first[k] is None) or torch.equal(a, g_first[k])
+        for k, a in step_grads(eager).items())
+    print(f"  two eager steps from one state: bit-identical {identical}",
+          flush=True)
+    check(identical, "two eager Darcy steps from one state differ")
+    eager.load_state_dict(snapshot)
+    del snapshot
+    same = True
+    for i in range(DARCY_STEPS):
+        b = batches[i]
+        mg, me = graphed.train_step(b), eager.train_step(b)
+        same = hold_step(f"12c step {i + 1}", mg, me,
+                         (graphed.optimizer.hparams.cpu(),
+                          eager.optimizer.hparams.cpu())) and same
+    print(f"  every step's metrics bit-identical: {same}; captured in "
+          f"{[round(t, 3) for t in getattr(graphed.graphs, 'capture_s', [])]}"
+          f" s", flush=True)
+    hold_states(f"phase 12c: state after {DARCY_STEPS} steps", graphed,
+                eager)
+    step_counts = eager_step_counts(eager, batches[DARCY_STEPS])
+    expect_counts("launches of one eager step", step_counts, DARCY_PER_STEP)
+    expect_counts("plain routes", plain_route_counts(),
+                  {k: 0 for k in plain_route_counts()})
+    _, replay = profile_launches(graphed.train_step, batches[DARCY_STEPS])
+    expect_counts("kernel calls in one replay", replay["calls"],
+                  DARCY_PER_STEP)
+    walls = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    eager_walls = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.train_step(batches[i])
+        torch.cuda.synchronize()
+        eager_walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls)) * 1e3
+    with device_trace() as prof:
+        graphed.train_step(batches[0])
+    top = kernel_events(prof)[:12]
+    print("  one replay's device time by kernel:", flush=True)
+    for e in top:
+        print(f"    {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+    out["top_kernels_ms"] = {e.key[:90]: e.self_device_time_total / 1e3
+                             for e in top}
+    plain_peak = step_peak_mib(eager, batches[0])
+    out.update(step_wall_ms=wall, step_walls_ms=[w * 1e3 for w in walls],
+               eager_wall_ms=float(np.median(eager_walls)) * 1e3,
+               device_ms=replay["device_ms"], kernels=replay["kernels"],
+               copies=replay["copies"], busy=replay["device_ms"] / wall,
+               eager_step_peak_mib=plain_peak,
+               max_allocated_mib=torch.cuda.max_memory_allocated() / 2**20)
+    print(f"  graphed step wall median {wall:.3f} ms (min "
+          f"{min(walls) * 1e3:.3f}) of 12; device {replay['device_ms']:.3f} ms "
+          f"in {replay['kernels']} kernels and {replay['copies']} copies; "
+          f"busy {out['busy']:.3f}; eager step wall median "
+          f"{out['eager_wall_ms']:.3f} ms; the eager step's temporaries at "
+          f"peak {plain_peak:.1f} MiB", flush=True)
+    del graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 12c: use_checkpoint against the plain step", flush=True)
+    plain, remat = build(eager=True), build(eager=True, use_checkpoint=True)
+    m_p = plain.train_step(batches[0])
+    g_p, sd_p = step_grads(plain), copy.deepcopy(plain.model.state_dict())
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    m_r = remat.train_step(batches[0])
+    torch.cuda.synchronize()
+    remat_counts = launch_counts()
+    want = {k: v * (2 if k in DARCY_FORWARD else 1)
+            for k, v in DARCY_PER_STEP.items()}
+    expect_counts("launches of one checkpointed eager step (forward "
+                  "kernels twice)", remat_counts, want)
+    check(abs(float(m_r["loss"]) - float(m_p["loss"]))
+          <= CHECKPOINT_RTOL * abs(float(m_p["loss"])),
+          f"checkpointed loss {float(m_r['loss'])} vs {float(m_p['loss'])}")
+    out["checkpoint_grads_identical"] = hold_grads(
+        "use_checkpoint gradients", step_grads(remat), g_p, CHECKPOINT_RTOL)
+    sd_r = remat.model.state_dict()
+    stats = [k for k in sd_p if "running_" in k or "num_batches" in k]
+    check(bool(stats) and all(torch.equal(sd_r[k], sd_p[k]) for k in stats),
+          "BatchNorm statistics after a checkpointed step differ")
+    check({int(sd_r[k]) for k in stats if "num_batches" in k} == {1},
+          "BatchNorm statistics updated more than once")
+    remat_peak = step_peak_mib(remat, batches[1])
+    plain_peak = step_peak_mib(plain, batches[1])
+    print(f"  BatchNorm statistics ({len(stats)} tensors) equal, updated "
+          f"once; the eager step's temporaries at peak: {remat_peak:.1f} MiB "
+          f"with use_checkpoint, {plain_peak:.1f} MiB without", flush=True)
+    remat_graphed = build(use_checkpoint=True)
+    remat_ref = build(eager=True, use_checkpoint=True)
+    hold_step("12c checkpointed step, graphed against eager",
+              remat_graphed.train_step(batches[0]),
+              remat_ref.train_step(batches[0]),
+              (remat_graphed.optimizer.hparams.cpu(),
+               remat_ref.optimizer.hparams.cpu()))
+    hold_states("phase 12c: checkpointed state, graphed against eager",
+                remat_graphed, remat_ref)
+    remat_walls = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        remat_graphed.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        remat_walls.append(time.perf_counter() - t0)
+    _, remat_replay = profile_launches(remat_graphed.train_step, batches[1])
+    out.update(checkpoint_step_peak_mib=remat_peak,
+               plain_step_peak_mib=plain_peak,
+               checkpoint_step_wall_ms=float(np.median(remat_walls)) * 1e3,
+               checkpoint_device_ms=remat_replay["device_ms"],
+               checkpoint_kernels=remat_replay["kernels"])
+    print(f"  graphed checkpointed step wall median "
+          f"{out['checkpoint_step_wall_ms']:.3f} ms; device "
+          f"{remat_replay['device_ms']:.3f} ms in {remat_replay['kernels']} "
+          f"kernels", flush=True)
+    del plain, remat, remat_graphed, remat_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 12c: accum_steps 2 against the eager step and the full "
+          "batch", flush=True)
+    full = build(eager=True)
+    acc_g = build(train={"accum_steps": 2})
+    acc_e = build(eager=True, train={"accum_steps": 2})
+    full.train_step(batches[0])
+    g_full = step_grads(full)
+    hold_step("12c accum_steps 2, graphed against eager",
+              acc_g.train_step(batches[0]), acc_e.train_step(batches[0]),
+              (acc_g.optimizer.hparams.cpu(), acc_e.optimizer.hparams.cpu()))
+    hold_states("phase 12c: accum_steps 2 state, graphed against eager",
+                acc_g, acc_e)
+    gmax = max(float(g.abs().max()) for g in g_full.values()
+               if g is not None)
+    dev_full = max(float((a - g_full[k]).abs().max())
+                   for k, a in step_grads(acc_e).items()
+                   if a is not None) / gmax
+    acc_counts = eager_step_counts(acc_e, batches[1])
+    expect_counts("launches of one eager accum_steps 2 step (2 "
+                  "microbatches)", acc_counts,
+                  {k: 2 * v for k, v in DARCY_PER_STEP.items()})
+    print(f"  against the full batch of 4 (not held: train-mode BatchNorm "
+          f"and the pseudo-positions' min-max see each microbatch alone): "
+          f"largest gradient deviation relative to the largest |gradient| "
+          f"{dev_full:.3e}", flush=True)
+    out["accum_full_batch_rel"] = dev_full
+    del full, acc_g, acc_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 12c: dropout 0.1", flush=True)
+    drop_g, drop_e = build(dropout=0.1), build(eager=True, dropout=0.1)
+    hold_step("12c dropout step 1, graphed against eager (one generator "
+              "state)", drop_g.train_step(batches[0]),
+              drop_e.train_step(batches[0]),
+              (drop_g.optimizer.hparams.cpu(),
+               drop_e.optimizer.hparams.cpu()))
+    snapshot = copy.deepcopy(drop_g.state_dict())
+    gen = drop_g.model.dropout_generator
+    state = gen.get_state()
+    first = float(drop_g.train_step(batches[1])["loss"])
+    drop_g.load_state_dict(snapshot)
+    second = float(drop_g.train_step(batches[1])["loss"])
+    drop_g.load_state_dict(snapshot)
+    gen.set_state(state)
+    again = float(drop_g.train_step(batches[1])["loss"])
+    print(f"  two replays from one state: losses {first:.8f} and "
+          f"{second:.8f} (fresh masks); from the first one's generator "
+          f"state again {again:.8f}", flush=True)
+    check(first != second, "two dropout replays drew the same masks")
+    check(again == first, "a replay from one generator state differs")
+    del drop_g, drop_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["params"] = n_params
+    return step_counts, out
+
+
+def pde_drivers_phase(dev):
+    """12d: each PDE driver briefly on the card (full width): ``exp_darcy``
+    on the stand-in, ``exp_pipe``, ``exp_airfoil`` and ``exp_elas`` on the
+    fixtures, ``exp_3d`` at 32^3 (``use_checkpoint`` on, its default),
+    1 epoch each: a finite ``rel_err``, every kernel of the path launched,
+    no plain route."""
+    import tempfile
+
+    import torch
+
+    from haet_torch.benchmarks import (exp_3d, exp_airfoil, exp_darcy,
+                                       exp_elas, exp_pipe)
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+
+    fixtures = str(ROOT / "tests" / "fixtures" / "data")
+    one = ["--epochs", "1"]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {"exp_darcy": (exp_darcy, one + ["--data_path", tmp]),
+                "exp_pipe": (exp_pipe, one + ["--data_path", fixtures]),
+                "exp_airfoil": (exp_airfoil, one + [
+                    "--data_path", fixtures, "--ntrain", "2",
+                    "--ntest", "2"]),
+                "exp_elas": (exp_elas, one + ["--data_path", fixtures]),
+                "exp_3d": (exp_3d, one)}
+        for name, (mod, argv) in runs.items():
+            print(f"phase 12d: {name} {' '.join(argv)}", flush=True)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rel = mod.main(argv + ["--out_dir", f"{tmp}/{name}"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            print(f"  rel_err {rel}; {secs:.1f} s; launches {counts}",
+                  flush=True)
+            check(np.isfinite(rel), f"{name}: rel_err {rel}")
+            check(all(counts[k] > 0 for k in DARCY_PER_STEP
+                      if k != "copy_scale"),
+                  f"{name}: a kernel of the path did not launch: {counts}")
+            check(all(v == 0 for v in plain_route_counts().values()),
+                  f"{name}: plain routes {plain_route_counts()}")
+            res[name] = {"rel_err": rel, "seconds": secs,
+                         "launches": counts}
+            torch.cuda.empty_cache()
+    return res
+
+
+def pde_phase(dev):
+    """Phase 12: 12a-12d. Returns ``(records, summary)``; the records'
+    ``launches`` are 12c's counts of one eager step."""
+    t0 = time.perf_counter()
+    records = pde_erwin_phase(dev) + pde_slice_phase(dev)
+    step_counts, darcy = darcy_phase(dev)
+    for r in records:
+        r["launches"] = step_counts[r["name"].removesuffix("_darcy")]
+    drivers = pde_drivers_phase(dev)
+    secs = time.perf_counter() - t0
+    print(f"phase 12: {secs:.1f} s", flush=True)
+    return records, {"darcy": darcy, "drivers": drivers, "seconds": secs}
 
 
 def main() -> int:
@@ -3262,6 +3858,7 @@ def main() -> int:
         bf16_records, bf16 = bf16_phase(dev)
         print_bf16_beside_f32(bf16, graphs, f32_profile)
         serving = serving_phase(dev, run_dir)
+        pde_records, pde = pde_phase(dev)
         print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -3272,11 +3869,11 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
         r["replay_launches"] = replay_calls[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]
-    print(json.dumps({"kernels": records + bf16_records,
+    print(json.dumps({"kernels": records + bf16_records + pde_records,
                       "train_steps": TRAIN_STEPS,
                       "serve_forwards": forwards, "fit": fit,
                       "graphs": graphs, "bf16": bf16, "serving": serving,
-                      "serve_profile": f32_profile}))
+                      "serve_profile": f32_profile, "pde": pde}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,9 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
   of two trees;
 * :mod:`.car_train`, :mod:`.car_eval` -- the ShapeNet-Car training run and
   its evaluation from a checkpoint (and its serving programs);
+* :mod:`.exp_darcy`, :mod:`.exp_pipe`, :mod:`.exp_airfoil`,
+  :mod:`.exp_elas`, :mod:`.exp_3d` -- the PDE presets' training runs over
+  ``Trainer.fit`` (:mod:`.pde_common`, their shared flags and tail);
 * :mod:`.micro_serving_latency`, :mod:`.micro_serving_server` -- batch-1
   latency through an exported program, and the batching server's
   samples/s per mode;

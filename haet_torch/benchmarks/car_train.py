@@ -39,7 +39,6 @@ import os
 import numpy as np
 
 from ..data import Prefetcher, shapenet_car
-from ..models import HAETransolverIrregularMesh
 from ..train import Checkpointer, MetricsLogger, Trainer
 from ..train.car import evaluate, loss_fn_builder, make_batch
 from ..utils.config import shapenet_car_config, shapenet_car_train_config
@@ -86,11 +85,12 @@ def model_config(args):
 
 
 def build_model(cfg, device, seed: int = 0):
-    """The model of ``cfg`` on ``device`` with both kernel flags set."""
+    """The model of ``cfg`` (any variant) on ``device`` with both kernel
+    flags set."""
     kw = cfg.model_kwargs()
     kw["use_pallas"] = True
-    return HAETransolverIrregularMesh(**kw, use_pallas_erwin=True,
-                                      device=device, seed=seed)
+    return cfg.model_class()(**kw, use_pallas_erwin=True, device=device,
+                             seed=seed)
 
 
 def load_fold(args):

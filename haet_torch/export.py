@@ -35,8 +35,9 @@ Design notes, as in the JAX module:
   entry point of the port does.
 
 Not ported here, each raising with its ``ROADMAP.md`` item: rollout
-programs (``export_rollout``, ``save_rollout_artifact``: item 6,
-``Time_Input``) and multi-chip programs (``mesh=``: item 10, parallel).
+programs (``export_rollout``, ``save_rollout_artifact``: item 6b, with the
+NS and plasticity loops) and multi-chip programs (``mesh=``: item 10,
+parallel).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ _BLOB = "apply.pt2"
 _PREFIX = "model."
 
 ROLLOUT_TODO = ("rollout export is not ported yet (ROADMAP.md, queue 1: "
-                "2D/3D variants, unified_pos and Time_Input)")
+                "6b, the NS and plasticity loops and rollout export)")
 MESH_TODO = ("multi-chip export (mesh=) is not ported yet (ROADMAP.md, "
              "queue 1: parallel)")
 

@@ -140,12 +140,16 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     **biased** batch variance, where torch uses the unbiased one:
     ``running = 0.9 running + 0.1 batch``. The state-dict keys are
     ``nn.BatchNorm1d``'s. With a compute ``dtype`` the statistics and the
-    normalisation are float32 and the output is cast to it.
+    normalisation are float32 and the output is cast to it. While
+    ``recomputing`` (a checkpointed block's forward run again in the
+    backward, ``components.dropout.checkpoint_contexts``) train mode
+    normalises as before and leaves the running statistics alone.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, dtype=None):
         super().__init__(num_features, eps=eps, momentum=0.1)
         self.compute_dtype = dtype
+        self.recomputing = False
 
     def forward(self, x):
         return normalized(self._normalize, x, self.compute_dtype)
@@ -153,12 +157,13 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     def _normalize(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=0, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        if not self.recomputing:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=0, correction=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 

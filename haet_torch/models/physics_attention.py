@@ -1,9 +1,25 @@
 """Physics attention — the Transolver++ rep-slice tokenizer, PyTorch.
 
-Counterpart of ``haet_tpu/models/physics_attention.py``: slice -> Erwin
-transform -> deslice (``StructuredMesh2D.py:157-262``). Only the irregular
-variant (Linear projection, ``IrregularMesh.py:95``) is ported so far; the
-2D/3D variants are queued in ``ROADMAP.md``.
+Counterpart of ``haet_tpu/models/physics_attention.py``: three variants
+sharing one core, slice -> Erwin transform -> deslice
+(``_PhysicsAttentionBase``, ``StructuredMesh2D.py:157-262``), that differ
+only in the input projection (the ``_project`` hook) and the Erwin
+pseudo-positions' dimensionality:
+
+* :class:`PhysicsAttentionIrregularMesh`: Linear (``IrregularMesh.py:95``),
+  dimensionality 3;
+* :class:`PhysicsAttentionStructuredMesh2D`: a 3x3 Conv2d over the ``H x W``
+  grid (``StructuredMesh2D.py:109``), dimensionality 2;
+* :class:`PhysicsAttentionStructuredMesh3D`: a 3x3x3 Conv3d over the ``H x W
+  x D`` volume (``StructuredMesh3D.py:113``), dimensionality 3.
+
+The convolutions are SAME-padded with torch's default initialisation, which
+is the reference's (its ``_init_weights`` touches only Linear and norm
+layers; JAX copies it with ``torch_conv_kernel_init``/``torch_conv_bias_init``,
+``:45-63``), drawn from the model's generator. Points arrive grid-major
+(``[B, H*W, C]``, channels last, as the JAX NHWC convolution reads them);
+the convolution runs channels-first (NCHW) between two permutes, and the
+``[B, H, N, C]`` layout the slice kernels take is unchanged.
 
 ``use_pallas=True`` routes the slice and deslice through the fused CUDA
 kernels (:mod:`haet_torch.ops.kernels.slice_kernels`), which never
@@ -19,24 +35,32 @@ The Erwin pseudo-positions are min-max normalised over the WHOLE flattened
 output depends on the samples batched with it; the port keeps this.
 
 ``dtype`` is the compute dtype (None or ``torch.bfloat16``), as the JAX
-module's: ``in_project_x`` and ``to_out`` compute in it, so ``x_proj``,
-the states, the pseudo-positions and the output are in it. The slice
-parameters are float32, so the plain path's logits and softmax promote to
-float32 (``:320-335``), and its ``[B, H, N, G]`` weights are stored in the
-compute dtype; the kernels take ``x_proj`` in the compute dtype and upcast
-it inside (:mod:`haet_torch.ops.kernels.slice_kernels`).
+module's: ``in_project_x`` and ``to_out`` compute in it (a bf16 convolution
+over float32 parameters, the bias added to the rounded product, as flax's
+``nn.Conv`` does), so ``x_proj``, the states, the pseudo-positions and the
+output are in it. The slice parameters are float32, so the plain path's
+logits and softmax promote to float32 (``:320-335``), and its ``[B, H, N,
+G]`` weights are stored in the compute dtype; the kernels take ``x_proj`` in
+the compute dtype and upcast it inside
+(:mod:`haet_torch.ops.kernels.slice_kernels`).
+
+The output passes :class:`~haet_torch.models.components.dropout.Dropout`
+(``to_out.1``, ``:415``), which draws from the model's generator.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
 from ..ops.kernels import slice_kernels as sk
+from .components.dropout import Dropout
 from .components.mlp import Linear
 from .erwin import ErwinTransformer
 
@@ -45,8 +69,10 @@ AUTO_TODO = ("use_pallas='auto' is not ported yet: its 1.7M-point threshold "
              "(ROADMAP.md, queue 1: use_pallas='auto')")
 
 
-class PhysicsAttentionIrregularMesh(nn.Module):
-    """Linear slice projection; dimensionality 3 (``IrregularMesh.py:91``).
+class _PhysicsAttentionBase(nn.Module):
+    """The slice -> Erwin -> deslice core (``:66-415``). A variant sets
+    :attr:`dimensionality` and builds ``in_project_x`` in
+    :meth:`_make_project` and applies it in :meth:`_project`.
 
     Parameter names follow the reference schema: ``in_project_x``,
     ``in_project_slice`` (``[G, dim_head]``), ``ada_temp_linear``
@@ -84,9 +110,10 @@ class PhysicsAttentionIrregularMesh(nn.Module):
         self.epsilon = epsilon
         self.use_pallas = bool(use_pallas)
         self.orthogonal_slice_init = orthogonal_slice_init
+        self.dtype = dtype
         g, h, dh = slice_num, heads, dim_head
         inner = dim_head * heads
-        self.in_project_x = Linear(dim, inner, dtype=dtype)
+        self.in_project_x = self._make_project(dim, inner)
         self.in_project_slice = nn.Linear(dh, g)
         self.ada_temp_linear = nn.Linear(dh, 1)
         self.erwin = ErwinTransformer(
@@ -107,7 +134,14 @@ class PhysicsAttentionIrregularMesh(nn.Module):
             use_pallas_blocks=use_pallas_erwin, grouping=grouping,
             dtype=dtype)
         self.to_out = nn.Sequential(Linear(inner, dim, dtype=dtype),
-                                    nn.Dropout(dropout))
+                                    Dropout(dropout))
+
+    def _make_project(self, dim: int, inner: int) -> nn.Module:
+        raise NotImplementedError
+
+    def _project(self, x):
+        """``[B, N, dim] -> [B, heads, N, dim_head]`` (a view)."""
+        raise NotImplementedError
 
     def _slice_params(self):
         """``(Ws [C, G], bs [G], Wa [C, 1], ba [1])`` in the JAX layout."""
@@ -122,7 +156,7 @@ class PhysicsAttentionIrregularMesh(nn.Module):
         G, H, Dh = self.slice_num, self.heads, self.dim_head
 
         # (1) Slice
-        x_proj = slice_ops.split_heads(self.in_project_x(x), H).contiguous()
+        x_proj = self._project(x).contiguous()
         ws, bs, wa, ba = self._slice_params()
         w = None
         if self.use_pallas:
@@ -140,7 +174,7 @@ class PhysicsAttentionIrregularMesh(nn.Module):
             states = slice_ops.eidetic_states(x_proj, w)      # [B, H, G, Dh]
 
         # (2) Erwin over B*H clouds of G tokens; pseudo-positions are the
-        # first 3 channels, min-max normalised over the GLOBAL flat batch.
+        # first d channels, min-max normalised over the GLOBAL flat batch.
         d = self.dimensionality
         flat = states.reshape(B * H * G, Dh)
         with torch.no_grad():
@@ -164,3 +198,87 @@ class PhysicsAttentionIrregularMesh(nn.Module):
         else:
             out = slice_ops.deslice(out_states, w)
         return self.to_out(slice_ops.merge_heads(out))
+
+
+class PhysicsAttentionIrregularMesh(_PhysicsAttentionBase):
+    """Linear slice projection; dimensionality 3 (``IrregularMesh.py:91``)."""
+
+    dimensionality = 3
+
+    def _make_project(self, dim, inner):
+        return Linear(dim, inner, dtype=self.dtype)
+
+    def _project(self, x):
+        return slice_ops.split_heads(self.in_project_x(x), self.heads)
+
+
+@torch.no_grad()
+def init_conv(conv: nn.Module, generator: torch.Generator) -> None:
+    """torch's default Conv initialisation from ``generator``: weight
+    ``U(+-1/sqrt(fan_in))`` (kaiming-uniform with a = sqrt(5)) and bias
+    ``U(+-1/sqrt(fan_in))``, ``fan_in = in_channels * prod(kernel)``."""
+    nn.init.kaiming_uniform_(conv.weight, a=math.sqrt(5),
+                             generator=generator)
+    bound = 1.0 / math.sqrt(conv.weight[0].numel())
+    nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+
+
+def conv_same(x, conv: nn.Module, grid: tuple, dtype=None):
+    """``conv`` (a stride-1, SAME-padded Conv2d or Conv3d) over points laid
+    out grid-major, channels last: ``[B, prod(grid), C] -> [B, prod(grid),
+    C_out]``. In ``dtype`` (None: as given), the input and the parameters
+    cast to it and the bias added to the rounded product, as flax's
+    ``nn.Conv(dtype=...)``."""
+    b, n, c = x.shape
+    nd = len(grid)
+    xg = x.reshape(b, *grid, c).movedim(-1, 1)          # channels first
+    fn = F.conv2d if nd == 2 else F.conv3d
+    if dtype is None:
+        y = fn(xg, conv.weight, conv.bias, padding="same")
+    else:
+        y = fn(xg.to(dtype), conv.weight.to(dtype), None, padding="same")
+    y = y.movedim(1, -1).reshape(b, n, -1)
+    return y if dtype is None else y + conv.bias.to(dtype)
+
+
+class _StructuredMeshBase(_PhysicsAttentionBase):
+    """A SAME-padded ``kernel``-wide convolution over the grid
+    :attr:`grid`; ``x`` is ``[B, prod(grid), dim]`` in row-major grid
+    order."""
+
+    kernel = 3
+    grid: tuple = ()
+
+    def _project(self, x):
+        return slice_ops.split_heads(
+            conv_same(x, self.in_project_x, self.grid, self.dtype),
+            self.heads)
+
+
+class PhysicsAttentionStructuredMesh2D(_StructuredMeshBase):
+    """Conv2d slice projection over the ``H x W`` grid
+    (``StructuredMesh2D.py:109``); dimensionality 2."""
+
+    dimensionality = 2
+
+    def __init__(self, dim: int, H: int = 101, W: int = 31, **kwargs):
+        super().__init__(dim, **kwargs)
+        self.grid = (H, W)
+
+    def _make_project(self, dim, inner):
+        return nn.Conv2d(dim, inner, self.kernel, padding="same")
+
+
+class PhysicsAttentionStructuredMesh3D(_StructuredMeshBase):
+    """Conv3d slice projection over the ``H x W x D`` volume
+    (``StructuredMesh3D.py:113``); dimensionality 3."""
+
+    dimensionality = 3
+
+    def __init__(self, dim: int, H: int = 32, W: int = 32, D: int = 32,
+                 **kwargs):
+        super().__init__(dim, **kwargs)
+        self.grid = (H, W, D)
+
+    def _make_project(self, dim, inner):
+        return nn.Conv3d(dim, inner, self.kernel, padding="same")

@@ -15,15 +15,23 @@ same stream (the batches are numpy arrays that change from step to step,
 so their copy is not a node of the graph).
 
 Capture. Each new graph first runs ``WARMUP`` eager steps on the stream it
-is captured on, on the trainer's real state, which is then put back: the
-warm-up steps are thrown away, so a graphed run equals the eager run step
-for step. They build the kernels, set their shared-memory attributes,
-allocate the slice kernels' per-stream arrival counters, cuBLAS's
-workspace for the stream, and (on the trainer's first step) the static
-gradients, all outside the graph. Garbage is collected before each capture:
+is captured on, on the trainer's real state, which is then put back (the
+model's dropout generator too): the warm-up steps are thrown away, so a
+graphed run equals the eager run step for step. They build the kernels,
+set their shared-memory attributes, allocate the slice kernels' per-stream
+arrival counters, cuBLAS's workspace for the stream, and (on the trainer's
+first step) the static gradients, all outside the graph. Garbage is collected before each capture:
 a dead graph freed by Python's cyclic collector during a capture would
 invalidate it. A capture or a launch that fails raises; nothing falls back
 to the eager step.
+
+Dropout. A model with dropout draws its masks from its own generator
+(``dropout_generator``), which each graph registers before its capture
+(``CUDAGraph.register_generator_state``): a replay then draws from the
+generator's state at that moment and advances it as the eager step would,
+so two replays draw different masks and a replay draws the eager step's
+masks from the same state. With ``accum_steps`` a graph holds a step's
+microbatches one after the other, as the eager step runs them.
 
 Memory. The trainer's graphs share one memory pool
 (``torch.cuda.graph_pool_handle()``). That is safe only because nothing
@@ -163,6 +171,8 @@ class StepGraphs:
         # parameters' gradient accumulators, made on this stream, alive
         # into the capture on another
         saved = [t.detach().clone() for t in state]
+        gen = getattr(tr.model, "dropout_generator", None)
+        gen_state = None if gen is None else gen.get_state()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
             for _ in range(WARMUP):
@@ -171,6 +181,9 @@ class StepGraphs:
                 torch._foreach_copy_(state, saved)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         del saved
+        if gen is not None:
+            gen.set_state(gen_state)
+            graph.graph.register_generator_state(gen)
         graph.keys = list(metrics)
         # a CUDA graph that the cyclic collector destroys during a capture
         # invalidates the capture; torch no longer collects at its start

@@ -1,22 +1,29 @@
-"""Adam + OneCycle + clipping, the training step and the training loop.
+"""Adam/AdamW + schedules + clipping, the training step and the loop.
 
 Counterpart of ``haet_tpu/train/trainer.py``: its OneCycle schedule is a
 closed form of torch's ``OneCycleLR`` (``:52-113``), with Adam's beta1
 cycled (``cycle_momentum``) and torch's ``clip_grad_norm_`` copied
-(``:146-163``), so here the originals are used: ``torch.optim.Adam``,
-``OneCycleLR`` and ``clip_grad_norm_``. The JAX horizon stretch for tiny
-runs is kept (:func:`onecycle_horizon`). :meth:`Trainer.fit` is the JAX
-``fit`` (``:736-1013``): epochs, eval, the metrics logger, early stopping,
-checkpoints with resume, the divergence guard and the save on SIGTERM.
-On a CUDA device each step is a replay of a CUDA graph
-(:mod:`haet_torch.train.graphs`), the counterpart of the JAX trainer's
-jitted step, and :meth:`Trainer.train_steps` runs K steps as one graph, as
-its ``lax.scan`` does; Adam (:class:`Adam`) therefore reads the learning
-rate and beta1 from a device tensor.
+(``:146-163``), so here the originals are used: ``OneCycleLR`` and
+``clip_grad_norm_``. The JAX horizon stretch for tiny runs is kept
+(:func:`onecycle_horizon`). ``cosine_annealing`` (``t_max``, periodic, as
+the reference steps it per batch) and ``constant`` are closed forms
+(``:126-142``), each a ``LambdaLR``; beta1 is cycled under OneCycle only.
+The optimizer is the port's :class:`Adam`, whose ``weight_decay`` makes it
+optax's AdamW. ``accum_steps`` runs each step over that many microbatches:
+their mean gradient, the BatchNorm statistics carried from one to the next,
+then one clip and one update (``_accum_grads``, ``:572-614``).
+:meth:`Trainer.fit` is the JAX ``fit`` (``:736-1013``): epochs, eval, the
+metrics logger, early stopping, checkpoints with resume, the divergence
+guard and the save on SIGTERM. On a CUDA device each step is a replay of a
+CUDA graph (:mod:`haet_torch.train.graphs`), the counterpart of the JAX
+trainer's jitted step, and :meth:`Trainer.train_steps` runs K steps as one
+graph, as its ``lax.scan`` does; Adam therefore reads the learning rate
+and beta1 from a device tensor.
 
 ``sigma_att`` gets no gradient (the distance bias is gradient-free), so
-Adam skips it, as torch does in the reference; the JAX side moves it by
-exactly zero with its zero gradient.
+Adam skips it, as torch does in the reference, and AdamW does not decay it
+(``weight_decay_mask``, ``:166-183``); the JAX side moves it by exactly
+zero with its zero gradient.
 """
 
 from __future__ import annotations
@@ -63,9 +70,9 @@ SCHEDULE_KEYS = ("lr", "betas", "initial_lr", "max_lr", "min_lr",
 
 
 class Adam(torch.optim.Adam):
-    """Adam with each group's learning rate and beta1 read from a tensor on
-    the parameters' device, so that a captured step reads the values of
-    the step it replays.
+    """Adam, or AdamW with ``weight_decay``, with each group's learning
+    rate and beta1 read from a tensor on the parameters' device, so that a
+    captured step reads the values of the step it replays.
 
     ``hparams`` ``[groups, 2]`` float32 holds ``(lr, beta1)`` per group.
     The param groups keep the Python floats that torch's ``OneCycleLR``
@@ -90,6 +97,15 @@ class Adam(torch.optim.Adam):
     :meth:`load_state_dict` copies into it: a captured step keeps writing
     into the same storage for the optimizer's life.
 
+    ``weight_decay`` > 0 is ``optax.adamw``'s decoupled decay, masked as
+    the JAX trainer masks it: each step first scales every parameter of a
+    group but those in ``no_decay`` by ``1 - lr * weight_decay``, then
+    takes the Adam step (optax adds ``weight_decay * p`` to the Adam
+    direction before the rate scales both: the same update, rounded once
+    more). A parameter without a gradient (the 2D/3D models' placeholder
+    when ``fx`` is given) is decayed all the same, as optax decays it with
+    its zero gradient; ``sigma_att``, in ``no_decay``, is left alone.
+
     ``mu_dtype=torch.bfloat16`` is optax's ``adam(mu_dtype=bfloat16)``
     (``TrainConfig.mu_bf16``): the first moment is stored in bf16, and each
     step computes it in float32 from the stored value and the float32
@@ -102,9 +118,15 @@ class Adam(torch.optim.Adam):
     port's ``sigma_att``, the only such parameter, keeps a zero moment).
     """
 
-    def __init__(self, params, lr: float, mu_dtype=None):
+    def __init__(self, params, lr: float, mu_dtype=None,
+                 weight_decay: float = 0.0, no_decay=()):
         super().__init__(params, lr=lr)
         device = self.param_groups[0]["params"][0].device
+        self.weight_decay = weight_decay
+        skip = {id(p) for p in no_decay}
+        #: per group, the parameters AdamW decays
+        self._decayed = [[p for p in g["params"] if id(p) not in skip]
+                         for g in self.param_groups]
         self.hparams = torch.zeros((len(self.param_groups), 2),
                                    dtype=torch.float32, device=device)
         self.mu_dtype = mu_dtype
@@ -154,6 +176,9 @@ class Adam(torch.optim.Adam):
             self.write_hparams()
         for i, (row, group) in enumerate(zip(self.hparams,
                                              self.param_groups)):
+            if self.weight_decay and self._decayed[i]:
+                torch._foreach_mul_(self._decayed[i],
+                                    1.0 - row[0] * self.weight_decay)
             params = [p for p in group["params"] if p.grad is not None]
             if params:
                 m = (self._mu_step(i, group["params"], row[1])
@@ -233,16 +258,41 @@ class Adam(torch.optim.Adam):
                                 if k == "betas" else float(sg[k]))
 
 
-def make_optimizer(cfg: TrainConfig, total_steps: int, params):
-    """``(Adam, OneCycleLR)`` over ``params`` for ``total_steps`` optimizer
-    steps (``haet_tpu/train/trainer.py:186-244``): beta1 cycles between
-    ``max_momentum`` and ``base_momentum`` when ``cycle_momentum``. Call the
-    scheduler's ``step()`` after each optimizer step. The Adam is the port's
-    :class:`Adam`, whose steps a CUDA graph can hold."""
+def make_schedule(cfg: TrainConfig, total_steps: int):
+    """The ``cosine_annealing`` or ``constant`` rate as a factor of
+    ``cfg.lr`` per step, for ``LambdaLR`` (``haet_tpu/train/trainer.py:
+    126-142``): ``(1 + cos(pi * step / t_max)) / 2``, periodic past
+    ``t_max`` (``t_max`` None: ``total_steps``), or 1."""
+    if cfg.schedule == "constant":
+        return lambda step: 1.0
+    t_max = cfg.t_max if cfg.t_max is not None else total_steps
+    if t_max <= 0:
+        raise ValueError(
+            f"cosine_annealing needs t_max > 0, got {t_max} "
+            "(t_max=None uses the run's total step count)")
+    return lambda step: 0.5 * (1.0 + math.cos(math.pi * step / t_max))
+
+
+def make_optimizer(cfg: TrainConfig, total_steps: int, params,
+                   no_decay=()):
+    """``(Adam, scheduler)`` over ``params`` for ``total_steps`` optimizer
+    steps (``haet_tpu/train/trainer.py:186-244``): Adam, or AdamW
+    (``cfg.optimizer``) decaying every parameter but those in
+    ``no_decay``; OneCycleLR, whose beta1 cycles between ``max_momentum``
+    and ``base_momentum`` when ``cycle_momentum``, or a ``LambdaLR`` of
+    :func:`make_schedule` (beta1 0.9, optax's default). Call the
+    scheduler's ``step()`` after each optimizer step. The Adam is the
+    port's :class:`Adam`, whose steps a CUDA graph can hold."""
     cfg.check_ported()
     params = list(params)
     optimizer = Adam(params, lr=cfg.lr,
-                     mu_dtype=torch.bfloat16 if cfg.mu_bf16 else None)
+                     mu_dtype=torch.bfloat16 if cfg.mu_bf16 else None,
+                     weight_decay=(cfg.weight_decay if cfg.optimizer == "adamw"
+                                   else 0.0),
+                     no_decay=no_decay)
+    if cfg.schedule != "onecycle":
+        return optimizer, torch.optim.lr_scheduler.LambdaLR(
+            optimizer, make_schedule(cfg, total_steps))
     scheduler = torch.optim.lr_scheduler.OneCycleLR(
         optimizer, max_lr=cfg.lr,
         total_steps=onecycle_horizon(cfg, total_steps),
@@ -251,6 +301,25 @@ def make_optimizer(cfg: TrainConfig, total_steps: int, params):
         base_momentum=cfg.base_momentum, max_momentum=cfg.max_momentum,
         div_factor=cfg.div_factor, final_div_factor=cfg.final_div_factor)
     return optimizer, scheduler
+
+
+def split_batch(batch: dict, parts: int) -> list:
+    """``batch`` as ``parts`` microbatches along the leading axis, in order
+    (None values stay None); raises where ``parts`` does not divide it, as
+    the JAX trainer does."""
+    out = [{} for _ in range(parts)]
+    for k, v in batch.items():
+        if v is None:
+            for mb in out:
+                mb[k] = None
+            continue
+        if v.shape[0] % parts:
+            raise ValueError(
+                f"accum_steps={parts} must divide the batch dimension "
+                f"({v.shape[0]})")
+        for mb, piece in zip(out, torch.split(v, v.shape[0] // parts)):
+            mb[k] = piece
+    return out
 
 
 def flat_views(params) -> torch.Tensor:
@@ -364,7 +433,7 @@ class Trainer:
 
     Batches are dicts of numpy arrays or tensors; they are moved to the
     model's device. The trainer owns the training state: the model, Adam,
-    OneCycleLR and :attr:`step` (:meth:`state_dict`). Every tensor of it
+    the scheduler and :attr:`step` (:meth:`state_dict`). Every tensor of it
     keeps its storage for the trainer's life, the gradients too (allocated
     by the first step; a parameter that gets none, ``sigma_att``, keeps
     ``grad`` None): on a CUDA device :meth:`train_step` replays a CUDA
@@ -388,8 +457,10 @@ class Trainer:
         self.batch_log_every = batch_log_every
         self.watch_every = watch_every
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.optimizer, self.scheduler = make_optimizer(cfg, total_steps,
-                                                        self.params)
+        self.optimizer, self.scheduler = make_optimizer(
+            cfg, total_steps, self.params,
+            no_decay=[p for k, p in model.named_parameters()
+                      if k.rsplit(".", 1)[-1] == "sigma_att"])
         self.device = self.params[0].device
         self.step = 0
         self._resume_epoch = None
@@ -411,7 +482,7 @@ class Trainer:
     def state_dict(self) -> dict:
         """The training state: the model's ``state_dict`` (BatchNorm
         running statistics and ``num_batches_tracked`` included), Adam's,
-        OneCycleLR's (its ``last_epoch``; the cycled beta1 sits in Adam's
+        the scheduler's (its ``last_epoch``; a cycled beta1 sits in Adam's
         param groups) and the step."""
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
@@ -487,36 +558,60 @@ class Trainer:
         return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
     def advance_schedule(self) -> None:
-        """OneCycleLR's step after an optimizer step. Past the horizon
+        """The scheduler's step after an optimizer step. Past its horizon
         torch's OneCycleLR raises; the JAX schedule clamps the step to it
         (haet_tpu/train/trainer.py:66-70), so the rate and beta1 stay at
         their values at total_steps, as here. A run resumed after a
         preemption re-runs the interrupted epoch and so takes that many
-        steps more than the horizon."""
-        if self.scheduler.last_epoch < self.scheduler.total_steps:
+        steps more than the horizon. The cosine and constant schedules
+        have no horizon."""
+        horizon = getattr(self.scheduler, "total_steps", None)
+        if horizon is None or self.scheduler.last_epoch < horizon:
             self.scheduler.step()
 
     def step_body(self, batch: dict) -> dict:
         """One step on a batch of tensors on the model's device: the
         forward in train mode, the loss, the gradients copied into the
-        parameters' gradients, clipping and Adam (OneCycle is the caller's:
-        :meth:`advance_schedule`). The op-by-op step, and the one that
-        :class:`~haet_torch.train.graphs.StepGraphs` captures."""
+        parameters' gradients, clipping and Adam (the schedule is the
+        caller's: :meth:`advance_schedule`). With ``accum_steps`` A > 1 the
+        batch is A microbatches, each a forward and a backward in turn (the
+        BatchNorm statistics carried from one to the next), whose gradients
+        are summed into the parameters' gradients and divided by A; the
+        loss and the aux metrics are the microbatches' means. The op-by-op
+        step, and the one that :class:`~haet_torch.train.graphs.StepGraphs`
+        captures."""
         self.model.train()
-        loss, aux = self.loss_fn(self.model(*self.batch_args(batch)), batch)
-        if self._grad_params is None:
-            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-            self._grad_params = [p for p, g in zip(self.params, grads)
-                                 if g is not None]
-            grads = [g for g in grads if g is not None]
-            self._flat_grad = flat_views(self._grad_params)
-        else:
-            grads = torch.autograd.grad(loss, self._grad_params)
-        # into the gradients allocated by the first step, views of one
-        # buffer: a concatenation is a few launches, where a copy per
-        # parameter (or autograd's accumulation into existing gradients)
-        # is one each
-        torch.cat([g.reshape(-1) for g in grads], out=self._flat_grad)
+        accum = self.cfg.accum_steps
+        micro = [batch] if accum == 1 else split_batch(batch, accum)
+        losses, auxes = [], []
+        for i, mb in enumerate(micro):
+            loss, aux = self.loss_fn(self.model(*self.batch_args(mb)), mb)
+            if self._grad_params is None:
+                grads = torch.autograd.grad(loss, self.params,
+                                            allow_unused=True)
+                self._grad_params = [p for p, g in zip(self.params, grads)
+                                     if g is not None]
+                grads = [g for g in grads if g is not None]
+                self._flat_grad = flat_views(self._grad_params)
+            else:
+                grads = torch.autograd.grad(loss, self._grad_params)
+            # into the gradients allocated by the first step, views of one
+            # buffer: a concatenation is a few launches, where a copy per
+            # parameter (or autograd's accumulation into existing
+            # gradients) is one each
+            if i == 0:
+                torch.cat([g.reshape(-1) for g in grads], out=self._flat_grad)
+            else:
+                self._flat_grad.add_(torch.cat([g.reshape(-1)
+                                                for g in grads]))
+            losses.append(loss.detach())
+            auxes.append({k: v.detach() for k, v in aux.items()})
+        if accum > 1:
+            self._flat_grad.div_(accum)
+            loss = torch.stack(losses).mean()
+            aux = {k: torch.stack([a[k] for a in auxes]).mean()
+                   for k in auxes[0]}
+            grads = [p.grad for p in self._grad_params]
         if self.cfg.max_grad_norm is not None:
             grad_norm = torch.nn.utils.clip_grad_norm_(
                 self._grad_params, self.cfg.max_grad_norm)
@@ -566,11 +661,19 @@ class Trainer:
         buffers = {k: v.clone() for k, v in self.model.named_buffers()}
         batch = self._on_device(batch)
         self.model.train()
-        loss, _ = self.loss_fn(self.model(*self.batch_args(batch)), batch)
         named = [(k, p) for k, p in self.model.named_parameters()
                  if p.requires_grad]
-        grads = torch.autograd.grad(loss, [p for _, p in named],
-                                    allow_unused=True)
+        # microbatched as the step is: a batch the step only ever sees in
+        # accum_steps pieces may not fit whole
+        accum = self.cfg.accum_steps
+        total = None
+        for mb in ([batch] if accum == 1 else split_batch(batch, accum)):
+            loss, _ = self.loss_fn(self.model(*self.batch_args(mb)), mb)
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        allow_unused=True)
+            total = grads if total is None else [
+                None if g is None else t + g for t, g in zip(total, grads)]
+        grads = [None if g is None else g / accum for g in total]
         names = [k for (k, _), g in zip(named, grads) if g is not None]
         norms = torch.stack([torch.linalg.vector_norm(g) for g in grads
                              if g is not None]).cpu().tolist()

@@ -1,25 +1,30 @@
-"""Model and training configs and the ShapeNet-Car presets, PyTorch.
+"""Model, training and experiment configs and the presets, PyTorch.
 
-``ModelConfig`` and ``TrainConfig`` are ``haet_tpu/utils/config.py``'s
-field for field, so one config describes the same model and the same
-training in both packages. :meth:`ModelConfig.build` returns the torch
-model; only the irregular variant is ported so far. ``ModelConfig.bf16``
-builds it with the bf16 compute dtype over float32 parameters, and
-``TrainConfig.mu_bf16`` stores Adam's first moment in bf16, as in JAX.
+``ModelConfig``, ``TrainConfig`` and ``ExperimentConfig`` are
+``haet_tpu/utils/config.py``'s field for field, so one config describes
+the same model and the same training in both packages.
+:meth:`ModelConfig.build` returns the torch model of any of the three
+variants. ``ModelConfig.bf16`` builds it with the bf16 compute dtype over
+float32 parameters, and ``TrainConfig.mu_bf16`` stores Adam's first moment
+in bf16, as in JAX. The PDE presets (``darcy_config`` ...
+``plasticity_config``) and :data:`PRESETS` are the JAX package's
+(``:157-302``); the ShapeNet-Car model and training keep their own
+functions (:func:`shapenet_car_config`, :func:`shapenet_car_train_config`),
+which ``PRESETS["shapenet_car"]`` joins into one experiment.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import torch
 
-TRAINER_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: Trainer and "
-                "drivers)")
-VARIANT_TODO = ("the {} variant is not ported yet (ROADMAP.md, queue 1: "
-                "2D/3D variants, unified_pos and Time_Input)")
+#: the model class of each ``ModelConfig.variant``
+VARIANTS = {"irregular": "HAETransolverIrregularMesh",
+            "structured_2d": "HAETransolverStructuredMesh2D",
+            "structured_3d": "HAETransolverStructuredMesh3D"}
 
 
 @dataclass
@@ -63,27 +68,35 @@ class ModelConfig:
     shard_axes: Optional[tuple] = None
 
     def model_kwargs(self) -> dict:
-        """Constructor kwargs of :class:`HAETransolverIrregularMesh` for
-        this config (what :meth:`build` passes); ``bf16`` becomes
-        ``dtype=torch.bfloat16``."""
-        if self.variant != "irregular":
-            raise NotImplementedError(VARIANT_TODO.format(self.variant))
+        """Constructor kwargs of this config's model class (what
+        :meth:`build` passes): the grid's ``H``, ``W`` (and ``D``) for the
+        structured variants; ``bf16`` becomes ``dtype=torch.bfloat16``."""
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r}")
         if self.shard_axes is not None:
             raise NotImplementedError(
                 "shard_axes is not ported yet (ROADMAP.md, queue 1: parallel)")
         kw = dataclasses.asdict(self)
-        for k in ("variant", "H", "W", "D", "pallas_auto_threshold", "bf16",
-                  "shard_axes"):
+        grid = {"irregular": (), "structured_2d": ("H", "W"),
+                "structured_3d": ("H", "W", "D")}[self.variant]
+        for k in ("variant", "pallas_auto_threshold", "bf16", "shard_axes",
+                  *(k for k in ("H", "W", "D") if k not in grid)):
             kw.pop(k)
         kw["dtype"] = torch.bfloat16 if self.bf16 else None
         return kw
 
+    def model_class(self) -> type:
+        """The torch model class of :attr:`variant`."""
+        from .. import models
+
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r}")
+        return getattr(models, VARIANTS[self.variant])
+
     def build(self, device=None, seed: int = 0):
         """The torch model for this config on ``device`` (None = CUDA)."""
-        from ..models import HAETransolverIrregularMesh
-
-        return HAETransolverIrregularMesh(**self.model_kwargs(),
-                                          device=device, seed=seed)
+        return self.model_class()(**self.model_kwargs(), device=device,
+                                  seed=seed)
 
 
 def shapenet_car_config() -> ModelConfig:
@@ -105,15 +118,15 @@ def shapenet_car_config() -> ModelConfig:
 class TrainConfig:
     """``haet_tpu/utils/config.py:TrainConfig``, field for field.
 
-    The port's ``Trainer`` runs Adam with OneCycle (``cycle_momentum``
-    included; ``mu_bf16`` stores the first moment in bf16) and torch's
-    gradient clipping, and ``Trainer.fit`` the
-    training loop with early stopping, periodic checkpoints
-    (``checkpoint_every``), ``stop_on_nonfinite`` and ``preempt_save``;
-    :meth:`check_ported` raises for the settings it does not run yet.
-    ``weight_decay`` is read by AdamW only, as in JAX. ``seed`` seeds the
-    car driver's model; its batches hold one sample, the preset's
-    ``batch_size``.
+    The port's ``Trainer`` runs Adam or AdamW (``mu_bf16`` stores the first
+    moment in bf16) under OneCycle (``cycle_momentum`` included),
+    ``cosine_annealing`` (``t_max``) or a ``constant`` rate, torch's
+    gradient clipping and ``accum_steps`` microbatches per step, and
+    ``Trainer.fit`` the training loop with early stopping, periodic
+    checkpoints (``checkpoint_every``), ``stop_on_nonfinite`` and
+    ``preempt_save``; :meth:`check_ported` raises for an unknown optimizer
+    or schedule. ``weight_decay`` is read by AdamW only, as in JAX.
+    ``seed`` seeds the drivers' models.
     """
 
     lr: float = 1e-3
@@ -140,19 +153,15 @@ class TrainConfig:
     preempt_save: bool = True
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a setting the port does not run
-        yet, naming its ``ROADMAP.md`` item."""
-        if self.optimizer == "adamw":
-            raise NotImplementedError(TRAINER_TODO.format("optimizer='adamw'"))
-        if self.optimizer != "adam":
+        """Raise ``ValueError`` for an unknown optimizer or schedule, or
+        ``accum_steps`` < 1."""
+        if self.optimizer not in ("adam", "adamw"):
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
-        if self.schedule in ("cosine_annealing", "constant"):
-            raise NotImplementedError(
-                TRAINER_TODO.format(f"schedule={self.schedule!r}"))
-        if self.schedule != "onecycle":
+        if self.schedule not in ("onecycle", "cosine_annealing", "constant"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        if self.accum_steps != 1:
-            raise NotImplementedError(TRAINER_TODO.format("accum_steps > 1"))
+        if self.accum_steps < 1:
+            raise ValueError(
+                f"accum_steps must be >= 1, got {self.accum_steps}")
 
 
 def shapenet_car_train_config() -> TrainConfig:
@@ -163,3 +172,132 @@ def shapenet_car_train_config() -> TrainConfig:
     return TrainConfig(lr=1e-3, optimizer="adam", final_div_factor=1000.0,
                        epochs=200, batch_size=1, max_grad_norm=1.0,
                        early_stop_patience=7)
+
+
+@dataclass
+class ExperimentConfig:
+    name: str = "experiment"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data_path: str = "./data"
+    checkpoint_dir: str = "./checkpoints"
+    ntrain: int = 1000
+    ntest: int = 200
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+# The PDE presets of ``haet_tpu/utils/config.py:157-259`` (the reference's
+# committed run configs): AdamW, lr 1e-3, weight decay 1e-5, 500 epochs,
+# OneCycle (elasticity: cosine annealing with T_max = epochs, stepped per
+# batch), 8 blocks of n_hidden 128 (NS 256), 8 heads, G 64.
+
+def darcy_config(downsample: int = 5) -> ExperimentConfig:
+    """reference exp_darcy.py defaults + scripts/HAET_Darcy.sh: the 421^2
+    grid downsampled to 85 x 85, ``unified_pos`` with ref 8."""
+    s = int((421 - 1) / downsample) + 1
+    return ExperimentConfig(
+        name="darcy",
+        model=ModelConfig(
+            variant="structured_2d", space_dim=2, fun_dim=1, out_dim=1,
+            n_layers=8, n_hidden=128, n_head=8, slice_num=64,
+            mlp_ratio=1, ref=8, unified_pos=True, H=s, W=s,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=4,
+                          checkpoint_every=100),
+    )
+
+
+def airfoil_config() -> ExperimentConfig:
+    """reference exp_airfoil.py: 221x51 mesh coords, fun_dim=0."""
+    return ExperimentConfig(
+        name="airfoil",
+        model=ModelConfig(
+            variant="structured_2d", space_dim=2, fun_dim=0, out_dim=1,
+            n_layers=8, n_hidden=128, n_head=8, slice_num=64,
+            mlp_ratio=1, unified_pos=False, H=221, W=51,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=4,
+                          checkpoint_every=100),
+    )
+
+
+def pipe_config() -> ExperimentConfig:
+    """reference exp_pipe.py: 129x129 mesh coords, fun_dim=0."""
+    return ExperimentConfig(
+        name="pipe",
+        model=ModelConfig(
+            variant="structured_2d", space_dim=2, fun_dim=0, out_dim=1,
+            n_layers=8, n_hidden=128, n_head=8, slice_num=64,
+            mlp_ratio=1, unified_pos=False, H=129, W=129,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=4,
+                          checkpoint_every=100),
+    )
+
+
+def ns_config() -> ExperimentConfig:
+    """reference exp_ns.py: 64x64, T_in=10 channels, autoregressive
+    rollout (its driver is ``ROADMAP.md`` queue 1, item 6b)."""
+    return ExperimentConfig(
+        name="ns",
+        model=ModelConfig(
+            variant="structured_2d", space_dim=2, fun_dim=10, out_dim=1,
+            n_layers=8, n_hidden=256, n_head=8, slice_num=64,
+            mlp_ratio=1, unified_pos=True, ref=8, H=64, W=64,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=2,
+                          checkpoint_every=100),
+    )
+
+
+def elasticity_config() -> ExperimentConfig:
+    """reference exp_elas.py: 972-point clouds, fun_dim=0, irregular model,
+    ``CosineAnnealingLR(T_max=epochs)`` stepped per batch (exp_elas.py:128,
+    226)."""
+    return ExperimentConfig(
+        name="elasticity",
+        model=ModelConfig(
+            variant="irregular", space_dim=2, fun_dim=0, out_dim=1,
+            n_layers=8, n_hidden=128, n_head=8, slice_num=64,
+            mlp_ratio=1, unified_pos=False,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=1,
+                          checkpoint_every=100,
+                          schedule="cosine_annealing", t_max=500),
+    )
+
+
+def plasticity_config() -> ExperimentConfig:
+    """reference exp_plas.py: 101x31 grid, Time_Input=True, out_dim=4 (its
+    driver is ``ROADMAP.md`` queue 1, item 6b)."""
+    return ExperimentConfig(
+        name="plasticity",
+        model=ModelConfig(
+            variant="structured_2d", space_dim=2, fun_dim=0, out_dim=4,
+            n_layers=8, n_hidden=128, n_head=8, slice_num=64,
+            mlp_ratio=1, unified_pos=False, H=101, W=31, Time_Input=True,
+        ),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-5, epochs=500, batch_size=8,
+                          checkpoint_every=100),
+    )
+
+
+def shapenet_car_experiment() -> ExperimentConfig:
+    """The ShapeNet-Car preset as one experiment
+    (``haet_tpu/utils/config.py:262-291``): :func:`shapenet_car_config` and
+    :func:`shapenet_car_train_config`."""
+    return ExperimentConfig(name="shapenet_car", model=shapenet_car_config(),
+                            train=shapenet_car_train_config())
+
+
+PRESETS = {
+    "darcy": darcy_config,
+    "airfoil": airfoil_config,
+    "pipe": pipe_config,
+    "ns": ns_config,
+    "elasticity": elasticity_config,
+    "plasticity": plasticity_config,
+    "shapenet_car": shapenet_car_experiment,
+}

@@ -17,6 +17,12 @@ the result. cuBLAS may otherwise reduce a split-K bf16 product's partial
 sums in bf16, so ``torch.backends.cuda.matmul.
 allow_bf16_reduced_precision_reduction`` is False too
 (:data:`ALLOW_BF16_REDUCED_REDUCTION`).
+
+The structured models' convolutions run in cuDNN, whose default backward
+algorithms may sum with atomics in an order that changes from call to
+call; ``torch.backends.cudnn.deterministic`` (:data:`CUDNN_DETERMINISTIC`)
+picks deterministic ones, so that a step replayed from a CUDA graph equals
+the eager step bit for bit, as the kernels' own sums do.
 """
 
 from __future__ import annotations
@@ -27,13 +33,17 @@ import torch
 ALLOW_TF32 = False
 #: the bf16 policy: bf16 products accumulate in float32 throughout
 ALLOW_BF16_REDUCED_REDUCTION = False
+#: cuDNN's convolutions in a fixed summation order
+CUDNN_DETERMINISTIC = True
 
 
 def set_precision_policy() -> None:
-    """Apply :data:`ALLOW_TF32` to PyTorch's matmul and cuDNN switches and
-    :data:`ALLOW_BF16_REDUCED_REDUCTION` to its bf16 matmuls."""
+    """Apply :data:`ALLOW_TF32` to PyTorch's matmul and cuDNN switches,
+    :data:`ALLOW_BF16_REDUCED_REDUCTION` to its bf16 matmuls and
+    :data:`CUDNN_DETERMINISTIC` to cuDNN."""
     torch.backends.cuda.matmul.allow_tf32 = ALLOW_TF32
     torch.backends.cudnn.allow_tf32 = ALLOW_TF32
+    torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
         ALLOW_BF16_REDUCED_REDUCTION)
 

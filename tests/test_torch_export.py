@@ -216,7 +216,7 @@ def test_devices_and_unported_programs_raise(env, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         hexport.load_artifact(d)
     for fn in (hexport.export_rollout, hexport.save_rollout_artifact):
-        with pytest.raises(NotImplementedError, match="Time_Input"):
+        with pytest.raises(NotImplementedError, match="rollout export"):
             fn(env["tm"], None, (env["x"], None), steps=2)
     with pytest.raises(NotImplementedError, match="parallel"):
         hexport.export_apply(env["tm"], None, (env["x"], None),

@@ -52,7 +52,10 @@ def test_port_files_are_found():
             "slice_kernels.py", "trainer.py", "car.py", "checkpoint.py",
             "shapenet_car.py", "vtk_io.py", "car_train.py",
             "car_eval.py", "export.py", "serve_http.py",
-            "micro_serving_latency.py", "micro_serving_server.py"} <= names
+            "micro_serving_latency.py", "micro_serving_server.py",
+            "embedding.py", "dropout.py", "pde_datasets.py",
+            "pde_common.py", "exp_darcy.py", "exp_pipe.py",
+            "exp_airfoil.py", "exp_elas.py", "exp_3d.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -79,6 +82,14 @@ def test_imports_with_jax_blocked():
             "import haet_torch.export, haet_torch.serve_http\n"
             "import haet_torch.benchmarks.micro_serving_latency\n"
             "import haet_torch.benchmarks.micro_serving_server\n"
+            "import haet_torch.models.components\n"
+            "import haet_torch.data.pde_datasets, haet_torch.data.synthetic\n"
+            "import haet_torch.benchmarks.pde_common\n"
+            "import haet_torch.benchmarks.exp_darcy\n"
+            "import haet_torch.benchmarks.exp_pipe\n"
+            "import haet_torch.benchmarks.exp_airfoil\n"
+            "import haet_torch.benchmarks.exp_elas\n"
+            "import haet_torch.benchmarks.exp_3d\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -90,6 +101,7 @@ def test_default_device_rule(monkeypatch):
     assert default_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.deterministic
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         default_device(None)

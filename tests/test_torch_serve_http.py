@@ -513,10 +513,15 @@ def test_serving_drivers_on_the_cpu(monkeypatch):
                 for v in d.values() if isinstance(v, float)]
         assert flat and all(np.isfinite(flat))
     assert lat["dtype"] == "float32" and lat["card"] is None
-    # host time in steady state; the device time needs a card
-    assert lat["aot_bound"]["steady_state_s"] > 0
-    assert lat["aot_bound"]["device_latency_s"] is None
-    assert lat["vs_baseline_device"] is None
+    # the time per call in steady state, as the JAX driver's; the traced
+    # kernel time needs a card
+    assert lat["aot_bound"]["device_latency_s"] > 0
+    assert lat["aot_bound"]["samples_per_sec"] == pytest.approx(
+        1.0 / lat["aot_bound"]["device_latency_s"])
+    assert lat["vs_baseline_device"] == pytest.approx(
+        lat["baseline_a100_s"] / lat["aot_bound"]["device_latency_s"])
+    assert lat["aot_bound"]["kernel_time_s"] is None
+    assert lat["vs_baseline_kernel"] is None
     assert set(lat) >= {"aot", "aot_bound", "eager", "load_s"}
     assert sum(srv["batch_histogram_best_round"].values()) >= 2
     assert srv["sequential_b1_rps"] > 0

@@ -96,16 +96,18 @@ def test_train_config_matches_jax():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(optimizer="adamw"), "adamw"),
-    (dict(schedule="cosine_annealing"), "cosine_annealing"),
-    (dict(schedule="constant"), "constant"),
-    (dict(accum_steps=2), "accum_steps"),
+    (dict(optimizer="sgd"), "optimizer"),
+    (dict(schedule="linear"), "schedule"),
+    (dict(schedule="cosine"), "schedule"),
+    (dict(accum_steps=0), "accum_steps"),
 ])
 def test_unported_train_settings_raise(change, match):
+    """Every optimizer, schedule and ``accum_steps`` of the JAX trainer
+    runs (AdamW, ``cosine_annealing`` and ``constant`` included); what JAX
+    refuses is refused."""
     cfg = dataclasses.replace(shapenet_car_train_config(), **change)
-    with pytest.raises(NotImplementedError, match=match) as e:
+    with pytest.raises(ValueError, match=match):
         make_optimizer(cfg, 10, [torch.zeros(1, requires_grad=True)])
-    assert "ROADMAP.md" in str(e.value)
 
 
 def test_mu_bf16_stores_the_first_moment_in_bf16():

@@ -96,10 +96,10 @@ def test_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(variant="structured_2d"), "structured_2d"),
+    (dict(grouping="morton"), "morton"),
     (dict(use_pallas="auto"), "auto"),
-    (dict(Time_Input=True), "Time_Input"),
-    (dict(use_checkpoint=True), "use_checkpoint"),
+    (dict(mp_steps=3, embed=True), "MPNN"),
+    (dict(shard_axes=("dp", "tp")), "parallel"),
 ])
 def test_unported_options_raise(change, match):
     cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
