@@ -251,14 +251,61 @@ Phases (any failed check exits non-zero before the final line):
       for one epoch at full width: a finite ``rel_err``, every kernel of
       the path launched, no plain route.
 
+13. The time-stepping PDE loops (NS and plasticity), rollout export, and
+   the Erwin-only car baseline.
+   a. The path kernels at the NS preset's shapes (n_hidden 256, 8 heads, G
+      64, batch 2 on 64 x 64): the slice kernels and their backwards at
+      ``[2, 8, 4096, 32]`` G 64 as phases 3 and 3b hold them, timed with
+      the L2 flushed; the Erwin kernels at ``NS_ERWIN`` (16 clouds of 64
+      tokens, C 32, 4 heads, balls of 32; of 32 tokens, C 64, 8 heads,
+      balls of 16; d 2) as 12a holds them; then at the plasticity batch's
+      64 clouds (the Darcy block shapes) beside 32 clouds of the same
+      shapes, with ``cudaOccupancyMaxActiveClusters`` of each kernel: do
+      64 clusters of 8 CTAs run in one wave. Untimed, as phases 3, 3b and
+      12a hold them, the kernels at the drivers' own shapes of 13c-d
+      (``DRIVER_SLICE``: ``exp_ns`` at ``--n-hidden`` 128, batches 2 and
+      1; ``exp_plas`` at batches 8 and 3 on 101 x 31; the Darcy block
+      shapes at ``DRIVER_CLOUDS`` 16, 8 and 24 clouds), and
+      ``micro_rollout``'s bf16 forwards (the slice at ``[1, 8, 4096,
+      32]``, ``NS_ERWIN`` on 8 clouds) within ``BF16_RTOL``.
+   b. The NS preset at full width on the synthetic stand-in (batch 2, 10
+      frames, ``exp_ns``'s teacher-forced rollout, seeded weights
+      perturbed by 0.05 N(0, 1), eager steps): two steps from one state
+      bit-identical; the per-frame checkpoint's gradients within
+      ``CHECKPOINT_RTOL`` of the unchecked step's, the BatchNorm
+      statistics equal and updated once per frame; the launches per step
+      from the counters (the forward kernels twice under the checkpoint),
+      no plain route; with and without the checkpoint, the counted step's
+      wall and temporaries, and a profiled step's device time and
+      kernels.
+   c. ``micro_rollout`` (bf16, one round): the rollout program within 2e-2
+      of the per-frame loop, every number finite.
+   d. ``exp_ns --export_rollout`` (the stand-in) and ``exp_plas`` (the
+      stand-in) for one epoch at full width: a finite ``rel_err``, every
+      path kernel launched, no plain route; the exported rollout program,
+      bound to the run's ``last`` checkpoint, against the eager
+      autoregressive loop within ``PROGRAM_RTOL`` (equal bit for bit or
+      not, printed), 10 x (8 + 8 + 48) launches per call;
+      ``erwin_baseline`` for one epoch at full width on a fold layout of
+      the car fixture: finite metrics and 0 Erwin launches (the kernels'
+      gate takes clouds of at most 512 points; the baseline's cloud is
+      the sample's padded points); two eager training steps of the
+      baseline on a stand-in car (``car_like``: ~18-21k points, bucketed
+      to a multiple of 2048, padded to one cloud of 32768: the
+      ball-grouped neighbour search): finite, no kernel launched, the
+      second step's wall and temporaries.
+   e. The car preset with ``grouping="morton"``: its eval forward within
+      ``SERVE_RTOL`` of its plain path, 2 + 2 + 24 launches.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
 7d's run, ``replay_launches`` from the profiler's count of one replay),
-six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps) and six
-at the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step),
-phase 5's, 8's, 9's, 10's, 11's and 12's numbers, the card line, and as
-the last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
-``haet_tpu``.
+six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), six at
+the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step) and six
+at the NS shapes (``*_ns``, ``launches`` from 13b's checkpointed eager
+step), phase 5's, 8's, 9's, 10's, 11's, 12's and 13's numbers, the card
+line, and as the last line ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or ``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -3278,30 +3325,38 @@ DARCY_STEPS = 5
 CHECKPOINT_RTOL = 1e-6
 
 
-def pde_erwin_phase(dev):
+def pde_erwin_phase(dev, timed=None, untimed=None, clouds=PDE_CLOUDS,
+                    label="phase 12a", suffix="darcy", seed=SEED + 60):
     """12a: the Erwin kernels, forward and backward, at the Darcy block
-    shapes (d 2, SwiGLU hidden C, 32 clouds) against the plain block: out,
-    dx, dpos and all 14 parameter gradients within ``KERNEL_RTOL`` of each
-    output's max, two calls bit-identical, device us per call beside the
-    bound at d 2 and the plain version's time; then, untimed, the 3D
-    preset's shapes (d 3). Returns the ``*_darcy`` records."""
+    shapes (``timed``, default ``DARCY_ERWIN``: d 2, SwiGLU hidden C,
+    ``clouds`` 32) against the plain block: out, dx, dpos and all 14
+    parameter gradients within ``KERNEL_RTOL`` of each output's max, two
+    calls bit-identical, device us per call beside the bound at d 2 and the
+    plain version's time; then, untimed, the 3D preset's shapes
+    (``untimed``, default ``VOLUME_ERWIN``: d 3). Returns the
+    ``*_<suffix>`` records, their times mixed by each shape's launches per
+    step (the last entry of a shape; none when every weight is 0, and then
+    no shape is timed). Phase 13a runs it at the NS and the drivers'
+    shapes."""
     import torch
 
     from haet_torch.ops.kernels import erwin_block as eb
 
-    g = torch.Generator().manual_seed(SEED + 60)
+    timed = DARCY_ERWIN if timed is None else timed
+    untimed = VOLUME_ERWIN if untimed is None else untimed
+    g = torch.Generator().manual_seed(seed)
     out = {k: {"err": 0.0, "us": {}, "ms": [], "plain_ms": [], "bound": []}
            for k in ("fwd", "bwd")}
-    shapes = [(tag, *v, 2) for tag, v in DARCY_ERWIN.items()]
-    shapes += [(tag, *v, 3) for tag, v in VOLUME_ERWIN.items()]
+    shapes = [(tag, *v, 2) for tag, v in timed.items()]
+    shapes += [(tag, *v, 3) for tag, v in untimed.items()]
     for tag, n_e, c_e, ball, heads, weight, d in shapes:
-        print(f"phase 12a: fused_erwin_block fwd/bwd ({tag})  x "
-              f"[{PDE_CLOUDS}, {n_e}, {c_e}], {heads} heads, ball {ball}, d "
+        print(f"{label}: fused_erwin_block fwd/bwd ({tag})  x "
+              f"[{clouds}, {n_e}, {c_e}], {heads} heads, ball {ball}, d "
               f"{d}, SwiGLU {c_e}; "
-              f"{erwin_launch_line(n_e, c_e, ball, heads, 1, PDE_CLOUDS, d)}",
+              f"{erwin_launch_line(n_e, c_e, ball, heads, 1, clouds, d)}",
               flush=True)
         xe, pe, params, kw = erwin_inputs(dev, g, n_e, c_e, ball, heads, 1,
-                                          PDE_CLOUDS, d)
+                                          clouds, d)
         dout = torch.randn(xe.shape, generator=g).to(dev)
         with torch.inference_mode():
             o_k = [eb.fused_erwin_block(xe, pe, params, **kw) for _ in (0, 1)]
@@ -3339,7 +3394,7 @@ def pde_erwin_phase(dev):
         out["bwd"]["plain_ms"].append((plain_bwd_ms(xe, pe, dout, params,
                                                     kw), weight))
         out["bwd"]["us"][tag] = device_us(bwd, ERWIN_BWD_KERNELS)
-        args = (n_e, c_e, ball, heads, 1, PDE_CLOUDS, d)
+        args = (n_e, c_e, ball, heads, 1, clouds, d)
         out["fwd"]["bound"].append((erwin_fwd_bound(*args), weight))
         out["bwd"]["bound"].append((erwin_bwd_bound(*args), weight))
         for k in ("fwd", "bwd"):
@@ -3348,11 +3403,13 @@ def pde_erwin_phase(dev):
                   f"(profiler); events {out[k]['ms'][-1][0]:.4f} ms, plain "
                   f"{out[k]['plain_ms'][-1][0]:.4f} ms; bound "
                   f"{bd[0] * 1e3:.3f} us ({bd[1]})", flush=True)
-    total = sum(w for *_, w in DARCY_ERWIN.values())
+    total = sum(w for *_, w in timed.values())
+    if not total:
+        return []
     mix = lambda xs: sum(t * w for t, w in xs) / total  # noqa: E731
     recs = []
-    for k, name, line in (("fwd", "fused_erwin_block_darcy", 163),
-                          ("bwd", "fused_erwin_block_bwd_darcy", 187)):
+    for k, name, line in (("fwd", f"fused_erwin_block_{suffix}", 163),
+                          ("bwd", f"fused_erwin_block_bwd_{suffix}", 187)):
         r = out[k]
         bound = (mix([(bd[0], w) for bd, w in r["bound"]]),
                  "bytes" if all(bd[1] == "bytes" for bd, _ in r["bound"])
@@ -3362,7 +3419,7 @@ def pde_erwin_phase(dev):
             f"haet_tpu/ops/pallas/erwin_block.py:{line}", r["err"],
             mix(r["ms"]), mix(r["plain_ms"]), bound,
             device_us_per_call=r["us"],
-            per_shape_ms={t: ms for t, (ms, _) in zip(DARCY_ERWIN, r["ms"])}))
+            per_shape_ms={t: ms for t, (ms, _) in zip(timed, r["ms"])}))
     return recs
 
 
@@ -3465,30 +3522,24 @@ def hold_grads(what, got, want, rtol) -> bool:
     return identical
 
 
-def eager_step_counts(trainer, batch) -> dict:
-    """The launch counters of one eager step, zeroed just before it."""
+def measured_step(trainer, batch):
+    """One eager step: ``(its launch counts, zeroed just before it; its
+    host wall in ms, between synchronizes; its temporaries at peak, MiB
+    above what was allocated before it)``."""
     import torch
 
     from haet_torch.ops.kernels import launch_counts, reset_launch_counts
 
     torch.cuda.synchronize()
-    reset_launch_counts()
-    trainer.train_step(batch)
-    torch.cuda.synchronize()
-    return launch_counts()
-
-
-def step_peak_mib(trainer, batch) -> float:
-    """The peak of device memory above what was allocated before one step
-    (its temporaries), MiB."""
-    import torch
-
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
     trainer.train_step(batch)
     torch.cuda.synchronize()
-    return (torch.cuda.max_memory_allocated() - start) / 2**20
+    wall = (time.perf_counter() - t0) * 1e3
+    return (launch_counts(), wall,
+            (torch.cuda.max_memory_allocated() - start) / 2**20)
 
 
 def darcy_phase(dev):
@@ -3565,7 +3616,7 @@ def darcy_phase(dev):
           f" s", flush=True)
     hold_states(f"phase 12c: state after {DARCY_STEPS} steps", graphed,
                 eager)
-    step_counts = eager_step_counts(eager, batches[DARCY_STEPS])
+    step_counts = measured_step(eager, batches[DARCY_STEPS])[0]
     expect_counts("launches of one eager step", step_counts, DARCY_PER_STEP)
     expect_counts("plain routes", plain_route_counts(),
                   {k: 0 for k in plain_route_counts()})
@@ -3596,7 +3647,7 @@ def darcy_phase(dev):
               f"{e.key[:90]}", flush=True)
     out["top_kernels_ms"] = {e.key[:90]: e.self_device_time_total / 1e3
                              for e in top}
-    plain_peak = step_peak_mib(eager, batches[0])
+    plain_peak = measured_step(eager, batches[0])[2]
     out.update(step_wall_ms=wall, step_walls_ms=[w * 1e3 for w in walls],
                eager_wall_ms=float(np.median(eager_walls)) * 1e3,
                device_ms=replay["device_ms"], kernels=replay["kernels"],
@@ -3637,8 +3688,8 @@ def darcy_phase(dev):
           "BatchNorm statistics after a checkpointed step differ")
     check({int(sd_r[k]) for k in stats if "num_batches" in k} == {1},
           "BatchNorm statistics updated more than once")
-    remat_peak = step_peak_mib(remat, batches[1])
-    plain_peak = step_peak_mib(plain, batches[1])
+    remat_peak = measured_step(remat, batches[1])[2]
+    plain_peak = measured_step(plain, batches[1])[2]
     print(f"  BatchNorm statistics ({len(stats)} tensors) equal, updated "
           f"once; the eager step's temporaries at peak: {remat_peak:.1f} MiB "
           f"with use_checkpoint, {plain_peak:.1f} MiB without", flush=True)
@@ -3689,7 +3740,7 @@ def darcy_phase(dev):
     dev_full = max(float((a - g_full[k]).abs().max())
                    for k, a in step_grads(acc_e).items()
                    if a is not None) / gmax
-    acc_counts = eager_step_counts(acc_e, batches[1])
+    acc_counts = measured_step(acc_e, batches[1])[0]
     expect_counts("launches of one eager accum_steps 2 step (2 "
                   "microbatches)", acc_counts,
                   {k: 2 * v for k, v in DARCY_PER_STEP.items()})
@@ -3792,6 +3843,581 @@ def pde_phase(dev):
     return records, {"darcy": darcy, "drivers": drivers, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the time-stepping PDE loops, rollout export, the Erwin baseline.
+# ---------------------------------------------------------------------------
+
+#: B*H clouds of the NS preset's Erwin stage (batch 2 x 8 heads)
+NS_CLOUDS = 16
+#: the NS preset's Erwin block shapes ``tag: (n, C, ball, heads, forward
+#: launches per step)`` at d 2, SwiGLU hidden C, G 64 slices of C 32:
+#: encoder0 and decoder0 (64 tokens in two balls of 32, 4 heads; 2 + 2
+#: blocks a layer) and the bottleneck (32 tokens in two balls of 16, 8
+#: heads; 2 blocks a layer); 8 layers, 10 frames, each frame's forward run
+#: twice under the per-frame checkpoint
+NS_ERWIN = {"ns_n64_c32": (64, 32, 32, 4, 640),
+            "ns_n32_c64": (32, 64, 16, 8, 320)}
+#: the slice kernels at the NS batch of 2 on the 64 x 64 grid
+NS_SLICE = {"ns_b2": (2, 8, 64 * 64, 32, 64)}
+#: the plasticity batch's clouds (batch 8 x 8 heads) and the same block
+#: shapes at the Darcy batch's 32, for the one-wave comparison
+PLAS_CLOUDS = (64, 32)
+#: the slice kernels at the drivers' own shapes, held untimed: ``exp_ns``
+#: at its default ``--n-hidden`` 128 (C 16) in training and eval (batch 2)
+#: and its rollout program (batch 1); ``exp_plas`` (C 16 on 101 x 31) at
+#: the preset's batch of 8 and the stand-in's of 3
+DRIVER_SLICE = {"exp_ns_b2": (2, 8, 64 * 64, 16, 64),
+                "exp_ns_b1": (1, 8, 64 * 64, 16, 64),
+                "plas_b8": (8, 8, 101 * 31, 16, 64),
+                "plas_b3": (3, 8, 101 * 31, 16, 64)}
+#: their Erwin stages (the Darcy block shapes at C 16): ``exp_ns`` at batch
+#: 2 and 1, the plasticity stand-in at batch 3 (the preset's 64 clouds are
+#: ``PLAS_CLOUDS``), held untimed
+DRIVER_CLOUDS = (16, 8, 24)
+#: ``micro_rollout``'s forward kernels in bf16: the NS preset at batch 1
+#: (the slice at C 32, ``NS_ERWIN`` on 8 clouds)
+ROLLOUT_BF16_SLICE = {"rollout_b1": (1, 8, 64 * 64, 32, 64)}
+ROLLOUT_CLOUDS = 8
+NS_FRAMES = 10
+#: the NS stand-in's grid side (the preset's 64 x 64)
+NS_GRID = 64
+#: kernel launches per NS training step: forward kernels 8 + 8 + 48 per
+#: forward, twice per frame under the checkpoint; backwards once per frame
+NS_PER_STEP = {"slice_states": 160, "deslice": 160, "slice_states_bwd": 80,
+               "deslice_bwd": 80, "fused_erwin_block": 960,
+               "fused_erwin_block_bwd": 480, "copy_scale": 0}
+NS_UNCHECKED = {k: v // 2 if k in DARCY_FORWARD else v
+                for k, v in NS_PER_STEP.items()}
+#: the depth of 13c's and 13d's NS models (full width): a rollout program
+#: unrolls layers x frames, and its export and load took ~1 s per
+#: layer-frame on the card's host (72 s to load 8 x 10); the script must
+#: end within its time limit on a slow host too
+NS_PROGRAM_LAYERS = 1
+
+
+def rollout_per_call(layers: int) -> dict:
+    """Launches of one call of an exported 10-frame rollout program of
+    ``layers`` layers (its per-layer share of the forward)."""
+    return {k: (v // 2 * layers // 8 if k in DARCY_FORWARD else 0)
+            for k, v in NS_PER_STEP.items()}
+
+
+def ns_kernel_phase(dev):
+    """13a: the path kernels at the NS shapes (``NS_SLICE``, ``NS_ERWIN``)
+    as phases 3, 3b and 12a hold them, timed; untimed at the drivers'
+    shapes (``DRIVER_SLICE``, the Darcy block shapes at ``DRIVER_CLOUDS``)
+    and ``micro_rollout``'s bf16 forwards; then the Erwin kernels at
+    ``PLAS_CLOUDS`` clouds of the Darcy block shapes with each kernel's
+    ``cudaOccupancyMaxActiveClusters``. Returns ``(the *_ns records, the
+    plasticity comparison)``."""
+    from haet_torch.ops.kernels import erwin_block as eb
+
+    recs = slice_phase(dev, NS_SLICE, timed=True, label="phase 13a")
+    recs += slice_bwd_phase(dev, NS_SLICE, timed=True, label="phase 13a")
+    for r in recs:
+        r["name"] += "_ns"
+    recs += pde_erwin_phase(dev, NS_ERWIN, {}, NS_CLOUDS, "phase 13a", "ns",
+                            SEED + 70)
+    slice_phase(dev, DRIVER_SLICE, timed=False, label="phase 13a")
+    slice_bwd_phase(dev, {k: v for k, v in DRIVER_SLICE.items()
+                          if k != "exp_ns_b1"}, timed=False,
+                    label="phase 13a")
+    untimed = {tag: (*v[:4], 0) for tag, v in DARCY_ERWIN.items()}
+    for clouds in DRIVER_CLOUDS:
+        pde_erwin_phase(dev, untimed, {}, clouds, "phase 13a", "driver",
+                        SEED + 90 + clouds)
+    rollout_bf16_phase(dev)
+    plas = {}
+    for clouds in PLAS_CLOUDS:
+        rs = pde_erwin_phase(dev, DARCY_ERWIN, {}, clouds, "phase 13a",
+                             f"plas{clouds}", SEED + 80)
+        plas[clouds] = {r["name"].split("_plas")[0]: r["device_us_per_call"]
+                        for r in rs}
+    occ = {tag: {k: eb.max_active_clusters(n_e, c_e, 2, c_e, heads, ball,
+                                          bwd=k == "bwd")
+                 for k in ("fwd", "bwd")}
+           for tag, (n_e, c_e, ball, heads, _) in {**NS_ERWIN,
+                                                   **DARCY_ERWIN}.items()}
+    for tag in NS_ERWIN:
+        print(f"phase 13a: Erwin at {tag}: cudaOccupancyMaxActiveClusters "
+              f"fwd {occ[tag]['fwd']}, bwd {occ[tag]['bwd']}; "
+              f"{NS_CLOUDS} clouds in one wave fwd "
+              f"{NS_CLOUDS <= occ[tag]['fwd']}, bwd "
+              f"{NS_CLOUDS <= occ[tag]['bwd']}", flush=True)
+    for tag in DARCY_ERWIN:
+        us = {c: (plas[c]["fused_erwin_block"][tag],
+                  plas[c]["fused_erwin_block_bwd"][tag])
+              for c in PLAS_CLOUDS}
+        print(f"phase 13a: Erwin at {tag}: device us per call fwd / bwd, "
+              f"{PLAS_CLOUDS[0]} clouds {us[PLAS_CLOUDS[0]][0]:.2f} / "
+              f"{us[PLAS_CLOUDS[0]][1]:.2f}, {PLAS_CLOUDS[1]} clouds "
+              f"{us[PLAS_CLOUDS[1]][0]:.2f} / {us[PLAS_CLOUDS[1]][1]:.2f}; "
+              f"cudaOccupancyMaxActiveClusters (clusters of {eb.CLUSTER}) "
+              f"fwd {occ[tag]['fwd']}, bwd {occ[tag]['bwd']}: "
+              f"{PLAS_CLOUDS[0]} clouds in one wave fwd "
+              f"{PLAS_CLOUDS[0] <= occ[tag]['fwd']}, bwd "
+              f"{PLAS_CLOUDS[0] <= occ[tag]['bwd']}", flush=True)
+        check(min(occ[tag].values()) > 0,
+              f"no cluster of the Erwin kernels fits at {tag}")
+    return recs, {"device_us_per_call": plas, "max_active_clusters": occ}
+
+
+def rollout_bf16_phase(dev):
+    """13a, ``micro_rollout``'s forward kernels in bf16 (the NS preset at
+    batch 1: ``ROLLOUT_BF16_SLICE``, ``NS_ERWIN`` on ``ROLLOUT_CLOUDS``
+    clouds) against their plain versions on the same bf16 inputs as phase
+    10a holds them: bf16 outputs within ``BF16_RTOL``, m and s within
+    ``KERNEL_RTOL``, two calls bit-identical."""
+    import torch
+
+    from haet_torch.benchmarks import slice_kernels as sb
+    from haet_torch.ops.kernels import erwin_block as eb
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    bf = torch.bfloat16
+    for i, (tag, shape) in enumerate(ROLLOUT_BF16_SLICE.items()):
+        b, h, n, c, gs = shape
+        print(f"phase 13a: slice_states / deslice in bf16 ({tag})  x [{b}, "
+              f"{h}, {n}, {c}] bf16, G {gs}", flush=True)
+        x32, ws, bs, wa, ba, st32 = sb.inputs(shape, dev, SEED + 100 + i)
+        x, st = x32.to(bf), st32.to(bf)
+        with torch.inference_mode():
+            got = [sk.slice_states_with_residual(x, ws, bs, wa, ba)
+                   for _ in (0, 1)]
+            p32, m, s = sk.slice_states_plain_f32(x, ws, bs, wa, ba)
+            outs = [sk.deslice(x, ws, bs, wa, ba, st, m, s) for _ in (0, 1)]
+            want = sk.deslice_plain(x, ws, bs, wa, ba, st, m, s)
+            torch.cuda.synchronize()
+            check(got[0][0].dtype == bf and outs[0].dtype == bf,
+                  "bf16 slice dtypes")
+            compare("states (bf16)", got[0][0], p32.to(bf), BF16_RTOL)
+            compare("m", got[0][2], m, KERNEL_RTOL)
+            compare("s", got[0][3], s, KERNEL_RTOL)
+            compare("out (bf16)", outs[0], want, BF16_RTOL)
+            same = all(torch.equal(a, w) for a, w in zip(*got)) and \
+                torch.equal(*outs)
+        print(f"  two calls bit-identical (states, m, s, out): {same}",
+              flush=True)
+        check(same, f"bf16 slice kernels at {tag} are not deterministic")
+        del x, x32, st, st32
+    g = torch.Generator().manual_seed(SEED + 110)
+    for tag, (n_e, c_e, ball, heads, _) in NS_ERWIN.items():
+        print(f"phase 13a: fused_erwin_block in bf16 ({tag})  x "
+              f"[{ROLLOUT_CLOUDS}, {n_e}, {c_e}] bf16, {heads} heads, ball "
+              f"{ball}, d 2, SwiGLU {c_e}", flush=True)
+        xe32, pe32, params, kw = erwin_inputs(dev, g, n_e, c_e, ball, heads,
+                                              1, ROLLOUT_CLOUDS, 2)
+        xe, pe = xe32.to(bf), pe32.to(bf)
+        with torch.inference_mode():
+            o_k = [eb.fused_erwin_block(xe, pe, params, **kw) for _ in (0, 1)]
+            o_p = eb.erwin_block_plain(xe, pe, params, **kw)
+            torch.cuda.synchronize()
+            check(o_k[0].dtype == bf, "Erwin out dtype")
+            compare("out (bf16)", o_k[0], o_p, BF16_RTOL)
+            same = torch.equal(*o_k)
+        print(f"  two calls bit-identical (out): {same}", flush=True)
+        check(same, f"bf16 Erwin kernel at {tag} is not deterministic")
+
+
+def ns_data(dev):
+    """The NS stand-in (``load_ns`` of an empty directory: 8 training and
+    4 test samples of 64 x 64, ``T_IN`` 10 and ``T_OUT`` 10 frames), its
+    training batches of 2 as ``exp_ns`` draws them, and the preset sized
+    to it."""
+    import tempfile
+
+    from haet_torch.benchmarks import exp_ns
+    from haet_torch.data.pde_datasets import load_ns
+    from haet_torch.data.synthetic import batch_iter
+    from haet_torch.utils.config import ns_config
+
+    with tempfile.TemporaryDirectory() as empty:
+        data = load_ns(empty, 8, 4, exp_ns.T_IN, exp_ns.T_OUT)
+    check(data["synthetic"] and data["s"] == NS_GRID, "the NS stand-in")
+    cfg = ns_config()
+    cfg.model.fun_dim = exp_ns.T_IN
+    cfg.model.H = cfg.model.W = data["s"]
+    sets = {k: {n: v.astype(np.float32) for n, v in data[k].items()}
+            for k in ("train", "test")}
+    batches = list(batch_iter(sets["train"], cfg.train.batch_size, True,
+                              0)())
+    return cfg, sets, batches
+
+
+def ns_trainer(dev, cfg, checkpoint_frames=True):
+    """``exp_ns``'s eager trainer over the preset at full width, both
+    kernel flags, seeded weights perturbed by 0.05 N(0, 1), the per-frame
+    checkpoint on or off."""
+    import torch
+
+    from haet_torch.benchmarks import exp_ns
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.train import Trainer
+
+    net = build_model(cfg.model, dev, seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+    loss_fn, eval_fn = exp_ns.rollout_loss(NS_FRAMES, exp_ns.STEP)
+    return Trainer(exp_ns.Rollout(net, NS_FRAMES, exp_ns.STEP,
+                                  checkpoint_frames),
+                   loss_fn, cfg.train, total_steps=8, eval_fn=eval_fn,
+                   batch_args=lambda b: (b["pos"], b["x"], b["y"]),
+                   eager=True)
+
+
+def ns_step_phase(dev):
+    """13b: the NS preset's rollout training step at full width. Returns
+    ``(launches of one checkpointed eager step, summary)``."""
+    import copy
+    import gc
+
+    import torch
+
+    from haet_torch.ops.kernels import plain_route_counts, profile_launches
+
+    cfg, sets, batches = ns_data(dev)
+    out = {}
+    remat = ns_trainer(dev, cfg)
+    out["params"] = remat.num_params()
+    print(f"phase 13b: NS preset, {out['params']} parameters; "
+          f"{len(batches)} batches of {cfg.train.batch_size} over "
+          f"{cfg.model.H} x {cfg.model.W}, "
+          f"{NS_FRAMES} frames", flush=True)
+    snapshot = copy.deepcopy(remat.state_dict())
+    first = {k: float(v) for k, v in remat.train_step(batches[0]).items()}
+    g_first = step_grads(remat)
+    sd_first = copy.deepcopy(remat.model.state_dict())
+    remat.load_state_dict(snapshot)
+    second = {k: float(v) for k, v in remat.train_step(batches[0]).items()}
+    identical = first == second and all(
+        (a is None and g_first[k] is None) or torch.equal(a, g_first[k])
+        for k, a in step_grads(remat).items())
+    print(f"  two eager rollout steps from one state: bit-identical "
+          f"{identical}; loss {first['loss']:.6f}, full {first['full']:.6f}",
+          flush=True)
+    check(identical, "two eager NS steps from one state differ")
+    check(all(np.isfinite(v) for v in first.values()),
+          f"NS step metrics {first}")
+
+    plain = ns_trainer(dev, cfg, checkpoint_frames=False)
+    m_p = plain.train_step(batches[0])
+    check(abs(float(m_p["loss"]) - first["loss"])
+          <= CHECKPOINT_RTOL * abs(first["loss"]),
+          f"unchecked loss {float(m_p['loss'])} vs {first['loss']}")
+    out["checkpoint_grads_identical"] = hold_grads(
+        "per-frame checkpoint gradients", g_first, step_grads(plain),
+        CHECKPOINT_RTOL)
+    sd_p = plain.model.state_dict()
+    stats = [k for k in sd_p if "running_" in k or "num_batches" in k]
+    check(bool(stats) and all(torch.equal(sd_first[k], sd_p[k])
+                              for k in stats),
+          "BatchNorm statistics after a checkpointed NS step differ")
+    check({int(sd_first[k]) for k in stats if "num_batches" in k}
+          == {NS_FRAMES}, "BatchNorm statistics not updated once per frame")
+    print(f"  BatchNorm statistics ({len(stats)} tensors) equal, updated "
+          f"{NS_FRAMES} times (once per frame)", flush=True)
+    del snapshot, sd_first, g_first
+
+    step_counts = None
+    for tag, trainer, want in (("checkpoint", remat, NS_PER_STEP),
+                               ("unchecked", plain, NS_UNCHECKED)):
+        counts, wall, peak = measured_step(trainer, batches[1])
+        expect_counts(f"launches of one {tag} NS step", counts, want)
+        expect_counts("plain routes", plain_route_counts(),
+                      {k: 0 for k in plain_route_counts()})
+        step_counts = step_counts or counts
+        # the CUDA activity alone: a host trace of ~50k eager launches
+        # takes the profiler tens of seconds to parse
+        t0 = time.perf_counter()
+        _, prof = profile_launches(trainer.train_step, batches[2],
+                                   host=False)
+        t_prof = time.perf_counter() - t0
+        out[tag] = {"step_wall_ms": wall, "device_ms": prof["device_ms"],
+                    "kernels": prof["kernels"], "copies": prof["copies"],
+                    "busy": prof["device_ms"] / wall,
+                    "step_peak_mib": peak}
+        print(f"  {tag}: eager step wall {wall:.1f} ms (the counted step); "
+              f"device {prof['device_ms']:.3f} ms in {prof['kernels']} "
+              f"kernels and {prof['copies']} copies (the profiled step); "
+              f"busy {out[tag]['busy']:.3f}; the step's temporaries at peak "
+              f"{peak:.1f} MiB; profiled in {t_prof:.1f} s", flush=True)
+    del remat, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step_counts, out
+
+
+def micro_rollout_phase(dev):
+    """13c: ``micro_rollout`` in bf16, one round of its windows."""
+    from haet_torch.benchmarks import micro_rollout
+
+    t0 = time.perf_counter()
+    res = micro_rollout.run(rounds=1, steps=NS_FRAMES, device=dev,
+                            n_layers=NS_PROGRAM_LAYERS)
+    print(f"phase 13c: micro_rollout {json.dumps(res)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(res["dtype"] == "bfloat16", "micro_rollout did not run in bf16")
+    nums = [res["value_parity_max_abs"]] + [
+        v for k in ("rollout_artifact", "per_frame_loop")
+        for v in res[k].values()]
+    check(all(np.isfinite(v) for v in nums), f"micro_rollout: {res}")
+    return res
+
+
+def check_path_run(name, counts, kinds=DARCY_FORWARD + (
+        "slice_states_bwd", "deslice_bwd", "fused_erwin_block_bwd")):
+    """Every kernel of ``kinds`` launched in a driver's run, no plain
+    route."""
+    from haet_torch.ops.kernels import plain_route_counts
+
+    check(all(counts[k] > 0 for k in kinds),
+          f"{name}: a kernel of the path did not launch: {counts}")
+    check(all(v == 0 for v in plain_route_counts().values()),
+          f"{name}: plain routes {plain_route_counts()}")
+
+
+def rollout_program_check(dev, argv, run_dir, art_dir, sets):
+    """The exported rollout program of ``exp_ns`` (run with ``argv``)
+    bound to its run's ``last`` checkpoint, against the eager
+    autoregressive loop of the model with those weights, on the first test
+    sample: within ``PROGRAM_RTOL`` of max, and 10 frames of the forward's
+    launches per call."""
+    import torch
+
+    from haet_torch.benchmarks import exp_ns
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.benchmarks.pde_common import apply_model_args
+    from haet_torch.export import load_artifact, rollout
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from haet_torch.train import Checkpointer
+    from haet_torch.utils.config import ns_config
+
+    state = Checkpointer(f"{run_dir}/checkpoints/ns").restore(
+        "last", map_location=dev)["model"]
+    variables = {k.removeprefix("model."): v for k, v in state.items()}
+    cfg = apply_model_args(ns_config(), exp_ns.parse_args(argv))
+    cfg.model.fun_dim = exp_ns.T_IN
+    cfg.model.H = cfg.model.W = NS_GRID
+    net = build_model(cfg.model, dev, seed=SEED).eval()
+    net.load_state_dict(variables)
+    pos = torch.from_numpy(sets["test"]["pos"][:1]).to(dev)
+    fx = torch.from_numpy(sets["test"]["x"][:1]).to(dev)
+    t0 = time.perf_counter()
+    program = load_artifact(art_dir, device=dev).bind(variables)
+    t_load = time.perf_counter() - t0
+    with torch.inference_mode():
+        want = rollout(net, pos, fx, NS_FRAMES, exp_ns.STEP)
+        program(pos, fx)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = program(pos, fx)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    err = compare("rollout program vs eager loop", got, want, PROGRAM_RTOL)
+    equal = bool(torch.equal(got, want))
+    print(f"  the program equals the eager loop bit for bit: {equal}; load "
+          f"and bind {t_load:.2f} s", flush=True)
+    expect_counts("launches of one rollout program call", counts,
+                  rollout_per_call(cfg.model.n_layers))
+    return {"max_abs_err": err, "bit_identical": equal, "load_s": t_load}
+
+
+def car_fixture_folds(root):
+    """A 2-fold miniature of the ShapeNet-Car layout from the car fixture
+    (``param0``: 1 sample, ``param1``: 2), as the CPU tests build it."""
+    fixture = ROOT / "tests" / "fixtures" / "data" / "car" / "param0" / \
+        "fixturecar000"
+    for fold, names in (("param0", ["car_a"]), ("param1", ["car_b",
+                                                          "car_c"])):
+        for name in names:
+            shutil.copytree(fixture, f"{root}/{fold}/{name}")
+    return root
+
+
+def baseline_full_step(dev):
+    """Two eager training steps and one eval forward of the Erwin-only
+    baseline on a stand-in car (``car_like``: ~18-21k points, bucketed to
+    a multiple of 2048, then padded to one Erwin cloud of 32768: the
+    ball-grouped neighbour search at full size): finite, no Erwin launch,
+    the second step's wall, temporaries and the device's peak."""
+    import torch
+
+    from haet_torch.benchmarks.erwin_baseline import ErwinCarModel
+    from haet_torch.data.shapenet_car import CarSample
+    from haet_torch.data.synthetic import car_like
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder, make_batch
+    from haet_torch.utils.config import TrainConfig
+
+    d = car_like(n=1, npts=N_POINTS, seed=SEED)[0]
+    batch = make_batch(CarSample(pos=d["pos"], x=d["x"], y=d["y"],
+                                 surf=d["surf"]))
+    model = ErwinCarModel(device=dev, seed=SEED)
+    trainer = Trainer(model, loss_fn_builder(0.5),
+                      TrainConfig(epochs=1, batch_size=1, max_grad_norm=1.0),
+                      total_steps=4, batch_args=lambda b: (b["x"],),
+                      eager=True)
+    metrics = trainer.train_step(batch)
+    counts, wall, temps = measured_step(trainer, batch)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    out = trainer.predict(batch)
+    torch.cuda.synchronize()
+    vals = [float(v) for v in metrics.values()]
+    check(all(np.isfinite(v) for v in vals) and bool(out.isfinite().all()),
+          "the Erwin baseline at full size is not finite")
+    check(not any(counts.values()),
+          f"the Erwin baseline at full size launched kernels: {counts}")
+    n = batch["x"].shape[1]
+    res = {"points": n, "cloud": 1 << (n - 1).bit_length(),
+           "params": trainer.num_params(), "step_wall_ms": wall,
+           "step_peak_mib": temps, "peak_mib": peak, "loss": vals[0]}
+    print(f"  baseline on {len(d['pos'])} points, batch {n} (its bucket), "
+          f"one Erwin cloud of {res['cloud']} ({res['params']} "
+          f"parameters): eager step wall {wall:.2f} ms, its temporaries "
+          f"{temps:.1f} MiB, peak device memory {peak:.1f} MiB; launches "
+          f"{counts}; loss {vals[0]:.5f}", flush=True)
+    return res
+
+
+def ns_drivers_phase(dev):
+    """13d: ``exp_ns --export_rollout`` and ``exp_plas`` on their
+    stand-ins and ``erwin_baseline`` on the car fixture's fold layout, one
+    epoch each at full width; the rollout program against the eager loop;
+    the baseline's step at full size."""
+    import tempfile
+
+    import torch
+
+    from haet_torch.benchmarks import erwin_baseline, exp_ns, exp_plas
+    from haet_torch.ops.kernels import (erwin_block as eb, launch_counts,
+                                        plain_route_counts,
+                                        reset_launch_counts)
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, sets, _ = ns_data(dev)
+        runs = {"exp_ns": (exp_ns, ["--data_path", tmp, "--export_rollout",
+                                    f"{tmp}/rollout", "--n-layers",
+                                    str(NS_PROGRAM_LAYERS)]),
+                "exp_plas": (exp_plas, ["--data_path", tmp])}
+        for name, (mod, argv) in runs.items():
+            argv += ["--epochs", "1", "--out_dir", f"{tmp}/{name}"]
+            print(f"phase 13d: {name} {' '.join(argv)}", flush=True)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rel = mod.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            print(f"  rel_err {rel}; {secs:.1f} s; launches {counts}",
+                  flush=True)
+            check(np.isfinite(rel), f"{name}: rel_err {rel}")
+            check_path_run(name, counts)
+            res[name] = {"rel_err": rel, "seconds": secs, "launches": counts}
+            torch.cuda.empty_cache()
+        res["rollout_program"] = rollout_program_check(
+            dev, runs["exp_ns"][1], f"{tmp}/exp_ns", f"{tmp}/rollout", sets)
+
+        argv = ["--epochs", "1", "--data_dir", car_fixture_folds(f"{tmp}/car"),
+                "--out_dir", f"{tmp}/erwin"]
+        print(f"phase 13d: erwin_baseline {' '.join(argv)}", flush=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = erwin_baseline.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        gate = eb.eligible(2048, 128, 8, 128, 512)
+        print(f"  {secs:.1f} s; launches {counts}; 0 Erwin launches as the "
+              f"gate routes it: the fused block takes clouds of at most 512 "
+              f"points (eligible(2048, C 128) = {gate}), the baseline's one "
+              f"cloud holds the sample's padded points (2048 here, 32768 "
+              f"for a ShapeNet-Car sample); plain routes "
+              f"{plain_route_counts()}", flush=True)
+        check(all(np.isfinite(metrics[k]) for k in ("rel_l2_press",
+                                                    "rel_l2_velo")),
+              f"erwin_baseline metrics {metrics}")
+        check(not gate and counts["fused_erwin_block"] == 0
+              and counts["fused_erwin_block_bwd"] == 0,
+              f"erwin_baseline launched Erwin kernels: {counts}")
+        res["erwin_baseline"] = {"seconds": secs, "launches": counts,
+                                 **{k: metrics[k] for k in (
+                                     "rel_l2_press", "rel_l2_velo")}}
+    print("phase 13d: the Erwin baseline at full size", flush=True)
+    res["erwin_baseline_full"] = baseline_full_step(dev)
+    torch.cuda.empty_cache()
+    return res
+
+
+def morton_phase(dev):
+    """13e: the car preset with ``grouping="morton"`` (both kernel flags,
+    seeded weights) against the same weights on the plain path: the eval
+    forward on a 32186-point sample within ``SERVE_RTOL``, 2 + 2 + 24
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.utils.config import shapenet_car_config
+
+    cfg = dataclasses.replace(shapenet_car_config(), grouping="morton")
+    fast = build_model(cfg, dev, seed=SEED).eval()
+    plain = cfg.build(dev, seed=SEED).eval()
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.randn(1, N_POINTS, 7, generator=g).to(dev)
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = fast(x, None)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = plain(x, None)
+    print("phase 13e: the car preset with grouping='morton'", flush=True)
+    err = compare("morton forward vs plain", got, want, SERVE_RTOL)
+    expect_counts("launches of one morton forward", counts,
+                  {"slice_states": 2, "deslice": 2, "fused_erwin_block": 24,
+                   "slice_states_bwd": 0, "deslice_bwd": 0,
+                   "fused_erwin_block_bwd": 0, "copy_scale": 0})
+    check(all(v == 0 for v in plain_route_counts().values()),
+          f"morton: plain routes {plain_route_counts()}")
+    return {"max_abs_err": err}
+
+
+def rollout_phase(dev):
+    """Phase 13: 13a-13e. Returns ``(records, summary)``; the records'
+    ``launches`` are 13b's counts of one checkpointed eager step."""
+    t0 = time.perf_counter()
+    marks = [t0]
+
+    def lap():
+        marks.append(time.perf_counter())
+
+    records, plas = ns_kernel_phase(dev)
+    lap()
+    step_counts, ns = ns_step_phase(dev)
+    for r in records:
+        r["launches"] = step_counts[r["name"].removesuffix("_ns")]
+    lap()
+    micro = micro_rollout_phase(dev)
+    lap()
+    drivers = ns_drivers_phase(dev)
+    lap()
+    morton = morton_phase(dev)
+    lap()
+    secs = marks[-1] - t0
+    parts = {f"13{c}": b - a for c, a, b in zip("abcde", marks, marks[1:])}
+    print(f"phase 13: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")", flush=True)
+    return records, {"plasticity_erwin": plas, "ns": ns,
+                     "micro_rollout": micro, "drivers": drivers,
+                     "morton": morton, "seconds": secs,
+                     "sub_phase_seconds": parts}
+
+
 def main() -> int:
     try:
         import torch
@@ -3859,6 +4485,7 @@ def main() -> int:
         print_bf16_beside_f32(bf16, graphs, f32_profile)
         serving = serving_phase(dev, run_dir)
         pde_records, pde = pde_phase(dev)
+        ns_records, ns = rollout_phase(dev)
         print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -3869,11 +4496,13 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
         r["replay_launches"] = replay_calls[r["name"]]
         r["serve_launches"] = serve_counts[r["name"]]
-    print(json.dumps({"kernels": records + bf16_records + pde_records,
+    print(json.dumps({"kernels": records + bf16_records + pde_records
+                      + ns_records,
                       "train_steps": TRAIN_STEPS,
                       "serve_forwards": forwards, "fit": fit,
                       "graphs": graphs, "bf16": bf16, "serving": serving,
-                      "serve_profile": f32_profile, "pde": pde}))
+                      "serve_profile": f32_profile, "pde": pde,
+                      "rollout": ns}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

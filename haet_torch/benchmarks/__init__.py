@@ -18,6 +18,13 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
 * :mod:`.exp_darcy`, :mod:`.exp_pipe`, :mod:`.exp_airfoil`,
   :mod:`.exp_elas`, :mod:`.exp_3d` -- the PDE presets' training runs over
   ``Trainer.fit`` (:mod:`.pde_common`, their shared flags and tail);
+* :mod:`.exp_ns`, :mod:`.exp_plas` -- the time-stepping PDE presets over
+  loops of their own: the NS teacher-forced rollout (and its export as one
+  program) and the plasticity time queries;
+* :mod:`.micro_rollout` -- the exported NS rollout program against the
+  per-frame loop of the single-step program;
+* :mod:`.erwin_baseline` -- the Erwin-only ShapeNet-Car baseline (MPNN
+  message passing over a radius graph);
 * :mod:`.micro_serving_latency`, :mod:`.micro_serving_server` -- batch-1
   latency through an exported program, and the batching server's
   samples/s per mode;

@@ -9,7 +9,9 @@ flags as JAX does, :func:`weighted_eval` is the per-sample test loss, and
 :func:`train_and_eval` the drivers' common tail: the model with both kernel
 flags set (as ``car_train`` builds it; on the CPU the kernels' plain
 versions run), ``Trainer.fit`` with a JSONL log and checkpoints under
-``--out_dir``, then the final ``rel_err``.
+``--out_dir``, then the final ``rel_err``. :func:`init_custom_loop_state`
+is the start of the drivers with a loop of their own (``exp_ns``,
+``exp_plas``; ``benchmarks/_common.py:188-213``).
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from ..train import Checkpointer, MetricsLogger, Trainer
 from .car_train import add_mesh_args, build_model, check_mesh_args
 
 __all__ = ["base_parser", "shrink_for_smoke", "apply_model_args",
-           "weighted_eval", "train_and_eval", "add_mesh_args",
-           "check_mesh_args"]
+           "weighted_eval", "train_and_eval", "init_custom_loop_state",
+           "add_mesh_args", "check_mesh_args"]
 
 
 def base_parser(name: str) -> argparse.ArgumentParser:
@@ -142,3 +144,26 @@ def train_and_eval(cfg, args, dev, name: str, train: dict, test: dict,
     rel = weighted_eval(trainer, test, bs)
     print(f"rel_err:{rel}", flush=True)
     return rel, trainer
+
+
+def init_custom_loop_state(cfg, args, dev, n_train: int, wrap, loss_fn,
+                           batch_args, eval_fn=None) -> tuple:
+    """The state of a driver with its own loop over the model
+    (``benchmarks/_common.py:188-213``): ``cfg.model`` on ``dev`` with both
+    kernel flags and seeded from ``cfg.train.seed``, wrapped by ``wrap``
+    (a module that runs the model as the loop needs: the NS rollout, the
+    plasticity time queries), and a :class:`Trainer` over the wrapper,
+    whose optimizer and schedule are ``cfg.train``'s over ``ceil(n_train /
+    batch) * epochs`` steps, built as every driver's are. The trainer is
+    ``eager``: each step runs op by op (no CUDA graph). ``--dp``, ``--tp``,
+    ``--pp`` and ``--multihost`` raise (``ROADMAP.md``, queue 1:
+    parallel). Returns ``(model, trainer)``."""
+    check_mesh_args(args)
+    bs = cfg.train.batch_size
+    model = build_model(cfg.model, dev, seed=cfg.train.seed)
+    steps = max(1, -(-n_train // bs))  # ceil: the partial batch is kept
+    trainer = Trainer(wrap(model), loss_fn, cfg.train,
+                      total_steps=steps * cfg.train.epochs,
+                      batch_args=batch_args, eval_fn=eval_fn, eager=True)
+    print(f"Total Trainable Params: {trainer.num_params()}", flush=True)
+    return model, trainer

@@ -1314,4 +1314,34 @@ int haet_erwin_block_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
+// cudaOccupancyMaxActiveClusters of the forward (bwd 0) or backward (bwd
+// 1) kernel, its SMEM instantiation when all_smem, launched as clusters of
+// `cluster` CTAs with smem bytes of dynamic shared memory each: the most
+// such clusters the device holds at once, into *out. Host code only; it
+// launches nothing.
+int haet_erwin_max_active_clusters(int bwd, int all_smem, int bf16_io,
+                                   int cluster, int smem, int* out) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, cluster, smem, nullptr, attr);
+  auto query = [&](auto type) -> cudaError_t {
+    using T = decltype(type);
+    if (bwd) {
+      auto* kernel =
+          all_smem ? erwin_block_bwd<true, T> : erwin_block_bwd<false, T>;
+      cudaError_t e = ensure_smem(kernel, all_smem ? 2 : 3, smem);
+      if (e != cudaSuccess) return e;
+      return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+    }
+    auto* kernel =
+        all_smem ? erwin_block_fwd<true, T> : erwin_block_fwd<false, T>;
+    cudaError_t e = ensure_smem(kernel, all_smem ? 0 : 1, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  };
+  return static_cast<int>(bf16_io ? query(bf16{}) : query(0.f));
+}
+
 }  // extern "C"

@@ -34,10 +34,12 @@ Design notes, as in the JAX module:
   CUDA constants). :func:`load_artifact` defaults to the card, as every
   entry point of the port does.
 
-Not ported here, each raising with its ``ROADMAP.md`` item: rollout
-programs (``export_rollout``, ``save_rollout_artifact``: item 6b, with the
-NS and plasticity loops) and multi-chip programs (``mesh=``: item 10,
-parallel).
+Rollout programs (:func:`export_rollout`, :func:`save_rollout_artifact`)
+run K autoregressive eval forwards in one program, each prediction
+appended to the sliding input window (:func:`rollout`), K unrolled in the
+graph where JAX scans; they load, bind and serve as the forward's programs
+do. Multi-chip programs (``mesh=``) are not ported and raise with their
+``ROADMAP.md`` item (queue 1: parallel).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from .utils.env import default_device
 __all__ = [
     "export_apply",
     "export_rollout",
+    "rollout",
     "save_artifact",
     "save_rollout_artifact",
     "load_artifact",
@@ -70,8 +73,6 @@ _BLOB = "apply.pt2"
 #: parameter names carry it, the manifest's and the caller's do not
 _PREFIX = "model."
 
-ROLLOUT_TODO = ("rollout export is not ported yet (ROADMAP.md, queue 1: "
-                "6b, the NS and plasticity loops and rollout export)")
 MESH_TODO = ("multi-chip export (mesh=) is not ported yet (ROADMAP.md, "
              "queue 1: parallel)")
 
@@ -95,6 +96,34 @@ class _Apply(torch.nn.Module):
         it = iter(arrays)
         return self.model(*(None if none else next(it)
                             for none in self.none_mask))
+
+
+def rollout(model: torch.nn.Module, pos, fx0, steps: int,
+            step_width: int):
+    """``steps`` autoregressive forwards of ``model(pos, fx)`` from the
+    ``[B, N, T_in]`` window ``fx0``: each ``[B, N, step_width]`` prediction
+    is appended to the window, cast to its dtype, as the oldest
+    ``step_width`` frames drop off. Returns ``[B, N, steps * step_width]``
+    in time-major frame order (``haet_tpu/export.py:115-148``)."""
+    fx, preds = fx0, []
+    for _ in range(steps):
+        im = model(pos, fx)
+        preds.append(im)
+        fx = torch.cat([fx[..., step_width:], im.to(fx.dtype)], dim=-1)
+    return torch.cat(preds, dim=-1)
+
+
+class _Rollout(torch.nn.Module):
+    """:func:`rollout` of the model as a module of ``(pos, fx0)``."""
+
+    def __init__(self, model: torch.nn.Module, steps: int, step_width: int):
+        super().__init__()
+        self.model = model
+        self.steps = steps
+        self.step_width = step_width
+
+    def forward(self, pos, fx0):
+        return rollout(self.model, pos, fx0, self.steps, self.step_width)
 
 
 def _dtype_name(a) -> str:
@@ -171,6 +200,27 @@ def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _export(wrapper, model, variables, example_args, mesh):
+    """``torch.export`` of ``wrapper`` (a module holding ``model``) over the
+    array inputs of ``example_args``, in eval mode under ``no_grad``."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_TODO)
+    state = model.state_dict()
+    if variables is not None:
+        _raise_variables_mismatch(_variables_spec(state), variables)
+    device = _model_device(model)
+    dts = _canonical_input_dtypes(example_args)
+    arrays = tuple(_to_device(a, device, dt) for a, dt in zip(
+        [a for a in example_args if a is not None], dts))
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return torch.export.export(wrapper, arrays, strict=False)
+    finally:
+        model.train(was_training)
+
+
 def export_apply(model: torch.nn.Module, variables, example_args:
                  Sequence[Any], *, mesh=None):
     """Export the model's eval forward to a ``torch.export.ExportedProgram``.
@@ -191,33 +241,51 @@ def export_apply(model: torch.nn.Module, variables, example_args:
     is restored after), so the kernels appear as the ``haet::`` operators.
     An export that fails raises; nothing falls back to the eager model.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
-    state = model.state_dict()
-    if variables is not None:
-        _raise_variables_mismatch(_variables_spec(state), variables)
-    device = _model_device(model)
-    dts = _canonical_input_dtypes(example_args)
-    arrays = tuple(_to_device(a, device, dt) for a, dt in zip(
-        [a for a in example_args if a is not None], dts))
-    wrapper = _Apply(model, tuple(a is None for a in example_args))
-    was_training = model.training
-    model.eval()
-    try:
-        with torch.no_grad():
-            return torch.export.export(wrapper, arrays, strict=False)
-    finally:
-        model.train(was_training)
+    return _export(_Apply(model, tuple(a is None for a in example_args)),
+                   model, variables, example_args, mesh)
 
 
-def export_rollout(*args, **kwargs):
-    """Rollout programs (``haet_tpu/export.py:115-192``): not ported."""
-    raise NotImplementedError(ROLLOUT_TODO)
+def export_rollout(model: torch.nn.Module, variables,
+                   example_args: Sequence[Any], *, steps: int,
+                   step_width: int | None = None, mesh=None):
+    """Export a ``steps``-step autoregressive rollout (:func:`rollout`) as
+    one program of ``(pos, fx0)`` (``haet_tpu/export.py:151-191``).
 
+    Args:
+        example_args: ``(pos, fx0)``, ``fx0`` the ``[B, N, T_in]`` window
+            of input frames.
+        steps: autoregressive steps in the program (unrolled).
+        step_width: frames predicted per step; the model's ``out_dim`` by
+            default, and it must equal it. ``T_in`` must be at least
+            ``step_width``, so that the window can slide.
 
-def save_rollout_artifact(*args, **kwargs):
-    """Rollout artifacts (``haet_tpu/export.py:332-364``): not ported."""
-    raise NotImplementedError(ROLLOUT_TODO)
+    Raises ``ValueError`` naming ``out_dim``, the ``window`` or ``steps``
+    where JAX does.
+    """
+    args = tuple(a for a in example_args if a is not None)
+    if len(args) != 2:
+        raise ValueError(
+            f"rollout export takes exactly (pos, fx0), got {len(args)} "
+            "array inputs")
+    out_dim = getattr(model, "out_dim", None)
+    if step_width is None:
+        if out_dim is None:
+            raise ValueError("pass step_width= (model has no out_dim)")
+        step_width = out_dim
+    step_width = int(step_width)
+    if out_dim is not None and int(out_dim) != step_width:
+        raise ValueError(
+            f"step_width ({step_width}) must equal the model's out_dim "
+            f"({out_dim}): each step's prediction IS the appended frames")
+    t_in = int(np.shape(args[1])[-1])
+    if t_in < step_width:
+        raise ValueError(
+            f"the input window (fx0 last dim = {t_in}) must hold at least "
+            f"step_width ({step_width}) frames to slide")
+    if int(steps) < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    return _export(_Rollout(model, int(steps), step_width), model,
+                   variables, args, mesh)
 
 
 def save_artifact(path: str, model: torch.nn.Module, variables,
@@ -228,6 +296,35 @@ def save_artifact(path: str, model: torch.nn.Module, variables,
     dtypes, the device type, the variables' names, shapes and dtypes, and
     ``extra_manifest``, which cannot override those). Returns ``path``."""
     program = export_apply(model, variables, example_args, mesh=mesh)
+    return _write_artifact(path, program, model, variables, example_args,
+                           extra_manifest)
+
+
+def save_rollout_artifact(path: str, model: torch.nn.Module, variables,
+                          example_args: Sequence[Any], *, steps: int,
+                          step_width: int | None = None,
+                          extra_manifest: dict | None = None,
+                          mesh=None) -> str:
+    """Export and write a ``steps``-step rollout artifact
+    (:func:`export_rollout`; ``haet_tpu/export.py:332-363``): the layout of
+    :func:`save_artifact`, the manifest recording ``rollout_steps`` and
+    ``step_width`` after the caller's extras. It serves through
+    :func:`load_artifact`, :class:`ServingBundle`, :class:`BoundBundle` and
+    ``haet_torch.serve.BatchingServer`` as a forward's program does; its
+    output is ``[B, N, steps * step_width]``."""
+    if step_width is None:
+        step_width = getattr(model, "out_dim", None)
+    program = export_rollout(model, variables, example_args, steps=steps,
+                             step_width=step_width, mesh=mesh)
+    return _write_artifact(
+        path, program, model, variables, example_args,
+        # after the caller's extras: facts about the exported program
+        {**(extra_manifest or {}), "rollout_steps": int(steps),
+         "step_width": int(step_width)})
+
+
+def _write_artifact(path, program, model, variables, example_args,
+                    extra_manifest) -> str:
     os.makedirs(path, exist_ok=True)
     torch.export.save(program, os.path.join(path, _BLOB))
     state = model.state_dict() if variables is None else variables
@@ -369,7 +466,8 @@ class ServingBundle:
                 def _what(x):
                     man = getattr(x, "manifest", {}) or {}
                     return {k: man.get(k) for k in
-                            ("input_dtypes", "batch_size", "model")
+                            ("input_dtypes", "rollout_steps", "batch_size",
+                             "model")
                             if man.get(k) is not None}
 
                 raise ValueError(

@@ -8,6 +8,7 @@ from .erwin import (  # noqa: F401
     ErwinEmbedding,
     ErwinTransformer,
     ErwinTransformerBlock,
+    MPNN,
     Node,
 )
 from .haet import (  # noqa: F401

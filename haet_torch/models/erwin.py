@@ -22,6 +22,11 @@ records it), so a run can show that no block of its path left the kernels.
 Pooling and unpooling normalise with :class:`FlaxBatchNorm1d`, which in
 train mode updates its running variance as flax does.
 
+With ``mp_steps > 0`` the embedding runs :class:`MPNN` message passing over
+capped-degree neighbours (:mod:`haet_torch.ops.neighbors`): the radius
+graph when ``mp_radius`` is set, kNN otherwise. ``grouping="morton"`` orders
+the balls by a Z-order sort (:func:`~haet_torch.ops.ball_groups.morton_perm`).
+
 ``dtype`` is the compute dtype (``haet_tpu/models/erwin.py``'s flax
 ``dtype``; None for float32, or ``torch.bfloat16``): the Linears compute in
 it, the RMSNorms and BatchNorms normalise in float32 and return it
@@ -40,15 +45,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.ball_groups import (MORTON_TODO, ErwinPerms, build_erwin_perms,
+from ..ops.ball_groups import (GROUPERS, ErwinPerms, build_erwin_perms,
                                effective_ball_size)
 from ..ops.dense import normalized
 from ..ops.kernels.erwin_block import (BWD_PLAIN_ROUTES, PLAIN_ROUTES,
                                        ball_msa, eligible, fused_erwin_block)
+from ..ops.neighbors import knn_edges, radius_edges
+from ..utils.env import grad_off
 from .components.mlp import Linear, SwiGLU
-
-MPNN_TODO = ("MPNN message passing (mp_steps > 0) is not ported yet "
-             "(ROADMAP.md, queue 1: MPNN and neighbors)")
 
 
 @dataclass
@@ -187,7 +191,7 @@ class BallPooling(nn.Module):
         B, N, C = node.x.shape
         D = node.pos.shape[-1]
         s = self.stride
-        with torch.no_grad():
+        with grad_off():
             pos_g = node.pos.reshape(B, N // s, s, D)
             centers = pos_g.mean(dim=2)
             rel_pos = (pos_g - centers[:, :, None]).reshape(B, N // s, s * D)
@@ -216,7 +220,7 @@ class BallUnpooling(nn.Module):
         B, Np, _ = node.x.shape
         D = node.pos.shape[-1]
         s = self.stride
-        with torch.no_grad():
+        with grad_off():
             rel_pos = (children.pos.reshape(B, Np, s, D)
                        - node.pos[:, :, None]).reshape(B, Np, s * D)
         x = torch.cat([node.x, rel_pos.to(node.x.dtype)], dim=-1)
@@ -277,19 +281,79 @@ class BasicLayer(nn.Module):
         return node
 
 
+class MPNN(nn.Module):
+    """Message passing over capped-degree dense neighbours
+    (``haet_tpu/models/erwin.py:354-415``; reference
+    ``components/mpnn.py:10-75``, a ragged edge list and ``scatter_mean``
+    there). Each point carries ``K`` neighbour slots; a step is
+
+    ``msg = LN(gelu(message_i([h_j, h_i, pos_j - pos_i])))``,
+    ``agg = sum over valid slots of msg / max(#valid, 1)``,
+    ``h += LN(update_i([h, agg]))``,
+
+    with exact GELU and non-affine LayerNorms of eps 1e-5. The edge
+    attributes carry no gradient. Module names are the reference's
+    (``fused_message_update.i.0``, ``update_fns.i.0``), the keys
+    ``haet_torch/utils/weights.py`` maps JAX's ``message_i``/``update_i``
+    to."""
+
+    def __init__(self, dim: int, mp_steps: int, dimensionality: int = 3,
+                 dtype=None):
+        super().__init__()
+        self.dim = dim
+        self.dtype = dtype
+        self.fused_message_update = nn.ModuleList([
+            nn.Sequential(Linear(2 * dim + dimensionality, dim, dtype=dtype))
+            for _ in range(mp_steps)])
+        self.update_fns = nn.ModuleList([
+            nn.Sequential(Linear(2 * dim, dim, dtype=dtype))
+            for _ in range(mp_steps)])
+
+    def _norm(self, x):
+        return normalized(lambda v: F.layer_norm(v, (self.dim,), eps=1e-5),
+                          x, self.dtype)
+
+    def forward(self, h, pos, nbr_idx, nbr_valid):
+        """``h [B, N, C]``, ``pos [B, N, D]``, ``nbr_idx``/``nbr_valid``
+        ``[B, N, K]``."""
+        if nbr_idx is None:
+            raise ValueError("MPNN requires neighbour indices (mp_steps > 0)")
+        B, N, K = nbr_idx.shape
+        flat = nbr_idx.reshape(B, N * K)
+
+        def nbr_gather(a):
+            return _gather_rows(a, flat).reshape(B, N, K, a.shape[-1])
+
+        edge_attr = (nbr_gather(pos) - pos[:, :, None]).detach()
+        w = nbr_valid[..., None].to(h.dtype)
+        denom = w.sum(dim=2).clamp_min(1.0)
+        for message, update in zip(self.fused_message_update,
+                                   self.update_fns):
+            h_j = nbr_gather(h)
+            h_i = h[:, :, None].expand_as(h_j)
+            msg = message(torch.cat([h_j, h_i, edge_attr.to(h.dtype)], -1))
+            msg = self._norm(F.gelu(msg, approximate="none"))
+            agg = (msg * w).sum(dim=2) / denom
+            h = h + self._norm(update(torch.cat([h, agg], dim=-1)))
+        return h
+
+
 class ErwinEmbedding(nn.Module):
-    """Linear embedding (reference ``embedding.py:12-20``); the MPNN part
-    (``mp_steps > 0``) is not ported yet."""
+    """Linear embedding, then :class:`MPNN` when ``mp_steps > 0``
+    (reference ``embedding.py:12-20``)."""
 
     def __init__(self, c_in: int, c_hidden: int, mp_steps: int,
                  dimensionality: int = 3, dtype=None):
         super().__init__()
-        if mp_steps > 0:
-            raise NotImplementedError(MPNN_TODO)
         self.embed_fn = Linear(c_in, c_hidden, dtype=dtype)
+        if mp_steps > 0:
+            self.mpnn = MPNN(c_hidden, mp_steps, dimensionality, dtype)
 
-    def forward(self, x, pos):
-        return self.embed_fn(x)
+    def forward(self, x, pos, nbr_idx=None, nbr_valid=None):
+        x = self.embed_fn(x)
+        if hasattr(self, "mpnn"):
+            x = self.mpnn(x, pos, nbr_idx, nbr_valid)
+        return x
 
 
 class ErwinTransformer(nn.Module):
@@ -301,7 +365,10 @@ class ErwinTransformer(nn.Module):
     two; returns the decoded ``[B, N, c_hidden[0]]`` in input order, with
     any masked points last. The JAX module's ``decode=False`` (the coarse
     ``(x, pos)``) is not ported: physics attention, its one caller here,
-    needs the decoded states.
+    needs the decoded states. With ``mp_steps > 0`` (and ``embed``) the
+    message passing's neighbours are the radius graph of ``mp_radius``
+    capped at ``mp_neighbors``, or the ``mp_neighbors`` nearest without a
+    radius (``haet_tpu/models/erwin.py:483-496``).
     """
 
     def __init__(self, c_in: int, c_hidden: Sequence[int],
@@ -312,20 +379,22 @@ class ErwinTransformer(nn.Module):
                  dimensionality: int = 3, mp_steps: int = 3,
                  embed: bool = True, use_dist_bias: bool = True,
                  use_pallas_blocks: bool = False, grouping: str = "median",
+                 mp_neighbors: int = 16, mp_radius: Optional[float] = None,
                  dtype=None):
         super().__init__()
         if not (len(enc_num_heads) == len(enc_depths) == len(ball_sizes)
                 and len(dec_num_heads) == len(dec_depths) == len(strides)
                 and len(strides) == len(ball_sizes) - 1):
             raise ValueError("inconsistent Erwin level configuration")
-        if grouping == "morton":
-            raise NotImplementedError(MORTON_TODO)
-        if grouping != "median":
+        if grouping not in GROUPERS:
             raise ValueError(f"unknown grouping {grouping!r}")
         self.ball_sizes = tuple(ball_sizes)
         self.strides = tuple(strides)
         self.rotate = rotate
         self.grouping = grouping
+        self.mp_steps = mp_steps
+        self.mp_neighbors = mp_neighbors
+        self.mp_radius = mp_radius
         if embed:
             self.embed = ErwinEmbedding(c_in, c_hidden[0], mp_steps,
                                         dimensionality, dtype)
@@ -355,7 +424,16 @@ class ErwinTransformer(nn.Module):
                 rotate_angle=float(self.rotate), grouping=self.grouping,
                 mask=mask)
         if hasattr(self, "embed"):
-            x = self.embed(x, pos)
+            nbr_idx = nbr_valid = None
+            if self.mp_steps > 0:
+                if self.mp_radius is not None:
+                    nbr_idx, nbr_valid = radius_edges(
+                        pos.detach(), self.mp_radius, self.mp_neighbors,
+                        mask=mask)
+                else:
+                    nbr_idx, nbr_valid = knn_edges(
+                        pos.detach(), self.mp_neighbors, mask=mask)
+            x = self.embed(x, pos, nbr_idx, nbr_valid)
         node = Node(x=_gather_rows(x, perms.perm),
                     pos=_gather_rows(pos, perms.perm))
         num_layers = len(self.encoder)

@@ -169,6 +169,7 @@ class _HAETBase(nn.Module):
         super().__init__()
         device = default_device(device)
         self.n_hidden = n_hidden
+        self.out_dim = out_dim
         self.unified_pos = unified_pos
         self.ref = ref
         self.use_checkpoint = use_checkpoint

@@ -60,6 +60,7 @@ from torch import nn
 from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
 from ..ops.kernels import slice_kernels as sk
+from ..utils.env import grad_off
 from .components.dropout import Dropout
 from .components.mlp import Linear
 from .erwin import ErwinTransformer
@@ -177,7 +178,7 @@ class _PhysicsAttentionBase(nn.Module):
         # first d channels, min-max normalised over the GLOBAL flat batch.
         d = self.dimensionality
         flat = states.reshape(B * H * G, Dh)
-        with torch.no_grad():
+        with grad_off():
             feat = flat[:, :d]
             fmin = feat.amin(dim=0, keepdim=True)
             fmax = feat.amax(dim=0, keepdim=True)

@@ -3,8 +3,12 @@
 Counterpart of ``haet_tpu/ops/ball_groups.py``. The median-split ball tree
 is ``levels`` rounds of within-segment **stable** argsorts along each
 segment's max-spread axis, so the permutations equal the JAX package's
-integer for integer on the same positions, ties included. Everything here is
-gradient-free: positions are detached on the way in.
+integer for integer on the same positions, ties included. ``"morton"``
+grouping is one stable sort by a Z-order code of the positions quantised
+over each cloud's bounding box (:func:`morton_code`, :func:`morton_perm`):
+cheaper, with other ball membership, and equal to the JAX package's codes
+and permutations integer for integer. Everything here is gradient-free:
+positions are detached on the way in.
 
 Clouds are dense ``pos: [B, N, D]`` with N a power of two (:func:`pad_pow2`
 duplicates real points to get there).
@@ -18,9 +22,7 @@ from typing import Optional
 
 import torch
 
-MORTON_TODO = ("grouping='morton' is not ported yet (ROADMAP.md, queue 1: "
-               "'morton' grouping)")
-
+from ..utils.env import without_grad
 
 def _take_points(pos: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Gather ``pos[b, order[b]]`` -> ``[B, N, D]``."""
@@ -51,6 +53,61 @@ def median_split_perm(pos: torch.Tensor, levels: int) -> torch.Tensor:
         p = torch.gather(pv, 2, idx[..., None].expand(B, S, seg, D)
                          ).reshape(B, N, D)
     return order
+
+
+def _part1by1(x: torch.Tensor) -> torch.Tensor:
+    """16 bits of ``x`` spread with a zero bit between each (2D Morton)."""
+    x = x & 0x0000FFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """10 bits of ``x`` spread with two zero bits between each (3D
+    Morton)."""
+    x = x & 0x000003FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_code(pos: torch.Tensor) -> torch.Tensor:
+    """The int32 Z-order code of ``pos: [..., N, D]`` (D in 1, 2, 3),
+    quantised over each cloud's bounding box: 30 bits in 1D, 15 bits per
+    axis in 2D, 10 in 3D (``haet_tpu/ops/ball_groups.py:113-136``)."""
+    D = pos.shape[-1]
+    lo = pos.amin(dim=-2, keepdim=True)
+    hi = pos.amax(dim=-2, keepdim=True)
+    scale = torch.where(hi - lo > 0, hi - lo, torch.ones_like(hi))
+    unit = (pos - lo) / scale
+    if D == 1:
+        return torch.clamp(unit[..., 0] * 0x3FFFFFFF, 0,
+                           0x3FFFFFFF).to(torch.int32)
+    if D == 2:
+        top = (1 << 15) - 1
+        q = torch.clamp(unit * top, 0, top).to(torch.int32)
+        return (_part1by1(q[..., 0]) << 1) | _part1by1(q[..., 1])
+    if D == 3:
+        top = (1 << 10) - 1
+        q = torch.clamp(unit * top, 0, top).to(torch.int32)
+        return ((_part1by2(q[..., 0]) << 2) | (_part1by2(q[..., 1]) << 1)
+                | _part1by2(q[..., 2]))
+    raise ValueError(f"morton_code supports D in (1, 2, 3); got {D}")
+
+
+def morton_perm(pos: torch.Tensor, levels: int = 0) -> torch.Tensor:
+    """Space-filling-curve grouping ``[B, N]`` (int64): one stable sort by
+    :func:`morton_code`. ``levels`` is taken for the groupers' common
+    signature and ignored."""
+    del levels
+    return torch.sort(morton_code(pos), dim=-1, stable=True).indices
+
+
+#: the groupings :func:`build_erwin_perms` takes, by name
+GROUPERS = {"median": median_split_perm, "morton": morton_perm}
 
 
 def rotation_matrix(angle_deg: float, dim: int,
@@ -137,7 +194,7 @@ class ErwinPerms:
     rot_inv_perms: list = field(default_factory=list)
 
 
-@torch.no_grad()
+@without_grad
 def build_erwin_perms(pos: torch.Tensor, *, ball_sizes: tuple,
                       strides: tuple, rotate_angle: float = 45.0,
                       grouping: str = "median",
@@ -149,14 +206,13 @@ def build_erwin_perms(pos: torch.Tensor, *, ball_sizes: tuple,
     (``balltree.pyx:643``), and a level whose ball covers it whole builds no
     rotation perm (full-ball attention is permutation-equivariant).
     """
-    if grouping == "morton":
-        raise NotImplementedError(MORTON_TODO)
-    if grouping != "median":
+    if grouping not in GROUPERS:
         raise ValueError(f"unknown grouping {grouping!r}")
+    grouper = GROUPERS[grouping]
     pos = pos.detach()
     B, N, D = pos.shape
     full_levels = max(int(math.log2(N)) - 1, 0)
-    perm = median_split_perm(pos, full_levels)
+    perm = grouper(pos, full_levels)
 
     if mask is None:
         unperm = invert_perm(perm)
@@ -186,7 +242,7 @@ def build_erwin_perms(pos: torch.Tensor, *, ball_sizes: tuple,
                 rot_inv_perms.append(None)
             else:
                 t = min(targets[i], int(math.log2(max(n_level, 1))))
-                rp = median_split_perm(leaves, t)
+                rp = grouper(leaves, t)
                 rot_perms.append(rp)
                 rot_inv_perms.append(invert_perm(rp))
             if i < num_layers - 1:

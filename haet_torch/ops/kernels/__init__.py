@@ -167,7 +167,7 @@ def count_kernels(names) -> dict:
             "other": total - sum(launches.values()), "names": sorted(seen)}
 
 
-def profile_launches(fn, *args):
+def profile_launches(fn, *args, host: bool = True):
     """``(fn(*args), counts)``: ``fn`` run under ``torch.profiler`` with the
     device synchronised before the trace ends, and :func:`count_kernels` of
     the CUDA kernels it ran, replays of CUDA graphs included, plus
@@ -177,12 +177,13 @@ def profile_launches(fn, *args):
     records the profiler dropped, all of them sentinels
     (:func:`haet_torch.utils.profiling.device_trace`). Raises when the
     trace holds a graph launch but no kernel: the profiler would then not
-    see inside graphs."""
+    see inside graphs. ``host=False`` traces the CUDA activity alone, as
+    :func:`~haet_torch.utils.profiling.device_trace` does."""
     import torch
 
     from ...utils.profiling import device_trace
 
-    with device_trace() as prof:
+    with device_trace(host) as prof:
         out = fn(*args)
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA

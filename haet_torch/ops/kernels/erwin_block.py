@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ...utils.env import grad_off
 from ..ball_groups import effective_ball_size
 from ..dense import linear
 from . import LaunchCounter, _build, define_op
@@ -254,7 +255,7 @@ def ball_msa(x, pos, pe_w, pe_b, qkv_w, qkv_b, sigma, proj_w, proj_b, *,
     q, k, v = (qkv[:, :, :, i].movedim(3, 2) for i in range(3))
     logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
     if sigma is not None:
-        with torch.no_grad():
+        with grad_off():
             diff = pos_b[:, :, :, None, :] - pos_b[:, :, None, :, :]
             dist = torch.sqrt((diff * diff).sum(-1) + 1e-12)  # [B, nb, bs, bs]
             bias = sigma.detach().reshape(1, 1, h, 1, 1) * dist[:, :, None]
@@ -518,6 +519,26 @@ def fused_erwin_block_bwd(x, pos, dout, params: dict, *, ball_size: int,
                           plan.grad_shapes)}
 
 
+def max_active_clusters(n: int, c: int, d: int, hidden: int, heads: int,
+                        ball_size: int, *, bwd: bool = False,
+                        bf16: bool = False) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the forward (or backward)
+    kernel at one block shape on the current card: the most clusters of
+    :data:`CLUSTER` CTAs, each with its layout's shared memory, that run at
+    once. A launch of more clouds than this runs in more than one wave.
+    Launches nothing."""
+    plan = _plan(n, c, d, hidden, heads, effective_ball_size(ball_size, n))
+    layout = plan.bwd if bwd else plan.fwd
+    nbuf = (len(layout.ints) - 1) // 2
+    out = ctypes.c_int(0)
+    lib = _lib()
+    status = lib.haet_erwin_max_active_clusters(
+        int(bwd), int(all(layout.ints[nbuf:2 * nbuf])), int(bf16), CLUSTER,
+        layout.smem, ctypes.byref(out))
+    _build.check(lib, status, "max_active_clusters")
+    return out.value
+
+
 class ErwinBlockFn(torch.autograd.Function):
     """The fused block on CUDA tensors: the forward kernel, and the backward
     kernel as its backward (the JAX ``custom_vjp``,
@@ -553,5 +574,8 @@ def _lib() -> ctypes.CDLL:
         lib.haet_erwin_block_bwd.argtypes = (
             [P] * 23 + [I] * 10 + [ctypes.POINTER(I), I, I, P])
         lib.haet_erwin_block_bwd.restype = I
+        lib.haet_erwin_max_active_clusters.argtypes = (
+            [I] * 5 + [ctypes.POINTER(I)])
+        lib.haet_erwin_max_active_clusters.restype = I
         lib._haet_typed = True
     return lib

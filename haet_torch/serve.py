@@ -43,8 +43,10 @@ min-max normalised over the whole batch (``physics_attention.py``), so a
 served sample's output depends on the samples dispatched with it (and on
 ``pad_to_batch``'s copies), exactly as in the JAX reference.
 
-Not ported here, each raising with its ``ROADMAP.md`` item: multi-chip
-families (``mesh=``: item 10, parallel), and rollout programs (item 6).
+A rollout artifact (``haet_torch.export.save_rollout_artifact``) serves
+here as a forward's does: its requests are ``(pos, fx0)`` and its answers
+``[N, steps * step_width]``. Multi-chip families (``mesh=``) are not ported
+and raise with their ``ROADMAP.md`` item (queue 1: parallel).
 """
 
 from __future__ import annotations

@@ -239,7 +239,7 @@ def pipe_config() -> ExperimentConfig:
 
 def ns_config() -> ExperimentConfig:
     """reference exp_ns.py: 64x64, T_in=10 channels, autoregressive
-    rollout (its driver is ``ROADMAP.md`` queue 1, item 6b)."""
+    rollout (its driver is :mod:`haet_torch.benchmarks.exp_ns`)."""
     return ExperimentConfig(
         name="ns",
         model=ModelConfig(
@@ -271,7 +271,7 @@ def elasticity_config() -> ExperimentConfig:
 
 def plasticity_config() -> ExperimentConfig:
     """reference exp_plas.py: 101x31 grid, Time_Input=True, out_dim=4 (its
-    driver is ``ROADMAP.md`` queue 1, item 6b)."""
+    driver is :mod:`haet_torch.benchmarks.exp_plas`)."""
     return ExperimentConfig(
         name="plasticity",
         model=ModelConfig(

@@ -27,6 +27,9 @@ the eager step bit for bit, as the kernels' own sums do.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 #: the float32 policy: no TF32 anywhere (matches ``Precision.HIGHEST``)
@@ -72,3 +75,23 @@ def host_numpy(t: torch.Tensor):
     depend on): the values are identical, only the dtype differs."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def grad_off():
+    """``torch.no_grad()`` where autograd records, and no context where it
+    already does not. Equal in effect; but a ``torch.export`` trace (run
+    under ``no_grad``) then holds no grad-mode regions, which its
+    ``set_grad_enabled`` pass would inline one at a time, each a
+    recompilation of the whole graph: quadratic in the graph's length, and
+    a rollout program is ``steps`` forwards long."""
+    return (torch.no_grad() if torch.is_grad_enabled()
+            else contextlib.nullcontext())
+
+
+def without_grad(fn):
+    """``fn`` run under :func:`grad_off` (the decorator form)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with grad_off():
+            return fn(*args, **kwargs)
+    return wrapped

@@ -78,15 +78,19 @@ class DeviceTrace:
 
 
 @contextlib.contextmanager
-def device_trace():
+def device_trace(host: bool = True):
     """``torch.profiler.profile`` of the host and the card, opened
     :data:`TRACE_MARGIN_S` and :data:`SENTINELS` sentinel kernels before
     the traced work and closed that margin after the card has finished it;
-    yields a :class:`DeviceTrace`."""
+    yields a :class:`DeviceTrace`. ``host=False`` records the CUDA activity
+    alone (the kernels, copies and runtime calls, no host operators): the
+    profiler then parses a fraction of the records of an eager step."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
         for _ in range(SENTINELS):

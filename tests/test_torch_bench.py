@@ -17,6 +17,7 @@
   are no device metric, and the drivers report none (``device_*`` None).
 """
 
+import contextlib
 import importlib.util
 import json
 import subprocess
@@ -403,6 +404,30 @@ def test_device_trace_sentinels_take_the_profilers_loss(lost):
         assert [e.name for e in events] == [
             "cudaLaunchKernel", "slice_states_fast<32, 32, float>",
             "Memset (Device)"]
+
+
+@pytest.mark.parametrize("host", [True, False])
+def test_device_trace_records_the_host_unless_told_not(monkeypatch, host):
+    """``device_trace(host=False)`` asks the profiler for the CUDA activity
+    alone; the default records the host too."""
+    from torch.profiler import ProfilerActivity
+
+    asked = []
+
+    @contextlib.contextmanager
+    def profile(activities):
+        asked.append(activities)
+        yield FakeProfile(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(tprof, "TRACE_MARGIN_S", 0.0)
+    with tprof.device_trace(host) as trace:
+        pass
+    assert trace.lost == 0
+    assert asked == [[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
+                     else [ProfilerActivity.CUDA]]
 
 
 # ---------------------------------------------------------------------------

@@ -220,13 +220,20 @@ def test_effective_ball_size_and_invert():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="morton"):
-        tbg.build_erwin_perms(torch.rand(1, 8, 3), ball_sizes=(4,),
-                              strides=(), grouping="morton")
+    """The options once unported build: morton perms integer-equal to
+    JAX's, an Erwin stage with morton grouping, and one with 3 MPNN steps
+    (``tests/test_torch_mpnn.py`` holds their forwards to JAX's); an
+    unknown grouping raises."""
+    pos = np.random.RandomState(3).rand(1, 8, 3).astype(np.float32)
+    kw_perm = dict(ball_sizes=(4,), strides=(), grouping="morton")
+    _assert_perms_equal(
+        tbg.build_erwin_perms(torch.from_numpy(pos), **kw_perm),
+        jbg.build_erwin_perms(jnp.asarray(pos), **kw_perm))
     kw = dict(c_in=8, c_hidden=(8, 16), ball_sizes=(8, 4),
               enc_num_heads=(2, 2), enc_depths=(1, 1), dec_num_heads=(2,),
               dec_depths=(1,), strides=(2,))
-    with pytest.raises(NotImplementedError, match="morton"):
-        TErwin(**kw, mp_steps=0, grouping="morton")
-    with pytest.raises(NotImplementedError, match="MPNN"):
-        TErwin(**kw, mp_steps=3, embed=True)
+    assert TErwin(**kw, mp_steps=0, grouping="morton").grouping == "morton"
+    mpnn = TErwin(**kw, mp_steps=3, embed=True).embed.mpnn
+    assert len(mpnn.fused_message_update) == len(mpnn.update_fns) == 3
+    with pytest.raises(ValueError, match="grouping"):
+        TErwin(**kw, mp_steps=0, grouping="kd")

@@ -215,9 +215,14 @@ def test_devices_and_unported_programs_raise(env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         hexport.load_artifact(d)
-    for fn in (hexport.export_rollout, hexport.save_rollout_artifact):
-        with pytest.raises(NotImplementedError, match="rollout export"):
-            fn(env["tm"], None, (env["x"], None), steps=2)
+    # rollout programs are ported (tests/test_torch_rollout.py): a
+    # rollout takes exactly (pos, fx0)
+    with pytest.raises(ValueError, match="exactly"):
+        hexport.export_rollout(env["tm"], None, (env["x"], None), steps=2)
+    with pytest.raises(ValueError, match="exactly"):
+        hexport.save_rollout_artifact(os.path.join(env["root"], "r"),
+                                      env["tm"], None, (env["x"], None),
+                                      steps=2)
     with pytest.raises(NotImplementedError, match="parallel"):
         hexport.export_apply(env["tm"], None, (env["x"], None),
                              mesh=object())

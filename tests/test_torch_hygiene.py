@@ -55,7 +55,9 @@ def test_port_files_are_found():
             "micro_serving_latency.py", "micro_serving_server.py",
             "embedding.py", "dropout.py", "pde_datasets.py",
             "pde_common.py", "exp_darcy.py", "exp_pipe.py",
-            "exp_airfoil.py", "exp_elas.py", "exp_3d.py"} <= names
+            "exp_airfoil.py", "exp_elas.py", "exp_3d.py", "exp_ns.py",
+            "exp_plas.py", "micro_rollout.py", "erwin_baseline.py",
+            "neighbors.py", "scatter.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

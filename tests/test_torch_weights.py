@@ -102,9 +102,31 @@ def test_seeded_init_is_deterministic():
     (dict(shard_axes=("dp", "tp")), "parallel"),
 ])
 def test_unported_options_raise(change, match):
+    """``use_pallas="auto"`` and ``shard_axes`` wait for their items and
+    raise naming them. Morton grouping and MPNN embedding are ported: the
+    car preset with either builds, and JAX's variables of the same config
+    cross over key for key (``to_torch_state_dict``) and load strictly."""
     cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        cfg.build(device="cpu")
+    if match in ("auto", "parallel"):
+        with pytest.raises(NotImplementedError, match=match):
+            cfg.build(device="cpu")
+        return
+    m = cfg.build(device="cpu")
+    jm = dataclasses.replace(jcfg.shapenet_car_config().model,
+                             **change).build()
+    template = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                              np.zeros((1, 64, 7), np.float32))
+    rng = np.random.RandomState(1)
+    variables = jax.tree_util.tree_map(
+        lambda t: rng.randn(*t.shape).astype(np.float32), template)
+    ref = to_torch_state_dict(variables)
+    assert {k for k in m.state_dict()
+            if not k.endswith("num_batches_tracked")} == set(ref)
+    assert any(".mpnn." in k for k in ref) == (match == "MPNN")
+    load_jax_variables(m, variables)  # strict=True
+    for k, v in ref.items():
+        np.testing.assert_array_equal(m.state_dict()[k].numpy(), v,
+                                      err_msg=k)
 
 
 def test_bf16_car_model_loads_float32_params(car_variables):
