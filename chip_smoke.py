@@ -95,7 +95,7 @@ Phases (any failed check exits non-zero before the final line):
    d. ``micro_erwin_fused`` with reduced windows: the copy counter rises by
       exactly the chained calls the driver made, the Erwin counters by
       exactly the fused lines' calls, and no block takes the plain route.
-   e. ``bench_flags`` with 2 rounds of 1/3 steps, dispatched and as CUDA
+   e. ``bench_flags`` with 1 round of 1/3 steps, dispatched and as CUDA
       graphs: per step, exactly 2 + 2 slice launches and 2 + 2 of their
       backwards for ``pallas-tokenizer``, one forward and one backward
       launch per Erwin block (12) for ``pallas-erwin``, none for
@@ -297,14 +297,43 @@ Phases (any failed check exits non-zero before the final line):
    e. The car preset with ``grouping="morton"``: its eval forward within
       ``SERVE_RTOL`` of its plain path, 2 + 2 + 24 launches.
 
+14. ``use_pallas="auto"``, the sweeps, the utils and the native readers
+   (each part's seconds printed; ~90 s in all).
+   a. The car preset (float32) with ``use_pallas="auto"`` against the
+      explicit ``False`` and ``True`` models of the same weights, at half
+      the card's threshold and at it (``auto_threshold``: the first N
+      that takes the kernels at G 32): 0 slice launches below and 2 + 2
+      forward at it (and with a backward, 2 + 2 backward), by the launch
+      counters; the forward equal to the explicit model's bit for bit,
+      the gradients within ``AUTO_GRAD_RTOL``.
+   b. ``mfu_sweep --ns 32768 262144 --rounds 2`` with its A/B at 262144,
+      in this process: every row finite, auto's resolution as the rule's.
+   c. ``accum_mem_probe`` at accum 1 and 8, batch 8, at the larger of the
+      threshold and 65536 points, each probe in a fresh process (both at
+      once): accum 8's peak memory below accum 1's.
+   d. ``get_slice_weights`` on the car preset at full width (32186 points,
+      both kernel flags): the last block's weights against the plain
+      formula on that block's input, block 0's against the plain model's
+      capture, within ``VIZ_ATOL``; each slice's weights summing to 1 over
+      the points; the capturing forward's output equal to an ordinary
+      forward's; 2 + 2 + 24 launches with and without the capture.
+   e. Phase 8b's ``last`` weights as a reference-format ``.pt``, then
+      ``car_eval --torch_checkpoint`` on the car fixture's fold layout:
+      the metrics of ``car_eval`` of the checkpoint itself.
+   f. The native VTK reader (``use_native=True``; both libraries are
+      built first, so a failed ``g++`` build fails the phase) against the
+      numpy parser on the car fixture, and the native ball tree's balls at
+      every level against ``ball_groups``' on-device median split of a
+      car sample's first 16384 points.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
 7d's run, ``replay_launches`` from the profiler's count of one replay),
 six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), six at
 the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step) and six
 at the NS shapes (``*_ns``, ``launches`` from 13b's checkpointed eager
-step), phase 5's, 8's, 9's, 10's, 11's, 12's and 13's numbers, the card
-line, and as the last line ``{"ok": true, "device": {...}}``. Imports
+step), phase 5's, 8's, 9's, 10's, 11's, 12's, 13's and 14's numbers, the
+card line, and as the last line ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or ``haet_tpu``.
 """
 
@@ -1508,9 +1537,9 @@ COPY_CHAIN = 1050            # the micro driver's hi window
 #: the copy kernel's large timed shape: 64 MiB each way, past the 50 MB L2
 COPY_LARGE = (4096, 4096)
 #: the micro driver's reduced lo/hi windows and rounds
-MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=3)
+MICRO_REPS = dict(reps_lo=20, reps_hi=220, rounds=2)
 #: bench_flags' reduced windows: k_lo/k_hi steps and rounds
-FLAGS_STEPS = dict(k_lo=1, k_hi=3, rounds=2)
+FLAGS_STEPS = dict(k_lo=1, k_hi=3, rounds=1)
 #: bench_loop_diag's and profile_step's windows, at the car's 32768 points
 LOOP_DIAG = dict(ks=(1, 3), rounds=1)
 PROFILE_STEP = dict(lo=1, hi=2, rounds=1)
@@ -1721,8 +1750,11 @@ def expect_counts(what, counts, want):
 def drivers_phase(dev):
     """7d-7g: run each benchmark driver briefly on the card and check from
     the launch counters that its kernel paths went through the kernels.
-    Returns the copy kernel's launch count after the micro driver's run."""
+    Returns the copy kernel's launch count after the micro driver's run
+    and each part's seconds."""
     import torch
+
+    from concurrent.futures import ThreadPoolExecutor
 
     from haet_torch import bench
     from haet_torch.benchmarks import (bench_flags, bench_loop_diag,
@@ -1732,6 +1764,7 @@ def drivers_phase(dev):
                                         reset_launch_counts)
 
     no_routes = {k: 0 for k in plain_route_counts()}
+    marks = [time.perf_counter()]
     print(f"phase 7d: micro_erwin_fused {MICRO_REPS}", flush=True)
     reset_launch_counts()
     res = micro.run(dev, **MICRO_REPS)
@@ -1746,6 +1779,7 @@ def drivers_phase(dev):
         check(res[name]["device_us"] is not None
               and res[name]["device_us"] > 0, f"{name}: no device time")
     copy_launches = counts["copy_scale"]
+    marks.append(time.perf_counter())
 
     print(f"phase 7e: bench_flags {FLAGS_STEPS}", flush=True)
     reset_launch_counts()
@@ -1782,6 +1816,7 @@ def drivers_phase(dev):
               f"graph {r['graph_ms_per_step']:.3f}; device "
               f"{r['device_ms_per_step']:.3f} and "
               f"{r['graph_device_ms_per_step']:.3f}", flush=True)
+    marks.append(time.perf_counter())
 
     print("phase 7f: haet_torch.bench, 2 rounds", flush=True)
     rec = bench.run(dev, budget_s=0.0, rounds=2)
@@ -1799,6 +1834,7 @@ def drivers_phase(dev):
           "bench does not report the better strategy")
     del rec
     torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
 
     print(f"phase 7h: bench_loop_diag {LOOP_DIAG}, then profile_step "
           f"{PROFILE_STEP}", flush=True)
@@ -1813,12 +1849,16 @@ def drivers_phase(dev):
               and np.isfinite(r["graph_wall_ms"]),
               f"profile_step {name}: graph wall {r['graph_wall_ms']}")
     torch.cuda.empty_cache()
+    marks.append(time.perf_counter())
 
     print(f"phase 7g: mem_sweep probes at N = {N_LARGE}, forward only, "
-          f"each in a fresh process", flush=True)
-    probes = {}
-    for pallas in (False, True):
-        probes[pallas] = p = mem_sweep.probe_subprocess(N_LARGE, pallas)
+          f"each in a fresh process (both at once: each reads its own "
+          f"allocator's peak)", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        futs = {pallas: pool.submit(mem_sweep.probe_subprocess, N_LARGE,
+                                    pallas) for pallas in (False, True)}
+        probes = {pallas: f.result() for pallas, f in futs.items()}
+    for pallas, p in probes.items():
         print(f"  {json.dumps(p)}", flush=True)
         check(p.get("ok") is True, f"probe pallas={pallas} failed: {p}")
         n = int(pallas)
@@ -1830,7 +1870,10 @@ def drivers_phase(dev):
           f"kernels {kernel_mb:.1f} MiB", flush=True)
     check(kernel_mb < plain_mb,
           f"kernel path peak {kernel_mb} MiB is not below plain {plain_mb}")
-    return copy_launches
+    marks.append(time.perf_counter())
+    laps = {k: b - a for k, a, b in zip(("7d", "7e", "7f", "7h", "7g"),
+                                         marks, marks[1:])}
+    return copy_launches, laps
 
 
 # ---------------------------------------------------------------------------
@@ -3275,20 +3318,27 @@ def serving_phase(dev, run_dir):
               flush=True)
         out, model, state = export_phase(dev, ckpt, root)
         bundle = ServingBundle.load(root, device=dev)
+        marks = [t0, time.perf_counter()]
         print("phase 11b: pad_to_points and pipeline_depth", flush=True)
         out["ragged"] = ragged_phase(dev, bundle, model, state)
+        marks.append(time.perf_counter())
         print("phase 11c: reload under traffic", flush=True)
         out["reload"] = reload_phase(dev, bundle, model, state)
+        marks.append(time.perf_counter())
         print("phase 11d: serve_http in a subprocess", flush=True)
         out["http"] = http_phase(dev, root, ckpt, bundle, state)
         del model, bundle
         torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
         print("phase 11e: the serving drivers", flush=True)
         out["drivers"] = micro_serving_phase(dev)
-        print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+        marks.append(time.perf_counter())
+        print(f"phase 11: {marks[-1] - t0:.1f} s (" + ", ".join(
+            f"11{c} {b - a:.1f} s" for c, a, b in zip("abcde", marks,
+                                                      marks[1:])) + ")",
+            flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-        shutil.rmtree(run_dir, ignore_errors=True)
     return out
 
 
@@ -4418,6 +4468,346 @@ def rollout_phase(dev):
                      "sub_phase_seconds": parts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: use_pallas="auto", the sweeps, the utils and the native readers.
+# ---------------------------------------------------------------------------
+
+#: 14b's points per sample and rounds (the A/B at the largest)
+MFU_NS = (32768, 262144)
+MFU_ROUNDS = 2
+#: 14c's batch and the accumulation steps of its two probes
+ACCUM_BATCH = 8
+ACCUM_STEPS = (1, 8)
+#: 14d's captured weights against the plain formula, and their sums over
+#: the points against 1 (float32 softmax over 32186 points)
+VIZ_ATOL = 1e-6
+VIZ_SUM_ATOL = 1e-5
+#: 14a's gradients of the auto model against the explicit model's: the
+#: same computation, so equal but for any non-deterministic reduction
+AUTO_GRAD_RTOL = 1e-6
+NO_LAUNCH = {"slice_states": 0, "deslice": 0, "fused_erwin_block": 0,
+             "slice_states_bwd": 0, "deslice_bwd": 0,
+             "fused_erwin_block_bwd": 0, "copy_scale": 0}
+
+
+def auto_threshold() -> int:
+    """The car preset's ``use_pallas="auto"`` threshold: at its G 32 the
+    rule's G scale is 1, so the config's base."""
+    from haet_torch.utils.config import shapenet_car_config
+
+    return shapenet_car_config().pallas_auto_threshold
+
+
+def auto_phase(dev) -> dict:
+    """14a: the car preset (float32, the Erwin kernel flag off as the
+    preset sets it) with ``use_pallas="auto"``, against the explicit
+    ``False`` and ``True`` models of the same weights, one N below the
+    threshold and one at it: an eval forward, then a forward and backward
+    of a scalar loss. Launches per the counters, outputs and gradients
+    equal bit for bit (gradients within ``AUTO_GRAD_RTOL`` of each leaf's
+    max, printed: whether bit-identical)."""
+    import dataclasses
+
+    import torch
+
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from haet_torch.utils.config import shapenet_car_config
+
+    thr = auto_threshold()
+    base = shapenet_car_config()
+    models = {flag: dataclasses.replace(base, use_pallas=flag).build(
+        dev, seed=SEED).eval() for flag in ("auto", False, True)}
+    out = {"threshold": thr}
+    for n, kernels in ((max(thr // 2, 1), False), (thr, True)):
+        g = torch.Generator().manual_seed(SEED + n)
+        x = torch.randn(1, n, 7, generator=g).to(dev)
+        want_fwd = {**NO_LAUNCH, "slice_states": 2 * kernels,
+                    "deslice": 2 * kernels}
+        want_bwd = {**want_fwd, "slice_states_bwd": 2 * kernels,
+                    "deslice_bwd": 2 * kernels}
+        res = {}
+        for flag, m in models.items():
+            with torch.no_grad():
+                reset_launch_counts()
+                fwd = m(x, None)
+                torch.cuda.synchronize()
+                fwd_counts = launch_counts()
+            m.zero_grad(set_to_none=True)
+            reset_launch_counts()
+            loss = (m(x, None) ** 2).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            res[flag] = (fwd, fwd_counts, launch_counts(), {
+                k: p.grad.clone() for k, p in m.named_parameters()
+                if p.grad is not None})
+        ref = res[kernels]
+        fwd, fwd_counts, bwd_counts, grads = res["auto"]
+        side = "at" if kernels else "below"
+        expect_counts(f"auto forward at N {n} ({side} {thr})", fwd_counts,
+                      want_fwd)
+        expect_counts(f"auto forward+backward at N {n}", bwd_counts,
+                      want_bwd)
+        check(torch.equal(fwd, ref[0]),
+              f"auto forward at N {n} differs from use_pallas={kernels}")
+        check(sorted(grads) == sorted(ref[3]),
+              f"auto's gradient leaves at N {n}: {sorted(grads)}")
+        gerr = max(float((v - ref[3][k]).abs().max())
+                   / max(float(ref[3][k].abs().max()), 1e-30)
+                   for k, v in grads.items())
+        same = all(torch.equal(v, ref[3][k]) for k, v in grads.items())
+        print(f"  N {n}: the forward equals use_pallas={kernels}'s bit for "
+              f"bit; {len(grads)} gradients bit-identical: {same} (max "
+              f"relative difference {gerr:.3e}, tol {AUTO_GRAD_RTOL})",
+              flush=True)
+        check(gerr <= AUTO_GRAD_RTOL,
+              f"auto gradients at N {n} differ from use_pallas={kernels}")
+        out[f"n_{side}"] = n
+    return out
+
+
+def mfu_phase(dev) -> dict:
+    """14b: ``mfu_sweep --ns 32768 262144 --rounds 2`` with its A/B at
+    262144, in this process: every row finite; the A/B row's auto
+    resolution as the model's attention resolves it."""
+    from haet_torch.benchmarks import mfu_sweep
+
+    rows = mfu_sweep.run(MFU_NS, rounds=MFU_ROUNDS, pallas_ab=True,
+                         device=dev, emit=lambda r: print(
+                             f"  {json.dumps(r)}", flush=True))
+    check(len(rows) == len(MFU_NS) + 1, f"mfu_sweep rows: {rows}")
+    for r in rows[:-1]:
+        check(r["platform"] == "gpu" and r["sec_per_step"] > 0
+              and r["mfu"] and np.isfinite(r["mfu"]), f"mfu row {r}")
+    ab = rows[-1]
+    check(ab["sec_per_step_xla"] > 0 and ab["sec_per_step_pallas_fused"] > 0,
+          f"mfu A/B row {ab}")
+    check(ab["auto_resolves_to"] == (
+        "pallas" if max(MFU_NS) >= auto_threshold() else "xla"),
+        f"auto at {max(MFU_NS)}: {ab['auto_resolves_to']}")
+    return {"rows": rows}
+
+
+def accum_phase() -> dict:
+    """14c: one ``accum_mem_probe`` probe each at ``accum_steps`` 1 and 8,
+    batch 8, past the auto threshold, each in a fresh process (both at
+    once: each reads its own allocator's peak): accum 8's peak below
+    accum 1's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from haet_torch.benchmarks.accum_mem_probe import accum_probe_subprocess
+
+    n = max(auto_threshold(), 65536)
+    with ThreadPoolExecutor(len(ACCUM_STEPS)) as pool:
+        futs = {a: pool.submit(accum_probe_subprocess, n, ACCUM_BATCH, a)
+                for a in ACCUM_STEPS}
+        recs = {a: f.result() for a, f in futs.items()}
+    for a, r in recs.items():
+        print(f"  accum {a}: {json.dumps(r)}", flush=True)
+        check(r.get("ok") is True, f"accum probe {a} failed: {r}")
+    lo, hi = (recs[a]["peak_memory_mb"] for a in ACCUM_STEPS)
+    check(hi < lo, f"accum {ACCUM_STEPS[1]} peak {hi} MiB is not below "
+          f"accum {ACCUM_STEPS[0]}'s {lo} MiB")
+    return {"num_points": n, "batch": ACCUM_BATCH,
+            "peak_memory_mb": {str(a): recs[a]["peak_memory_mb"]
+                               for a in ACCUM_STEPS}}
+
+
+def viz_phase(dev) -> dict:
+    """14d: ``get_slice_weights`` on the car preset at full width (32186
+    points, both kernel flags): the last block's capture against the plain
+    formula on that block's own input (a forward hook), block 0's against
+    the plain model's capture of the same weights, each within
+    ``VIZ_ATOL``; every slice's weights summing to 1 over the points
+    within ``VIZ_SUM_ATOL``; the capturing forward's output equal to an
+    ordinary forward's; 2 + 2 + 24 launches for a forward with and
+    without the capture."""
+    import torch
+
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from haet_torch.utils.config import shapenet_car_config
+    from haet_torch.utils.visualization import get_slice_weights
+
+    cfg = shapenet_car_config()
+    fast = build_model(cfg, dev, seed=SEED).eval()
+    plain = cfg.build(dev, seed=SEED).eval()
+    g = torch.Generator().manual_seed(SEED + 14)
+    x = torch.randn(1, N_POINTS, 7, generator=g).to(dev)
+    per_fwd = {**NO_LAUNCH, "slice_states": 2, "deslice": 2,
+               "fused_erwin_block": 24}
+    with torch.no_grad():
+        reset_launch_counts()
+        want_out = fast(x, None)
+        torch.cuda.synchronize()
+    expect_counts("a forward without capture", launch_counts(), per_fwd)
+    seen = {}
+    attn = fast.blocks[-1].Attn
+    hooks = [attn.register_forward_pre_hook(
+        lambda mod, args: seen.__setitem__("x", args[0].detach())),
+        fast.register_forward_hook(
+        lambda mod, args, out: seen.__setitem__("out", out.detach()))]
+    try:
+        reset_launch_counts()
+        w_last = get_slice_weights(fast, x, None)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        w_first = get_slice_weights(fast, x, None, block=0)
+    finally:
+        for h in hooks:
+            h.remove()
+    expect_counts("the capturing forward", counts, per_fwd)
+    check(torch.equal(seen["out"], want_out),
+          "the capture changed the forward's output")
+    with torch.no_grad():
+        ref_last = attn.plain_slice_weights(
+            attn._project(seen["x"]).contiguous()).cpu().numpy()
+    ref_first = get_slice_weights(plain, x, None, block=0)
+    errs = {"last": float(np.abs(w_last - ref_last).max()),
+            "first": float(np.abs(w_first - ref_first).max())}
+    sums = float(max(np.abs(w.sum(axis=2) - 1).max()
+                     for w in (w_last, w_first)))
+    print(f"  weights {w_last.shape}: against the plain formula, max abs "
+          f"err last block {errs['last']:.3e}, block 0 {errs['first']:.3e} "
+          f"(tol {VIZ_ATOL}); max |sum_n w - 1| {sums:.3e} "
+          f"(tol {VIZ_SUM_ATOL})", flush=True)
+    check(all(e <= VIZ_ATOL for e in errs.values()), f"capture: {errs}")
+    check(sums <= VIZ_SUM_ATOL, f"slice weights sum to 1 within {sums}")
+    return {"max_abs_err": errs, "max_sum_err": sums}
+
+
+def car_fixture_layout(root: str) -> str:
+    """A 2-fold miniature of the reference's ShapeNet-Car layout from the
+    committed fixture pair (``param0``: 1 sample, ``param1``: 2)."""
+    src = ROOT / "tests" / "fixtures" / "data" / "car" / "param0" / \
+        "fixturecar000"
+    for fold, names in (("param0", ("car_a",)), ("param1", ("car_b",
+                                                            "car_c"))):
+        for name in names:
+            shutil.copytree(src, f"{root}/{fold}/{name}")
+    return root
+
+
+def import_phase(run_dir: str) -> dict:
+    """14e: phase 8b's ``last`` weights written as a reference-format
+    ``.pt`` (``{"epoch", "model_state_dict", "val_loss"}``), then ``car_eval
+    --torch_checkpoint`` on the fixture fold against ``car_eval`` of the
+    same checkpoint loaded directly: equal metrics."""
+    import tempfile
+
+    import torch
+
+    from haet_torch.benchmarks import car_eval
+    from haet_torch.train import Checkpointer
+    from haet_torch.utils.torch_import import to_torch_state_dict
+
+    tmp = tempfile.mkdtemp(prefix="haet_import_")
+    try:
+        data = car_fixture_layout(f"{tmp}/training_data")
+        ckpt = f"{run_dir}/checkpoints/car"
+        state = Checkpointer(ckpt).restore("last", map_location="cpu")
+        check(state is not None, f"no checkpoint at {ckpt}")
+        sd = to_torch_state_dict(state["model"])
+        pt = f"{tmp}/reference.pt"
+        torch.save({"epoch": 2, "model_state_dict": {
+            k: torch.from_numpy(v) for k, v in sd.items()},
+            "val_loss": np.float64(0.0)}, pt)
+        common = ["--data_dir", data, "--out_dir", f"{tmp}/out"]
+        got = car_eval.main(common + ["--torch_checkpoint", pt])
+        want = car_eval.main(common + ["--checkpoint_dir", ckpt, "--which",
+                                       "last"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = {k: (v == want[k]) or (np.isnan(v) and np.isnan(want[k]))
+            for k, v in got.items() if k != "time_per_sample"}
+    print(f"  {len(sd)} reference keys; car_eval --torch_checkpoint {got}; "
+          f"direct {want}", flush=True)
+    check(sorted(got) == sorted(want) and all(same.values()),
+          f"imported metrics differ: {same}")
+    # NaN (Spearman's rho of the one validation sample) as null: the
+    # result line stays JSON
+    return {"keys": len(sd), "metrics": {
+        k: None if np.isnan(v) else v for k, v in got.items()}}
+
+
+def native_phase(dev) -> dict:
+    """14f: the native VTK reader (``use_native=True``: a failed build
+    raises) against the numpy parser on both car fixture files, and the
+    native ball tree's balls at every level against ``ball_groups``'
+    on-device median split of a car sample's first 16384 points (the
+    largest power of two it holds)."""
+    import math
+
+    import torch
+
+    from haet_torch import native
+    from haet_torch.data import synthetic
+    from haet_torch.data.vtk_io import read_vtk_legacy
+    from haet_torch.ops.ball_groups import median_split_perm
+
+    fixture = ROOT / "tests" / "fixtures" / "data" / "car" / "param0" / \
+        "fixturecar000"
+    files = sorted(fixture.glob("*.vtk"))
+    check(len(files) == 2, f"car fixture files: {files}")
+    for f in files:
+        nat = read_vtk_legacy(str(f), use_native=True)
+        npy = read_vtk_legacy(str(f), use_native=False)
+        check(np.array_equal(nat.points, npy.points)
+              and np.array_equal(nat.quads, npy.quads)
+              and sorted(nat.point_data) == sorted(npy.point_data)
+              and all(np.array_equal(v, nat.point_data[k])
+                      for k, v in npy.point_data.items()),
+              f"native VTK read of {f.name} differs from numpy's")
+    pos = synthetic.car_like(n=1, npts=N_POINTS, seed=0)[0]["pos"]
+    n = 1 << int(math.log2(len(pos)))      # 16384 of the car's 17607
+    p = np.ascontiguousarray(pos[:n], np.float32)
+    idx, _ = native.build_balltree(p, np.zeros(n, np.int64))
+    levels = int(math.log2(n)) - 1
+    perm = median_split_perm(torch.from_numpy(p[None]).to(dev),
+                             levels)[0].cpu().numpy()
+    for lvl in range(levels + 1):
+        seg = n >> lvl
+        a = {frozenset(idx[i:i + seg].tolist()) for i in range(0, n, seg)}
+        b = {frozenset(perm[i:i + seg].tolist()) for i in range(0, n, seg)}
+        check(a == b, f"ball tree balls of {seg} differ from ball_groups'")
+    print(f"  native VTK reads of {[f.name for f in files]} equal numpy's; "
+          f"ball tree of {n} points: the same balls as ball_groups at all "
+          f"{levels + 1} levels; libraries "
+          f"{[native.library_path(k).name for k in native.LIBS]}",
+          flush=True)
+    return {"vtk_files": len(files), "balltree_points": n,
+            "levels": levels + 1}
+
+
+def utils_phase(dev, run_dir) -> dict:
+    """Phase 14: 14a-14f, each part's seconds printed."""
+    from haet_torch import native
+
+    t0 = time.perf_counter()
+    marks = [t0]
+    for name in native.LIBS:     # a failed g++ build raises here
+        native.build(name)
+    out = {}
+    for part, what, fn in (
+            ("14a", "use_pallas='auto' below and at its threshold",
+             lambda: auto_phase(dev)),
+            ("14b", "mfu_sweep", lambda: mfu_phase(dev)),
+            ("14c", "accum_mem_probe at accum 1 and 8", accum_phase),
+            ("14d", "get_slice_weights on the car preset",
+             lambda: viz_phase(dev)),
+            ("14e", "car_eval --torch_checkpoint",
+             lambda: import_phase(run_dir)),
+            ("14f", "the native VTK reader and ball tree",
+             lambda: native_phase(dev))):
+        print(f"phase {part}: {what}", flush=True)
+        out[part] = fn()
+        marks.append(time.perf_counter())
+    parts = {p: b - a for p, a, b in zip(out, marks, marks[1:])}
+    secs = marks[-1] - t0
+    print(f"phase 14: {secs:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")", flush=True)
+    return {**out, "seconds": secs, "sub_phase_seconds": parts}
+
+
 def main() -> int:
     try:
         import torch
@@ -4465,10 +4855,16 @@ def main() -> int:
         counts, replay_calls = train_phase(dev)
         t7 = time.perf_counter()
         records.append(copy_phase(dev))
+        t7b = time.perf_counter()
         driver_shape_phase(dev, records)
+        t7c = time.perf_counter()
         large_slice_phase(dev)
-        copy_launches = drivers_phase(dev)
-        print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+        t7d = time.perf_counter()
+        copy_launches, laps = drivers_phase(dev)
+        print(f"phase 7: {time.perf_counter() - t7:.1f} s (7a {t7b - t7:.1f}"
+              f" s, 7b {t7c - t7b:.1f} s, 7c {t7d - t7c:.1f} s, " + ", ".join(
+                  f"{k} {v:.1f} s" for k, v in laps.items()) + ")",
+              flush=True)
         t8 = time.perf_counter()
         print(f"phase 8a: Trainer.fit of the ShapeNet-Car preset, "
               f"{FIT_EPOCHS} epochs", flush=True)
@@ -4483,9 +4879,13 @@ def main() -> int:
         print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
         bf16_records, bf16 = bf16_phase(dev)
         print_bf16_beside_f32(bf16, graphs, f32_profile)
-        serving = serving_phase(dev, run_dir)
-        pde_records, pde = pde_phase(dev)
-        ns_records, ns = rollout_phase(dev)
+        try:
+            serving = serving_phase(dev, run_dir)
+            pde_records, pde = pde_phase(dev)
+            ns_records, ns = rollout_phase(dev)
+            utils = utils_phase(dev, run_dir)
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
         print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -4502,7 +4902,7 @@ def main() -> int:
                       "serve_forwards": forwards, "fit": fit,
                       "graphs": graphs, "bf16": bf16, "serving": serving,
                       "serve_profile": f32_profile, "pde": pde,
-                      "rollout": ns}))
+                      "rollout": ns, "utils": utils}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,6 +81,25 @@ def make_train_step(model, y, lr: float = 1e-3):
     return step
 
 
+def make_probe(dev):
+    """The chip-share probe: a function that chains :data:`PROBE_ITERS`
+    bf16 ``PROBE_DIM``-square products through ``torch.matmul`` on ``dev``
+    and returns a scalar of the last (a window of :func:`.benchmarks.
+    timing.interleaved_minima` fetches it)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    pa = (torch.randn(PROBE_DIM, PROBE_DIM, generator=g, device=dev)
+          / PROBE_DIM ** 0.5).to(torch.bfloat16)
+    px = torch.randn(PROBE_DIM, PROBE_DIM, generator=g,
+                     device=dev).to(torch.bfloat16)
+
+    def probe():
+        c = px
+        for _ in range(PROBE_ITERS):
+            c = torch.matmul(pa, c)
+        return c[0, 0]
+    return probe
+
+
 def step_flops(step) -> int:
     """FLOPs of one call of ``step`` as ``FlopCounterMode`` counts them."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -119,18 +138,7 @@ def run(device=None, budget_s: float = 150.0, rounds: int = 6) -> dict:
         fns.update({("graph", k): (lambda k=k: mk(k)(loss0))
                     for k in (K_LO, K_HI)})
     if on_gpu:    # ~2.2 TFLOP a window: minutes on a CPU, for nothing
-        g = torch.Generator(device=dev).manual_seed(7)
-        pa = (torch.randn(PROBE_DIM, PROBE_DIM, generator=g, device=dev)
-              / PROBE_DIM ** 0.5).to(torch.bfloat16)
-        px = torch.randn(PROBE_DIM, PROBE_DIM, generator=g,
-                         device=dev).to(torch.bfloat16)
-
-        def probe():
-            c = px
-            for _ in range(PROBE_ITERS):
-                c = torch.matmul(pa, c)
-            return c[0, 0]
-        fns = {"probe": probe, **fns}
+        fns = {"probe": make_probe(dev), **fns}
     best, n_rounds = interleaved_minima(fns, rounds=rounds, budget_s=budget_s,
                                         max_rounds=MAX_ROUNDS)
     per_step = {s: per_call(best[(s, K_LO)], best[(s, K_HI)], K_LO, K_HI)

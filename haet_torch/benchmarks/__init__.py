@@ -7,8 +7,9 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
   Erwin block, plain against fused, forward and forward+backward;
 * :mod:`.bench_flags` -- train-step A/B of the kernel flags;
 * :mod:`.profile_step` -- per-component ablation of the car train step;
-* :mod:`.mem_sweep` -- the most points a forward holds, plain against the
-  slice kernels, one fresh process per probe;
+* :mod:`.mem_sweep` -- the most points a forward (or with ``--grad 1`` a
+  forward and backward) holds, plain against the slice kernels, one fresh
+  process per probe;
 * :mod:`.velocity_mem_checker` -- forward latency and peak memory against
   the point count;
 * :mod:`.copy_scale` -- the copy kernel against ``torch.mul``, and an A/B
@@ -28,6 +29,13 @@ Counterparts of the JAX repo's drivers (``bench.py`` is
 * :mod:`.micro_serving_latency`, :mod:`.micro_serving_server` -- batch-1
   latency through an exported program, and the batching server's
   samples/s per mode;
+* :mod:`.mfu_sweep` -- the car step's time and MFU against the point
+  count, and the slice kernels against the plain path at the largest;
+* :mod:`.accum_mem_probe` -- the most points a training step holds at
+  batch B, plain against ``accum_steps``;
+* :mod:`.parity_repro` -- every task's reference configuration through
+  its driver, as one markdown table; :mod:`.model_dict` -- the model
+  registry;
 * :mod:`.timing` -- the interleaved differential timing they share;
 * :mod:`.trace_loss` -- the device records a profiler trace loses as
   its process ages, and whether ``device_trace``'s sentinels take them.

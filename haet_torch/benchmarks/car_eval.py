@@ -26,9 +26,15 @@ and 4 per bucket) under ``DIR``, which ``serve_http --pad_to_points 1``
 serves to a ragged fold. Each manifest records the fold and the checkpoint
 the weights came from.
 
-Not ported yet, and raising with their ``ROADMAP.md`` item:
-``--torch_checkpoint``, ``--visualize``, ``--scatter`` and
-``--max_slice_figs`` (queue 1: the rest of the drivers and utils).
+``--torch_checkpoint PT`` evaluates a checkpoint the reference code
+trained (a torch ``.pt``, bare or ``{"model_state_dict": ...}``) instead,
+read by :func:`haet_torch.utils.torch_import.load_torch_checkpoint`.
+``--scatter`` plots the predicted against the true drag coefficient
+(``<out_dir>/cd_scatter.png``; it shares ``--save_preds``' prediction
+pass), and ``--visualize`` writes the reference's slice-weight renders of
+the first validation sample (:func:`haet_torch.utils.visualization.
+visualize_car_and_slices`, at most ``--max_slice_figs`` per-slice figures)
+under ``<out_dir>/visualizations``; both need matplotlib.
 """
 
 from __future__ import annotations
@@ -37,38 +43,37 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
+from ..data.car_metrics import drag_coefficient
 from ..train import Checkpointer
 from ..train.car import evaluate, make_batch, predict
 from ..utils.env import default_device
+from ..utils.torch_import import load_torch_checkpoint
+from ..utils.visualization import get_slice_weights, visualize_car_and_slices
 from .car_train import build_model, load_fold, model_config
-
-UTILS_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: the rest of the "
-              "drivers and utils)")
-
-
-def check_unported(args) -> None:
-    for flag in ("torch_checkpoint", "max_slice_figs"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(UTILS_TODO.format(f"--{flag}"))
-    for flag in ("visualize", "scatter"):
-        if getattr(args, flag):
-            raise NotImplementedError(UTILS_TODO.format(f"--{flag}"))
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    check_unported(args)
     dev = default_device(args.device)
     _, val_s, coef, _ = load_fold(args)
     model = build_model(model_config(args), dev)
-    state = Checkpointer(args.checkpoint_dir).restore(args.which,
-                                                      map_location=dev)
-    if state is None:
-        print(f"[car_eval] no checkpoint at {args.checkpoint_dir}/"
-              f"{args.which} — evaluating the random init", flush=True)
+    if args.torch_checkpoint:
+        # a checkpoint trained by the reference code (a torch .pt), read
+        # through the reference-schema importer
+        model.load_state_dict(load_torch_checkpoint(args.torch_checkpoint,
+                                                    model))
+        print(f"[car_eval] imported reference torch checkpoint "
+              f"{args.torch_checkpoint}", flush=True)
     else:
-        model.load_state_dict(state["model"])
+        state = Checkpointer(args.checkpoint_dir).restore(args.which,
+                                                          map_location=dev)
+        if state is None:
+            print(f"[car_eval] no checkpoint at {args.checkpoint_dir}/"
+                  f"{args.which} — evaluating the random init", flush=True)
+        else:
+            model.load_state_dict(state["model"])
 
     metrics = evaluate(model, val_s, coef)
     print("relative l2 error press:", metrics["rel_l2_press"])
@@ -78,22 +83,80 @@ def main(argv=None) -> dict:
         print("c_d:", metrics["cd_rel_err"])
     print("time:", metrics["time_per_sample"], flush=True)
 
-    if args.save_preds:
-        # reference main_evaluation.py:252, 297-298
-        results_dir = os.path.join(args.out_dir, "results")
-        os.makedirs(results_dir, exist_ok=True)
-        for idx, s in enumerate(val_s):
-            out = predict(model, make_batch(s))[0][:len(s.pos)]
-            np.save(os.path.join(results_dir, f"{idx}_pred.npy"),
-                    coef.decode_y(out))
-            np.save(os.path.join(results_dir, f"{idx}_gt.npy"),
-                    coef.decode_y(s.y))
-        print(f"per-sample predictions -> {results_dir} "
-              f"({len(val_s)} samples)", flush=True)
+    # save_preds and scatter share one prediction pass over the fold
+    scatter = args.scatter and "rho_d" in metrics
+    if args.save_preds or scatter:
+        cds = predictions_pass(args, model, val_s, coef, scatter)
+        if scatter:
+            plot_cd_scatter(*cds, metrics["rho_d"], args.out_dir)
 
     if args.export_artifact:
         export(args, model, val_s[0])
+
+    if args.visualize:
+        # the reference's artifact set (visualization.py:20-260) on the
+        # first validation sample's surface points
+        s = val_s[0]
+        x = torch.from_numpy(make_batch(s)["x"]).to(dev)
+        w = get_slice_weights(model, x, None)
+        vis_dir = os.path.join(args.out_dir, "visualizations")
+        visualize_car_and_slices(s, w, vis_dir, sample_idx=0,
+                                 max_slice_figs=args.max_slice_figs)
+        print(f"slice visualizations -> {vis_dir}", flush=True)
     return metrics
+
+
+def predictions_pass(args, model, samples, coef, scatter: bool):
+    """One prediction per sample: ``--save_preds``' denormalised dumps
+    (reference ``main_evaluation.py:252, 297-298``) and, with ``scatter``,
+    the predicted and true drag coefficients of the samples with surface
+    quads. Returns ``(true Cd list, predicted Cd list)``."""
+    results_dir = os.path.join(args.out_dir, "results")
+    if args.save_preds:
+        os.makedirs(results_dir, exist_ok=True)
+    cds_g, cds_p = [], []
+    for idx, s in enumerate(samples):
+        od = coef.decode_y(predict(model, make_batch(s))[0][:len(s.pos)])
+        yd = coef.decode_y(s.y)
+        if args.save_preds:
+            np.save(os.path.join(results_dir, f"{idx}_pred.npy"), od)
+            np.save(os.path.join(results_dir, f"{idx}_gt.npy"), yd)
+        # surf_slice=None would make pos[surf_slice] a newaxis index (a
+        # wrong Cd, not an error): skip such samples, as evaluate() does
+        if scatter and s.quads is not None and s.surf_slice is not None:
+            pts = s.pos[s.surf_slice]
+            cds_p.append(drag_coefficient(pts, s.quads,
+                                          od[s.surf_slice, 3],
+                                          od[s.surf_slice, :3]))
+            cds_g.append(drag_coefficient(pts, s.quads,
+                                          yd[s.surf_slice, 3],
+                                          yd[s.surf_slice, :3]))
+    if args.save_preds:
+        print(f"per-sample predictions -> {results_dir} "
+              f"({len(samples)} samples)", flush=True)
+    return cds_g, cds_p
+
+
+def plot_cd_scatter(cds_g, cds_p, rho_d: float, out_dir: str) -> str:
+    """The predicted-against-true Cd scatter (reference
+    ``main_evaluation.py:360-417``) as ``out_dir/cd_scatter.png``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(5, 5))
+    ax.scatter(cds_g, cds_p, s=16)
+    lo, hi = min(cds_g + cds_p), max(cds_g + cds_p)
+    ax.plot([lo, hi], [lo, hi], "k--", lw=1)
+    ax.set_xlabel("true Cd")
+    ax.set_ylabel("predicted Cd")
+    ax.set_title(f"rho_d={rho_d:.3f}")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cd_scatter.png")
+    fig.savefig(path, bbox_inches="tight", dpi=120)
+    plt.close(fig)
+    print(f"Cd scatter -> {path}", flush=True)
+    return path
 
 
 def export(args, model, sample) -> str:
@@ -103,7 +166,10 @@ def export(args, model, sample) -> str:
     from ..serve import export_point_family
 
     x = make_batch(sample)["x"]
-    provenance = {"fold_id": args.fold_id, "checkpoint": args.which}
+    # where the weights came from
+    provenance = {"fold_id": args.fold_id,
+                  "checkpoint": (f"torch:{args.torch_checkpoint}"
+                                 if args.torch_checkpoint else args.which)}
     if args.export_point_buckets:
         buckets = sorted(int(b) for b in args.export_point_buckets.split(","))
         path = export_point_family(
@@ -130,14 +196,17 @@ def parse_args(argv=None):
     p.add_argument("--fold_id", type=int, default=0)
     p.add_argument("--checkpoint_dir", type=str,
                    default="./runs/checkpoints/car")
-    p.add_argument("--torch_checkpoint", type=str, default=None)
+    p.add_argument("--torch_checkpoint", type=str, default=None,
+                   help="evaluate a reference-trained torch .pt checkpoint")
     p.add_argument("--which", type=str, default="best",
                    choices=["best", "last"])
     p.add_argument("--n_hidden", type=int, default=256)
     p.add_argument("--n_layers", type=int, default=2)
     p.add_argument("--slice_num", type=int, default=32)
     p.add_argument("--visualize", action="store_true")
-    p.add_argument("--max_slice_figs", type=int, default=None)
+    p.add_argument("--max_slice_figs", type=int, default=None,
+                   help="cap per-slice dominance figures (None = all G, "
+                        "as the reference)")
     p.add_argument("--scatter", action="store_true")
     p.add_argument("--save_preds", action="store_true",
                    help="save per-sample denormalised pred/gt .npy dumps "

@@ -15,14 +15,17 @@ rel-L2, printed as ``rel_err:``. The synthetic stand-in stands in when the
 31 x 31 grid.
 
 The card is the default device; ``--device cpu`` runs on the CPU.
-``--showcase`` (the prediction renders) is not ported yet (``ROADMAP.md``,
-queue 1: the rest of the drivers and utils, ``visualization``), nor are the
-mesh flags (queue 1: parallel); both raise.
+``--showcase`` then renders the first test sample's prediction, target and
+error (:func:`haet_torch.utils.visualization.plot_prediction_triptych`,
+reference ``exp_darcy.py:166-200``) under ``<out_dir>/results/darcy``; it
+needs matplotlib. The mesh flags are not ported yet (``ROADMAP.md``, queue
+1: parallel) and raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -31,11 +34,8 @@ from ..data.pde_datasets import load_darcy
 from ..train.losses import RelLpLoss, central_diff, zero_boundary
 from ..train.normalizer import UnitTransformer
 from ..utils.config import darcy_config
-from ..utils.env import default_device
+from ..utils.env import default_device, host_numpy
 from .pde_common import add_mesh_args, check_mesh_args, train_and_eval
-
-SHOWCASE_TODO = ("--showcase is not ported yet (ROADMAP.md, queue 1: the "
-                 "rest of the drivers and utils, visualization)")
 
 
 def build(args):
@@ -86,8 +86,6 @@ def darcy_loss(s: int, y_mean, y_std):
 def main(argv=None) -> float:
     args = parse_args(argv)
     check_mesh_args(args)
-    if args.showcase:
-        raise NotImplementedError(SHOWCASE_TODO)
     dev = default_device(args.device)
     cfg = build(args)
     data = load_darcy(args.data_path, args.ntrain, args.ntest,
@@ -108,10 +106,28 @@ def main(argv=None) -> float:
     loss_fn, eval_fn = darcy_loss(
         s, torch.tensor(np.float32(y_norm.mean.squeeze()), device=dev),
         torch.tensor(np.float32(y_norm.std.squeeze()), device=dev))
-    rel, _ = train_and_eval(cfg, args, dev, "darcy", train, test, loss_fn,
-                            lambda b: (b["pos"], b["fx"]), eval_fn=eval_fn,
-                            resume=args.resume, seed=cfg.train.seed)
+    rel, trainer = train_and_eval(cfg, args, dev, "darcy", train, test,
+                                  loss_fn, lambda b: (b["pos"], b["fx"]),
+                                  eval_fn=eval_fn, resume=args.resume,
+                                  seed=cfg.train.seed)
+    if args.showcase:
+        showcase(trainer, test, s, y_norm, args.out_dir)
     return rel
+
+
+def showcase(trainer, test: dict, s: int, y_norm, out_dir: str) -> str:
+    """The first test sample's prediction, target and error renders
+    (``exp_darcy.py:145-156``)."""
+    from ..utils.visualization import plot_prediction_triptych
+
+    batch = {k: v[:1] for k, v in test.items()}
+    out = host_numpy(trainer.predict(batch))
+    pred = out[0, :, 0] * float(y_norm.std.squeeze()) + float(
+        y_norm.mean.squeeze())
+    path = os.path.join(out_dir, "results", "darcy")
+    plot_prediction_triptych(pred, batch["y"][0], s, s, path, 1)
+    print(f"showcase renders -> {path}", flush=True)
+    return path
 
 
 def parse_args(argv=None):
@@ -140,7 +156,7 @@ def parse_args(argv=None):
     p.add_argument("--data_path", type=str, default="./data/fno")
     p.add_argument("--out_dir", type=str, default="./runs")
     p.add_argument("--showcase", action="store_true",
-                   help="save prediction/gt/error images (not ported)")
+                   help="save prediction/gt/error images after eval")
     p.add_argument("--resume", action="store_true",
                    help="resume from the last checkpoint in out_dir")
     add_mesh_args(p)

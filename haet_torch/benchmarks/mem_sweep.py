@@ -15,7 +15,10 @@ caching allocator to the next probe.
 
 A probe prints one JSON line with ``peak_memory_mb``
 (``torch.cuda.max_memory_allocated``) and the slice-kernel launches it made;
-the sweep prints every probe's line and a summary.
+the sweep prints every probe's line and a summary, whose
+``auto_threshold`` (0.75x the plain path's boundary: the cap on
+``use_pallas="auto"``'s threshold) names the boundary it comes from in
+``auto_threshold_from``: ``"forward"``, or ``"grad"`` under ``--grad 1``.
 """
 
 from __future__ import annotations
@@ -226,10 +229,11 @@ def main(argv=None):
         **{f"{k}_boundary_failure": v[2] for k, v in found.items()},
         "kernel_headroom_x": (max_kernel / max_plain
                               if max_plain and max_kernel else None),
-        # use_pallas='auto' would switch to the kernels past what the plain
-        # path holds, with a 25% margin (ROADMAP.md, queue 1:
-        # use_pallas='auto')
+        # the cap on use_pallas='auto''s threshold: 0.75x what the plain
+        # path holds, from this sweep's boundary (a forward's, or with
+        # --grad 1 a training step's, as JAX sets its threshold)
         "auto_threshold": int(max_plain * 0.75) if max_plain else None,
+        "auto_threshold_from": "grad" if args.grad else "forward",
     }
     print(json.dumps(summary), flush=True)
     if args.out:

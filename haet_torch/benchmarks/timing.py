@@ -115,7 +115,9 @@ def graph_loop(body, example: torch.Tensor, warmup: int = 3):
     ``example`` gives the argument's shape, dtype and device (CUDA). Each
     call's input is the last call's output: for a train step whose input is
     tied to the last loss (``bench.py:143-146``), ``body`` is ``lambda
-    loss: step(x + 1e-12 * loss)``."""
+    loss: step(x + 1e-12 * loss)``. The windows hold ``body`` (and so the
+    tensors the graph reads: a model's parameters, its optimizer's state)
+    for as long as they live."""
     if example.device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA tensor, got one on "
                          f"{example.device}")
@@ -138,8 +140,8 @@ def graph_loop(body, example: torch.Tensor, warmup: int = 3):
         call()
 
     def mk(reps):
-        def run(x):
-            with torch.no_grad():
+        def run(x, _body=call):     # the graph reads body's tensors: keep
+            with torch.no_grad():   # them (a model, its optimizer) alive
                 static.copy_(x)
             for _ in range(reps):
                 graph.replay()

@@ -6,9 +6,10 @@ uses (reference loads it with the VTK library,
 ``benchmarks/02-.../dataset/dataset.py:161-181``): ASCII or big-endian
 binary, ``UNSTRUCTURED_GRID`` / ``POLYDATA`` datasets with POINTS,
 CELLS/POLYGONS (+CELL_TYPES), and POINT_DATA / CELL_DATA sections with
-SCALARS or VECTORS arrays. The JAX package's C++ reader
-(``haet_tpu/native/vtkread.cpp``) is not ported: this parser is the only
-path (``ROADMAP.md``, queue 1: the native VTK reader).
+SCALARS or VECTORS arrays. :func:`read_vtk_legacy` reads through the
+native C++ reader (:func:`haet_torch.native.vtk_parse`, a copy of the JAX
+package's ``native/vtkread.cpp``) or this module's numpy parser, which the
+reader falls back to unless told otherwise (JAX ``data/vtk_io.py:91-117``).
 """
 
 from __future__ import annotations
@@ -91,10 +92,37 @@ def _read_ascii_numbers(lines, start, count, cast=float):
     return np.asarray(vals[:count]), i
 
 
-def read_vtk_legacy(path: str) -> VTKData:
-    """Parse a legacy .vtk file (ASCII or big-endian binary)."""
+def read_vtk_legacy(path: str, use_native: str | bool = "auto") -> VTKData:
+    """Parse a legacy .vtk file (ASCII or big-endian binary).
+
+    ``use_native``: ``"auto"`` (default) tries the C++ reader
+    (:func:`haet_torch.native.vtk_parse`, built with ``g++`` at first use)
+    and falls back to the numpy parser if it cannot build or parse, as the
+    reference's users expect; ``True`` requires it (a failed build or
+    parse raises); ``False`` takes the numpy parser. The two give the same
+    arrays, but a file without cells: the native reader gives empty
+    connectivity arrays where the numpy parser leaves None.
+    """
     with open(path, "rb") as f:
         raw = f.read()
+
+    if use_native:
+        try:
+            from ..native import vtk_parse
+
+            d = vtk_parse(raw)
+        except (OSError, RuntimeError, ValueError):
+            if use_native is True:
+                raise
+        else:
+            out = VTKData()
+            out.points = d["points"]
+            out.cell_sizes = d["cell_sizes"]
+            out.cell_flat = d["cell_flat"]
+            out.cell_types = d["cell_types"]
+            out.point_data = d["point_data"]
+            out.cell_data = d["cell_data"]
+            return out
 
     # Header: 4 lines (version, title, format, DATASET ...)
     head_end = 0

@@ -53,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.dense import normalized
+from ..utils.config import PALLAS_AUTO_THRESHOLD
 from ..utils.env import default_device
 from .components.dropout import Dropout, checkpoint_contexts
 from .components.embedding import timestep_embedding
@@ -165,6 +166,7 @@ class _HAETBase(nn.Module):
                  use_checkpoint: bool = False, use_dist_bias: bool = True,
                  grouping: str = "median", orthogonal_slice_init: bool = True,
                  use_pallas=False, use_pallas_erwin: bool = False,
+                 pallas_auto_threshold: int = PALLAS_AUTO_THRESHOLD,
                  dtype=None, *, device=None, seed: int = 0):
         super().__init__()
         device = default_device(device)
@@ -193,6 +195,7 @@ class _HAETBase(nn.Module):
             embed=embed, use_dist_bias=use_dist_bias, grouping=grouping,
             orthogonal_slice_init=orthogonal_slice_init,
             use_pallas=use_pallas, use_pallas_erwin=use_pallas_erwin,
+            pallas_auto_threshold=pallas_auto_threshold,
             **self._attn_kwargs())
         if dim_head is not None:
             attn_kwargs["dim_head"] = dim_head

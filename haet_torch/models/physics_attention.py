@@ -26,7 +26,9 @@ kernels (:mod:`haet_torch.ops.kernels.slice_kernels`), which never
 materialise the ``[B, H, N, G]`` weights, and through their autograd
 functions, whose chunked backwards do not either; ``use_pallas_erwin=True``
 runs each Erwin block through the fused block kernels. The flag names are
-the JAX package's, so a config means the same thing in both. The
+the JAX package's, so a config means the same thing in both.
+``use_pallas="auto"`` picks the route per forward from the input's point
+count and device (:func:`pallas_auto_enabled`, JAX ``:239-257``). The
 pseudo-positions are computed without gradient, as JAX stops it
 (``:347``).
 
@@ -60,14 +62,50 @@ from torch import nn
 from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
 from ..ops.kernels import slice_kernels as sk
+from ..utils.config import PALLAS_AUTO_G_SPAN, PALLAS_AUTO_THRESHOLD
 from ..utils.env import grad_off
 from .components.dropout import Dropout
 from .components.mlp import Linear
 from .erwin import ErwinTransformer
 
-AUTO_TODO = ("use_pallas='auto' is not ported yet: its 1.7M-point threshold "
-             "was measured for TPU memory and must be re-measured on the card "
-             "(ROADMAP.md, queue 1: use_pallas='auto')")
+
+def pallas_auto_enabled(n_points: int, slice_num: int, threshold: int,
+                        device_type: str) -> bool:
+    """Whether ``use_pallas="auto"`` takes the slice kernels for a forward
+    of ``n_points`` points per sample on a ``device_type`` tensor.
+
+    The rule is the JAX package's (``_pallas_enabled``, ``:239-257``): a
+    base threshold at G 32, scaled linearly in G and floored at a quarter,
+    ``n_points >= int(threshold * max(0.25, 1 - (G - 32) / span))``. JAX
+    takes the kernels only on a TPU backend; the port only for a CUDA
+    input, and the plain path at every N on the CPU, as JAX does there.
+
+    The constants (:data:`~haet_torch.utils.config.PALLAS_AUTO_THRESHOLD`,
+    :data:`~haet_torch.utils.config.PALLAS_AUTO_G_SPAN`) are the card's,
+    measured for it, where the JAX package's came from TPU memory (there
+    the kernels were slower at small N). On one NVIDIA H100 80GB HBM3 at
+    700 W (``PERF.md``, Findings, PR 13), the threshold at a G is the
+    smallest N from which the kernel step is no slower than the plain
+    one, capped at 0.75x the plain path's training boundary:
+
+    * speed, G 32: ``python -m haet_torch.benchmarks.mfu_sweep --ns N``
+      (the car step in bf16, CUDA graphs) took 0.966x the plain step's
+      time with the kernels at N 256, 0.953x at 1024, 0.648x at 32768 and
+      0.322x at 1048576; no N measured was slower, so the base is the
+      smallest measured, 256 (below every preset: elasticity's 972 points
+      is the fewest);
+    * speed, G 128: ``python -m haet_torch.benchmarks.bench_flags
+      --slice_num 128`` gave 0.977x at N 256 and 0.363x at 131072: the
+      same threshold, 256, hence no G scaling (an infinite span);
+    * memory: ``python -m haet_torch.benchmarks.mem_sweep --grad 1``
+      (1-layer probe, bf16) held 4.5M points on the plain path at G 32
+      and 2.0M at G 128 (the kernels 7.0M at both), caps of 3,375,000 and
+      1,500,000 points that the speed thresholds lie far below.
+    """
+    if device_type != "cuda":
+        return False
+    scale = max(0.25, 1.0 - (slice_num - 32) / PALLAS_AUTO_G_SPAN)
+    return n_points >= int(threshold * scale)
 
 
 class _PhysicsAttentionBase(nn.Module):
@@ -96,10 +134,9 @@ class _PhysicsAttentionBase(nn.Module):
                  embed: bool = False, use_dist_bias: bool = True,
                  grouping: str = "median", orthogonal_slice_init: bool = True,
                  use_pallas=False, use_pallas_erwin: bool = False,
+                 pallas_auto_threshold: int = PALLAS_AUTO_THRESHOLD,
                  dtype=None):
         super().__init__()
-        if use_pallas == "auto":
-            raise NotImplementedError(AUTO_TODO)
         if not decode:
             raise ValueError(
                 "decode=False is not valid inside physics attention: the "
@@ -109,7 +146,16 @@ class _PhysicsAttentionBase(nn.Module):
         self.slice_num = slice_num
         self.base_temp = base_temp
         self.epsilon = epsilon
-        self.use_pallas = bool(use_pallas)
+        #: False, True or "auto" (resolved per forward by
+        #: :meth:`pallas_enabled`)
+        self.use_pallas = use_pallas if use_pallas == "auto" else bool(
+            use_pallas)
+        self.pallas_auto_threshold = int(pallas_auto_threshold)
+        #: set by :func:`haet_torch.utils.visualization.get_slice_weights`:
+        #: the next forwards keep their ``[B, H, N, G]`` slice weights in
+        #: :attr:`slice_weights` (the JAX module's ``sow``)
+        self.capture_slice_weights = False
+        self.slice_weights = None
         self.orthogonal_slice_init = orthogonal_slice_init
         self.dtype = dtype
         g, h, dh = slice_num, heads, dim_head
@@ -151,28 +197,51 @@ class _PhysicsAttentionBase(nn.Module):
                 self.ada_temp_linear.weight.t().contiguous(),
                 self.ada_temp_linear.bias)
 
+    def pallas_enabled(self, n_points: int, device_type: str) -> bool:
+        """The route of a forward of ``n_points`` points per sample on a
+        ``device_type`` tensor: ``use_pallas``, or for ``"auto"``
+        :func:`pallas_auto_enabled` with this module's G and threshold."""
+        if self.use_pallas == "auto":
+            return pallas_auto_enabled(n_points, self.slice_num,
+                                       self.pallas_auto_threshold,
+                                       device_type)
+        return self.use_pallas
+
+    def plain_slice_weights(self, x_proj):
+        """The ``[B, H, N, G]`` rep-slice weights by the plain formula, in
+        ``x_proj``'s dtype. The slice parameters are float32, so the
+        logits and softmax promote to float32 (``x_proj @ w_ada + b_ada``
+        in JAX)."""
+        xf = x_proj.float()
+        tau = slice_ops.ada_temp(self.ada_temp_linear(xf), self.base_temp)
+        logits = self.in_project_slice(xf)
+        return slice_ops.rep_slice_weights(logits, tau, self.epsilon).to(
+            x_proj.dtype)
+
     def forward(self, x):
         """``x: [B, N, dim] -> [B, N, dim]``."""
         B, N, _ = x.shape
         G, H, Dh = self.slice_num, self.heads, self.dim_head
+        use_pallas = self.pallas_enabled(N, x.device.type)
 
         # (1) Slice
         x_proj = self._project(x).contiguous()
         ws, bs, wa, ba = self._slice_params()
         w = None
-        if self.use_pallas:
+        if use_pallas:
             states, m_res, s_res = sk.slice_states(
                 x_proj, ws, bs, wa, ba, self.base_temp, self.epsilon)
+            if self.capture_slice_weights:
+                # the kernels never write the weights: the capturing
+                # forward recomputes them by the plain formula (JAX
+                # :316-340); other forwards skip this branch
+                with grad_off():
+                    self.slice_weights = self.plain_slice_weights(x_proj)
         else:
-            # float32 parameters: the logits and softmax promote to float32
-            # (x_proj @ w_ada + b_ada in JAX); the weights are stored in the
-            # compute dtype
-            xf = x_proj.float()
-            tau = slice_ops.ada_temp(self.ada_temp_linear(xf), self.base_temp)
-            logits = self.in_project_slice(xf)
-            w = slice_ops.rep_slice_weights(logits, tau, self.epsilon).to(
-                x_proj.dtype)
+            w = self.plain_slice_weights(x_proj)
             states = slice_ops.eidetic_states(x_proj, w)      # [B, H, G, Dh]
+            if self.capture_slice_weights:
+                self.slice_weights = w.detach()
 
         # (2) Erwin over B*H clouds of G tokens; pseudo-positions are the
         # first d channels, min-max normalised over the GLOBAL flat batch.
@@ -193,7 +262,7 @@ class _PhysicsAttentionBase(nn.Module):
         out_states = out_states.reshape(B, H, G, Dh).contiguous()
 
         # (3) Deslice
-        if self.use_pallas:
+        if use_pallas:
             out = sk.deslice(x_proj, ws, bs, wa, ba, out_states, m_res, s_res,
                              self.base_temp, self.epsilon)
         else:

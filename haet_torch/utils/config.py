@@ -11,6 +11,9 @@ in bf16, as in JAX. The PDE presets (``darcy_config`` ...
 (``:157-302``); the ShapeNet-Car model and training keep their own
 functions (:func:`shapenet_car_config`, :func:`shapenet_car_train_config`),
 which ``PRESETS["shapenet_car"]`` joins into one experiment.
+``ModelConfig.pallas_auto_threshold`` defaults to the card's
+:data:`PALLAS_AUTO_THRESHOLD`, measured on the card, not the JAX
+package's TPU value.
 """
 
 from __future__ import annotations
@@ -19,7 +22,18 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import math
+
 import torch
+
+#: ``use_pallas="auto"``'s base threshold in points at G 32, the card's:
+#: the smallest N measured, from which the kernel step is no slower than
+#: the plain one (``models/physics_attention.py:pallas_auto_enabled``)
+PALLAS_AUTO_THRESHOLD = 256
+#: the G span over which the threshold would fall to zero, ``scale =
+#: max(0.25, 1 - (G - 32) / PALLAS_AUTO_G_SPAN)``: infinite, no scaling,
+#: since the threshold measured at G 128 is G 32's
+PALLAS_AUTO_G_SPAN = math.inf
 
 #: the model class of each ``ModelConfig.variant``
 VARIANTS = {"irregular": "HAETransolverIrregularMesh",
@@ -63,7 +77,7 @@ class ModelConfig:
     use_dist_bias: bool = True
     grouping: str = "median"
     use_pallas: bool | str = False  # False | True | "auto"
-    pallas_auto_threshold: int = 1_700_000
+    pallas_auto_threshold: int = PALLAS_AUTO_THRESHOLD  # the card's
     bf16: bool = False
     shard_axes: Optional[tuple] = None
 
@@ -79,7 +93,7 @@ class ModelConfig:
         kw = dataclasses.asdict(self)
         grid = {"irregular": (), "structured_2d": ("H", "W"),
                 "structured_3d": ("H", "W", "D")}[self.variant]
-        for k in ("variant", "pallas_auto_threshold", "bf16", "shard_axes",
+        for k in ("variant", "bf16", "shard_axes",
                   *(k for k in ("H", "W", "D") if k not in grid)):
             kw.pop(k)
         kw["dtype"] = torch.bfloat16 if self.bf16 else None

@@ -3,9 +3,10 @@
 Each case feeds the same files or numpy arrays to ``haet_tpu.data`` and to
 ``haet_torch.data`` (the port's copies) and compares:
 
-* the legacy VTK reader on the committed fixture pair, and on ASCII and
-  big-endian binary round trips (JAX's numpy parser, ``use_native=False``:
-  the port has no native reader): equal arrays;
+* the legacy VTK reader's numpy parser (``use_native=False`` on both
+  sides; the native readers are held to each other in
+  ``tests/test_torch_native.py``) on the committed fixture pair, and on
+  ASCII and big-endian binary round trips: equal arrays;
 * ``point_normals``, ``load_sample``, ``compute_coef_norm``/``CoefNorm``,
   ``load_train_val_fold`` on the fixture fold layout (with the ``.npy``
   cache and its ``--preprocessed`` read) and on the synthetic stand-in,
@@ -90,7 +91,7 @@ def assert_samples_equal(got, want):
 @pytest.mark.parametrize("name", ["quadpress_smpl.vtk", "hexvelo_smpl.vtk"])
 def test_read_vtk_fixture_matches_jax(name):
     path = os.path.join(FIXTURE, name)
-    assert_vtk_equal(tvtk.read_vtk_legacy(path),
+    assert_vtk_equal(tvtk.read_vtk_legacy(path, use_native=False),
                      jvtk.read_vtk_legacy(path, use_native=False))
 
 
@@ -115,7 +116,7 @@ def test_vtk_ascii_roundtrip_matches_jax(tmp_path):
     tlines, jlines = open(tpath).readlines(), open(jpath).readlines()
     assert tlines[1] == "haet_torch\n"
     assert tlines[:1] + tlines[2:] == jlines[:1] + jlines[2:]
-    got = tvtk.read_vtk_legacy(tpath)
+    got = tvtk.read_vtk_legacy(tpath, use_native=False)
     assert_vtk_equal(got, jvtk.read_vtk_legacy(tpath, use_native=False))
     np.testing.assert_array_equal(got.quads, quads)
     np.testing.assert_allclose(got.point_data["velo"], data["velo"],
@@ -146,7 +147,7 @@ def test_vtk_binary_roundtrip_matches_jax(tmp_path):
                 + b"\n")
         f.write(b"CELL_DATA 7\nSCALARS c double 1\nLOOKUP_TABLE default\n")
         f.write(cell_val.astype(">f8").tobytes() + b"\n")
-    got = tvtk.read_vtk_legacy(str(path))
+    got = tvtk.read_vtk_legacy(str(path), use_native=False)
     assert_vtk_equal(got, jvtk.read_vtk_legacy(str(path), use_native=False))
     np.testing.assert_array_equal(got.quads, quads)
     assert [len(c) for c in got.cells] == [4] * 6 + [3]

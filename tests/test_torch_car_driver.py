@@ -20,11 +20,16 @@ G 16, 2 epochs), both kernel flags set (their plain versions on the CPU):
 * ``car_eval --export_artifact`` (with and without
   ``--export_point_buckets``) writes programs that answer as the evaluated
   model, their manifests naming the fold and the checkpoint;
-* the flags that wait for a later item raise ``NotImplementedError``
-  naming it, and without ``--device`` and without a card both drivers
-  raise.
+* ``car_eval --torch_checkpoint`` on a reference-format checkpoint gives
+  the metrics of the same weights evaluated directly, with
+  ``--visualize``, ``--max_slice_figs`` and ``--scatter`` writing their
+  renders; the mesh flags, which wait for a later item, raise
+  ``NotImplementedError`` naming it, and without ``--device`` and without
+  a card both drivers raise.
 """
 
+import contextlib
+import io
 import json
 import os
 
@@ -35,6 +40,8 @@ import torch
 from haet_torch.benchmarks import car_eval, car_train
 from haet_torch.export import load_artifact
 from haet_torch.train import Checkpointer
+from haet_torch.train.car import evaluate
+from haet_torch.utils.torch_import import to_torch_state_dict
 from test_torch_car_data import build_car_dataset
 
 METRICS = ("rel_l2_press", "rel_l2_velo", "rmse_press", "rmse_velo",
@@ -198,16 +205,66 @@ def test_car_train_bf16_flags_train(flag, tmp_path, capsys, monkeypatch):
                 rtol=BF16_METRIC_RTOL if flag == "--bf16" else 1e-5)
 
 
+@pytest.fixture(scope="module")
+def reference_eval(fixture_run):
+    """``car_eval --torch_checkpoint --visualize --max_slice_figs 2
+    --scatter`` on the fixture fold, once: a reference-format checkpoint
+    (``{"epoch", "model_state_dict", "val_loss": np.float64}``) of a seeded
+    smoke model, and that model's own evaluation of the fold."""
+    root = fixture_run["root"]
+    argv = fixture_run["common"] + SMOKE_EVAL
+    args = car_eval.parse_args(argv)
+    model = car_train.build_model(car_train.model_config(args), "cpu",
+                                  seed=11)
+    pt = str(root / "reference.pt")
+    torch.save({"epoch": 3, "model_state_dict": {
+        k: torch.from_numpy(v) for k, v in to_torch_state_dict(model).items()},
+        "val_loss": np.float64(0.25)}, pt)
+    _, val_s, coef, _ = car_train.load_fold(args)
+    direct = evaluate(model, val_s, coef)
+    out_dir = str(root / "reference_eval")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = car_eval.main(argv + [
+            "--torch_checkpoint", pt, "--visualize", "--max_slice_figs", "2",
+            "--scatter", "--out_dir", out_dir])
+    return dict(got=got, direct=direct, out=buf.getvalue(), dir=out_dir)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--torch_checkpoint", "x.pt"], "drivers and utils"),
-    (["--visualize"], "drivers and utils"),
-    (["--scatter"], "drivers and utils"),
-    (["--max_slice_figs", "2"], "drivers and utils"),
+    (["--torch_checkpoint"], "imported reference torch checkpoint"),
+    (["--visualize"], "slice visualizations ->"),
+    (["--scatter"], "Cd scatter ->"),
+    (["--max_slice_figs", "2"], "slice_1_sample_0.png"),
 ], ids=[f"argv{i}-drivers and utils" for i in range(2, 6)])
-def test_car_eval_unported_flags_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        car_eval.main(["--device", "cpu"] + argv)
-    assert "ROADMAP.md" in str(e.value)
+def test_car_eval_unported_flags_raise(reference_eval, argv, match):
+    """The four flags that waited for the drivers and utils item are
+    ported (the test keeps its name): one ``car_eval`` with all four on the
+    fixture fold. ``--torch_checkpoint`` gives the metrics of the same
+    weights evaluated directly; ``--visualize`` writes the reference's
+    render set, ``--max_slice_figs 2`` two per-slice figures of it;
+    ``--scatter`` the Cd scatter."""
+    r = reference_eval
+    vis = os.path.join(r["dir"], "visualizations")
+    flag = argv[0]
+    if flag == "--torch_checkpoint":
+        assert match in r["out"]
+        for k in METRICS:
+            if k != "time_per_sample":
+                np.testing.assert_allclose(r["got"][k], r["direct"][k],
+                                           rtol=1e-6, err_msg=k)
+    elif flag == "--visualize":
+        assert match in r["out"]
+        assert {"car_slices_0.png", "slice_heatmap_0.png",
+                "projection_xy_0.png", "projection_xz_0.png",
+                "projection_yz_0.png"} <= set(os.listdir(vis))
+    elif flag == "--scatter":
+        assert match in r["out"]
+        assert os.path.exists(os.path.join(r["dir"], "cd_scatter.png"))
+    else:
+        slices = sorted(f for f in os.listdir(vis) if f.startswith("slice_")
+                        and "_sample_" in f)
+        assert slices == ["slice_0_sample_0.png", match]
 
 
 @pytest.mark.parametrize("buckets", [None, "4096"],

@@ -57,7 +57,9 @@ def test_port_files_are_found():
             "pde_common.py", "exp_darcy.py", "exp_pipe.py",
             "exp_airfoil.py", "exp_elas.py", "exp_3d.py", "exp_ns.py",
             "exp_plas.py", "micro_rollout.py", "erwin_baseline.py",
-            "neighbors.py", "scatter.py"} <= names
+            "neighbors.py", "scatter.py", "mfu_sweep.py",
+            "accum_mem_probe.py", "model_dict.py", "parity_repro.py",
+            "torch_import.py", "visualization.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -97,6 +99,63 @@ def test_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_new_modules_import_with_matplotlib_blocked():
+    """The modules of the sweeps, the utils and the native readers import
+    where matplotlib (absent on the card's machine) and JAX are: plotting
+    imports matplotlib only when it runs."""
+    code = ("import sys\n"
+            "for m in ('matplotlib', 'jax', 'jaxlib', 'flax', 'optax',\n"
+            "          'haet_tpu', 'sklearn'):\n"
+            "    sys.modules[m] = None\n"
+            "import haet_torch.utils.visualization\n"
+            "import haet_torch.utils.torch_import, haet_torch.native\n"
+            "import haet_torch.benchmarks.mfu_sweep\n"
+            "import haet_torch.benchmarks.accum_mem_probe\n"
+            "import haet_torch.benchmarks.model_dict\n"
+            "import haet_torch.benchmarks.parity_repro\n"
+            "import haet_torch.benchmarks.car_eval\n"
+            "import haet_torch.benchmarks.exp_darcy\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_serving_imports_no_model_code():
+    """A process that loads programs (the config, the HTTP front end)
+    imports no model code: the auto threshold lives in the config, which
+    the models read, not the other way round."""
+    code = ("import sys\n"
+            "import haet_torch.utils.config, haet_torch.serve_http\n"
+            "import haet_torch.export\n"
+            "assert 'haet_torch.models' not in sys.modules\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_native_builds_name_no_jax_package_path():
+    """The native sources under ``haet_torch/native/`` are built from
+    there into ``haet_torch/_build/``: no build command, output or
+    ``#include`` names a path of the JAX package."""
+    from haet_torch import native
+
+    for name, (src, _) in native.LIBS.items():
+        path = ROOT / "haet_torch" / "native" / src
+        assert path.exists(), src
+        includes = [ln for ln in path.read_text().splitlines()
+                    if ln.lstrip().startswith("#include")]
+        assert not [ln for ln in includes if "haet_tpu" in ln], src
+        out = native.library_path(name)
+        assert out.parent == ROOT / "haet_torch" / "_build", out
+        cmd = native.compile_command(name, out)
+        assert str(path) in cmd
+        assert not [a for a in cmd if "haet_tpu" in a], cmd
 
 
 def test_default_device_rule(monkeypatch):

@@ -13,8 +13,8 @@ No JAX model is built here:
 * each PDE driver with ``--smoke --device cpu`` on the fixtures or the
   stand-in (one parametrised test; ``exp_elas`` with ``--accum_steps 2
   --dropout 0.1``, ``exp_3d`` with ``--use_checkpoint 1``): a finite
-  ``rel_err``, its metrics and checkpoints written, and the mesh flags and
-  ``--showcase`` refused.
+  ``rel_err``, its metrics and checkpoints written, the mesh flags
+  refused; ``exp_darcy`` with ``--showcase`` writes its three renders.
 """
 
 import json
@@ -127,7 +127,7 @@ def test_mat73_without_h5py_raises(monkeypatch):
 
 SMOKE = ["--smoke", "--device", "cpu", "--data_path", DATA]
 DRIVERS = {
-    "exp_darcy": (exp_darcy, SMOKE, "darcy"),
+    "exp_darcy": (exp_darcy, SMOKE + ["--showcase"], "darcy"),
     "exp_pipe": (exp_pipe, SMOKE, "pipe"),
     # the smoke sizes without --smoke, whose 8 training samples would take
     # the fixture's 4 and leave airfoil's test slice [8:12] empty
@@ -157,6 +157,8 @@ def test_driver_smoke_on_the_cpu(name, tmp_path, capsys):
     for flag in (["--dp", "2"], ["--tp", "2"], ["--pp", "2"]):
         with pytest.raises(NotImplementedError, match="parallel"):
             mod.main(argv + flag)
-    if name == "exp_darcy":
-        with pytest.raises(NotImplementedError, match="visualization"):
-            mod.main(argv + ["--showcase"])
+    if name == "exp_darcy":    # --showcase: the prediction renders
+        renders = tmp_path / "results" / "darcy"
+        assert sorted(os.listdir(renders)) == [
+            "case_1_error.png", "case_1_gt.png", "case_1_pred.png"]
+        assert f"showcase renders -> {renders}" in out

@@ -50,6 +50,7 @@ from haet_torch.models.components import embedding as temb
 from haet_torch.ops import ball_groups as tbg
 from haet_torch.ops.kernels import plain_route_counts, reset_launch_counts
 from haet_torch.utils import config as tcfg
+from haet_torch.utils.config import PALLAS_AUTO_THRESHOLD
 from haet_torch.utils.weights import from_jax_variables, load_jax_variables
 from haet_tpu.models import (HAETransolverStructuredMesh2D as J2D,
                              HAETransolverStructuredMesh3D as J3D)
@@ -368,12 +369,15 @@ def test_darcy_shapes_perms_integer_equal():
 
 @pytest.mark.parametrize("preset", list(jcfg.PRESETS))
 def test_every_preset_builds_at_full_width(preset):
-    """Every JAX preset has a port counterpart, field for field, that
-    builds at full width on the CPU; the Darcy model's parameter count
-    equals JAX's (``jax.eval_shape`` of its init)."""
+    """Every JAX preset has a port counterpart, field for field (but
+    ``pallas_auto_threshold``, the card's measured threshold where JAX has
+    the TPU's), that builds at full width on the CPU; the Darcy model's
+    parameter count equals JAX's (``jax.eval_shape`` of its init)."""
     want = jcfg.PRESETS[preset]()
+    fields = dataclasses.asdict(want)
+    fields["model"]["pallas_auto_threshold"] = PALLAS_AUTO_THRESHOLD
     got = tcfg.PRESETS[preset]()
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got) == fields
     tm = got.model.build(device="cpu")
     n = sum(p.numel() for p in tm.parameters())
     assert type(tm).__name__ == tcfg.VARIANTS[got.model.variant]

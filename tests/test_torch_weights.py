@@ -16,6 +16,7 @@ import torch
 
 from haet_torch.models import HAETransolverIrregularMesh
 from haet_torch.utils import config as tcfg
+from haet_torch.utils.config import PALLAS_AUTO_THRESHOLD
 from haet_torch.utils.weights import from_jax_variables, load_jax_variables
 from haet_tpu.utils import config as jcfg
 from haet_tpu.utils.torch_import import to_torch_state_dict
@@ -75,10 +76,14 @@ def test_param_count_matches_jax(car_variables):
 
 
 def test_model_config_field_for_field():
-    names = lambda c: [(f.name, f.default) for f in dataclasses.fields(c)]  # noqa: E731
-    assert names(tcfg.ModelConfig) == names(jcfg.ModelConfig)
-    assert dataclasses.asdict(tcfg.shapenet_car_config()) == \
-        dataclasses.asdict(jcfg.shapenet_car_config().model)
+    """Field for field, defaults included, but ``pallas_auto_threshold``,
+    whose default is the card's measured threshold, not the TPU's."""
+    card = {"pallas_auto_threshold": PALLAS_AUTO_THRESHOLD}
+    names = lambda c, own={}: [(f.name, own.get(f.name, f.default))  # noqa: E731
+                               for f in dataclasses.fields(c)]
+    assert names(tcfg.ModelConfig) == names(jcfg.ModelConfig, card)
+    assert dataclasses.asdict(tcfg.shapenet_car_config()) == {
+        **dataclasses.asdict(jcfg.shapenet_car_config().model), **card}
 
 
 def test_seeded_init_is_deterministic():
@@ -102,12 +107,12 @@ def test_seeded_init_is_deterministic():
     (dict(shard_axes=("dp", "tp")), "parallel"),
 ])
 def test_unported_options_raise(change, match):
-    """``use_pallas="auto"`` and ``shard_axes`` wait for their items and
-    raise naming them. Morton grouping and MPNN embedding are ported: the
-    car preset with either builds, and JAX's variables of the same config
+    """``shard_axes`` waits for its item and raises naming it. Morton
+    grouping, MPNN embedding and ``use_pallas="auto"`` are ported: the car
+    preset with any of them builds, and JAX's variables of the same config
     cross over key for key (``to_torch_state_dict``) and load strictly."""
     cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
-    if match in ("auto", "parallel"):
+    if match == "parallel":
         with pytest.raises(NotImplementedError, match=match):
             cfg.build(device="cpu")
         return
