@@ -326,15 +326,42 @@ Phases (any failed check exits non-zero before the final line):
       every level against ``ball_groups``' on-device median split of a
       car sample's first 16384 points.
 
+15. Data and head tensor parallelism (``haet_torch.parallel``; each
+   part's seconds printed, ~35 s).
+   a. A world of one over NCCL: ``init_distributed`` from the ``HAET_*``
+      variables in this process, a (1, 1) mesh; the car preset in bf16
+      (``mu_bf16``, both kernel flags, ``shard_axes=("dp", "tp")``) takes
+      3 graphed steps through ``Trainer(mesh=...)`` against the same steps
+      without a mesh: every step's metrics and the whole state bit for
+      bit; 2 + 2 + 24 forward and 2 + 2 + 24 backward launches per step
+      of the capture (its warm-up steps and itself) and per replay (the
+      profiler); the two min/max all-reduces, the output gather and the
+      gradient all-reduce of a step made as NCCL calls inside the capture;
+      NCCL's share of a replay's device time; both walls.
+   b. Two ranks on the one card over gloo (NCCL refuses two ranks on one
+      device), spawned: which collectives gloo carries on CUDA tensors
+      (all-reduce, all-gather and broadcast, which the port uses, must);
+      then dp 2 (a batch of 2 samples of 32186 points) and tp 2 (one
+      sample, 4 heads a rank), float32, two eager steps each: the losses
+      and gradient norms within ``GLOO_RTOL`` of one rank's steps on the
+      same batch and weights in this process, equal on both ranks, the
+      first step's gradient (summed over the ranks and clipped) leaf by
+      leaf within ``GLOO_GRAD_RTOL``; each rank's launches (2 + 2 + 24
+      each way per step) at its local shapes (the slice kernels at ``[1, 8,
+      32186, 32]`` and ``[1, 4, 32186, 32]``, Erwin over 8 and 4 clouds);
+      its step walls and host time in collectives.
+   c. The walls on the record: 15a's graphed step beside phases 10c and
+      9e, and 15b's last step per rank with gloo's share of it.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
 7d's run, ``replay_launches`` from the profiler's count of one replay),
 six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), six at
 the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step) and six
 at the NS shapes (``*_ns``, ``launches`` from 13b's checkpointed eager
-step), phase 5's, 8's, 9's, 10's, 11's, 12's, 13's and 14's numbers, the
-card line, and as the last line ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or ``haet_tpu``.
+step), phase 5's, 8's, 9's, 10's, 11's, 12's, 13's, 14's and 15's
+numbers, the card line, and as the last line ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX or ``haet_tpu``.
 """
 
 from __future__ import annotations
@@ -344,6 +371,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -4808,6 +4836,499 @@ def utils_phase(dev, run_dir) -> dict:
     return {**out, "seconds": secs, "sub_phase_seconds": parts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: data and head tensor parallelism on the card.
+# ---------------------------------------------------------------------------
+
+#: 15a's graphed steps, meshed and not
+MESH_STEPS = 3
+#: 15b's eager steps on each mesh of the two gloo ranks
+GLOO_STEPS = 2
+#: 15b's losses and gradient norms against the one-rank run on the card:
+#: the same float32 kernels on the same rows, the BatchNorm statistics and
+#: the gradients summed over the ranks in another order (the CPU tests of
+#: the same meshes measure ~1e-6)
+GLOO_RTOL = 1e-5
+#: 15b's first step's gradient (summed over the ranks, then clipped)
+#: against the one-rank run's, leaf by leaf: within GLOO_GRAD_RTOL of each
+#: entry, plus 1e-5 of the leaf's largest |entry| or 1e-6 of the whole
+#: gradient's, whichever is larger (the CPU tests' mesh tolerance, with
+#: rtol 1e-4 for float32 sums over 32186 points in another order). A
+#: missing or doubled reduction moves a leaf by the order of itself.
+GLOO_GRAD_RTOL = 1e-4
+#: 15b's meshes: (dp, tp) and the batch's samples (all N_POINTS long)
+GLOO_MESHES = {"dp2": ((2, 1), 2), "tp2": ((1, 2), 1)}
+#: the collectives of the port (all_reduce with SUM and MAX, all_gather,
+#: broadcast), which 15b checks gloo carries on CUDA tensors
+GLOO_PROBES = ("all_reduce_sum", "all_reduce_max", "all_gather",
+               "broadcast")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_car(dev, bf16: bool, shard: bool, seed: int = SEED):
+    """The car preset at full width with both kernel flags (``shard``:
+    with ``shard_axes=("dp", "tp")``) and its training config."""
+    from haet_torch.benchmarks.car_train import build_model
+    from haet_torch.utils.config import (shapenet_car_config,
+                                         shapenet_car_train_config)
+
+    cfg = shapenet_car_config()
+    cfg.bf16 = bf16
+    cfg.shard_axes = ("dp", "tp") if shard else None
+    train = shapenet_car_train_config()
+    train.mu_bf16 = bf16
+    return build_model(cfg, dev, seed=seed), train
+
+
+def collective_share(trainer, batch) -> dict:
+    """One replay of ``trainer``'s step traced on the card: the NCCL
+    kernels' names, count and device time, against the step's."""
+    import torch
+
+    from haet_torch.utils.profiling import device_trace
+
+    with device_trace(host=False) as prof:
+        trainer.train_step(batch)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3
+    nccl = [e for e in dev_events if "nccl" in e.name.lower()]
+    ms = sum(e.time_range.elapsed_us() for e in nccl) / 1e3
+    return {"names": sorted({e.name for e in nccl}), "count": len(nccl),
+            "nccl_ms": ms, "device_ms": total, "share": ms / total}
+
+
+def step_walls(trainers: dict, batch, steps: int = WALL_STEPS) -> dict:
+    """``{name: [ms of each step]}``: ``steps`` steps of each trainer, in
+    turns (a, b, b, a, ...), so that a drift of the host's speed falls on
+    both."""
+    import torch
+
+    walls = {name: [] for name in trainers}
+    order = list(trainers)
+    for i in range(steps):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainers[name].train_step(batch)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def nccl_world_of_one(dev) -> dict:
+    """15a: the script's own process joins a world of one over NCCL
+    (``init_distributed`` from the ``HAET_*`` variables) and trains the car
+    preset in bf16 over a (1, 1) mesh, ``shard_axes`` set, against the
+    same steps without a mesh: every step's metrics and the whole state
+    bit for bit, the counters at 2 + 2 + 24 forward and backward launches
+    per step of the capture, NCCL kernels inside the replayed graph."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from haet_torch import parallel
+    from haet_torch.ops.kernels import (launch_counts, plain_route_counts,
+                                        reset_launch_counts)
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder
+    from haet_torch.train.graphs import WARMUP
+
+    os.environ.update(HAET_COORDINATOR=f"127.0.0.1:{free_port()}",
+                      HAET_NUM_PROCESSES="1", HAET_PROCESS_ID="0")
+    check(not parallel.init_distributed(), "a world of one is multi-process")
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = parallel.make_mesh(1, 1)
+    batches = graph_batches(N_POINTS, range(SEED + 50, SEED + 50
+                                            + MESH_STEPS))
+    trainers = {}
+    for name, m in (("meshed", mesh), ("plain", None)):
+        model, cfg = mesh_car(dev, bf16=True, shard=m is not None)
+        trainers[name] = Trainer(model, loss_fn_builder(0.5), cfg,
+                                 total_steps=4 * MESH_STEPS,
+                                 batch_args=lambda b: (b["x"], None),
+                                 mesh=m)
+    meshed, plain = trainers["meshed"], trainers["plain"]
+    check(meshed.graphs is not None, "the meshed trainer does not graph")
+    print(f"phase 15a: {MESH_STEPS} graphed bf16 steps over {mesh}, "
+          f"against the same steps without a mesh", flush=True)
+    hold_states("15a: initial state", meshed, plain)
+    calls = []
+    reset_launch_counts()
+    for i, b in enumerate(batches):
+        with logged_collectives(calls):
+            mm = meshed.train_step(b)
+        counts = launch_counts() if i == 0 else counts
+        mp_ = plain.train_step(b)
+        same = all(torch.equal(mm[k], mp_[k]) for k in mp_)
+        print(f"  step {i + 1}: loss meshed {float(mm['loss']):.8f} plain "
+              f"{float(mp_['loss']):.8f}; bit-identical {same}", flush=True)
+        check(same, f"15a step {i + 1}: the meshed step differs")
+    check(hold_states(f"15a: state after {MESH_STEPS} steps", meshed,
+                      plain), "15a: the meshed state is not bit-identical")
+    expect_counts(f"15a launches (the capture's {WARMUP} warm-up steps and "
+                  f"itself; a replay counts none)", counts,
+                  expected_launches(WARMUP + 1, 0))
+    check(all(v == 0 for v in plain_route_counts().values()),
+          f"plain routes {plain_route_counts()}")
+    # the capture's step: 2 min/max all-reduces (one a block), the output
+    # gather and the gradient all-reduce, each an NCCL call in the graph
+    captured = [c[0] for c in calls if c[1]]
+    per_body = {"all_reduce": 3, "all_gather": 1}
+    got = {k: captured.count(k) for k in per_body}
+    expect_counts("15a NCCL calls captured in the graph", got, per_body)
+    check(len(calls) == (WARMUP + 1) * sum(per_body.values()),
+          f"15a: {len(calls)} collective calls in the warm-up and capture")
+    replay = replay_calls("15a kernel calls in one meshed replay",
+                          meshed.train_step, batches[0])
+    share = collective_share(meshed, batches[0])
+    print(f"  NCCL kernels in one replay: {share['count']} "
+          f"({share['names']}), {share['nccl_ms']:.3f} ms of "
+          f"{share['device_ms']:.3f} ms device time (share "
+          f"{share['share']:.4f}); a world of one has NCCL elide an "
+          f"in-place all-reduce and copy an all-gather on the device",
+          flush=True)
+    walls = {}
+    for name, w in step_walls(trainers, batches[0]).items():
+        walls[name] = {"wall_ms": float(np.median(w)), "min_ms": min(w)}
+        print(f"  {name} graphed step: wall median "
+              f"{walls[name]['wall_ms']:.3f} ms (min {min(w):.3f}) of "
+              f"{len(w)}, in turns with the other", flush=True)
+    del trainers, meshed, plain
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "replay_calls": replay["calls"],
+            "replay_device_ms": replay["device_ms"], "nccl": share,
+            "captured_calls": got, "walls": walls}
+
+
+def gloo_probe(dev) -> dict:
+    """Which collectives gloo carries for CUDA tensors: each run once on
+    the world of two ranks, ``"ok"`` or its error."""
+    import torch
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device=dev)
+    calls = {
+        "all_reduce_sum": lambda: dist.all_reduce(t.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(
+            t.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(2)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), src=0),
+    }
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+    dist.barrier()
+    return out
+
+
+def mesh_batch(samples: int) -> dict:
+    """``samples`` car-like samples of exactly N_POINTS points (no bucket
+    padding: the kernels see ``[.., N_POINTS, 32]``), as one batch."""
+    from haet_torch.data.shapenet_car import CarSample
+    from haet_torch.train.car import make_batch
+
+    parts = []
+    for i in range(samples):
+        rng = np.random.RandomState(SEED + 60 + i)
+        x = rng.randn(N_POINTS, 7).astype(np.float32)
+        y = rng.randn(N_POINTS, 4).astype(np.float32)
+        surf = np.zeros(N_POINTS, bool)
+        surf[-N_SURFACE:] = True
+        parts.append(make_batch(CarSample(x[:, :3], x, y, surf),
+                                n_pad=N_POINTS))
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+class _Shapes:
+    """Records the leading shape a kernel wrapper is called with."""
+
+    def __init__(self, fn, seen: list):
+        self.fn, self.seen = fn, seen
+
+    def __call__(self, x, *a, **k):
+        self.seen.append(tuple(x.shape))
+        return self.fn(x, *a, **k)
+
+
+class _Calls:
+    """A ``torch.distributed`` collective that records each call: its name,
+    whether the current stream was capturing a CUDA graph, and its host
+    seconds (gloo's calls on CUDA tensors return when the work is done)."""
+
+    def __init__(self, fn, log: list):
+        self.fn, self.log = fn, log
+
+    def __call__(self, *a, **k):
+        import torch
+
+        capturing = (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **k)
+        finally:
+            self.log.append((self.fn.__name__, capturing,
+                             time.perf_counter() - t0))
+
+
+@contextmanager
+def logged_collectives(log: list):
+    """``all_reduce``, ``all_gather`` and ``broadcast`` of
+    ``torch.distributed`` recorded into ``log`` (:class:`_Calls`)."""
+    import torch.distributed as dist
+
+    saved = dist.all_reduce, dist.all_gather, dist.broadcast
+    dist.all_reduce, dist.all_gather, dist.broadcast = (
+        _Calls(f, log) for f in saved)
+    try:
+        yield log
+    finally:
+        dist.all_reduce, dist.all_gather, dist.broadcast = saved
+
+
+def mesh_steps(trainer, batch, steps: int) -> dict:
+    """``steps`` eager steps: losses, gradient norms, walls, launch counts,
+    the shapes the slice and Erwin kernels ran at, the first step's
+    gradient by parameter name (on the host: what Adam took, summed over
+    the mesh and clipped), and the host milliseconds per step spent in
+    collectives (:func:`logged_collectives`)."""
+    import torch
+
+    from haet_torch.models import erwin as merwin
+    from haet_torch.models import physics_attention as mpa
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    slices, blocks, coll = [], [], []
+    saved = mpa.sk.slice_states, merwin.fused_erwin_block
+    mpa.sk.slice_states = _Shapes(saved[0], slices)
+    merwin.fused_erwin_block = _Shapes(saved[1], blocks)
+    out = {"loss": [], "grad_norm": [], "walls_ms": [], "collective_ms": []}
+    try:
+        with logged_collectives(coll):
+            reset_launch_counts()
+            for i in range(steps):
+                first = len(coll)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.train_step(batch)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                torch.cuda.synchronize()
+                out["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["collective_ms"].append(
+                    sum(c[2] for c in coll[first:]) * 1e3)
+                if i == 0:
+                    # the gradients are views of the trainer's flat buffer,
+                    # which the next step overwrites
+                    names = {id(p): k for k, p in
+                             trainer.model.named_parameters()}
+                    out["grad"] = {names[id(p)]: p.grad.float().cpu().numpy()
+                                   for p in trainer._grad_params}
+            out["launches"] = launch_counts()
+    finally:
+        mpa.sk.slice_states, merwin.fused_erwin_block = saved
+    out["collectives"] = len(coll) // steps
+    out["slice_shapes"] = sorted(set(slices))
+    out["erwin_clouds"] = sorted({s[0] for s in blocks})
+    return out
+
+
+def grad_errors(got: dict, ref: dict) -> dict:
+    """``{leaf: max |got - ref| over its allowance}`` (:data:`GLOO_GRAD_RTOL`):
+    a value above 1 fails."""
+    whole = max(float(np.abs(v).max()) for v in ref.values())
+    out = {}
+    for k, w in ref.items():
+        allow = (GLOO_GRAD_RTOL * np.abs(w)
+                 + max(1e-5 * float(np.abs(w).max()), 1e-6 * whole))
+        out[k] = float((np.abs(got[k] - w) / allow).max())
+    return out
+
+
+def gloo_rank_main(rank: int, port: int, queue) -> None:
+    """One of 15b's two ranks on the one card: joins the gloo group,
+    probes its collectives on CUDA tensors, then trains the float32 car
+    preset for ``GLOO_STEPS`` eager steps on each mesh of ``GLOO_MESHES``;
+    puts ``(rank, results)`` on ``queue``."""
+    import torch
+
+    from haet_torch import parallel
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder
+    from haet_torch.utils.env import default_device
+
+    try:
+        dev = default_device(None)
+        parallel.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                  backend="gloo")
+        out = {"probe": gloo_probe(dev)}
+        for name, ((n_dp, n_tp), samples) in GLOO_MESHES.items():
+            mesh = parallel.make_mesh(n_dp, n_tp)
+            model, cfg = mesh_car(dev, bf16=False, shard=True)
+            trainer = Trainer(model, loss_fn_builder(0.5), cfg,
+                              total_steps=4 * GLOO_STEPS,
+                              batch_args=lambda b: (b["x"], None),
+                              mesh=mesh, eager=True)
+            out[name] = mesh_steps(trainer, mesh_batch(samples), GLOO_STEPS)
+            del trainer, model
+            torch.cuda.empty_cache()
+        queue.put((rank, out))
+    except Exception:
+        import traceback
+
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def gloo_two_ranks(dev) -> dict:
+    """15b: two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), dp 2 (batch 2) and tp 2 (4 heads a rank), two eager steps
+    each, against one rank of the same batches and weights in this
+    process."""
+    import multiprocessing
+
+    import torch
+
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder
+
+    print(f"phase 15b: two gloo ranks on the card, {list(GLOO_MESHES)}, "
+          f"{GLOO_STEPS} eager float32 steps each", flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=gloo_rank_main, args=(r, port, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = dict(queue.get(timeout=400) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for r, res in sorted(ranks.items()):
+        check("error" not in res, f"15b rank {r}:\n{res.get('error')}")
+    probe = ranks[0]["probe"]
+    print(f"  gloo on CUDA tensors (torch {torch.__version__}): {probe}",
+          flush=True)
+    for name in GLOO_PROBES:
+        check(probe[name] == "ok", f"gloo refuses {name} on CUDA tensors")
+    out = {"probe": probe}
+    want_shapes = {"dp2": [(1, 8, N_POINTS, 32)],
+                   "tp2": [(1, 4, N_POINTS, 32)]}
+    want_clouds = {"dp2": 8, "tp2": 4}
+    for name, ((n_dp, n_tp), samples) in GLOO_MESHES.items():
+        batch = mesh_batch(samples)
+        model, cfg = mesh_car(dev, bf16=False, shard=False)
+        ref = mesh_steps(Trainer(model, loss_fn_builder(0.5), cfg,
+                                 total_steps=4 * GLOO_STEPS,
+                                 batch_args=lambda b: (b["x"], None),
+                                 eager=True), batch, GLOO_STEPS)
+        del model
+        rows = []
+        for r in (0, 1):
+            got = ranks[r][name]
+            expect_counts(f"15b {name} rank {r} launches ({GLOO_STEPS} eager "
+                          f"steps)", got["launches"],
+                          expected_launches(GLOO_STEPS, 0))
+            check(got["slice_shapes"] == want_shapes[name],
+                  f"15b {name} rank {r}: slice shapes {got['slice_shapes']}")
+            check(got["erwin_clouds"] == [want_clouds[name]],
+                  f"15b {name} rank {r}: Erwin clouds {got['erwin_clouds']}")
+            for k in ("loss", "grad_norm"):
+                err = max(abs(a - b) / abs(b) for a, b in
+                          zip(got[k], ref[k]))
+                check(err <= GLOO_RTOL,
+                      f"15b {name} rank {r} {k}: {got[k]} vs {ref[k]}")
+            check(set(got["grad"]) == set(ref["grad"]),
+                  f"15b {name} rank {r}: other parameters have gradients")
+            errs = grad_errors(got["grad"], ref["grad"])
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= 1.0,
+                  f"15b {name} rank {r}: the first step's gradient of "
+                  f"{worst} differs by {errs[worst]:.3g}x its allowance")
+            rows.append(errs[worst])
+            print(f"  {name} rank {r}: losses {got['loss']} (one rank "
+                  f"{ref['loss']}), grad norms {got['grad_norm']}; slice "
+                  f"kernels at {got['slice_shapes']}, Erwin over "
+                  f"{got['erwin_clouds']} clouds; first step's gradient, "
+                  f"{len(errs)} leaves, at most {errs[worst]:.3g}x the "
+                  f"allowance ({worst}); eager step walls "
+                  f"{[round(w, 3) for w in got['walls_ms']]} ms (one rank "
+                  f"{[round(w, 3) for w in ref['walls_ms']]}); "
+                  f"{got['collectives']} collectives per step, host ms in "
+                  f"them {[round(c, 3) for c in got['collective_ms']]}",
+                  flush=True)
+        for r in (0, 1):
+            check(ranks[r][name]["loss"] == ranks[0][name]["loss"],
+                  f"15b {name}: the ranks' losses differ")
+        out[name] = {"walls_ms": [ranks[r][name]["walls_ms"] for r in (0, 1)],
+                     "one_rank_walls_ms": ref["walls_ms"],
+                     "collective_ms": [ranks[r][name]["collective_ms"]
+                                       for r in (0, 1)],
+                     "one_rank_collective_ms": ref["collective_ms"],
+                     "loss": ranks[0][name]["loss"], "one_rank_loss":
+                     ref["loss"], "grad_err_of_allowance": max(rows),
+                     "launches": ranks[0][name]["launches"]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(dev, f32_walls, bf16) -> dict:
+    """Phase 15: 15a (a world of one over NCCL, graphed), 15b (two gloo
+    ranks on the card), 15c (the walls beside phases 9 and 10, printed)."""
+    t0 = time.perf_counter()
+    out = {"15a": nccl_world_of_one(dev)}
+    t_a = time.perf_counter() - t0
+    out["15b"] = gloo_two_ranks(dev)
+    t_b = time.perf_counter() - t0 - t_a
+    a = out["15a"]["walls"]
+    print(f"phase 15c: the graphed bf16 step meshed "
+          f"{a['meshed']['wall_ms']:.3f} ms, unmeshed {a['plain']['wall_ms']:.3f} ms (phase 10c "
+          f"{bf16['graphs']['graphed']['wall_ms']:.3f} ms, phase 9e float32 "
+          f"{f32_walls['graphed']['wall_ms']:.3f} ms); NCCL's share of the "
+          f"meshed replay's device time {out['15a']['nccl']['share']:.4f}",
+          flush=True)
+    for k, v in out["15b"].items():
+        if k == "probe":
+            continue
+        # the last step: the first pays each rank's warm-up
+        walls = [w[-1] for w in v["walls_ms"]]
+        coll = [c[-1] for c in v["collective_ms"]]
+        v["last_step"] = {"walls_ms": walls, "collective_ms": coll,
+                          "share": [c / w for c, w in zip(coll, walls)],
+                          "one_rank_ms": v["one_rank_walls_ms"][-1]}
+        print(f"  15b {k}, step {GLOO_STEPS} per rank: wall "
+              f"{[round(w, 3) for w in walls]} ms (one rank "
+              f"{v['one_rank_walls_ms'][-1]:.3f} ms), in gloo's "
+              f"collectives {[round(c, 3) for c in coll]} ms (share "
+              f"{[round(c / w, 3) for c, w in zip(coll, walls)]})",
+              flush=True)
+    out["seconds"] = {"15a": t_a, "15b": t_b,
+                      "all": time.perf_counter() - t0}
+    print(f"phase 15: {out['seconds']['all']:.1f} s (15a {t_a:.1f} s, 15b "
+          f"{t_b:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4886,6 +5407,7 @@ def main() -> int:
             utils = utils_phase(dev, run_dir)
         finally:
             shutil.rmtree(run_dir, ignore_errors=True)
+        mesh = mesh_phase(dev, graphs, bf16)
         print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -4902,7 +5424,7 @@ def main() -> int:
                       "serve_forwards": forwards, "fit": fit,
                       "graphs": graphs, "bf16": bf16, "serving": serving,
                       "serve_profile": f32_profile, "pde": pde,
-                      "rollout": ns, "utils": utils}))
+                      "rollout": ns, "utils": utils, "mesh": mesh}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,16 @@ parameters and ``--mu_bf16 1`` stores Adam's first moment in bf16, as the
 JAX driver's flags do (``benchmarks/car_train.py:136-137``); both default
 to 0, as there.
 
-The card is the default device; ``--device cpu`` runs on the CPU. ``--dp``,
-``--tp``, ``--pp`` and ``--multihost`` are not ported yet and raise, naming
-their ``ROADMAP.md`` item.
+The card is the default device; ``--device cpu`` runs on the CPU.
+
+``--dp``, ``--tp`` and ``--multihost`` (:func:`add_mesh_args`, the JAX
+drivers' ``benchmarks/_common.py:88-185``) train over a mesh, one process
+per rank, each loading the same data: launch one process per rank under
+torchrun or with ``HAET_COORDINATOR``/``HAET_NUM_PROCESSES``/
+``HAET_PROCESS_ID`` set (``README.md``). NCCL joins ranks on cards, gloo on
+the CPU (``--device cpu``). A batch of one sample, the car's, is not split
+over dp: each step replicates it, and the note says so. ``--pp`` and
+``--pp_microbatches`` raise, naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -38,30 +45,85 @@ import os
 
 import numpy as np
 
+from .. import parallel
 from ..data import Prefetcher, shapenet_car
 from ..train import Checkpointer, MetricsLogger, Trainer
 from ..train.car import evaluate, loss_fn_builder, make_batch
 from ..utils.config import shapenet_car_config, shapenet_car_train_config
 from ..utils.env import default_device
 
-PARALLEL_TODO = "{} is not ported yet (ROADMAP.md, queue 1: parallel)"
+PARALLEL_TODO = ("{} is not ported yet (ROADMAP.md, queue 1, item 10b: the "
+                 "parallel pipeline, multi-chip exports and serving)")
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    """The JAX drivers' mesh flags (``benchmarks/_common.py:88-109``);
-    only their defaults run here."""
-    p.add_argument("--dp", type=int, default=0)
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--pp_microbatches", type=int, default=0)
-    p.add_argument("--multihost", action="store_true")
+    """The JAX drivers' mesh flags (``benchmarks/_common.py:88-109``)."""
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh size (0 = no mesh)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="head tensor-parallel mesh size (n_heads %% tp == 0)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (not ported yet)")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="microbatches per pipelined step (not ported yet)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group of HAET_COORDINATOR / "
+                        "HAET_NUM_PROCESSES / HAET_PROCESS_ID or torchrun's "
+                        "variables first")
+
+
+def _mesh_size(args) -> tuple:
+    """``(dp, tp)`` the flags ask for, ``(0, 1)`` for no mesh: ``--tp``
+    without ``--dp`` means dp 1, as in JAX."""
+    n_tp = max(1, args.tp)
+    if not args.dp and n_tp <= 1:
+        return 0, 1
+    return args.dp or 1, n_tp
 
 
 def check_mesh_args(args) -> None:
-    for flag, default in (("dp", 0), ("tp", 1), ("pp", 1),
-                          ("pp_microbatches", 0), ("multihost", False)):
+    """Check the mesh flags and join the process group they ask for, before
+    anything is made on the card (:func:`parallel.init_distributed` binds
+    this rank to its card). ``--pp`` and ``--pp_microbatches`` raise."""
+    for flag, default in (("pp", 1), ("pp_microbatches", 0)):
         if getattr(args, flag) != default:
             raise NotImplementedError(PARALLEL_TODO.format(f"--{flag}"))
+    if args.multihost and not parallel.cluster_configured():
+        raise SystemExit("--multihost needs a cluster to join: set "
+                         "HAET_COORDINATOR, HAET_NUM_PROCESSES and "
+                         "HAET_PROCESS_ID, or launch under torchrun")
+    n_dp, n_tp = _mesh_size(args)
+    n = parallel.requested_world()
+    if n_dp and n_dp * n_tp != n:
+        raise SystemExit(f"--dp {n_dp} x --tp {n_tp} needs {n_dp * n_tp} "
+                         f"devices, have {n} (one rank each)")
+    if n_dp or args.multihost:
+        parallel.init_distributed(device=args.device)
+
+
+def make_mesh_from_args(model_cfg, train_cfg, args):
+    """The ``(dp, tp)`` mesh of the flags (``benchmarks/_common.py:
+    112-185``), or None without ``--dp``/``--tp``; with tp > 1 sets
+    ``model_cfg.shard_axes``. Raises SystemExit where tp does not divide
+    the heads; prints a note where dp does not divide the batch (each
+    such step replicates its batch). Call :func:`check_mesh_args`
+    first."""
+    n_dp, n_tp = _mesh_size(args)
+    if not n_dp:
+        return None
+    if n_tp > 1:
+        if model_cfg.n_head % n_tp:
+            raise SystemExit(
+                f"--tp {n_tp} must divide n_heads ({model_cfg.n_head})")
+        model_cfg.shard_axes = ("dp", "tp")
+    mesh = parallel.make_mesh(n_dp, n_tp)
+    if train_cfg.batch_size % n_dp:
+        print(f"[mesh] note: batch size {train_cfg.batch_size} is not "
+              f"divisible by the dp mesh size {n_dp}; every step replicates "
+              "its batch over dp (no dp speedup)", flush=True)
+    print(f"[mesh] dp={n_dp} tp={n_tp} ({n_dp * n_tp} ranks, "
+          f"{mesh.backend})", flush=True)
+    return mesh
 
 
 def model_config(args):
@@ -120,6 +182,7 @@ def main(argv=None) -> dict:
     train_cfg.epochs = args.epochs
     train_cfg.lr = args.lr
     train_cfg.mu_bf16 = bool(args.mu_bf16)
+    mesh = make_mesh_from_args(cfg, train_cfg, args)
 
     train_s, val_s, coef, is_synth = load_fold(args)
     if is_synth:
@@ -128,7 +191,7 @@ def main(argv=None) -> dict:
     model = build_model(cfg, dev, train_cfg.seed)
     trainer = Trainer(model, loss_fn_builder(args.weight), train_cfg,
                       total_steps=len(train_s) * train_cfg.epochs,
-                      batch_args=lambda b: (b["x"], None))
+                      batch_args=lambda b: (b["x"], None), mesh=mesh)
     print(f"nb_parameters {trainer.num_params()}", flush=True)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "checkpoints", "car"))

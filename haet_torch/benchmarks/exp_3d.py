@@ -9,8 +9,9 @@ default) on a synthetic heat-diffusion volume of 32^3 (16^3 with
 steps out, AdamW + OneCycle, rel-L2 of the decoded field, printed as
 ``rel_err:``. ``use_checkpoint`` is on at full size unless
 ``--use_checkpoint 0`` says otherwise, as in the JAX driver. The card is
-the default device; ``--device cpu`` runs on the CPU; the mesh flags raise
-(``ROADMAP.md``, queue 1: parallel).
+the default device; ``--device cpu`` runs on the CPU;
+``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
+(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
 """
 
 from __future__ import annotations

@@ -18,8 +18,9 @@ The card is the default device; ``--device cpu`` runs on the CPU.
 ``--showcase`` then renders the first test sample's prediction, target and
 error (:func:`haet_torch.utils.visualization.plot_prediction_triptych`,
 reference ``exp_darcy.py:166-200``) under ``<out_dir>/results/darcy``; it
-needs matplotlib. The mesh flags are not ported yet (``ROADMAP.md``, queue
-1: parallel) and raise.
+needs matplotlib.
+``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
+(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
 """
 
 from __future__ import annotations

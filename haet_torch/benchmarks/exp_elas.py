@@ -11,8 +11,9 @@ annealing of ``t_max`` = epochs stepped per batch (as the reference's
 ``CosineAnnealingLR(T_max=epochs)``), batch 1 by default, rel-L2 of the
 decoded stress, printed as ``rel_err:``. The synthetic stand-in stands in
 when the files are absent. The card is the default device; ``--device
-cpu`` runs on the CPU; the mesh flags raise (``ROADMAP.md``, queue 1:
-parallel).
+cpu`` runs on the CPU;
+``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
+(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
 """
 
 from __future__ import annotations

@@ -27,8 +27,9 @@ preset. The NS file is MATLAB v7.3, which needs ``h5py``; where it is not
 installed the loader raises naming the file, so point ``--data_path`` at a
 directory without it to train on the synthetic stand-in. ``--smoke`` runs
 2 epochs of a small model. The card is the default device; ``--device
-cpu`` runs on the CPU; the mesh flags raise (``ROADMAP.md``, queue 1:
-parallel).
+cpu`` runs on the CPU; ``--dp``/``--tp``/``--multihost`` train over a
+mesh, one process per rank (``pde_common``), and ``--pp`` raises
+(``ROADMAP.md``, queue 1, item 10b).
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from ..train import Checkpointer, MetricsLogger
 from ..train.losses import RelLpLoss
 from ..utils.config import ns_config
 from ..utils.env import default_device
-from .pde_common import (apply_model_args, base_parser,
+from .pde_common import (apply_model_args, base_parser, check_mesh_args,
                          init_custom_loop_state, shrink_for_smoke,
                          weighted_eval)
 
@@ -127,6 +128,7 @@ def main(argv=None) -> float:
             "exp_ns: --accum_steps is not supported by this custom rollout "
             "loop (the per-frame checkpoint already bounds activation "
             "memory; use --use_checkpoint)")
+    check_mesh_args(args)
     dev = default_device(args.device)
     data = load_ns(args.data_path, args.ntrain, args.ntest, T_IN, T_OUT)
     if data["synthetic"]:

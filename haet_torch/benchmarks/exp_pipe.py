@@ -9,8 +9,9 @@ Counterpart of ``benchmarks/exp_pipe.py``: the 129 x 129 mesh coordinates
 rel-L2 on the decoded field, printed as ``rel_err:``. :func:`run` also
 drives ``exp_airfoil``. The synthetic stand-in stands in when the files are
 absent; ``--smoke`` runs 2 epochs of a small model on a 33 x 33 crop. The
-card is the default device; ``--device cpu`` runs on the CPU; the mesh
-flags raise (``ROADMAP.md``, queue 1: parallel).
+card is the default device; ``--device cpu`` runs on the CPU;
+``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
+(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
 """
 
 from __future__ import annotations

@@ -22,7 +22,9 @@ the test set's per-sample rel-L2 as ``rel_err:``.
 
 The step runs op by op (no CUDA graph). ``--smoke`` runs 2 epochs of a
 small model. The card is the default device; ``--device cpu`` runs on the
-CPU; the mesh flags raise (``ROADMAP.md``, queue 1: parallel).
+CPU; ``--dp``/``--tp``/``--multihost`` train over a mesh, one process per
+rank (``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item
+10b).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..train import Checkpointer, MetricsLogger
 from ..train.losses import RelLpLoss
 from ..utils.config import plasticity_config
 from ..utils.env import default_device
-from .pde_common import (apply_model_args, base_parser,
+from .pde_common import (apply_model_args, base_parser, check_mesh_args,
                          init_custom_loop_state, shrink_for_smoke,
                          weighted_eval)
 
@@ -79,6 +81,7 @@ def main(argv=None) -> float:
         raise SystemExit(
             "exp_plas: --accum_steps is not supported by this custom "
             "time-query loop (use --use_checkpoint for memory)")
+    check_mesh_args(args)
     dev = default_device(args.device)
     data = load_plasticity(args.data_path, args.ntrain, args.ntest)
     if data["synthetic"]:

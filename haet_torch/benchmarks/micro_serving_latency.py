@@ -54,7 +54,8 @@ from .car_train import build_model
 BASELINE_LATENCY_S = 0.1342  # A100, the reference's eval log (BASELINE.md)
 LO, HI = 4, 24
 TRACED = 5
-TP_TODO = "--tp is not ported yet (ROADMAP.md, queue 1: parallel)"
+TP_TODO = ("--tp is not ported yet (ROADMAP.md, queue 1, item 10b: the "
+           "parallel pipeline, multi-chip exports and serving)")
 
 __all__ = ["run", "main", "card"]
 

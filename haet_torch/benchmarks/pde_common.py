@@ -1,9 +1,11 @@
 """What the PDE drivers share: the counterpart of ``benchmarks/_common.py``.
 
 :func:`base_parser` is the JAX drivers' flag surface (``_common.py:16-50``)
-plus ``--device`` (the card unless ``--device cpu``); ``--dp``, ``--tp``,
-``--pp``, ``--pp_microbatches`` and ``--multihost`` parse and raise unless
-left at their defaults (``ROADMAP.md``, queue 1: parallel).
+plus ``--device`` (the card unless ``--device cpu``) and the mesh flags:
+``--dp``, ``--tp`` and ``--multihost`` train over a mesh
+(:func:`~haet_torch.benchmarks.car_train.check_mesh_args`,
+:func:`~haet_torch.benchmarks.car_train.make_mesh_from_args`), ``--pp`` and
+``--pp_microbatches`` raise (``ROADMAP.md``, queue 1, item 10b).
 :func:`shrink_for_smoke` and :func:`apply_model_args` size a preset from the
 flags as JAX does, :func:`weighted_eval` is the per-sample test loss, and
 :func:`train_and_eval` the drivers' common tail: the model with both kernel
@@ -21,11 +23,12 @@ import os
 
 from ..data.synthetic import batch_iter
 from ..train import Checkpointer, MetricsLogger, Trainer
-from .car_train import add_mesh_args, build_model, check_mesh_args
+from .car_train import (add_mesh_args, build_model, check_mesh_args,
+                        make_mesh_from_args)
 
 __all__ = ["base_parser", "shrink_for_smoke", "apply_model_args",
            "weighted_eval", "train_and_eval", "init_custom_loop_state",
-           "add_mesh_args", "check_mesh_args"]
+           "add_mesh_args", "check_mesh_args", "make_mesh_from_args"]
 
 
 def base_parser(name: str) -> argparse.ArgumentParser:
@@ -124,14 +127,16 @@ def train_and_eval(cfg, args, dev, name: str, train: dict, test: dict,
     partial last batch kept, so ``ceil(n / bs)`` steps per epoch) with eval
     on ``test`` every epoch, ``<out_dir>/<name>_metrics.jsonl`` and
     checkpoints under ``<out_dir>/checkpoints/<name>``, then print and
-    return the final per-sample ``rel_err``. Returns ``(rel_err,
+    return the final per-sample ``rel_err``. Over the flags' mesh, if any
+    (the log and checkpoints by rank 0). Returns ``(rel_err,
     trainer)``."""
     bs = cfg.train.batch_size
+    mesh = make_mesh_from_args(cfg.model, cfg.train, args)
     model = build_model(cfg.model, dev, seed=seed)
     steps = max(1, -(-len(next(iter(train.values()))) // bs))
     trainer = Trainer(model, loss_fn, cfg.train,
                       total_steps=steps * cfg.train.epochs,
-                      batch_args=batch_args, eval_fn=eval_fn)
+                      batch_args=batch_args, eval_fn=eval_fn, mesh=mesh)
     print(f"Total Trainable Params: {trainer.num_params()}", flush=True)
     ckpt = Checkpointer(os.path.join(args.out_dir, "checkpoints", name))
     if resume:
@@ -155,15 +160,16 @@ def init_custom_loop_state(cfg, args, dev, n_train: int, wrap, loss_fn,
     plasticity time queries), and a :class:`Trainer` over the wrapper,
     whose optimizer and schedule are ``cfg.train``'s over ``ceil(n_train /
     batch) * epochs`` steps, built as every driver's are. The trainer is
-    ``eager``: each step runs op by op (no CUDA graph). ``--dp``, ``--tp``,
-    ``--pp`` and ``--multihost`` raise (``ROADMAP.md``, queue 1:
-    parallel). Returns ``(model, trainer)``."""
-    check_mesh_args(args)
+    ``eager``: each step runs op by op (no CUDA graph). Over the flags'
+    mesh, if any (:func:`make_mesh_from_args`; call
+    :func:`check_mesh_args` first). Returns ``(model, trainer)``."""
     bs = cfg.train.batch_size
+    mesh = make_mesh_from_args(cfg.model, cfg.train, args)
     model = build_model(cfg.model, dev, seed=cfg.train.seed)
     steps = max(1, -(-n_train // bs))  # ceil: the partial batch is kept
     trainer = Trainer(wrap(model), loss_fn, cfg.train,
                       total_steps=steps * cfg.train.epochs,
-                      batch_args=batch_args, eval_fn=eval_fn, eager=True)
+                      batch_args=batch_args, eval_fn=eval_fn, eager=True,
+                      mesh=mesh)
     print(f"Total Trainable Params: {trainer.num_params()}", flush=True)
     return model, trainer

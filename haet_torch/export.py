@@ -39,7 +39,7 @@ run K autoregressive eval forwards in one program, each prediction
 appended to the sliding input window (:func:`rollout`), K unrolled in the
 graph where JAX scans; they load, bind and serve as the forward's programs
 do. Multi-chip programs (``mesh=``) are not ported and raise with their
-``ROADMAP.md`` item (queue 1: parallel).
+``ROADMAP.md`` item (queue 1, item 10b).
 """
 
 from __future__ import annotations
@@ -74,7 +74,8 @@ _BLOB = "apply.pt2"
 _PREFIX = "model."
 
 MESH_TODO = ("multi-chip export (mesh=) is not ported yet (ROADMAP.md, "
-             "queue 1: parallel)")
+             "queue 1, item 10b: the parallel pipeline, multi-chip exports "
+             "and serving)")
 
 # jax.export traces with canonical dtypes (64-bit types become 32-bit under
 # JAX's default config), and the JAX manifest records those; the port

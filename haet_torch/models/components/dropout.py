@@ -45,7 +45,11 @@ class Dropout(nn.Module):
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
 
-    def forward(self, x):
+    def forward(self, x, part=None):
+        """``part``: ``(global shape, index)`` when ``x`` is a rank's part of
+        a tensor (:meth:`haet_torch.parallel.Layout.dropout_part`): the
+        mask is drawn (or fed) for the whole tensor and indexed, so the
+        rank keeps the elements the single-device mask gives it."""
         if not self.training or self.rate == 0.0:
             return x
         if self.rate == 1.0:
@@ -53,14 +57,19 @@ class Dropout(nn.Module):
         keep_prob = 1.0 - self.rate
         if self.replay is not None:
             keep = next(self.replay)
-        elif self.feed:
-            keep = self.feed.pop(0).to(x.device)
         else:
-            if self.generator is None:
-                raise RuntimeError("Dropout in train mode needs the model's "
-                                   "generator (Dropout.generator)")
-            keep = torch.rand(x.shape, generator=self.generator,
-                              device=x.device) < keep_prob
+            if self.feed:
+                keep = self.feed.pop(0).to(x.device)
+            else:
+                if self.generator is None:
+                    raise RuntimeError("Dropout in train mode needs the "
+                                       "model's generator "
+                                       "(Dropout.generator)")
+                shape = x.shape if part is None else part[0]
+                keep = torch.rand(shape, generator=self.generator,
+                                  device=x.device) < keep_prob
+            if part is not None:
+                keep = keep[part[1]]
         if self.record is not None:
             self.record.append(keep)
         return torch.where(keep, x / keep_prob, 0.0)

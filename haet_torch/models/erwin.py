@@ -20,7 +20,9 @@ plain block otherwise, as the JAX module routes to XLA
 records it), so a run can show that no block of its path left the kernels.
 
 Pooling and unpooling normalise with :class:`FlaxBatchNorm1d`, which in
-train mode updates its running variance as flax does.
+train mode updates its running variance as flax does; under a mesh
+(:mod:`haet_torch.parallel`) ``forward(..., group=)`` takes its train-mode
+statistics over the clouds of every rank of ``group``.
 
 With ``mp_steps > 0`` the embedding runs :class:`MPNN` message passing over
 capped-degree neighbours (:mod:`haet_torch.ops.neighbors`): the radius
@@ -51,6 +53,7 @@ from ..ops.dense import normalized
 from ..ops.kernels.erwin_block import (BWD_PLAIN_ROUTES, PLAIN_ROUTES,
                                        ball_msa, eligible, fused_erwin_block)
 from ..ops.neighbors import knn_edges, radius_edges
+from ..parallel.collectives import group_moments, group_size, sync_batch_norm
 from ..utils.env import grad_off
 from .components.mlp import Linear, SwiGLU
 
@@ -148,6 +151,18 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
     ``recomputing`` (a checkpointed block's forward run again in the
     backward, ``components.dropout.checkpoint_contexts``) train mode
     normalises as before and leaves the running statistics alone.
+
+    ``group`` (a process group of more than one rank, whose ranks hold
+    other rows of the batch: dp, and tp under a head split) makes the
+    train-mode statistics the group's, as JAX's BatchNorm normalises the
+    global batch under a mesh: each rank's ``(count, mean, biased var)``
+    combined in float32 (``parallel.collectives.group_moments``), the
+    running statistics updated from them, equal on every rank, and a
+    backward that sums ``sum dy`` and ``sum dy * xhat`` over the group
+    (``sync_batch_norm``). The recompute of a checkpointed block replays
+    these collectives in the same order on every rank. A group of one rank,
+    or None, takes the single-device route above, so a mesh of one rank is
+    bit for bit the model without one.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, dtype=None):
@@ -155,21 +170,32 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
         self.compute_dtype = dtype
         self.recomputing = False
 
-    def forward(self, x):
-        return normalized(self._normalize, x, self.compute_dtype)
+    def forward(self, x, group=None):
+        return normalized(lambda v: self._normalize(v, group), x,
+                          self.compute_dtype)
 
-    def _normalize(self, x):
+    def _normalize(self, x, group):
         if not self.training:
             return super().forward(x)
-        if not self.recomputing:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=0, correction=0)
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        if group_size(group) == 1:
+            if not self.recomputing:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x, dim=0, correction=0)
+                    self._update(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        with torch.no_grad():
+            mean, var, count = group_moments(x.detach(), group)
+            if not self.recomputing:
+                self._update(mean, var)
+        return sync_batch_norm(x, self.weight, self.bias, mean,
+                               torch.rsqrt(var + self.eps), count, group)
+
+    def _update(self, mean, var) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 class BallPooling(nn.Module):
@@ -185,7 +211,7 @@ class BallPooling(nn.Module):
                                dtype=dtype)
             self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5, dtype=dtype)
 
-    def forward(self, node: Node) -> Node:
+    def forward(self, node: Node, group=None) -> Node:
         if self.stride == 1:
             return Node(x=node.x, pos=node.pos, children=node)
         B, N, C = node.x.shape
@@ -198,7 +224,7 @@ class BallPooling(nn.Module):
         x = torch.cat([node.x.reshape(B, N // s, s * C),
                        rel_pos.to(node.x.dtype)], dim=-1)
         x = self.proj(x)
-        x = self.norm(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        x = self.norm(x.reshape(-1, x.shape[-1]), group).reshape(x.shape)
         return Node(x=x, pos=centers, children=node)
 
 
@@ -215,7 +241,7 @@ class BallUnpooling(nn.Module):
                            stride * out_dim, dtype=dtype)
         self.norm = FlaxBatchNorm1d(out_dim, eps=1e-5, dtype=dtype)
 
-    def forward(self, node: Node) -> Node:
+    def forward(self, node: Node, group=None) -> Node:
         children = node.children
         B, Np, _ = node.x.shape
         D = node.pos.shape[-1]
@@ -226,7 +252,7 @@ class BallUnpooling(nn.Module):
         x = torch.cat([node.x, rel_pos.to(node.x.dtype)], dim=-1)
         up = self.proj(x).reshape(B, Np * s, self.out_dim)
         y = children.x + up
-        x = self.norm(y.reshape(-1, self.out_dim)).reshape(y.shape)
+        x = self.norm(y.reshape(-1, self.out_dim), group).reshape(y.shape)
         return Node(x=x, pos=children.pos, rot_perm=children.rot_perm,
                     rot_inv_perm=children.rot_inv_perm,
                     children=children.children)
@@ -258,9 +284,9 @@ class BasicLayer(nn.Module):
             self.pool = BallPooling(hidden_dim, out_dim, stride,
                                     dimensionality, dtype)
 
-    def forward(self, node: Node) -> Node:
+    def forward(self, node: Node, group=None) -> Node:
         if hasattr(self, "unpool"):
-            node = self.unpool(node)
+            node = self.unpool(node, group)
         n_level = node.x.shape[1]
         full_ball = effective_ball_size(self.ball_size, n_level) >= n_level
         for i, blk in enumerate(self.blocks):
@@ -277,7 +303,7 @@ class BasicLayer(nn.Module):
             else:
                 node.x = blk(node.x, node.pos)
         if hasattr(self, "pool"):
-            node = self.pool(node)
+            node = self.pool(node, group)
         return node
 
 
@@ -368,7 +394,9 @@ class ErwinTransformer(nn.Module):
     needs the decoded states. With ``mp_steps > 0`` (and ``embed``) the
     message passing's neighbours are the radius graph of ``mp_radius``
     capped at ``mp_neighbors``, or the ``mp_neighbors`` nearest without a
-    radius (``haet_tpu/models/erwin.py:483-496``).
+    radius (``haet_tpu/models/erwin.py:483-496``). ``group``: the process
+    group whose ranks hold the batch's other clouds, over which the
+    BatchNorms take their train-mode statistics (:class:`FlaxBatchNorm1d`).
     """
 
     def __init__(self, c_in: int, c_hidden: Sequence[int],
@@ -417,7 +445,7 @@ class ErwinTransformer(nn.Module):
             for i in range(num_layers - 1, -1, -1)])
 
     def forward(self, x, pos, *, perms: Optional[ErwinPerms] = None,
-                mask=None):
+                mask=None, group=None):
         if perms is None:
             perms = build_erwin_perms(
                 pos, ball_sizes=self.ball_sizes, strides=self.strides,
@@ -440,10 +468,10 @@ class ErwinTransformer(nn.Module):
         for i, layer in enumerate(self.encoder):
             node.rot_perm = perms.rot_perms[i]
             node.rot_inv_perm = perms.rot_inv_perms[i]
-            node = layer(node)
+            node = layer(node, group)
         node.rot_perm = perms.rot_perms[num_layers]
         node.rot_inv_perm = perms.rot_inv_perms[num_layers]
-        node = self.bottleneck(node)
+        node = self.bottleneck(node, group)
         for layer in self.decoder:
-            node = layer(node)
+            node = layer(node, group)
         return _gather_rows(node.x, perms.unperm)

@@ -34,6 +34,14 @@ None)`` -> ``[B, N, out_dim]``.
 * ``dropout`` > 0 gives the model a ``torch.Generator`` on its device,
   seeded with ``seed`` (:attr:`_HAETBase.dropout_generator`), from which
   every block's dropout draws.
+* ``shard_axes`` (``(batch_axis, head_axis)``, JAX ``haet.py:152-154,
+  184-185``) lets a bound mesh split the attention heads.
+  :meth:`_HAETBase.bind_mesh` makes the model an SPMD program over a
+  :class:`~haet_torch.parallel.Mesh`: every rank calls it on the global
+  batch, runs its part (its dp rows, its cp points, its tp heads in the
+  attention) and returns the global output, all-gathered, whose backward
+  keeps the rank's part of the gradient
+  (:class:`~haet_torch.parallel.Layout`).
 
 ``dtype`` (None or ``torch.bfloat16``) is the JAX model's compute dtype
 (``ModelConfig.bf16``): every Linear and convolution computes in it over
@@ -122,8 +130,8 @@ class TransolverErwinBlock(nn.Module):
     def _ln(self, ln, fx):
         return normalized(ln, fx, self.dtype)
 
-    def forward(self, fx):
-        fx = self.Attn(self._ln(self.ln_1, fx)) + fx
+    def forward(self, fx, layout=None):
+        fx = self.Attn(self._ln(self.ln_1, fx), layout) + fx
         fx = self.mlp(self._ln(self.ln_2, fx)) + fx
         if self.last_layer:
             return self.mlp2(self._ln(self.ln_3, fx))
@@ -167,9 +175,12 @@ class _HAETBase(nn.Module):
                  grouping: str = "median", orthogonal_slice_init: bool = True,
                  use_pallas=False, use_pallas_erwin: bool = False,
                  pallas_auto_threshold: int = PALLAS_AUTO_THRESHOLD,
-                 dtype=None, *, device=None, seed: int = 0):
+                 shard_axes=None, dtype=None, *, device=None,
+                 seed: int = 0):
         super().__init__()
         device = default_device(device)
+        #: the bound :class:`~haet_torch.parallel.Mesh` (:meth:`bind_mesh`)
+        self.mesh = None
         self.n_hidden = n_hidden
         self.out_dim = out_dim
         self.unified_pos = unified_pos
@@ -196,7 +207,7 @@ class _HAETBase(nn.Module):
             orthogonal_slice_init=orthogonal_slice_init,
             use_pallas=use_pallas, use_pallas_erwin=use_pallas_erwin,
             pallas_auto_threshold=pallas_auto_threshold,
-            **self._attn_kwargs())
+            shard_axes=shard_axes, **self._attn_kwargs())
         if dim_head is not None:
             attn_kwargs["dim_head"] = dim_head
         if erwin_mlp_ratio is not None:
@@ -231,6 +242,15 @@ class _HAETBase(nn.Module):
     def _attn_kwargs(self) -> dict:
         return {}
 
+    def bind_mesh(self, mesh) -> None:
+        """Run the forwards to come over ``mesh`` (None: on this rank
+        alone), the counterpart of tracing under ``with mesh:``: each call
+        takes the global batch, runs this rank's part and returns the
+        global output. Every rank calls it with the same batch."""
+        self.mesh = mesh
+        for block in self.blocks:
+            block.Attn.bind_mesh(mesh)
+
     def _n_pos_features(self) -> int:
         raise NotImplementedError
 
@@ -242,6 +262,11 @@ class _HAETBase(nn.Module):
             raise ValueError(
                 "T was passed but Time_Input=False: the reference model "
                 "has no time_fc in this configuration (..._2D.py:257)")
+        layout = None
+        if self.mesh is not None:
+            layout = self.mesh.layout(x.shape[0], x.shape[1])
+            x, fx = layout.shard(x), layout.shard(fx)
+            T = layout.shard(T, points=False)
         if self.unified_pos:
             x = self._pos_features(x)
         fx_was_none = fx is None
@@ -255,13 +280,13 @@ class _HAETBase(nn.Module):
         remat = self.use_checkpoint and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:
-                fx = checkpoint(block, fx, use_reentrant=False,
+                fx = checkpoint(block, fx, layout, use_reentrant=False,
                                 preserve_rng_state=False,
                                 context_fn=functools.partial(
                                     checkpoint_contexts, block))
             else:
-                fx = block(fx)
-        return fx
+                fx = block(fx, layout)
+        return fx if layout is None else layout.gather(fx)
 
 
 class HAETransolverIrregularMesh(_HAETBase):

@@ -48,6 +48,34 @@ the compute dtype and upcast it inside
 
 The output passes :class:`~haet_torch.models.components.dropout.Dropout`
 (``to_out.1``, ``:415``), which draws from the model's generator.
+
+On a mesh (:mod:`haet_torch.parallel`) each rank runs its part of a forward
+(``forward(x, layout)``, the counterpart of JAX's ``shard_axes``,
+``:105-114, 141-237, 264-282``):
+
+* dp: the rank's batch rows; the pseudo-positions' min and max are
+  all-reduced over the ranks that hold other clouds, and Erwin's BatchNorm
+  takes their statistics (:class:`~haet_torch.models.erwin.FlaxBatchNorm1d`);
+* head TP (``shard_axes=(batch_axis, head_axis)`` and a mesh whose head
+  axis divides the heads): the rank projects its ``H / tp`` heads' columns
+  and runs the slice -> Erwin -> deslice core, kernels included, on its
+  ``[B, H / tp, N, Dh]`` shard, as JAX's ``shard_map`` does
+  (``_pallas_shard_map``); the heads are all-gathered before ``to_out``.
+  The projection's input sums its gradient over tp, and the core's
+  parameters receive this rank's part of theirs
+  (:meth:`head_sharded_parameters`), which the trainer sums over tp;
+* cp (a ``(dp, cp)`` mesh): the rank's points. The plain path's softmax
+  over N takes its max and its sum over the axis, and the eidetic states
+  their sums; the deslice is local. The kernels take the points gathered
+  over cp and run on the whole cloud, then keep the rank's rows, which is
+  what XLA's replication of a ``pallas_call`` computes (``:188-191``).
+
+The route (kernels or plain path) is ``use_pallas``'s alone, with a mesh
+or without. JAX's ``shard_map`` needs a mesh that divides (batch, heads)
+(``:264-282``); the port does not: a batch that dp does not divide stays
+whole on every rank, heads that tp does not divide run unsplit on every
+rank, and the kernels run on either as on one rank. A model with
+``shard_axes`` and no mesh runs unsharded.
 """
 
 from __future__ import annotations
@@ -61,7 +89,9 @@ from torch import nn
 
 from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
+from ..ops.dense import linear
 from ..ops.kernels import slice_kernels as sk
+from ..parallel.collectives import all_reduce_max, gather, reduce_grad
 from ..utils.config import PALLAS_AUTO_G_SPAN, PALLAS_AUTO_THRESHOLD
 from ..utils.env import grad_off
 from .components.dropout import Dropout
@@ -135,7 +165,7 @@ class _PhysicsAttentionBase(nn.Module):
                  grouping: str = "median", orthogonal_slice_init: bool = True,
                  use_pallas=False, use_pallas_erwin: bool = False,
                  pallas_auto_threshold: int = PALLAS_AUTO_THRESHOLD,
-                 dtype=None):
+                 shard_axes=None, dtype=None):
         super().__init__()
         if not decode:
             raise ValueError(
@@ -157,6 +187,11 @@ class _PhysicsAttentionBase(nn.Module):
         self.capture_slice_weights = False
         self.slice_weights = None
         self.orthogonal_slice_init = orthogonal_slice_init
+        #: ``(batch_axis, head_axis)`` mesh axis names, or None
+        self.shard_axes = None if shard_axes is None else tuple(shard_axes)
+        #: the bound mesh's head split (:meth:`bind_mesh`): the tp group,
+        #: its size and this rank's index, or None
+        self.head_split = None
         self.dtype = dtype
         g, h, dh = slice_num, heads, dim_head
         inner = dim_head * heads
@@ -186,8 +221,10 @@ class _PhysicsAttentionBase(nn.Module):
     def _make_project(self, dim: int, inner: int) -> nn.Module:
         raise NotImplementedError
 
-    def _project(self, x):
-        """``[B, N, dim] -> [B, heads, N, dim_head]`` (a view)."""
+    def _project(self, x, rows=None):
+        """``[B, N, dim] -> [B, heads, N, dim_head]`` (a view); with
+        ``rows``, a slice of the projection's output features, only those
+        heads."""
         raise NotImplementedError
 
     def _slice_params(self):
@@ -207,28 +244,69 @@ class _PhysicsAttentionBase(nn.Module):
                                        device_type)
         return self.use_pallas
 
-    def plain_slice_weights(self, x_proj):
+    def plain_slice_weights(self, x_proj, group=None):
         """The ``[B, H, N, G]`` rep-slice weights by the plain formula, in
         ``x_proj``'s dtype. The slice parameters are float32, so the
         logits and softmax promote to float32 (``x_proj @ w_ada + b_ada``
-        in JAX)."""
+        in JAX). ``group``: the point axis's, over which the softmax's max
+        and sum are taken."""
         xf = x_proj.float()
         tau = slice_ops.ada_temp(self.ada_temp_linear(xf), self.base_temp)
         logits = self.in_project_slice(xf)
-        return slice_ops.rep_slice_weights(logits, tau, self.epsilon).to(
-            x_proj.dtype)
+        return slice_ops.rep_slice_weights(logits, tau, self.epsilon,
+                                           group).to(x_proj.dtype)
 
-    def forward(self, x):
-        """``x: [B, N, dim] -> [B, N, dim]``."""
+    def _shard_axes_active(self) -> bool:
+        return self.shard_axes is not None and any(
+            a is not None for a in self.shard_axes)
+
+    def bind_mesh(self, mesh) -> None:
+        """Take ``mesh`` (None: none) for the forwards to come: with
+        ``shard_axes`` whose head axis is a mesh axis of size > 1 that
+        divides the heads, each rank runs ``heads / size`` of them
+        (:attr:`head_split`)."""
+        self.head_split = None
+        if mesh is None or not self._shard_axes_active():
+            return
+        h_ax = self.shard_axes[1]
+        n = mesh.size(h_ax) if h_ax is not None else 0
+        if n > 1 and self.heads % n == 0:
+            self.head_split = (mesh.group(h_ax), n, mesh.coords[h_ax])
+
+    def head_sharded_parameters(self) -> list:
+        """The parameters used inside the head-sharded core (the
+        projection, whose columns of other heads get no gradient here, the
+        slice and temperature heads and Erwin, which every head shares):
+        each tp rank's gradient is a part, summed over tp by the trainer.
+        Empty without a head split."""
+        if self.head_split is None:
+            return []
+        return [p for mod in (self.in_project_x, self.in_project_slice,
+                              self.ada_temp_linear, self.erwin)
+                for p in mod.parameters()]
+
+    def forward(self, x, layout=None):
+        """``x: [B, N, dim] -> [B, N, dim]``: this rank's part of the batch
+        under a mesh's ``layout`` (None: the whole forward)."""
         B, N, _ = x.shape
-        G, H, Dh = self.slice_num, self.heads, self.dim_head
-        use_pallas = self.pallas_enabled(N, x.device.type)
+        G, Dh = self.slice_num, self.dim_head
+        n_points = layout.points if layout is not None else N
+        use_pallas = self.pallas_enabled(n_points, x.device.type)
+        split = self.head_split if layout is not None else None
+        H = self.heads // split[1] if split else self.heads
+        cp = layout.mesh.group("cp") if layout and layout.cp else None
+        rows = None
+        if split:
+            x = reduce_grad(x, split[0])
+            rows = slice(split[2] * H * Dh, (split[2] + 1) * H * Dh)
 
         # (1) Slice
-        x_proj = self._project(x).contiguous()
+        x_proj = self._project(x, rows).contiguous()
         ws, bs, wa, ba = self._slice_params()
         w = None
         if use_pallas:
+            if cp is not None:  # the kernels see every point
+                x_proj = gather(x_proj, cp, 2, reduce=True)
             states, m_res, s_res = sk.slice_states(
                 x_proj, ws, bs, wa, ba, self.base_temp, self.epsilon)
             if self.capture_slice_weights:
@@ -238,25 +316,34 @@ class _PhysicsAttentionBase(nn.Module):
                 with grad_off():
                     self.slice_weights = self.plain_slice_weights(x_proj)
         else:
-            w = self.plain_slice_weights(x_proj)
-            states = slice_ops.eidetic_states(x_proj, w)      # [B, H, G, Dh]
+            w = self.plain_slice_weights(x_proj, cp)
+            states = slice_ops.eidetic_states(x_proj, w, cp)  # [B, H, G, Dh]
             if self.capture_slice_weights:
                 self.slice_weights = w.detach()
 
         # (2) Erwin over B*H clouds of G tokens; pseudo-positions are the
-        # first d channels, min-max normalised over the GLOBAL flat batch.
+        # first d channels, min-max normalised over the GLOBAL flat batch:
+        # over every rank that holds other clouds
         d = self.dimensionality
         flat = states.reshape(B * H * G, Dh)
+        clouds = None
+        if layout is not None:
+            clouds = layout.mesh.group(*(("dp",) if layout.dp else ()),
+                                       *(("tp",) if split else ()))
         with grad_off():
             feat = flat[:, :d]
             fmin = feat.amin(dim=0, keepdim=True)
             fmax = feat.amax(dim=0, keepdim=True)
+            if clouds is not None:
+                fmax, fmin = all_reduce_max(
+                    torch.cat([fmax, -fmin]), clouds).chunk(2)
+                fmin = -fmin
             pos = ((feat - fmin) / (fmax - fmin + 1e-8)).reshape(B * H, G, d)
         s_in = states.reshape(B * H, G, Dh)
         mask = None
         if G & (G - 1):  # pad non-power-of-two slice counts
             s_in, pos, mask = pad_pow2(s_in, pos)
-        out_states = self.erwin(s_in, pos, mask=mask)
+        out_states = self.erwin(s_in, pos, mask=mask, group=clouds)
         if mask is not None:
             out_states = out_states[:, :G]
         out_states = out_states.reshape(B, H, G, Dh).contiguous()
@@ -265,9 +352,16 @@ class _PhysicsAttentionBase(nn.Module):
         if use_pallas:
             out = sk.deslice(x_proj, ws, bs, wa, ba, out_states, m_res, s_res,
                              self.base_temp, self.epsilon)
+            if cp is not None:
+                out = out[:, :, layout.point_rows()]
         else:
             out = slice_ops.deslice(out_states, w)
-        return self.to_out(slice_ops.merge_heads(out))
+        out = slice_ops.merge_heads(out)
+        if split:
+            out = gather(out, split[0], 2)
+        out = self.to_out[0](out)
+        return self.to_out[1](
+            out, layout.dropout_part(out.shape) if layout else None)
 
 
 class PhysicsAttentionIrregularMesh(_PhysicsAttentionBase):
@@ -278,8 +372,12 @@ class PhysicsAttentionIrregularMesh(_PhysicsAttentionBase):
     def _make_project(self, dim, inner):
         return Linear(dim, inner, dtype=self.dtype)
 
-    def _project(self, x):
-        return slice_ops.split_heads(self.in_project_x(x), self.heads)
+    def _project(self, x, rows=None):
+        p = self.in_project_x
+        if rows is None:
+            return slice_ops.split_heads(p(x), self.heads)
+        y = linear(x, p.weight[rows], p.bias[rows], self.dtype)
+        return slice_ops.split_heads(y, y.shape[-1] // self.dim_head)
 
 
 @torch.no_grad()
@@ -293,22 +391,26 @@ def init_conv(conv: nn.Module, generator: torch.Generator) -> None:
     nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
 
 
-def conv_same(x, conv: nn.Module, grid: tuple, dtype=None):
+def conv_same(x, conv: nn.Module, grid: tuple, dtype=None, rows=None):
     """``conv`` (a stride-1, SAME-padded Conv2d or Conv3d) over points laid
     out grid-major, channels last: ``[B, prod(grid), C] -> [B, prod(grid),
     C_out]``. In ``dtype`` (None: as given), the input and the parameters
     cast to it and the bias added to the rounded product, as flax's
-    ``nn.Conv(dtype=...)``."""
+    ``nn.Conv(dtype=...)``. ``rows``: only that slice of the output
+    channels."""
     b, n, c = x.shape
     nd = len(grid)
+    weight, bias = conv.weight, conv.bias
+    if rows is not None:
+        weight, bias = weight[rows], bias[rows]
     xg = x.reshape(b, *grid, c).movedim(-1, 1)          # channels first
     fn = F.conv2d if nd == 2 else F.conv3d
     if dtype is None:
-        y = fn(xg, conv.weight, conv.bias, padding="same")
+        y = fn(xg, weight, bias, padding="same")
     else:
-        y = fn(xg.to(dtype), conv.weight.to(dtype), None, padding="same")
+        y = fn(xg.to(dtype), weight.to(dtype), None, padding="same")
     y = y.movedim(1, -1).reshape(b, n, -1)
-    return y if dtype is None else y + conv.bias.to(dtype)
+    return y if dtype is None else y + bias.to(dtype)
 
 
 class _StructuredMeshBase(_PhysicsAttentionBase):
@@ -319,10 +421,16 @@ class _StructuredMeshBase(_PhysicsAttentionBase):
     kernel = 3
     grid: tuple = ()
 
-    def _project(self, x):
-        return slice_ops.split_heads(
-            conv_same(x, self.in_project_x, self.grid, self.dtype),
-            self.heads)
+    def _project(self, x, rows=None):
+        y = conv_same(x, self.in_project_x, self.grid, self.dtype, rows)
+        return slice_ops.split_heads(y, y.shape[-1] // self.dim_head)
+
+    def forward(self, x, layout=None):
+        if layout is not None and layout.cp:
+            raise ValueError("the point axis (cp) splits an irregular "
+                             "cloud only: a grid's convolution needs every "
+                             "point's neighbours")
+        return super().forward(x, layout)
 
 
 class PhysicsAttentionStructuredMesh2D(_StructuredMeshBase):

@@ -12,7 +12,10 @@ Counterpart of ``haet_tpu/ops/slice_ops.py:32-110``, with the same numerics
 All functions take the multi-head layout ``x: [B, H, N, C]``,
 ``w: [B, H, N, G]``. These are the plain versions behind the slice kernels
 (:mod:`haet_torch.ops.kernels.slice_kernels`), which never materialise
-``w``.
+``w``. ``group`` is the process group of a point axis over which N is split
+(:mod:`haet_torch.parallel`): the reductions over N are then taken over
+its ranks (the softmax's max and sum, the states' sums); None is the
+single-device formula.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..parallel.collectives import all_reduce_max, all_reduce_sum
 
 #: the reference's slice-norm regulariser (StructuredMesh2D.py:211-213)
 SLICE_NORM_EPS = 1e-5
@@ -33,27 +38,34 @@ def ada_temp(temp_raw: torch.Tensor, base_temp: float = 0.5,
 
 
 def rep_slice_weights(slice_logits: torch.Tensor, temperature: torch.Tensor,
-                      epsilon: float = 1e-6) -> torch.Tensor:
+                      epsilon: float = 1e-6, group=None) -> torch.Tensor:
     """Rep-Slice softmax over the points axis.
 
     ``slice_logits: [B, H, N, G]``, ``temperature: [B, H, N, 1]``. Logits are
     shifted by ``-log(-log(eps))`` before the temperature divide; the softmax
-    runs over axis 2 (N), max-stabilised.
+    runs over axis 2 (N), max-stabilised (over ``group``'s points too: the
+    max, a shift the softmax does not see, without gradient).
     """
     shift = math.log(-math.log(epsilon))
     logits = (slice_logits - shift) / temperature
     m = logits.amax(dim=2, keepdim=True)
+    if group is not None:
+        m = all_reduce_max(m, group)
     e = torch.exp(logits - m)
-    return e / e.sum(dim=2, keepdim=True)
+    s = e.sum(dim=2, keepdim=True)
+    return e / (s if group is None else all_reduce_sum(s, group))
 
 
-def eidetic_states(x_proj: torch.Tensor,
-                   slice_weights: torch.Tensor) -> torch.Tensor:
+def eidetic_states(x_proj: torch.Tensor, slice_weights: torch.Tensor,
+                   group=None) -> torch.Tensor:
     """Weighted centre-of-mass slice states ``[B, H, G, C]``, accumulated in
     float32 and returned in ``x_proj``'s dtype."""
     w = slice_weights.float()
     states = torch.einsum("bhnc,bhng->bhgc", x_proj.float(), w)
     norm = w.sum(dim=2)  # [B, H, G]
+    if group is not None:
+        states = all_reduce_sum(states, group)
+        norm = all_reduce_sum(norm, group)
     return (states / (norm + SLICE_NORM_EPS)[..., None]).to(x_proj.dtype)
 
 

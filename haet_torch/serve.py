@@ -46,7 +46,7 @@ served sample's output depends on the samples dispatched with it (and on
 A rollout artifact (``haet_torch.export.save_rollout_artifact``) serves
 here as a forward's does: its requests are ``(pos, fx0)`` and its answers
 ``[N, steps * step_width]``. Multi-chip families (``mesh=``) are not ported
-and raise with their ``ROADMAP.md`` item (queue 1: parallel).
+and raise with their ``ROADMAP.md`` item (queue 1, item 10b).
 """
 
 from __future__ import annotations

@@ -62,7 +62,8 @@ from .serve import BatchingServer
 
 __all__ = ["make_server", "main", "watch_checkpoint"]
 
-PARALLEL_TODO = ("{} is not ported yet (ROADMAP.md, queue 1: parallel)")
+PARALLEL_TODO = ("{} is not ported yet (ROADMAP.md, queue 1, item 10b: the "
+                 "parallel pipeline, multi-chip exports and serving)")
 
 
 def _npz_bytes(**arrays) -> bytes:

@@ -13,19 +13,36 @@ with the BatchNorm buffers and counters, Adam's, OneCycleLR's and the
 step). Each is written to ``<name>.pt.tmp`` and moved into place with
 ``os.replace``, so a torn write never replaces a good checkpoint. Saves are
 synchronous.
+
+Under a process group every rank calls the saves with the same state: rank
+0 alone writes, and every rank waits for it (a barrier), so that any rank
+may restore right after.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
 
 import torch
 
+from ..parallel import barrier, is_writer
 from ..utils.env import host_numpy
 
 _EPOCH_RE = re.compile(r"^epoch_(\d+)\.pt$")
+
+
+def _by_writer(save):
+    """``save`` run by the writer alone (rank 0, or the only process), then
+    a barrier across the process group (none without one)."""
+    @functools.wraps(save)
+    def wrapped(self, *args, **kwargs):
+        if is_writer():
+            save(self, *args, **kwargs)
+        barrier()
+    return wrapped
 
 
 class Checkpointer:
@@ -109,6 +126,7 @@ class Checkpointer:
         torch.save(state, tmp)
         os.replace(tmp, path)
 
+    @_by_writer
     def save_best(self, state, val_loss: float, epoch: int) -> None:
         if val_loss < self.best_val:
             self.best_val = val_loss
@@ -118,10 +136,12 @@ class Checkpointer:
                                           "best_epoch": self.best_epoch})
             self._record_epoch("best", epoch, state)
 
+    @_by_writer
     def save_last(self, state, epoch: int) -> None:
         self._save("last", state)
         self._record_epoch("last", epoch, state)
 
+    @_by_writer
     def save_diverged(self, state, epoch: int) -> None:
         """Save a non-finite (diverged) state under ``diverged`` for
         forensics. Not ``last``: NaN parameters there would leave the run
@@ -129,6 +149,7 @@ class Checkpointer:
         self._save("diverged", state)
         self._record_epoch("diverged", epoch, state)
 
+    @_by_writer
     def save_periodic(self, state, epoch: int) -> None:
         """Save ``epoch_{N}`` and prune to the ``keep`` most recent."""
         self._save(f"epoch_{epoch}", state)

@@ -24,6 +24,21 @@ and beta1 from a device tensor.
 Adam skips it, as torch does in the reference, and AdamW does not decay it
 (``weight_decay_mask``, ``:166-183``); the JAX side moves it by exactly
 zero with its zero gradient.
+
+``Trainer(mesh=...)`` (JAX ``:357, 381-440, 572-620, 663-720``) trains over
+a :class:`~haet_torch.parallel.Mesh`, one process per rank, each rank
+calling the trainer with the same global batches. The state is replicated:
+rank 0's parameters, buffers and Adam state are broadcast at construction.
+The model is bound to the mesh (:func:`~haet_torch.parallel.bind_mesh`),
+so each forward runs the rank's part of the batch and returns the global
+output, and the loss is the global batch's on every rank. After the
+backward the flat gradient buffer is summed over the mesh
+(:func:`~haet_torch.parallel.reduce_gradients`: the head-sharded
+parameters' parts over tp, then the whole over dp and cp), before
+clipping. Only rank 0 writes checkpoints and logs (:class:`Checkpointer`
+and :class:`MetricsLogger` see to it); every rank restores. On the card the collectives of a
+step are captured in its CUDA graph, which NCCL allows and gloo does not:
+a gloo mesh on the card needs ``eager=True``.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils.config import TrainConfig
 from ..utils.profiling import StepTimer, device_memory_mb, host_rss_mb
 
@@ -362,9 +378,12 @@ class EarlyStopping:
 class MetricsLogger:
     """JSON-lines metrics log with the reference's key names
     (``train.py:109-137``), echoed to stdout when ``echo``. Close it, or use
-    it as a context manager, to release the file."""
+    it as a context manager, to release the file. Under a process group
+    the metrics are global, and rank 0 alone writes and echoes them."""
 
     def __init__(self, path: str | None = None, echo: bool = True):
+        if not parallel.is_writer():
+            path, echo = None, False
         self.path = path
         self.echo = echo
         self._f = None
@@ -430,6 +449,8 @@ class Trainer:
             of replaying its CUDA graph (the reference the graphs are held
             against, and the path :meth:`grad_leaf_norms` takes). On the
             CPU every step is eager.
+        mesh: a :class:`~haet_torch.parallel.Mesh` to train over (see the
+            module's docstring); the model must hold an HAET model.
 
     Batches are dicts of numpy arrays or tensors; they are moved to the
     model's device. The trainer owns the training state: the model, Adam,
@@ -447,8 +468,9 @@ class Trainer:
                  batch_args: Callable = lambda b: (b["x"], b["fx"]),
                  eval_fn: Optional[Callable] = None,
                  batch_log_every: int = 0, watch_every: int = 0,
-                 eager: bool = False):
+                 eager: bool = False, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.cfg = cfg
         self.total_steps = total_steps
@@ -469,6 +491,16 @@ class Trainer:
         self._grad_params = None
         self._flat_grad = None
         self.graphs = None
+        if mesh is not None:
+            if (not eager and self.device.type == "cuda"
+                    and mesh.backend != "nccl"):
+                raise ValueError(
+                    f"a {mesh.backend} mesh's collectives cannot be captured "
+                    "in a CUDA graph: pass eager=True, or use NCCL")
+            parallel.bind_mesh(model, mesh)
+            #: parameters whose gradients are parts over tp
+            self._tp_partial = parallel.tp_partial_parameters(model)
+            mesh.broadcast_(self.state_tensors())
         if not eager and self.device.type == "cuda":
             from .graphs import StepGraphs
 
@@ -507,9 +539,12 @@ class Trainer:
         wherever it was written). Re-arms the best-val watermark, so that
         the first eval after the restart cannot overwrite a better ``best``,
         and takes the epoch to resume after from the checkpoint's sidecar.
-        Returns whether a checkpoint was restored."""
+        Returns whether a checkpoint was restored. Under a mesh every rank
+        restores, then waits for the others."""
         checkpointer.rearm_best()
         state = checkpointer.restore(which, map_location=self.device)
+        if self.mesh is not None:
+            parallel.barrier()
         if state is None:
             self._resume_epoch = None
             return False
@@ -612,6 +647,9 @@ class Trainer:
             aux = {k: torch.stack([a[k] for a in auxes]).mean()
                    for k in auxes[0]}
             grads = [p.grad for p in self._grad_params]
+        if self.mesh is not None:
+            self._reduce(self._flat_grad, self._grad_params, micro[0])
+            grads = [p.grad for p in self._grad_params]
         if self.cfg.max_grad_norm is not None:
             grad_norm = torch.nn.utils.clip_grad_norm_(
                 self._grad_params, self.cfg.max_grad_norm)
@@ -624,6 +662,15 @@ class Trainer:
         # the next step
         return {k: v.detach() for k, v in
                 {"loss": loss, "grad_norm": grad_norm, **aux}.items()}
+
+    def _reduce(self, flat, params, batch) -> None:
+        """Sum the flat gradients of ``params`` over the mesh, for the
+        layout of ``batch`` (its first model input's batch and points)."""
+        x = self.batch_args(batch)[0]
+        layout = self.mesh.layout(x.shape[0], x.shape[1] if x.ndim > 1 else 1)
+        parallel.reduce_gradients(
+            flat, self.mesh, layout,
+            parallel.tp_ranges(params, self._tp_partial))
 
     def state_tensors(self) -> list:
         """Every tensor a step writes: the parameters, the model's buffers
@@ -667,13 +714,22 @@ class Trainer:
         # accum_steps pieces may not fit whole
         accum = self.cfg.accum_steps
         total = None
-        for mb in ([batch] if accum == 1 else split_batch(batch, accum)):
+        micro = [batch] if accum == 1 else split_batch(batch, accum)
+        for mb in micro:
             loss, _ = self.loss_fn(self.model(*self.batch_args(mb)), mb)
             grads = torch.autograd.grad(loss, [p for _, p in named],
                                         allow_unused=True)
             total = grads if total is None else [
                 None if g is None else t + g for t, g in zip(total, grads)]
         grads = [None if g is None else g / accum for g in total]
+        if self.mesh is not None:
+            live = [(p, g) for (_, p), g in zip(named, grads)
+                    if g is not None]
+            flat = torch.cat([g.reshape(-1) for _, g in live])
+            self._reduce(flat, [p for p, _ in live], micro[0])
+            parts = iter(flat.split([g.numel() for _, g in live]))
+            grads = [None if g is None else next(parts).view_as(g)
+                     for g in grads]
         names = [k for (k, _), g in zip(named, grads) if g is not None]
         norms = torch.stack([torch.linalg.vector_norm(g) for g in grads
                              if g is not None]).cpu().tolist()

@@ -87,13 +87,10 @@ class ModelConfig:
         structured variants; ``bf16`` becomes ``dtype=torch.bfloat16``."""
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r}")
-        if self.shard_axes is not None:
-            raise NotImplementedError(
-                "shard_axes is not ported yet (ROADMAP.md, queue 1: parallel)")
         kw = dataclasses.asdict(self)
         grid = {"irregular": (), "structured_2d": ("H", "W"),
                 "structured_3d": ("H", "W", "D")}[self.variant]
-        for k in ("variant", "bf16", "shard_axes",
+        for k in ("variant", "bf16",
                   *(k for k in ("H", "W", "D") if k not in grid)):
             kw.pop(k)
         kw["dtype"] = torch.bfloat16 if self.bf16 else None

@@ -59,7 +59,8 @@ def test_port_files_are_found():
             "exp_plas.py", "micro_rollout.py", "erwin_baseline.py",
             "neighbors.py", "scatter.py", "mfu_sweep.py",
             "accum_mem_probe.py", "model_dict.py", "parity_repro.py",
-            "torch_import.py", "visualization.py"} <= names
+            "torch_import.py", "visualization.py", "mesh.py",
+            "distributed.py", "collectives.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -94,6 +95,7 @@ def test_imports_with_jax_blocked():
             "import haet_torch.benchmarks.exp_airfoil\n"
             "import haet_torch.benchmarks.exp_elas\n"
             "import haet_torch.benchmarks.exp_3d\n"
+            "import haet_torch.parallel, haet_torch.parallel.collectives\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

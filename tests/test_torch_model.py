@@ -115,7 +115,7 @@ def test_erwin_stage_moves_the_output(car):
     with torch.inference_mode():
         full = tm(xt)
         for blk in tm.blocks:
-            blk.Attn.erwin.forward = lambda s, pos, mask=None: s
+            blk.Attn.erwin.forward = lambda s, pos, mask=None, group=None: s
         skipped = tm(xt)
     rel = float((full - skipped).abs().max() / full.abs().max())
     assert rel > 100 * RTOL, rel

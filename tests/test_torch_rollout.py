@@ -449,7 +449,7 @@ def test_exp_plas_smoke_on_fixture(tmp_path, capsys):
     with open(tmp_path / "plas_metrics.jsonl") as f:
         rec = json.loads(f.readline())
     assert {"train/rel_l2", "val/rel_l2", "epoch/time_seconds"} <= set(rec)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(SystemExit, match="needs 2 devices"):
         exp_plas.main(["--smoke", "--device", "cpu", "--dp", "2",
                        "--data_path", os.path.join(FIXT, "plasticity")])
 

@@ -107,16 +107,17 @@ def test_seeded_init_is_deterministic():
     (dict(shard_axes=("dp", "tp")), "parallel"),
 ])
 def test_unported_options_raise(change, match):
-    """``shard_axes`` waits for its item and raises naming it. Morton
-    grouping, MPNN embedding and ``use_pallas="auto"`` are ported: the car
-    preset with any of them builds, and JAX's variables of the same config
-    cross over key for key (``to_torch_state_dict``) and load strictly."""
+    """Morton grouping, MPNN embedding, ``use_pallas="auto"`` and
+    ``shard_axes`` are ported: the car preset with any of them builds, and
+    JAX's variables of the same config cross over key for key
+    (``to_torch_state_dict``) and load strictly. ``shard_axes`` names mesh
+    axes and leaves the parameters alone, so its JAX model is built
+    without it (JAX's sharding constraints need a mesh to trace under)."""
     cfg = dataclasses.replace(tcfg.shapenet_car_config(), **change)
-    if match == "parallel":
-        with pytest.raises(NotImplementedError, match=match):
-            cfg.build(device="cpu")
-        return
     m = cfg.build(device="cpu")
+    if match == "parallel":
+        assert all(b.Attn.shard_axes == ("dp", "tp") for b in m.blocks)
+        change = {}
     jm = dataclasses.replace(jcfg.shapenet_car_config().model,
                              **change).build()
     template = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
