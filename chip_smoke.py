@@ -212,8 +212,9 @@ Phases (any failed check exits non-zero before the final line):
       in-process server, ``/metrics`` with the latency summary's ``_count``
       and ``_sum``, ``POST /reload``, then SIGTERM while a request waits in
       the batcher: the request is answered and the process exits 0.
-   e. ``micro_serving_latency`` and ``micro_serving_server`` with short
-      windows (bf16, as on the JAX package's chip): every number finite.
+   e. ``micro_serving_latency`` and ``micro_serving_server`` (batch sizes
+      1 and 4) with short windows (bf16, as on the JAX package's chip):
+      every number finite.
 
 12. The structured-mesh PDE slice: the Darcy preset
    (``HAETransolverStructuredMesh2D``, 8 layers, n_hidden 128, 8 heads, G
@@ -276,10 +277,11 @@ Phases (any failed check exits non-zero before the final line):
       statistics equal and updated once per frame; the launches per step
       from the counters (the forward kernels twice under the checkpoint),
       no plain route; with and without the checkpoint, the counted step's
-      wall and temporaries, and a profiled step's device time and
-      kernels.
-   c. ``micro_rollout`` (bf16, one round): the rollout program within 2e-2
-      of the per-frame loop, every number finite.
+      wall and temporaries; the checkpointed step's device time and
+      kernels from a profiled step.
+   c. ``micro_rollout`` (bf16, one round, ``MICRO_ROLLOUT_FRAMES``): the
+      rollout program within 2e-2 of the per-frame loop, every number
+      finite.
    d. ``exp_ns --export_rollout`` (the stand-in) and ``exp_plas`` (the
       stand-in) for one epoch at full width: a finite ``rel_err``, every
       path kernel launched, no plain route; the exported rollout program,
@@ -353,13 +355,41 @@ Phases (any failed check exits non-zero before the final line):
    c. The walls on the record: 15a's graphed step beside phases 10c and
       9e, and 15b's last step per rank with gloo's share of it.
 
+16. The GPipe pipeline and serving over a mesh (``haet_torch.parallel.
+   pipeline``, ``mesh=`` exports, ``serve.follow``; each part's seconds
+   printed).
+   a. A world of one over NCCL, a ``(dp 1, pp 1)`` mesh: the bf16 car
+      preset (both kernel flags) as a ``PipelinedModel`` (remat on) takes
+      ``PIPE_STEPS`` graphed steps at M 1 against the unpipelined
+      trainer's: the losses within ``PIPE_LOSS_RTOL``, the first step's
+      gradient leaf by leaf within ``GLOO_GRAD_RTOL`` (phase 15's
+      allowance); then at M 2 on a batch of 2 samples of 32186 points,
+      16b's reference; the launches of the capture (its warm-up steps and
+      itself) per step: each block's forward kernels twice (the
+      recompute), ``PIPE_PER_STEP`` per microbatch.
+   d. ``micro_pipeline_tax``, 2 rounds: plain, plain with
+      ``use_checkpoint`` and pp 1 with remat on and off, each line's
+      ms/step, Mpts/s and x vs plain, dispatched and graphed.
+   b. Two gloo ranks on the one card, spawned (NCCL refuses two ranks on
+      one device): pp 2, one car block a stage, M 2, bf16, ``PIPE_STEPS``
+      eager steps: the losses and the first step's gradient (every stage's
+      layers gathered) against 16a's M 2 run; each rank's launches, its
+      own stage's kernels only. gloo's ``send``/``recv`` take CPU tensors,
+      so the stage hop goes through the host.
+   c. On the same two ranks: the car preset, float32 and bf16, exported
+      as a dp 2 b2 family and a tp 2 b1 program (``data_axis=None``) by
+      rank 0, loaded by both, served by rank 0's ``BatchingServer`` with
+      rank 1 following: the answers against the single-device programs on
+      the same batches (exported and run by rank 1 meanwhile;
+      ``PIPE_SERVE_DTYPES``), the launches per forward on each rank.
+
 Then one JSON line of kernel records, seven float32 ones (``launches``
 from phase 6's counters, for ``copy_scale`` from the counter after phase
 7d's run, ``replay_launches`` from the profiler's count of one replay),
 six bf16 ones (``*_bf16``, ``launches`` from 10c-d's eager steps), six at
 the Darcy shapes (``*_darcy``, ``launches`` from 12c's eager step) and six
 at the NS shapes (``*_ns``, ``launches`` from 13b's checkpointed eager
-step), phase 5's, 8's, 9's, 10's, 11's, 12's, 13's, 14's and 15's
+step), phase 5's, 8's, 9's, 10's, 11's, 12's, 13's, 14's, 15's and 16's
 numbers, the card line, and as the last line ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX or ``haet_tpu``.
 """
@@ -3309,7 +3339,8 @@ def micro_serving_phase(dev):
                 yield v
 
     lat = micro_serving_latency.main(["--rounds", "2", "--samples", "10"])
-    srv = micro_serving_server.main(["--requests", "16", "--rounds", "1"])
+    srv = micro_serving_server.main(["--requests", "16", "--rounds", "1",
+                                     "--batch_sizes", "1,4"])
     for name, res in (("micro_serving_latency", lat),
                       ("micro_serving_server", srv)):
         check(all(np.isfinite(v) for v in numbers(res)),
@@ -3971,6 +4002,9 @@ NS_UNCHECKED = {k: v // 2 if k in DARCY_FORWARD else v
 #: layer-frame on the card's host (72 s to load 8 x 10); the script must
 #: end within its time limit on a slow host too
 NS_PROGRAM_LAYERS = 1
+#: 13c's rollout frames (the preset's 10 cut: the unrolled program's
+#: export grows with layers x frames)
+MICRO_ROLLOUT_FRAMES = 4
 
 
 def rollout_per_call(layers: int) -> dict:
@@ -4206,21 +4240,23 @@ def ns_step_phase(dev):
         expect_counts("plain routes", plain_route_counts(),
                       {k: 0 for k in plain_route_counts()})
         step_counts = step_counts or counts
-        # the CUDA activity alone: a host trace of ~50k eager launches
-        # takes the profiler tens of seconds to parse
-        t0 = time.perf_counter()
-        _, prof = profile_launches(trainer.train_step, batches[2],
-                                   host=False)
-        t_prof = time.perf_counter() - t0
-        out[tag] = {"step_wall_ms": wall, "device_ms": prof["device_ms"],
-                    "kernels": prof["kernels"], "copies": prof["copies"],
-                    "busy": prof["device_ms"] / wall,
-                    "step_peak_mib": peak}
+        out[tag] = {"step_wall_ms": wall, "step_peak_mib": peak}
         print(f"  {tag}: eager step wall {wall:.1f} ms (the counted step); "
-              f"device {prof['device_ms']:.3f} ms in {prof['kernels']} "
-              f"kernels and {prof['copies']} copies (the profiled step); "
-              f"busy {out[tag]['busy']:.3f}; the step's temporaries at peak "
-              f"{peak:.1f} MiB; profiled in {t_prof:.1f} s", flush=True)
+              f"the step's temporaries at peak {peak:.1f} MiB", flush=True)
+    # the CUDA activity alone: a host trace of ~50k eager launches takes
+    # the profiler tens of seconds to parse, so only the checkpointed
+    # step, the drivers', is traced
+    t0 = time.perf_counter()
+    _, prof = profile_launches(remat.train_step, batches[2], host=False)
+    t_prof = time.perf_counter() - t0
+    wall = out["checkpoint"]["step_wall_ms"]
+    out["checkpoint"].update(device_ms=prof["device_ms"],
+                             kernels=prof["kernels"], copies=prof["copies"],
+                             busy=prof["device_ms"] / wall)
+    print(f"  checkpoint: device {prof['device_ms']:.3f} ms in "
+          f"{prof['kernels']} kernels and {prof['copies']} copies (the "
+          f"profiled step); busy {out['checkpoint']['busy']:.3f}; profiled "
+          f"in {t_prof:.1f} s", flush=True)
     del remat, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -4232,8 +4268,8 @@ def micro_rollout_phase(dev):
     from haet_torch.benchmarks import micro_rollout
 
     t0 = time.perf_counter()
-    res = micro_rollout.run(rounds=1, steps=NS_FRAMES, device=dev,
-                            n_layers=NS_PROGRAM_LAYERS)
+    res = micro_rollout.run(rounds=1, steps=MICRO_ROLLOUT_FRAMES,
+                            device=dev, n_layers=NS_PROGRAM_LAYERS)
     print(f"phase 13c: micro_rollout {json.dumps(res)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(res["dtype"] == "bfloat16", "micro_rollout did not run in bf16")
@@ -5329,6 +5365,354 @@ def mesh_phase(dev, f32_walls, bf16) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the GPipe pipeline and serving over a mesh on the card.
+# ---------------------------------------------------------------------------
+
+#: 16a's and 16b's steps
+PIPE_STEPS = 3
+#: 16a's losses against the unpipelined trainer's: the same kernels on the
+#: same rows, the gradient norm summed in another order (16b holds its
+#: losses to 16a's M 2 run at phase 15's ``GLOO_RTOL``: its eager steps
+#: take the whole model's norm over two stages)
+PIPE_LOSS_RTOL = 1e-6
+#: launches per microbatch of a pipelined car step, remat on: each block's
+#: forward kernels again in the backward
+PIPE_PER_STEP = {"slice_states": 4, "deslice": 4, "slice_states_bwd": 2,
+                 "deslice_bwd": 2, "fused_erwin_block": 48,
+                 "fused_erwin_block_bwd": 24, "copy_scale": 0}
+#: 16c's presets and the tolerance of their served answers against the
+#: single-device programs on the same batch: float32 at phase 15's mesh
+#: tolerance (each entry within ``GLOO_RTOL`` of itself plus 1e-6 of the
+#: max), which a collective left out would break (a sample's min-max over
+#: its rank's rows alone moves the output by ~1e-3 of max); bf16 within
+#: one bf16 ulp of the max (``BF16_RTOL``): a bf16 product over another
+#: row count or head count rounds differently (~5.8e-3 of max at the
+#: dp 2 batch on an H100), which hides the collectives
+PIPE_SERVE_DTYPES = {"float32": GLOO_RTOL, "bfloat16": BF16_RTOL}
+#: 16d's windows
+TAX_ROUNDS = 2
+
+
+def scaled(counts: dict, k: int) -> dict:
+    return {name: v * k for name, v in counts.items()}
+
+
+def pipe_trainer(dev, mesh, micro, eager=False):
+    """The bf16 car preset's trainer, pipelined over ``mesh`` at ``micro``
+    microbatches, or (``mesh`` None) unpipelined."""
+    from haet_torch.parallel import PipelinedModel
+    from haet_torch.train import Trainer
+    from haet_torch.train.car import loss_fn_builder
+
+    model, cfg = mesh_car(dev, bf16=True, shard=False)
+    if mesh is not None:
+        model = PipelinedModel(model, mesh, num_microbatches=micro,
+                               dp_axis="dp")
+    return Trainer(model, loss_fn_builder(0.5), cfg,
+                   total_steps=4 * PIPE_STEPS,
+                   batch_args=lambda b: (b["x"], None), mesh=mesh,
+                   eager=eager)
+
+
+def stacked_grads(trainer) -> dict:
+    """The first step's gradients (clipped, as Adam took them) by name in
+    the stacked layout, every stage's layers gathered, on the host."""
+    from haet_torch.parallel.pipeline import pipelines, split_variables
+
+    names = {id(p): k for k, p in trainer.model.named_parameters()}
+    # copies: the gradients are views of the buffer the next step writes
+    g = {names[id(p)]: p.grad.detach().float().clone()
+         for p in trainer._grad_params}
+    pipes = pipelines(trainer.model)
+    if pipes:
+        g = {k: pipes[0].gather_stages(v) if k.startswith("layers.") else v
+             for k, v in g.items()}
+    else:
+        g = split_variables(g, len(trainer.model.blocks))
+    return {k: v.cpu().numpy() for k, v in g.items()}
+
+
+def pipe_steps(trainer, batch, steps: int) -> dict:
+    """``steps`` steps: losses, walls, the first step's gradients and the
+    launches from the first step on (a graphed trainer: its capture)."""
+    import torch
+
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {"loss": [], "walls_ms": []}
+    reset_launch_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        out["loss"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["grad"] = stacked_grads(trainer)
+    out["launches"] = launch_counts()
+    return out
+
+
+def hold_pipe(what, got: dict, want: dict,
+              loss_rtol: float = PIPE_LOSS_RTOL) -> float:
+    """Losses within ``loss_rtol`` and the first step's gradient within
+    phase 15's allowance; returns the worst leaf's share of it."""
+    for a, b in zip(got["loss"], want["loss"]):
+        check(abs(a - b) <= loss_rtol * abs(b),
+              f"{what}: losses {got['loss']} vs {want['loss']}")
+    check(set(got["grad"]) == set(want["grad"]),
+          f"{what}: other parameters have gradients")
+    errs = grad_errors(got["grad"], want["grad"])
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1.0, f"{what}: the first step's gradient of "
+          f"{worst} differs by {errs[worst]:.3g}x its allowance")
+    print(f"  {what}: losses {got['loss']} (reference {want['loss']}); "
+          f"first step's gradient, {len(errs)} leaves, at most "
+          f"{errs[worst]:.3g}x the allowance ({worst})", flush=True)
+    return errs[worst]
+
+
+def pipe_world_of_one(dev) -> dict:
+    """16a: the pipeline at pp 1 in a world of one over NCCL, graphed, at
+    M 1 against the unpipelined trainer, and at M 2 on a batch of 2 (16b's
+    reference: in bf16 its embedding and head take their parameters'
+    gradients over both microbatches at once, rounded once, so it is not
+    the unpipelined trainer's ``accum_steps`` 2). Leaves the process group
+    up for 16d."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from haet_torch import parallel
+    from haet_torch.ops.kernels import plain_route_counts
+    from haet_torch.train.graphs import WARMUP
+
+    os.environ.update(HAET_COORDINATOR=f"127.0.0.1:{free_port()}",
+                      HAET_NUM_PROCESSES="1", HAET_PROCESS_ID="0")
+    parallel.init_distributed()
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = parallel.make_pp_mesh(1, 1)
+    print(f"phase 16a: the bf16 car preset pipelined over {mesh}, "
+          f"{PIPE_STEPS} graphed steps at M 1 and M 2", flush=True)
+    out = {}
+    one = graph_batches(N_POINTS, [SEED + 70])[0]
+    two = mesh_batch(2)
+    for name, micro, batch in (("m1", 1, one), ("m2", 2, two)):
+        pipe = pipe_trainer(dev, mesh, micro)
+        check(pipe.graphs is not None, "the pipelined trainer does not graph")
+        got = pipe_steps(pipe, batch, PIPE_STEPS)
+        del pipe
+        rec = {"loss": got["loss"], "walls_ms": got["walls_ms"],
+               "launches": got["launches"], "grad": got["grad"]}
+        shown = ""
+        if micro == 1:
+            ref_tr = pipe_trainer(dev, None, 1)
+            want = pipe_steps(ref_tr, batch, PIPE_STEPS)
+            del ref_tr
+            rec.update(ref_loss=want["loss"], ref_walls_ms=want["walls_ms"],
+                       grad_err_of_allowance=hold_pipe(f"16a {name}", got,
+                                                       want))
+            shown = (f", unpipelined "
+                     f"{[round(w, 3) for w in want['walls_ms']]} ms")
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(got["loss"])), f"16a {name}: {got['loss']}")
+        expect_counts(f"16a {name} launches (the capture's {WARMUP} warm-up "
+                      f"steps and itself, {micro} microbatch(es) each)",
+                      got["launches"],
+                      scaled(PIPE_PER_STEP, (WARMUP + 1) * micro))
+        check(all(v == 0 for v in plain_route_counts().values()),
+              f"plain routes {plain_route_counts()}")
+        print(f"  16a {name}: losses {got['loss']}; graphed step walls: "
+              f"pipelined {[round(w, 3) for w in got['walls_ms']]} ms"
+              f"{shown} (the first includes the capture)", flush=True)
+        out[name] = rec
+    return out
+
+
+def pipe_rank_main(rank: int, port: int, root: str, queue) -> None:
+    """16b and 16c on one of two gloo ranks on the card: the pipeline at
+    pp 2, then the mesh exports and the server (rank 0) or its follower
+    (rank 1); puts ``(rank, results)`` on ``queue``."""
+    import os
+
+    import torch
+
+    from haet_torch import export as hexport
+    from haet_torch import parallel, serve
+    from haet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from haet_torch.utils.env import default_device, host_numpy
+
+    try:
+        dev = default_device(None)
+        parallel.init_distributed(f"127.0.0.1:{port}", 2, rank,
+                                  backend="gloo")
+        out = {}
+        t0 = time.perf_counter()
+        mesh = parallel.make_pp_mesh(1, 2)
+        trainer = pipe_trainer(dev, mesh, 2, eager=True)
+        res = pipe_steps(trainer, mesh_batch(2), PIPE_STEPS)
+        res["stage_layers"] = trainer.model.local_layers
+        out["16b"] = res
+        del trainer
+        torch.cuda.empty_cache()
+        out["16b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x2 = mesh_batch(2)["x"]
+        dp, tp = parallel.make_mesh(2, 1), parallel.make_mesh(1, 2)
+        served = {}
+        for dtype in PIPE_SERVE_DTYPES:
+            bf16 = dtype == "bfloat16"
+            model, _ = mesh_car(dev, bf16=bf16, shard=False)
+            tp_model, _ = mesh_car(dev, bf16=bf16, shard=True)
+            variables = model.eval().state_dict()
+            tp_model.eval()
+            at = os.path.join(root, dtype)
+
+            def single_device(name, size):
+                # rank 1's reference, while rank 0 exports a mesh program
+                path = os.path.join(at, f"one_{name}")
+                hexport.save_artifact(path, model, None, (x2[:size], None))
+                one = hexport.load_artifact(path, device=dev)
+                served[f"{dtype} {name} one"] = host_numpy(
+                    one(variables, x2[:size]))
+
+            if rank == 1:
+                single_device("dp", 2)
+            serve.export_batch_family(os.path.join(at, "dp"), model, None,
+                                      (x2[:1], None), batch_sizes=(2,),
+                                      mesh=dp)
+            if rank == 1:
+                single_device("tp", 1)
+            hexport.save_artifact(os.path.join(at, "tp", "b1"), tp_model,
+                                  None, (x2[:1], None), mesh=tp,
+                                  data_axis=None)
+            for name, mesh_, size in (("dp", dp, 2), ("tp", tp, 1)):
+                bundle = hexport.ServingBundle.load(
+                    os.path.join(at, name), mesh=mesh_, device=dev)
+                reset_launch_counts()
+                if rank != 0:
+                    serve.follow(bundle, variables)
+                else:
+                    with serve.BatchingServer(bundle, variables, device=dev,
+                                              max_delay_s=1.0) as srv:
+                        futs = [srv.submit(x2[i], None) for i in range(size)]
+                        served[f"{dtype} {name}"] = np.stack(
+                            [f.result(300) for f in futs])
+                torch.cuda.synchronize()
+                served[f"{dtype} {name} launches"] = launch_counts()
+            del model, tp_model
+        out["16c"] = served
+        out["16c_s"] = time.perf_counter() - t0
+        queue.put((rank, out))
+    except Exception:
+        import traceback
+
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def pipe_two_ranks(dev, m2: dict) -> dict:
+    """16b and 16c: two spawned gloo ranks on the card."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    root = tempfile.mkdtemp(prefix="haet_p16_")
+    print(f"phase 16b: two gloo ranks on the card, pp 2 (one car block a "
+          f"stage), M 2, {PIPE_STEPS} eager bf16 steps; 16c: a dp 2 b2 "
+          f"family and a tp 2 b1 program served over them", flush=True)
+    procs = [ctx.Process(target=pipe_rank_main, args=(r, port, root, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = dict(queue.get(timeout=500) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    for r, res in sorted(ranks.items()):
+        check("error" not in res, f"16b/c rank {r}:\n{res.get('error')}")
+    out = {"16b": {}, "16c": {}}
+    for r in (0, 1):
+        got = ranks[r]["16b"]
+        check(got["stage_layers"] == 1, f"16b rank {r}: "
+              f"{got['stage_layers']} layers in its stage")
+        expect_counts(f"16b rank {r} launches ({PIPE_STEPS} eager steps of "
+                      f"its one block, 2 microbatches)", got["launches"],
+                      scaled(PIPE_PER_STEP, PIPE_STEPS))
+        out["16b"][f"rank{r}"] = {
+            "loss": got["loss"], "walls_ms": got["walls_ms"],
+            "grad_err_of_allowance": hold_pipe(
+                f"16b rank {r} against 16a m2", got, m2, GLOO_RTOL),
+            "launches": got["launches"]}
+        print(f"  16b rank {r} eager step walls "
+              f"{[round(w, 3) for w in got['walls_ms']]} ms (16a m2 graphed "
+              f"{[round(w, 3) for w in m2['walls_ms']]} ms)", flush=True)
+    got, refs = ranks[0]["16c"], ranks[1]["16c"]
+    for dtype, rtol in PIPE_SERVE_DTYPES.items():
+        for name in ("dp", "tp"):
+            key = f"{dtype} {name}"
+            want, ans = refs[f"{key} one"], got[key]
+            err = float(np.abs(ans - want).max())
+            scale = float(np.abs(want).max())
+            bad = np.abs(ans - want) > rtol * np.abs(want) + 1e-6 * scale
+            if dtype == "bfloat16":
+                bad = np.abs(ans - want) > rtol * scale
+            print(f"  16c {key}: served {ans.shape} against the "
+                  f"single-device program: max abs err {err:.3e} of max "
+                  f"{scale:.3e}; {int(bad.sum())} entries past the "
+                  f"tolerance", flush=True)
+            check(np.isfinite(ans).all() and not bad.any(),
+                  f"16c {key}: the served answers differ from the "
+                  f"single-device program")
+            for r in (0, 1):
+                expect_counts(f"16c {key} rank {r} launches (one forward)",
+                              ranks[r]["16c"][f"{key} launches"],
+                              PER_FORWARD)
+            out["16c"][key] = {"max_abs_err": err, "max_abs": scale}
+    out["seconds"] = {"16b": max(ranks[r]["16b_s"] for r in (0, 1)),
+                      "16c": max(ranks[r]["16c_s"] for r in (0, 1))}
+    return out
+
+
+def pipeline_phase(dev) -> dict:
+    """Phase 16: 16a (the pipeline in a world of one over NCCL, graphed),
+    16d (``micro_pipeline_tax``), then 16b and 16c (two gloo ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from haet_torch.benchmarks import micro_pipeline_tax
+
+    t0 = time.perf_counter()
+    a = pipe_world_of_one(dev)
+    t_a = time.perf_counter() - t0
+    print(f"phase 16d: micro_pipeline_tax, {TAX_ROUNDS} rounds", flush=True)
+    tax = micro_pipeline_tax.run(dev, rounds=TAX_ROUNDS)
+    for name, rec in tax.items():
+        check(np.isfinite(rec["ms_per_step"])
+              and np.isfinite(rec["graph_ms_per_step"]),
+              f"16d {name}: {rec}")
+    t_d = time.perf_counter() - t0 - t_a
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out = {"16a": {k: {kk: vv for kk, vv in v.items() if kk != "grad"}
+                   for k, v in a.items()}, "16d": tax}
+    out.update(pipe_two_ranks(dev, a["m2"]))
+    secs = out.pop("seconds")
+    out["seconds"] = {"16a": t_a, "16d": t_d, **secs,
+                      "all": time.perf_counter() - t0}
+    print("phase 16: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                   out["seconds"].items()), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5408,6 +5792,7 @@ def main() -> int:
         finally:
             shutil.rmtree(run_dir, ignore_errors=True)
         mesh = mesh_phase(dev, graphs, bf16)
+        pipeline = pipeline_phase(dev)
         print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     except CheckFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
@@ -5424,7 +5809,8 @@ def main() -> int:
                       "serve_forwards": forwards, "fit": fit,
                       "graphs": graphs, "bf16": bf16, "serving": serving,
                       "serve_profile": f32_profile, "pde": pde,
-                      "rollout": ns, "utils": utils, "mesh": mesh}))
+                      "rollout": ns, "utils": utils, "mesh": mesh,
+                      "pipeline": pipeline}))
     print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

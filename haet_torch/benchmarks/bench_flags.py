@@ -76,6 +76,20 @@ def k_steps(step, x):
     return mk
 
 
+def make_runs(model, x, y):
+    """``(first loss, make_fn, graph make_fn or None)`` of ``model``'s
+    train step on ``x, y`` (``bench_flags.py:36-76``): the first step is
+    taken here; ``make_fn(k)`` chains k dispatched steps, and on the card
+    the graph's chains k replays of one captured step
+    (:func:`.timing.graph_loop`)."""
+    step = make_train_step(model, y)
+    loss = step(x)
+    float(loss)
+    gk = (graph_loop(lambda v: step(x + 1e-12 * v), loss)
+          if x.is_cuda else None)
+    return loss, k_steps(step, x), gk
+
+
 def _snapshot() -> dict:
     return {"launches": launch_counts(), "plain_routes": plain_route_counts()}
 

@@ -26,6 +26,11 @@ and 4 per bucket) under ``DIR``, which ``serve_http --pad_to_points 1``
 serves to a ragged fold. Each manifest records the fold and the checkpoint
 the weights came from.
 
+A checkpoint of a ``car_train --pp`` run (the stacked pipeline layout) is
+converted to the plain model's by
+:func:`~haet_torch.parallel.pipeline.merge_raw_variables`, as the JAX
+driver converts it (``benchmarks/car_eval.py:81-96``).
+
 ``--torch_checkpoint PT`` evaluates a checkpoint the reference code
 trained (a torch ``.pt``, bare or ``{"model_state_dict": ...}``) instead,
 read by :func:`haet_torch.utils.torch_import.load_torch_checkpoint`.
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from ..data.car_metrics import drag_coefficient
+from ..parallel.pipeline import merge_raw_variables
 from ..train import Checkpointer
 from ..train.car import evaluate, make_batch, predict
 from ..utils.env import default_device
@@ -72,6 +78,12 @@ def main(argv=None) -> dict:
         if state is None:
             print(f"[car_eval] no checkpoint at {args.checkpoint_dir}/"
                   f"{args.which} — evaluating the random init", flush=True)
+        elif any(k.startswith("layers.") for k in state["model"]):
+            # a --pp run's stacked pipeline layout (pre, layers, head):
+            # converted to the plain model's blocks
+            model.load_state_dict(merge_raw_variables(state))
+            print("[car_eval] converted a --pp pipeline-layout checkpoint "
+                  "to the plain model layout", flush=True)
         else:
             model.load_state_dict(state["model"])
 

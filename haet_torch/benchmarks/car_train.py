@@ -11,7 +11,8 @@ on the held-out fold every epoch, ``best``/``last`` checkpoints under
 ``<out_dir>/checkpoints/car``, metrics in ``<out_dir>/car_metrics.jsonl``);
 then :func:`haet_torch.train.car.evaluate` of the final state (the one
 ``last`` holds) on the validation fold. ``--smoke`` runs 2 epochs at
-n_hidden 32, 1 layer, G 16, 4 heads and the Erwin defaults.
+n_hidden 32, 1 layer (one per stage with ``--pp``), G 16, 4 heads and the
+Erwin defaults.
 
 Data: the fold layout under ``--data_dir`` (``param0..8/<sample>/``), or
 the synthetic stand-in when it is absent. Batches are one sample each,
@@ -28,14 +29,17 @@ to 0, as there.
 
 The card is the default device; ``--device cpu`` runs on the CPU.
 
-``--dp``, ``--tp`` and ``--multihost`` (:func:`add_mesh_args`, the JAX
-drivers' ``benchmarks/_common.py:88-185``) train over a mesh, one process
-per rank, each loading the same data: launch one process per rank under
-torchrun or with ``HAET_COORDINATOR``/``HAET_NUM_PROCESSES``/
-``HAET_PROCESS_ID`` set (``README.md``). NCCL joins ranks on cards, gloo on
-the CPU (``--device cpu``). A batch of one sample, the car's, is not split
-over dp: each step replicates it, and the note says so. ``--pp`` and
-``--pp_microbatches`` raise, naming their ``ROADMAP.md`` item.
+``--dp``, ``--tp``, ``--pp``, ``--pp_microbatches`` and ``--multihost``
+(:func:`add_mesh_args`, the JAX drivers' ``benchmarks/_common.py:88-198``)
+train over a mesh, one process per rank, each loading the same data:
+launch one process per rank under torchrun or with ``HAET_COORDINATOR``/
+``HAET_NUM_PROCESSES``/``HAET_PROCESS_ID`` set (``README.md``). NCCL joins
+ranks on cards, gloo on the CPU (``--device cpu``). A batch of one sample,
+the car's, is not split over dp: each step replicates it, and the note
+says so. ``--pp S`` runs the block stack as an S-stage GPipe pipeline
+(:func:`maybe_pipeline`, :class:`~haet_torch.parallel.pipeline.
+PipelinedModel`) on a ``(dp, pp)`` or ``(dp, pp, tp)`` mesh; its
+checkpoints hold the stacked layout, which ``car_eval`` converts.
 """
 
 from __future__ import annotations
@@ -52,20 +56,19 @@ from ..train.car import evaluate, loss_fn_builder, make_batch
 from ..utils.config import shapenet_car_config, shapenet_car_train_config
 from ..utils.env import default_device
 
-PARALLEL_TODO = ("{} is not ported yet (ROADMAP.md, queue 1, item 10b: the "
-                 "parallel pipeline, multi-chip exports and serving)")
-
-
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    """The JAX drivers' mesh flags (``benchmarks/_common.py:88-109``)."""
+    """The JAX drivers' mesh flags (``benchmarks/_common.py:96-109``)."""
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel mesh size (0 = no mesh)")
     p.add_argument("--tp", type=int, default=1,
                    help="head tensor-parallel mesh size (n_heads %% tp == 0)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (not ported yet)")
+                   help="pipeline-parallel stage count over the block stack "
+                        "(requires n_layers %% pp == 0; composes with --dp "
+                        "and --tp on a (dp, pp, tp) mesh)")
     p.add_argument("--pp_microbatches", type=int, default=0,
-                   help="microbatches per pipelined step (not ported yet)")
+                   help="microbatches per pipelined step (0 = one per "
+                        "stage)")
     p.add_argument("--multihost", action="store_true",
                    help="join the process group of HAET_COORDINATOR / "
                         "HAET_NUM_PROCESSES / HAET_PROCESS_ID or torchrun's "
@@ -73,49 +76,63 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
 
 
 def _mesh_size(args) -> tuple:
-    """``(dp, tp)`` the flags ask for, ``(0, 1)`` for no mesh: ``--tp``
-    without ``--dp`` means dp 1, as in JAX."""
+    """``(dp, pp, tp)`` the flags ask for, ``(0, 1, 1)`` for no mesh:
+    ``--tp`` or ``--pp`` without ``--dp`` means dp 1, as in JAX."""
     n_tp = max(1, args.tp)
-    if not args.dp and n_tp <= 1:
-        return 0, 1
-    return args.dp or 1, n_tp
+    n_pp = max(1, getattr(args, "pp", 1))
+    if not args.dp and n_tp <= 1 and n_pp <= 1:
+        return 0, 1, 1
+    return args.dp or 1, n_pp, n_tp
 
 
 def check_mesh_args(args) -> None:
     """Check the mesh flags and join the process group they ask for, before
     anything is made on the card (:func:`parallel.init_distributed` binds
-    this rank to its card). ``--pp`` and ``--pp_microbatches`` raise."""
-    for flag, default in (("pp", 1), ("pp_microbatches", 0)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(PARALLEL_TODO.format(f"--{flag}"))
+    this rank to its card)."""
     if args.multihost and not parallel.cluster_configured():
         raise SystemExit("--multihost needs a cluster to join: set "
                          "HAET_COORDINATOR, HAET_NUM_PROCESSES and "
                          "HAET_PROCESS_ID, or launch under torchrun")
-    n_dp, n_tp = _mesh_size(args)
+    n_dp, n_pp, n_tp = _mesh_size(args)
     n = parallel.requested_world()
-    if n_dp and n_dp * n_tp != n:
-        raise SystemExit(f"--dp {n_dp} x --tp {n_tp} needs {n_dp * n_tp} "
-                         f"devices, have {n} (one rank each)")
+    if n_dp and n_dp * n_pp * n_tp != n:
+        what = (f"--dp {n_dp} x --pp {n_pp} x --tp {n_tp}" if n_pp > 1
+                else f"--dp {n_dp} x --tp {n_tp}")
+        raise SystemExit(f"{what} needs {n_dp * n_pp * n_tp} devices, have "
+                         f"{n} (one rank each)")
     if n_dp or args.multihost:
         parallel.init_distributed(device=args.device)
 
 
 def make_mesh_from_args(model_cfg, train_cfg, args):
-    """The ``(dp, tp)`` mesh of the flags (``benchmarks/_common.py:
-    112-185``), or None without ``--dp``/``--tp``; with tp > 1 sets
-    ``model_cfg.shard_axes``. Raises SystemExit where tp does not divide
-    the heads; prints a note where dp does not divide the batch (each
-    such step replicates its batch). Call :func:`check_mesh_args`
-    first."""
-    n_dp, n_tp = _mesh_size(args)
+    """The mesh of the flags (``benchmarks/_common.py:112-185``): ``(dp,
+    tp)``, or with ``--pp`` > 1 ``(dp, pp)`` / ``(dp, pp, tp)``; None
+    without ``--dp``/``--tp``/``--pp``. With tp > 1 sets
+    ``model_cfg.shard_axes``. Raises SystemExit where pp does not divide
+    the layers or tp the heads; prints a note where the batch does not
+    divide dp (or the pipeline's microbatches x dp). Call
+    :func:`check_mesh_args` first."""
+    n_dp, n_pp, n_tp = _mesh_size(args)
     if not n_dp:
         return None
+    if n_pp > 1 and model_cfg.n_layers % n_pp:
+        raise SystemExit(
+            f"--pp {n_pp} must divide n_layers ({model_cfg.n_layers})")
     if n_tp > 1:
         if model_cfg.n_head % n_tp:
             raise SystemExit(
                 f"--tp {n_tp} must divide n_heads ({model_cfg.n_head})")
         model_cfg.shard_axes = ("dp", "tp")
+    if n_pp > 1:
+        mesh = parallel.make_pp_mesh(n_dp, n_pp, n_tp)
+        mb = getattr(args, "pp_microbatches", 0) or n_pp
+        if train_cfg.batch_size % (mb * n_dp):
+            print(f"[mesh] note: batch size {train_cfg.batch_size} is not "
+                  f"divisible by pp_microbatches x dp ({mb} x {n_dp}); "
+                  "every step will pad (wasted compute)", flush=True)
+        print(f"[mesh] dp={n_dp} pp={n_pp} tp={n_tp} microbatches={mb} "
+              f"({n_dp * n_pp * n_tp} ranks, {mesh.backend})", flush=True)
+        return mesh
     mesh = parallel.make_mesh(n_dp, n_tp)
     if train_cfg.batch_size % n_dp:
         print(f"[mesh] note: batch size {train_cfg.batch_size} is not "
@@ -124,6 +141,18 @@ def make_mesh_from_args(model_cfg, train_cfg, args):
     print(f"[mesh] dp={n_dp} tp={n_tp} ({n_dp * n_tp} ranks, "
           f"{mesh.backend})", flush=True)
     return mesh
+
+
+def maybe_pipeline(model, mesh, args):
+    """``model`` as a :class:`~haet_torch.parallel.pipeline.PipelinedModel`
+    over ``mesh`` when ``--pp`` > 1 (``benchmarks/_common.py:188-198``),
+    else ``model``: the trainer takes either unchanged."""
+    if mesh is None or getattr(args, "pp", 1) <= 1:
+        return model
+    from ..parallel.pipeline import PipelinedModel
+
+    mb = getattr(args, "pp_microbatches", 0) or None
+    return PipelinedModel(model, mesh, num_microbatches=mb, dp_axis="dp")
 
 
 def model_config(args):
@@ -188,7 +217,7 @@ def main(argv=None) -> dict:
     if is_synth:
         print("[car_train] dataset not found -> synthetic stand-in data")
     print(f"train {len(train_s)} / val {len(val_s)} samples", flush=True)
-    model = build_model(cfg, dev, train_cfg.seed)
+    model = maybe_pipeline(build_model(cfg, dev, train_cfg.seed), mesh, args)
     trainer = Trainer(model, loss_fn_builder(args.weight), train_cfg,
                       total_steps=len(train_s) * train_cfg.epochs,
                       batch_args=lambda b: (b["x"], None), mesh=mesh)
@@ -248,7 +277,8 @@ def parse_args(argv=None):
     if args.smoke:
         args.epochs = 2
         args.n_hidden = 32
-        args.n_layers = 1
+        # one layer, or one per pipeline stage
+        args.n_layers = max(1, args.pp)
         args.slice_num = 16
     return args
 

@@ -10,8 +10,8 @@ steps out, AdamW + OneCycle, rel-L2 of the decoded field, printed as
 ``rel_err:``. ``use_checkpoint`` is on at full size unless
 ``--use_checkpoint 0`` says otherwise, as in the JAX driver. The card is
 the default device; ``--device cpu`` runs on the CPU;
-``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
-(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
+``--dp``/``--tp``/``--pp``/``--multihost`` train over a mesh, one process
+per rank (``pde_common``).
 """
 
 from __future__ import annotations

@@ -19,8 +19,8 @@ The card is the default device; ``--device cpu`` runs on the CPU.
 error (:func:`haet_torch.utils.visualization.plot_prediction_triptych`,
 reference ``exp_darcy.py:166-200``) under ``<out_dir>/results/darcy``; it
 needs matplotlib.
-``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
-(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
+``--dp``/``--tp``/``--pp``/``--multihost`` train over a mesh, one process
+per rank (``pde_common``).
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ annealing of ``t_max`` = epochs stepped per batch (as the reference's
 decoded stress, printed as ``rel_err:``. The synthetic stand-in stands in
 when the files are absent. The card is the default device; ``--device
 cpu`` runs on the CPU;
-``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
-(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
+``--dp``/``--tp``/``--pp``/``--multihost`` train over a mesh, one process
+per rank (``pde_common``).
 """
 
 from __future__ import annotations

@@ -27,9 +27,10 @@ preset. The NS file is MATLAB v7.3, which needs ``h5py``; where it is not
 installed the loader raises naming the file, so point ``--data_path`` at a
 directory without it to train on the synthetic stand-in. ``--smoke`` runs
 2 epochs of a small model. The card is the default device; ``--device
-cpu`` runs on the CPU; ``--dp``/``--tp``/``--multihost`` train over a
-mesh, one process per rank (``pde_common``), and ``--pp`` raises
-(``ROADMAP.md``, queue 1, item 10b).
+cpu`` runs on the CPU; ``--dp``/``--tp``/``--pp``/``--multihost`` train
+over a mesh, one process per rank (``pde_common``); ``--export_rollout``
+with ``--pp`` exits, as in JAX (the rollout program runs the unpipelined
+model).
 """
 
 from __future__ import annotations
@@ -170,6 +171,12 @@ def main(argv=None) -> float:
     logger.close()
 
     if args.export_rollout:
+        if args.pp > 1:
+            raise SystemExit(
+                "--export_rollout with --pp: convert the stacked pipeline "
+                "checkpoint to the plain layout first (parallel.pipeline."
+                "merge_variables; car_eval --export_artifact shows the "
+                "flow) — rollout export runs the unpipelined model")
         save_rollout_artifact(args.export_rollout, model, None,
                               (test["pos"][:1], test["x"][:1]), steps=steps)
         print(f"rollout artifact -> {args.export_rollout}", flush=True)

@@ -10,8 +10,8 @@ rel-L2 on the decoded field, printed as ``rel_err:``. :func:`run` also
 drives ``exp_airfoil``. The synthetic stand-in stands in when the files are
 absent; ``--smoke`` runs 2 epochs of a small model on a 33 x 33 crop. The
 card is the default device; ``--device cpu`` runs on the CPU;
-``--dp``/``--tp``/``--multihost`` train over a mesh, one process per rank
-(``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item 10b).
+``--dp``/``--tp``/``--pp``/``--multihost`` train over a mesh, one process
+per rank (``pde_common``).
 """
 
 from __future__ import annotations

@@ -22,9 +22,8 @@ the test set's per-sample rel-L2 as ``rel_err:``.
 
 The step runs op by op (no CUDA graph). ``--smoke`` runs 2 epochs of a
 small model. The card is the default device; ``--device cpu`` runs on the
-CPU; ``--dp``/``--tp``/``--multihost`` train over a mesh, one process per
-rank (``pde_common``), and ``--pp`` raises (``ROADMAP.md``, queue 1, item
-10b).
+CPU; ``--dp``/``--tp``/``--pp``/``--multihost`` train over a mesh, one
+process per rank (``pde_common``).
 """
 
 from __future__ import annotations

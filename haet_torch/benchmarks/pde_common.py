@@ -2,10 +2,10 @@
 
 :func:`base_parser` is the JAX drivers' flag surface (``_common.py:16-50``)
 plus ``--device`` (the card unless ``--device cpu``) and the mesh flags:
-``--dp``, ``--tp`` and ``--multihost`` train over a mesh
-(:func:`~haet_torch.benchmarks.car_train.check_mesh_args`,
-:func:`~haet_torch.benchmarks.car_train.make_mesh_from_args`), ``--pp`` and
-``--pp_microbatches`` raise (``ROADMAP.md``, queue 1, item 10b).
+``--dp``, ``--tp``, ``--pp``, ``--pp_microbatches`` and ``--multihost``
+train over a mesh (:func:`~haet_torch.benchmarks.car_train.check_mesh_args`,
+:func:`~haet_torch.benchmarks.car_train.make_mesh_from_args`,
+:func:`~haet_torch.benchmarks.car_train.maybe_pipeline`).
 :func:`shrink_for_smoke` and :func:`apply_model_args` size a preset from the
 flags as JAX does, :func:`weighted_eval` is the per-sample test loss, and
 :func:`train_and_eval` the drivers' common tail: the model with both kernel
@@ -24,11 +24,12 @@ import os
 from ..data.synthetic import batch_iter
 from ..train import Checkpointer, MetricsLogger, Trainer
 from .car_train import (add_mesh_args, build_model, check_mesh_args,
-                        make_mesh_from_args)
+                        make_mesh_from_args, maybe_pipeline)
 
 __all__ = ["base_parser", "shrink_for_smoke", "apply_model_args",
            "weighted_eval", "train_and_eval", "init_custom_loop_state",
-           "add_mesh_args", "check_mesh_args", "make_mesh_from_args"]
+           "add_mesh_args", "check_mesh_args", "make_mesh_from_args",
+           "maybe_pipeline"]
 
 
 def base_parser(name: str) -> argparse.ArgumentParser:
@@ -132,7 +133,8 @@ def train_and_eval(cfg, args, dev, name: str, train: dict, test: dict,
     trainer)``."""
     bs = cfg.train.batch_size
     mesh = make_mesh_from_args(cfg.model, cfg.train, args)
-    model = build_model(cfg.model, dev, seed=seed)
+    model = maybe_pipeline(build_model(cfg.model, dev, seed=seed), mesh,
+                           args)
     steps = max(1, -(-len(next(iter(train.values()))) // bs))
     trainer = Trainer(model, loss_fn, cfg.train,
                       total_steps=steps * cfg.train.epochs,
@@ -165,7 +167,8 @@ def init_custom_loop_state(cfg, args, dev, n_train: int, wrap, loss_fn,
     :func:`check_mesh_args` first). Returns ``(model, trainer)``."""
     bs = cfg.train.batch_size
     mesh = make_mesh_from_args(cfg.model, cfg.train, args)
-    model = build_model(cfg.model, dev, seed=cfg.train.seed)
+    model = maybe_pipeline(build_model(cfg.model, dev, seed=cfg.train.seed),
+                           mesh, args)
     steps = max(1, -(-n_train // bs))  # ceil: the partial batch is kept
     trainer = Trainer(wrap(model), loss_fn, cfg.train,
                       total_steps=steps * cfg.train.epochs,

@@ -38,12 +38,27 @@ Rollout programs (:func:`export_rollout`, :func:`save_rollout_artifact`)
 run K autoregressive eval forwards in one program, each prediction
 appended to the sliding input window (:func:`rollout`), K unrolled in the
 graph where JAX scans; they load, bind and serve as the forward's programs
-do. Multi-chip programs (``mesh=``) are not ported and raise with their
-``ROADMAP.md`` item (queue 1, item 10b).
+do.
+
+Multi-chip programs (``mesh=``, JAX ``:194-260, 401-593``): the model is
+bound to a :class:`~haet_torch.parallel.Mesh` for the trace, each rank's
+part of the forward runs at its local shapes (the kernels included), and
+the mesh's collectives and each rank's part trace as ``haet::mesh_*``
+operators that name mesh axes (:mod:`haet_torch.parallel.mesh_ops`), so the
+program holds no process group and no rank's coordinates. ``data_axis``
+``"dp"`` splits the batch over dp (every array input's batch must divide
+it); None keeps the inputs whole on every rank, the parallelism being the
+model's own head split (``shard_axes``). The manifest records
+``nr_devices``, ``data_axis`` and the mesh's shape. Under a process group
+every rank calls the export: rank 0 traces and writes, the others wait.
+:func:`load_artifact` takes a mesh of the program's size, and every rank
+loads the one directory; the operators resolve against that mesh at call
+time, so all ranks call the program together, with the same inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -52,7 +67,9 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from . import parallel
 from .ops import kernels as _kernels  # noqa: F401  (registers haet:: ops)
+from .parallel import mesh_ops
 from .utils.env import default_device
 
 __all__ = [
@@ -72,10 +89,6 @@ _BLOB = "apply.pt2"
 #: the exported wrapper's attribute holding the model: the program's own
 #: parameter names carry it, the manifest's and the caller's do not
 _PREFIX = "model."
-
-MESH_TODO = ("multi-chip export (mesh=) is not ported yet (ROADMAP.md, "
-             "queue 1, item 10b: the parallel pipeline, multi-chip exports "
-             "and serving)")
 
 # jax.export traces with canonical dtypes (64-bit types become 32-bit under
 # JAX's default config), and the JAX manifest records those; the port
@@ -189,6 +202,12 @@ def _spec_mismatch(want: dict, variables) -> str | None:
 
 def _raise_variables_mismatch(want: dict, variables) -> None:
     why = _spec_mismatch(want, variables)
+    if why is not None and isinstance(variables, Mapping) and any(
+            k.startswith("layers.") for k in variables):
+        raise ValueError(
+            f"variables tree mismatch: {why}. These variables are a --pp "
+            "run's stacked pipeline layout; convert them with "
+            "haet_torch.parallel.pipeline.merge_raw_variables first.")
     if why is not None:
         raise ValueError(
             f"variables tree mismatch: {why}. The artifact was exported "
@@ -201,29 +220,74 @@ def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _export(wrapper, model, variables, example_args, mesh):
+def _mesh_size(mesh) -> int:
+    return int(np.prod(list(mesh.shape.values())))
+
+
+def _check_mesh(model, example_args, mesh, data_axis, platforms) -> None:
+    """JAX's checks of a multi-chip export (``:209-234``)."""
+    if platforms is not None:
+        raise ValueError(
+            "mesh= and platforms= are mutually exclusive: a sharded "
+            "lowering pins the backend the mesh lives on")
+    if not parallel.mesh_models(model):
+        raise ValueError(f"{type(model).__name__} holds no HAET model to "
+                         "export over a mesh")
+    if data_axis is None:
+        return
+    if data_axis != "dp" or data_axis not in mesh.shape:
+        raise ValueError(f"data_axis is 'dp' or None, got {data_axis!r}")
+    n_dp = int(mesh.shape[data_axis])
+    for a in example_args:
+        if a is None or np.ndim(a) == 0:
+            continue
+        if np.shape(a)[0] % n_dp:
+            raise ValueError(
+                f"batch {np.shape(a)[0]} does not divide the "
+                f"'{data_axis}' mesh axis ({n_dp}); export batch sizes "
+                "that are multiples of the data-parallel degree, or pass "
+                "data_axis=None for replicated inputs (model-internal "
+                "sharding)")
+
+
+def _export(wrapper, model, variables, example_args, mesh, data_axis="dp",
+            platforms=None):
     """``torch.export`` of ``wrapper`` (a module holding ``model``) over the
-    array inputs of ``example_args``, in eval mode under ``no_grad``."""
+    array inputs of ``example_args``, in eval mode under ``no_grad``; over
+    ``mesh`` (bound for the trace, its calls traced as ``haet::mesh_*``)
+    when one is given."""
+    device = _model_device(model)
     if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+        _check_mesh(model, example_args, mesh, data_axis, platforms)
+    elif platforms is not None and list(platforms) != [device.type]:
+        raise ValueError(
+            f"platforms={list(platforms)}: a program is exported for the "
+            f"device its model lies on ({device.type}); move the model")
     state = model.state_dict()
     if variables is not None:
         _raise_variables_mismatch(_variables_spec(state), variables)
-    device = _model_device(model)
     dts = _canonical_input_dtypes(example_args)
     arrays = tuple(_to_device(a, device, dt) for a, dt in zip(
         [a for a in example_args if a is not None], dts))
     was_training = model.training
+    bound = [(m, m.mesh, m.mesh_split_batch)
+             for m in parallel.mesh_models(model)] if mesh else []
     model.eval()
     try:
-        with torch.no_grad():
+        for m, _, _ in bound:
+            m.bind_mesh(mesh, split_batch=data_axis is not None)
+        with torch.no_grad(), (mesh_ops.exporting(mesh) if mesh
+                               else contextlib.nullcontext()):
             return torch.export.export(wrapper, arrays, strict=False)
     finally:
+        for m, prev, split in bound:
+            m.bind_mesh(prev, split_batch=split)
         model.train(was_training)
 
 
 def export_apply(model: torch.nn.Module, variables, example_args:
-                 Sequence[Any], *, mesh=None):
+                 Sequence[Any], *, platforms=None, mesh=None,
+                 data_axis: str | None = "dp"):
     """Export the model's eval forward to a ``torch.export.ExportedProgram``.
 
     Args:
@@ -236,19 +300,26 @@ def export_apply(model: torch.nn.Module, variables, example_args:
             included; numpy arrays or tensors. ``None`` entries (``fx=None``)
             are dropped from the program's inputs. 64-bit floats export a
             float32 program, as ``jax.export`` canonicalises them.
-        mesh: multi-chip export, not ported (raises).
+        platforms: the device types to export for: the model's own only
+            (a program holds constants of its device); None for it.
+        mesh: a :class:`~haet_torch.parallel.Mesh` to export the program
+            over (module docstring); exclusive with ``platforms``.
+        data_axis: ``"dp"`` (the batch split over dp) or None (replicated
+            inputs, the model's own head split).
 
     The trace runs in eval mode under ``torch.no_grad()`` (the model's mode
     is restored after), so the kernels appear as the ``haet::`` operators.
     An export that fails raises; nothing falls back to the eager model.
     """
     return _export(_Apply(model, tuple(a is None for a in example_args)),
-                   model, variables, example_args, mesh)
+                   model, variables, example_args, mesh, data_axis,
+                   platforms)
 
 
 def export_rollout(model: torch.nn.Module, variables,
                    example_args: Sequence[Any], *, steps: int,
-                   step_width: int | None = None, mesh=None):
+                   step_width: int | None = None, platforms=None, mesh=None,
+                   data_axis: str | None = "dp"):
     """Export a ``steps``-step autoregressive rollout (:func:`rollout`) as
     one program of ``(pos, fx0)`` (``haet_tpu/export.py:151-191``).
 
@@ -286,26 +357,50 @@ def export_rollout(model: torch.nn.Module, variables,
     if int(steps) < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     return _export(_Rollout(model, int(steps), step_width), model,
-                   variables, args, mesh)
+                   variables, args, mesh, data_axis, platforms)
+
+
+def _by_writer(mesh, write, model, example_args, data_axis, platforms):
+    """``write()`` on the writer rank of a mesh export (every rank calls
+    it, and every rank checks the request first), the others waiting for
+    it; ``write()`` alone without a mesh."""
+    if mesh is None:
+        return write()
+    _check_mesh(model, example_args, mesh, data_axis, platforms)
+    try:
+        if parallel.is_writer():
+            write()
+    finally:
+        parallel.barrier()
 
 
 def save_artifact(path: str, model: torch.nn.Module, variables,
                   example_args: Sequence[Any], *,
-                  extra_manifest: dict | None = None, mesh=None) -> str:
+                  extra_manifest: dict | None = None, platforms=None,
+                  mesh=None, data_axis: str | None = "dp") -> str:
     """Export and write a self-contained artifact directory: ``path/
     apply.pt2`` (the program) and ``path/manifest.json`` (input shapes and
-    dtypes, the device type, the variables' names, shapes and dtypes, and
-    ``extra_manifest``, which cannot override those). Returns ``path``."""
-    program = export_apply(model, variables, example_args, mesh=mesh)
-    return _write_artifact(path, program, model, variables, example_args,
-                           extra_manifest)
+    dtypes, the device type, the variables' names, shapes and dtypes, the
+    mesh's size, shape and ``data_axis``, and ``extra_manifest``, which
+    cannot override those). With ``mesh`` every rank calls it and rank 0
+    exports and writes. Returns ``path``."""
+    def write():
+        program = export_apply(model, variables, example_args,
+                               platforms=platforms, mesh=mesh,
+                               data_axis=data_axis)
+        _write_artifact(path, program, model, variables, example_args,
+                        extra_manifest, mesh, data_axis)
+
+    _by_writer(mesh, write, model, example_args, data_axis, platforms)
+    return path
 
 
 def save_rollout_artifact(path: str, model: torch.nn.Module, variables,
                           example_args: Sequence[Any], *, steps: int,
                           step_width: int | None = None,
                           extra_manifest: dict | None = None,
-                          mesh=None) -> str:
+                          platforms=None, mesh=None,
+                          data_axis: str | None = "dp") -> str:
     """Export and write a ``steps``-step rollout artifact
     (:func:`export_rollout`; ``haet_tpu/export.py:332-363``): the layout of
     :func:`save_artifact`, the manifest recording ``rollout_steps`` and
@@ -315,17 +410,24 @@ def save_rollout_artifact(path: str, model: torch.nn.Module, variables,
     output is ``[B, N, steps * step_width]``."""
     if step_width is None:
         step_width = getattr(model, "out_dim", None)
-    program = export_rollout(model, variables, example_args, steps=steps,
-                             step_width=step_width, mesh=mesh)
-    return _write_artifact(
-        path, program, model, variables, example_args,
-        # after the caller's extras: facts about the exported program
-        {**(extra_manifest or {}), "rollout_steps": int(steps),
-         "step_width": int(step_width)})
+
+    def write():
+        program = export_rollout(model, variables, example_args,
+                                 steps=steps, step_width=step_width,
+                                 platforms=platforms, mesh=mesh,
+                                 data_axis=data_axis)
+        _write_artifact(
+            path, program, model, variables, example_args,
+            # after the caller's extras: facts about the exported program
+            {**(extra_manifest or {}), "rollout_steps": int(steps),
+             "step_width": int(step_width)}, mesh, data_axis)
+
+    _by_writer(mesh, write, model, example_args, data_axis, platforms)
+    return path
 
 
 def _write_artifact(path, program, model, variables, example_args,
-                    extra_manifest) -> str:
+                    extra_manifest, mesh=None, data_axis=None) -> str:
     os.makedirs(path, exist_ok=True)
     torch.export.save(program, os.path.join(path, _BLOB))
     state = model.state_dict() if variables is None else variables
@@ -339,7 +441,9 @@ def _write_artifact(path, program, model, variables, example_args,
         "model": type(model).__name__,
         "n_arrays_variables": len(state),
         "variables": _variables_spec(state),
-        "nr_devices": 1,
+        "nr_devices": 1 if mesh is None else _mesh_size(mesh),
+        **({"data_axis": data_axis, "mesh_shape": dict(mesh.shape)}
+           if mesh is not None else {}),
         "torch": torch.__version__,
     }
     with open(os.path.join(path, _MANIFEST), "w") as f:
@@ -355,10 +459,22 @@ class ExportedModel:
     program's device (the CUDA launches are asynchronous), made under
     ``torch.inference_mode()``."""
 
-    def __init__(self, program, manifest: dict, device):
+    def __init__(self, program, manifest: dict, device, mesh=None):
         self.program = program
         self.manifest = manifest
         self.device = torch.device(device)
+        #: the mesh a multi-chip program runs over (None for one device)
+        self.mesh = mesh
+
+    @property
+    def nr_devices(self) -> int:
+        return int(self.manifest.get("nr_devices", 1))
+
+    def _over_mesh(self):
+        """The context its calls run in: the mesh its ``haet::mesh_*``
+        operators resolve against."""
+        return (mesh_ops.using(self.mesh) if self.mesh is not None
+                else contextlib.nullcontext())
 
     @functools.cached_property
     def module(self) -> torch.nn.Module:
@@ -403,7 +519,7 @@ class ExportedModel:
         inputs = self._inputs(args)
         state = {_PREFIX + k: _to_device(v, self.device)
                  for k, v in variables.items()}
-        with torch.inference_mode():
+        with torch.inference_mode(), self._over_mesh():
             return torch.func.functional_call(self.module, state, inputs)
 
     def bind(self, variables):
@@ -421,7 +537,7 @@ class ExportedModel:
 
         def fn(*args):
             inputs = self._inputs(args)
-            with torch.inference_mode():
+            with torch.inference_mode(), self._over_mesh():
                 return module(*inputs)
 
         return fn
@@ -437,9 +553,9 @@ def _bind_state(model: ExportedModel, variables) -> dict:
 
 def load_artifact(path: str, mesh=None, device=None) -> ExportedModel:
     """Load an artifact directory for ``device`` (default: the card; it
-    must be the device type the program was exported on)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
+    must be the device type the program was exported on). A multi-chip
+    program needs ``mesh``, a :class:`~haet_torch.parallel.Mesh` of its
+    size, over which every rank then calls it (``:409-420``)."""
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     dev = default_device(device)
@@ -447,8 +563,19 @@ def load_artifact(path: str, mesh=None, device=None) -> ExportedModel:
         raise ValueError(
             f"{path} holds a program exported on {manifest['device']}; it "
             f"runs there only, not on {dev} (export it again on {dev.type})")
+    n = int(manifest.get("nr_devices", 1))
+    if n > 1:
+        if mesh is None:
+            raise ValueError(
+                f"this artifact is a multi-chip program ({n} devices, data "
+                f"axis {manifest.get('data_axis')!r}); pass a mesh of that "
+                "size to load_artifact(path, mesh=...)")
+        if _mesh_size(mesh) != n:
+            raise ValueError(
+                f"mesh has {_mesh_size(mesh)} devices but the artifact was "
+                f"exported for {n}")
     program = torch.export.load(os.path.join(path, _BLOB))
-    return ExportedModel(program, manifest, dev)
+    return ExportedModel(program, manifest, dev, mesh if n > 1 else None)
 
 
 class ServingBundle:
@@ -484,10 +611,18 @@ class ServingBundle:
         devs = {getattr(m, "device", None) for m in self._by_key.values()}
         return devs.pop() if len(devs) == 1 else None
 
+    @property
+    def mesh(self):
+        """The mesh its multi-chip programs run over, or None."""
+        meshes = {id(m.mesh): m.mesh for m in self._by_key.values()
+                  if getattr(m, "mesh", None) is not None}
+        return next(iter(meshes.values())) if meshes else None
+
     @classmethod
     def load(cls, root: str, mesh=None, device=None) -> "ServingBundle":
         """Load every artifact directory directly under ``root`` for
-        ``device`` (default: the card)."""
+        ``device`` (default: the card); ``mesh`` for multi-chip
+        programs."""
         subdirs = sorted(os.path.join(root, d) for d in os.listdir(root)
                          if os.path.isdir(os.path.join(root, d)))
         return cls([load_artifact(d, mesh=mesh, device=device)
@@ -536,6 +671,10 @@ class BoundBundle:
     @property
     def device(self):
         return self._bundle.device
+
+    @property
+    def mesh(self):
+        return self._bundle.mesh
 
     def shapes(self):
         return self._bundle.shapes()

@@ -134,8 +134,12 @@ class TransolverErwinBlock(nn.Module):
         fx = self.Attn(self._ln(self.ln_1, fx), layout) + fx
         fx = self.mlp(self._ln(self.ln_2, fx)) + fx
         if self.last_layer:
-            return self.mlp2(self._ln(self.ln_3, fx))
+            return self.head(fx)
         return fx
+
+    def head(self, fx):
+        """The last layer's output head, ``mlp2(LN_3(fx))``."""
+        return self.mlp2(self._ln(self.ln_3, fx))
 
 
 class _HAETBase(nn.Module):
@@ -181,6 +185,7 @@ class _HAETBase(nn.Module):
         device = default_device(device)
         #: the bound :class:`~haet_torch.parallel.Mesh` (:meth:`bind_mesh`)
         self.mesh = None
+        self.mesh_split_batch = True
         self.n_hidden = n_hidden
         self.out_dim = out_dim
         self.unified_pos = unified_pos
@@ -212,12 +217,16 @@ class _HAETBase(nn.Module):
             attn_kwargs["dim_head"] = dim_head
         if erwin_mlp_ratio is not None:
             attn_kwargs["mlp_ratio"] = erwin_mlp_ratio
+        self.n_layers = n_layers
+        self.n_head = n_head
+        self.dropout = dropout
+        self._block_kwargs = dict(
+            num_heads=n_head, hidden_dim=n_hidden, dropout=dropout, act=act,
+            mlp_ratio=mlp_ratio, out_dim=out_dim, attn_cls=self.attn_cls,
+            attn_kwargs=attn_kwargs, dtype=dtype)
         self.blocks = nn.ModuleList([
-            TransolverErwinBlock(n_head, n_hidden, dropout, act=act,
-                                 mlp_ratio=mlp_ratio,
-                                 last_layer=(i == n_layers - 1),
-                                 out_dim=out_dim, attn_cls=self.attn_cls,
-                                 attn_kwargs=attn_kwargs, dtype=dtype)
+            TransolverErwinBlock(last_layer=(i == n_layers - 1),
+                                 **self.block_kwargs())
             for i in range(n_layers)])
         self.init_weights(torch.Generator().manual_seed(seed))
         self.to(device)
@@ -242,12 +251,24 @@ class _HAETBase(nn.Module):
     def _attn_kwargs(self) -> dict:
         return {}
 
-    def bind_mesh(self, mesh) -> None:
+    def block_kwargs(self) -> dict:
+        """The constructor arguments every :class:`TransolverErwinBlock` of
+        the stack shares (``last_layer`` excepted), ``haet.py:174``:
+        :mod:`haet_torch.parallel.pipeline` builds its stage block from
+        them, with this model's parameter names."""
+        kw = dict(self._block_kwargs)
+        kw["attn_kwargs"] = dict(kw["attn_kwargs"])
+        return kw
+
+    def bind_mesh(self, mesh, split_batch: bool = True) -> None:
         """Run the forwards to come over ``mesh`` (None: on this rank
         alone), the counterpart of tracing under ``with mesh:``: each call
         takes the global batch, runs this rank's part and returns the
-        global output. Every rank calls it with the same batch."""
+        global output. Every rank calls it with the same batch.
+        ``split_batch`` False keeps the batch whole on every rank (an
+        export's ``data_axis=None``: the parallelism is the heads')."""
         self.mesh = mesh
+        self.mesh_split_batch = split_batch
         for block in self.blocks:
             block.Attn.bind_mesh(mesh)
 
@@ -257,16 +278,15 @@ class _HAETBase(nn.Module):
     def _pos_features(self, x):
         raise NotImplementedError
 
-    def forward(self, x, fx=None, T=None):
+    def apply_pre(self, x, fx=None, T=None):
+        """The embedding before the block stack (``haet.py:271``): the
+        ``unified_pos`` features, the preprocess MLP, the placeholder and
+        the time embedding, ``[B, N, *] -> [B, N, n_hidden]``. The pipeline
+        runs it apart from the blocks."""
         if T is not None and self.time_fc is None:
             raise ValueError(
                 "T was passed but Time_Input=False: the reference model "
                 "has no time_fc in this configuration (..._2D.py:257)")
-        layout = None
-        if self.mesh is not None:
-            layout = self.mesh.layout(x.shape[0], x.shape[1])
-            x, fx = layout.shard(x), layout.shard(fx)
-            T = layout.shard(T, points=False)
         if self.unified_pos:
             x = self._pos_features(x)
         fx_was_none = fx is None
@@ -277,6 +297,21 @@ class _HAETBase(nn.Module):
         if T is not None:
             emb = timestep_embedding(T, self.n_hidden)[:, None, :]
             fx = fx + self.time_fc(emb)
+        return fx
+
+    def apply_head(self, h):
+        """The last block's output head on the block stack's output
+        (``haet.py:308``), ``[B, N, n_hidden] -> [B, N, out_dim]``."""
+        return self.blocks[-1].head(h)
+
+    def forward(self, x, fx=None, T=None):
+        layout = None
+        if self.mesh is not None:
+            layout = self.mesh.layout(x.shape[0], x.shape[1],
+                                      self.mesh_split_batch)
+            x, fx = layout.shard(x), layout.shard(fx)
+            T = layout.shard(T, points=False)
+        fx = self.apply_pre(x, fx, T)
         remat = self.use_checkpoint and torch.is_grad_enabled()
         for block in self.blocks:
             if remat:

@@ -80,6 +80,7 @@ rank, and the kernels run on either as on one rank. A model with
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -91,7 +92,8 @@ from ..ops import slice_ops
 from ..ops.ball_groups import pad_pow2
 from ..ops.dense import linear
 from ..ops.kernels import slice_kernels as sk
-from ..parallel.collectives import all_reduce_max, gather, reduce_grad
+from ..parallel.collectives import (all_reduce_max, axis_part, gather,
+                                    reduce_grad)
 from ..utils.config import PALLAS_AUTO_G_SPAN, PALLAS_AUTO_THRESHOLD
 from ..utils.env import grad_off
 from .components.dropout import Dropout
@@ -223,8 +225,8 @@ class _PhysicsAttentionBase(nn.Module):
 
     def _project(self, x, rows=None):
         """``[B, N, dim] -> [B, heads, N, dim_head]`` (a view); with
-        ``rows``, a slice of the projection's output features, only those
-        heads."""
+        ``rows``, a function of a parameter giving this rank's part of the
+        projection's output features, only those heads."""
         raise NotImplementedError
 
     def _slice_params(self):
@@ -298,7 +300,8 @@ class _PhysicsAttentionBase(nn.Module):
         rows = None
         if split:
             x = reduce_grad(x, split[0])
-            rows = slice(split[2] * H * Dh, (split[2] + 1) * H * Dh)
+            rows = functools.partial(axis_part, group=split[0],
+                                     index=split[2], n=split[1])
 
         # (1) Slice
         x_proj = self._project(x, rows).contiguous()
@@ -376,7 +379,7 @@ class PhysicsAttentionIrregularMesh(_PhysicsAttentionBase):
         p = self.in_project_x
         if rows is None:
             return slice_ops.split_heads(p(x), self.heads)
-        y = linear(x, p.weight[rows], p.bias[rows], self.dtype)
+        y = linear(x, rows(p.weight), rows(p.bias), self.dtype)
         return slice_ops.split_heads(y, y.shape[-1] // self.dim_head)
 
 
@@ -396,13 +399,13 @@ def conv_same(x, conv: nn.Module, grid: tuple, dtype=None, rows=None):
     out grid-major, channels last: ``[B, prod(grid), C] -> [B, prod(grid),
     C_out]``. In ``dtype`` (None: as given), the input and the parameters
     cast to it and the bias added to the rounded product, as flax's
-    ``nn.Conv(dtype=...)``. ``rows``: only that slice of the output
-    channels."""
+    ``nn.Conv(dtype=...)``. ``rows``: a function giving the part of the
+    output channels to keep from a parameter."""
     b, n, c = x.shape
     nd = len(grid)
     weight, bias = conv.weight, conv.bias
     if rows is not None:
-        weight, bias = weight[rows], bias[rows]
+        weight, bias = rows(weight), rows(bias)
     xg = x.reshape(b, *grid, c).movedim(-1, 1)          # channels first
     fn = F.conv2d if nd == 2 else F.conv3d
     if dtype is None:

@@ -5,8 +5,11 @@ explicit SPMD, one process per rank. :func:`init_distributed` joins the
 process group, :func:`make_mesh` builds the ``(dp, tp)`` (or ``(dp, cp)``)
 mesh, :func:`bind_mesh` makes a model run its rank's part of each forward,
 and ``Trainer(mesh=...)`` sums the gradients
-(:func:`reduce_gradients`). The pipeline (``pipeline.py``), multi-chip
-exports and serving are not ported yet (``ROADMAP.md``, queue 1, item 10b).
+(:func:`reduce_gradients`). :func:`make_pp_mesh` builds the ``(dp, pp)`` or
+``(dp, pp, tp)`` mesh of the GPipe pipeline
+(:class:`~haet_torch.parallel.pipeline.PipelinedModel`, importable from
+here), and :mod:`~haet_torch.parallel.mesh_ops` holds the collectives an
+exported program calls by mesh axis.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch.distributed as dist
 from .distributed import (barrier, cluster_configured, init_distributed,
                           is_writer, process_batch_slice, requested_world,
                           world)
-from .mesh import Layout, Mesh, make_mesh
+from .mesh import Layout, Mesh, make_mesh, make_pp_mesh
 
 
 def mesh_models(module) -> list:
@@ -76,7 +79,20 @@ def reduce_gradients(flat, mesh, layout: Layout, ranges: list) -> None:
         dist.all_reduce(flat, group=group)
 
 
-__all__ = ["Layout", "Mesh", "barrier", "bind_mesh", "cluster_configured",
-           "init_distributed", "is_writer", "make_mesh", "mesh_models",
+def __getattr__(name):
+    # the pipeline imports the models, which import this package
+    if name in ("PipelinedModel", "merge_raw_variables", "merge_variables",
+                "split_variables", "pipelines"):
+        from . import pipeline
+
+        return getattr(pipeline, name)
+    raise AttributeError(name)
+
+
+__all__ = ["Layout", "Mesh", "PipelinedModel", "barrier", "bind_mesh", "cluster_configured",
+           "init_distributed", "is_writer", "make_mesh", "make_pp_mesh",
+           "merge_raw_variables", "merge_variables", "mesh_models",
+           "pipelines",
            "process_batch_slice", "reduce_gradients", "requested_world",
+           "split_variables",
            "tp_partial_parameters", "tp_ranges", "world"]

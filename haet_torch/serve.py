@@ -45,8 +45,19 @@ served sample's output depends on the samples dispatched with it (and on
 
 A rollout artifact (``haet_torch.export.save_rollout_artifact``) serves
 here as a forward's does: its requests are ``(pos, fx0)`` and its answers
-``[N, steps * step_width]``. Multi-chip families (``mesh=``) are not ported
-and raise with their ``ROADMAP.md`` item (queue 1, item 10b).
+``[N, steps * step_width]``.
+
+**Over a mesh** (JAX ``:60-145, 440-452``). :func:`export_batch_family` and
+:func:`export_point_family` take ``mesh=`` and ``data_axis=`` and check
+every batch size against dp before anything is written. JAX's server is
+one process over many devices; the port runs one process per rank, so a
+bundle loaded with ``mesh=`` is served by a :class:`BatchingServer` on rank
+0 and by :func:`follow` on every other rank. Rank 0 batches; before each
+dispatch it broadcasts the batch's signature and inputs over the mesh, and
+each follower runs its part of the same program with it. ``reload``
+broadcasts the new weights, and ``close`` sends the followers home.
+``pad_to_batch`` is on by default iff dp > 1, where a lone request can
+never fill a program.
 """
 
 from __future__ import annotations
@@ -62,18 +73,20 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import export as hexport
 from .utils.env import default_device, host_numpy
 
 __all__ = ["BatchingServer", "export_batch_family", "export_point_family",
-           "ServerStats"]
+           "follow", "ServerStats"]
 
 
 def export_batch_family(path: str, model: torch.nn.Module, variables,
                         example_args: Sequence[Any],
                         batch_sizes: Sequence[int] = (1, 2, 4, 8), *,
-                        mesh=None, extra_manifest: Optional[dict] = None,
+                        mesh=None, data_axis: Optional[str] = "dp",
+                        extra_manifest: Optional[dict] = None,
                         _point_bucket: Optional[int] = None) -> str:
     """Write one artifact per batch size under ``path`` (a
     :class:`~haet_torch.export.ServingBundle` root).
@@ -83,10 +96,11 @@ def export_batch_family(path: str, model: torch.nn.Module, variables,
     batch size exports the program again with the leading axis set to
     ``b``. Artifact directories are named by batch size, sample shapes and
     dtypes (the canonical ones the program takes), so several signatures can
-    share one bundle root.
+    share one bundle root. With ``mesh`` (every rank calls it, rank 0
+    writes) each program runs over the mesh (``haet_torch.export``), the
+    batch split over ``data_axis``, whose size must divide every batch
+    size: checked for all of them before anything is written.
     """
-    if mesh is not None:
-        raise NotImplementedError(hexport.MESH_TODO)
     if extra_manifest:
         # batch_size is measured per artifact, and point_bucket is the
         # pad_to_points marker only export_point_family may stamp
@@ -103,6 +117,18 @@ def export_batch_family(path: str, model: torch.nn.Module, variables,
     bad = [b for b in sizes if b < 1]
     if bad:
         raise ValueError(f"batch sizes must be >= 1, got {bad}")
+    if mesh is not None and data_axis is not None:
+        # every size before anything is written: a half-written family
+        # would serve with sizes silently missing
+        n_dp = int(mesh.shape[data_axis])
+        bad = [b for b in sizes if b % n_dp]
+        if bad:
+            raise ValueError(
+                f"batch sizes {bad} do not divide the '{data_axis}' mesh "
+                f"axis ({n_dp}); pass multiples of the data-parallel "
+                f"degree (e.g. batch_sizes="
+                f"{tuple(n_dp * m for m in (1, 2, 4))}), or data_axis=None "
+                "for replicated inputs (head-TP)")
     for b in sizes:
         ex_b = tuple(None if a is None else np.broadcast_to(
             _host(a), (b,) + np.shape(a)[1:]).copy() for a in example_args)
@@ -111,7 +137,8 @@ def export_batch_family(path: str, model: torch.nn.Module, variables,
         if _point_bucket is not None:
             extra["point_bucket"] = int(_point_bucket)
         hexport.save_artifact(os.path.join(path, f"b{b}_{sig_tag}"), model,
-                              variables, ex_b, extra_manifest=extra)
+                              variables, ex_b, extra_manifest=extra,
+                              mesh=mesh, data_axis=data_axis)
     return path
 
 
@@ -119,7 +146,7 @@ def export_point_family(path: str, model: torch.nn.Module, variables,
                         example_args: Sequence[Any],
                         point_buckets: Sequence[int],
                         batch_sizes: Sequence[int] = (1, 2, 4, 8), *,
-                        mesh=None,
+                        mesh=None, data_axis: Optional[str] = "dp",
                         extra_manifest: Optional[dict] = None) -> str:
     """:func:`export_batch_family` over POINT-COUNT buckets: one batch
     family per N in ``point_buckets``, all under one bundle root, each
@@ -151,6 +178,7 @@ def export_point_family(path: str, model: torch.nn.Module, variables,
                      for a in example_args)
         export_batch_family(path, model, variables, ex_n,
                             batch_sizes=batch_sizes, mesh=mesh,
+                            data_axis=data_axis,
                             extra_manifest=extra_manifest, _point_bucket=n)
     return path
 
@@ -242,6 +270,94 @@ class _Pending:
         self.event = event
 
 
+#: what rank 0 broadcasts to the followers of a mesh bundle
+_RUN, _RELOAD, _STOP = 1, 2, 3
+
+
+class _MeshLink:
+    """The dispatches of a mesh bundle crossing from rank 0 to the other
+    ranks: a header ``[command, signature index]`` broadcast over the
+    mesh, then the batch's inputs (or a checkpoint's tensors), each on the
+    bundle's device. The signatures are the bundle's, in ``shapes()``
+    order, the same on every rank that loaded the one directory."""
+
+    def __init__(self, bundle):
+        self.keys = list(bundle.shapes())
+        self.device = bundle.device
+        models = list(bundle._by_key.values())
+        self.dtypes = [tuple(bundle._by_key[k].manifest["input_dtypes"])
+                       for k in self.keys]
+        self.spec = models[0].manifest["variables"]
+
+    def _header(self, cmd: int = 0, idx: int = 0) -> tuple:
+        t = torch.tensor([cmd, idx], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, src=0)
+        return tuple(t.tolist())
+
+    def _tensors(self, shapes, dtypes, values=None) -> list:
+        out = []
+        for i, (shape, dt) in enumerate(zip(shapes, dtypes)):
+            if values is None:
+                t = torch.empty(shape, dtype=getattr(torch, dt),
+                                device=self.device)
+            else:
+                t = hexport._to_device(values[i], self.device, dt)
+                t = t.contiguous()
+            dist.broadcast(t, src=0)
+            out.append(t)
+        return out
+
+    def send_run(self, args) -> None:
+        arrays = [a for a in args if a is not None]
+        key = tuple(tuple(np.shape(a)) for a in arrays)
+        idx = self.keys.index(key)
+        self._header(_RUN, idx)
+        self._tensors(key, self.dtypes[idx], arrays)
+
+    def send_reload(self, variables) -> None:
+        self._header(_RELOAD)
+        names = sorted(self.spec)
+        self._tensors([self.spec[k][0] for k in names],
+                      [self.spec[k][1] for k in names],
+                      [variables[k] for k in names])
+
+    def send_stop(self) -> None:
+        self._header(_STOP)
+
+    def receive(self):
+        """``(command, payload)`` of rank 0's next message: the batch's
+        inputs for a run, the state dict for a reload."""
+        cmd, idx = self._header()
+        if cmd == _RUN:
+            return cmd, self._tensors(self.keys[idx], self.dtypes[idx])
+        if cmd == _RELOAD:
+            names = sorted(self.spec)
+            return cmd, dict(zip(names, self._tensors(
+                [self.spec[k][0] for k in names],
+                [self.spec[k][1] for k in names])))
+        return cmd, None
+
+
+def follow(bundle, variables) -> None:
+    """Serve a mesh bundle's other ranks: bind ``variables`` and run each
+    dispatch rank 0's :class:`BatchingServer` broadcasts (its part of the
+    same program, over the mesh), load each checkpoint it reloads, and
+    return when it closes. Every rank but 0 calls this with the bundle
+    loaded from the same directory with its mesh."""
+    if getattr(bundle, "mesh", None) is None:
+        raise ValueError("follow() serves a bundle loaded with mesh=")
+    link = _MeshLink(bundle)
+    bound = bundle.bind(variables)
+    while True:
+        cmd, payload = link.receive()
+        if cmd == _STOP:
+            return
+        if cmd == _RUN:
+            bound.predict(*payload)
+        elif cmd == _RELOAD:
+            bound.update(payload)
+
+
 class BatchingServer:
     """Groups single-sample requests into the largest exported batches.
 
@@ -255,9 +371,10 @@ class BatchingServer:
         max_delay_s: how long the oldest queued request may wait for
             co-batchable traffic before dispatch (0 = immediately).
         max_queue: backpressure bound; ``submit`` raises when full.
-        pad_to_batch: opt-in: a group that ages out below the smallest
-            exported batch fills that program with copies of its last
-            sample (their answers are discarded) instead of failing.
+        pad_to_batch: a group that ages out below the smallest exported
+            batch fills that program with copies of its last sample (their
+            answers are discarded) instead of failing. None (the default):
+            on iff the bundle's programs split the batch over dp > 1.
         pad_to_points: opt-in: a sample whose point count N has no program
             is padded along axis 0 of every input (repeat-last row, as
             training pads) to the smallest exported point bucket that
@@ -272,11 +389,14 @@ class BatchingServer:
         device: where the programs run; ``None`` means CUDA (raises without
             a card). A loaded bundle must be for this device's type.
 
+    A bundle loaded with ``mesh=`` is served by this server on rank 0 and
+    by :func:`follow` on the other ranks (module docstring).
+
     Use as a context manager or call :meth:`close`.
     """
 
     def __init__(self, bundle, variables, *, max_delay_s: float = 0.002,
-                 max_queue: int = 1024, pad_to_batch: bool = False,
+                 max_queue: int = 1024, pad_to_batch: Optional[bool] = None,
                  pad_to_points: bool = False, pipeline_depth: int = 1,
                  device=None):
         self.pipeline_depth = int(pipeline_depth)
@@ -290,6 +410,18 @@ class BatchingServer:
                              f"server on {self.device}")
         self.bundle = bundle
         self.variables = variables
+        mesh = getattr(bundle, "mesh", None)
+        #: rank 0's link to the followers of a mesh bundle
+        self._link = None
+        if mesh is not None:
+            if dist.get_rank() != 0:
+                raise ValueError("a mesh bundle is batched on rank 0; the "
+                                 "other ranks call serve.follow()")
+            self._link = _MeshLink(bundle)
+        if pad_to_batch is None:
+            pad_to_batch = mesh is not None and mesh.size("dp") > 1 and any(
+                m.manifest.get("data_axis") == "dp"
+                for m in bundle._by_key.values())
         if isinstance(bundle, hexport.BoundBundle):
             # checked when it was bound
             self._bound = bundle
@@ -597,11 +729,16 @@ class BatchingServer:
                     [a, np.repeat(a[-1:], pad_to - len(reqs), axis=0)])
             args.append(a)
         with self._run_lock, self._on_stream():
-            if self._bound is not None:
-                out = self._bound.predict(*args)
-            else:
-                out = self.bundle.predict(self.variables, *args)
-            return self._start_fetch(out)
+            return self._start_fetch(self._predict(args))
+
+    def _predict(self, args):
+        """The batch's program on ``args`` (over the mesh: the followers
+        told first). The caller holds the run lock."""
+        if self._link is not None:
+            self._link.send_run(args)
+        if self._bound is not None:
+            return self._bound.predict(*args)
+        return self.bundle.predict(self.variables, *args)
 
     def _start_fetch(self, out):
         """A CUDA answer is copied into the next pinned buffer of its ring,
@@ -683,6 +820,8 @@ class BatchingServer:
         self._validate_variables(variables)
         if self._bound is not None:
             with self._run_lock, self._on_stream():
+                if self._link is not None:
+                    self._link.send_reload(variables)
                 self._bound.update(variables)
         self.variables = variables
 
@@ -699,10 +838,7 @@ class BatchingServer:
                 batch = tuple(np.zeros((b,) + shape, dtype=dt)
                               for shape, dt in zip(sig, dtypes))
                 with self._run_lock, self._on_stream():
-                    out = (self._bound.predict(*batch)
-                           if self._bound is not None
-                           else self.bundle.predict(self.variables, *batch))
-                    self._fetch(out)
+                    self._fetch(self._predict(batch))
 
     # -- lifecycle ------------------------------------------------------
 
@@ -723,6 +859,9 @@ class BatchingServer:
         self._thread.join()
         if self._delivery_thread is not None:
             self._delivery_thread.join()
+        if self._link is not None:
+            with self._run_lock:
+                self._link.send_stop()
 
     def __enter__(self):
         return self

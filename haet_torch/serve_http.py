@@ -39,10 +39,16 @@ to, and starts from the stamp read when the weights were loaded, so that a
 save landing during start-up is not taken as served. SIGTERM drains: the
 listener stops, in-flight handlers finish (bounded by
 ``--request_timeout_s``), queued requests are served, and the process
-exits 0.
+exits 0. A ``--pp`` run's checkpoint (the stacked pipeline layout) is
+converted by ``merge_raw_variables`` (JAX ``serve_http.py:350-354``).
 
-Not ported, raising with their ``ROADMAP.md`` item (queue 1, parallel):
-``--dp``, ``--tp`` and a pipeline-parallel (``--pp``) checkpoint.
+``--dp N`` serves a bundle exported over a dp mesh of N ranks, ``--tp N``
+one exported with ``data_axis=None`` over a tp mesh (JAX ``:388-445``;
+they are mutually exclusive). JAX's server is one process over N devices;
+here N processes are launched, under torchrun or with ``HAET_COORDINATOR``
+/ ``HAET_NUM_PROCESSES`` / ``HAET_PROCESS_ID``, each loading the bundle
+with the mesh: rank 0 answers HTTP and batches, the other ranks follow its
+dispatches (``haet_torch.serve.follow``) and exit when it drains.
 """
 
 from __future__ import annotations
@@ -58,12 +64,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .serve import BatchingServer
+from . import parallel
+from .serve import BatchingServer, follow
 
 __all__ = ["make_server", "main", "watch_checkpoint"]
-
-PARALLEL_TODO = ("{} is not ported yet (ROADMAP.md, queue 1, item 10b: the "
-                 "parallel pipeline, multi-chip exports and serving)")
 
 
 def _npz_bytes(**arrays) -> bytes:
@@ -324,9 +328,11 @@ def _load_variables(checkpoint: str, which: str) -> dict:
             f"no '{which}' checkpoint under {checkpoint}")
     state = raw.get("model", raw)
     if any(k.startswith("layers.") for k in state):
-        # a pipeline-parallel run's stacked layout
-        raise NotImplementedError(
-            PARALLEL_TODO.format("serving a pipeline-parallel checkpoint"))
+        # a --pp run's stacked pipeline layout: the plain per-block one
+        from .parallel.pipeline import merge_raw_variables
+
+        state = {k: v.numpy() for k, v in
+                 merge_raw_variables(state).items()}
     return state
 
 
@@ -346,9 +352,13 @@ def main(argv=None):
                     help="bound one request's wait on the batcher "
                          "(504 after this)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="multi-chip data-parallel bundle (not ported)")
+                    help="serve a bundle exported over a dp mesh of this "
+                         "many ranks (one process each; 0 = single-device "
+                         "artifacts)")
     ap.add_argument("--tp", type=int, default=0,
-                    help="head-TP bundle (not ported)")
+                    help="serve a head-TP bundle (exported with mesh= and "
+                         "data_axis=None) over this many ranks; mutually "
+                         "exclusive with --dp")
     ap.add_argument("--pad_to_batch", type=int, default=-1,
                     help="1: fill aged-out partial groups with copies of "
                          "their last sample; 0: fail them; -1 (default): "
@@ -373,16 +383,33 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    for flag in ("dp", "tp"):
-        if getattr(args, flag):
-            raise NotImplementedError(PARALLEL_TODO.format(f"--{flag}"))
+    if args.dp and args.tp:
+        raise SystemExit("--dp and --tp are mutually exclusive (one mesh "
+                         "axis per serving bundle; pp x tp bundles are "
+                         "not a thing at inference)")
     from .export import ServingBundle
 
-    bundle = ServingBundle.load(args.bundle, device=args.device)
+    mesh = None
+    n_mesh = args.dp or args.tp
+    if n_mesh:
+        n = parallel.requested_world()
+        if n != n_mesh:
+            raise SystemExit(
+                f"--{'dp' if args.dp else 'tp'} {n_mesh} needs {n_mesh} "
+                f"devices, have {n} (one rank each: launch under torchrun "
+                "or with HAET_COORDINATOR / HAET_NUM_PROCESSES / "
+                "HAET_PROCESS_ID)")
+        parallel.init_distributed(device=args.device)
+        mesh = (parallel.make_mesh(n_mesh, 1) if args.dp
+                else parallel.make_mesh(1, n_mesh))
+    bundle = ServingBundle.load(args.bundle, mesh=mesh, device=args.device)
     # the stamp of the weights about to be served, read beside them: a
     # save landing during start-up (loading, warm-up) is then seen
     served = checkpoint_stamp(args.checkpoint, args.which)
     variables = _load_variables(args.checkpoint, args.which)
+    if mesh is not None and not parallel.is_writer():
+        follow(bundle, variables)
+        return 0
     pad = args.dp > 1 if args.pad_to_batch < 0 else bool(args.pad_to_batch)
     with BatchingServer(bundle, variables,
                         max_delay_s=args.max_delay_ms / 1e3,

@@ -39,6 +39,18 @@ clipping. Only rank 0 writes checkpoints and logs (:class:`Checkpointer`
 and :class:`MetricsLogger` see to it); every rank restores. On the card the collectives of a
 step are captured in its CUDA graph, which NCCL allows and gloo does not:
 a gloo mesh on the card needs ``eager=True``.
+
+A model that is (or holds) a :class:`~haet_torch.parallel.pipeline.
+PipelinedModel` trains over the pipeline's mesh with no other change to
+the caller (JAX ``pipeline.py:69-72``): each rank holds the embedding and
+the head, but only its stage's stacked layers and their Adam moments
+(``state_sharding``, ``:381-400``); the pipeline sums the gradients
+(:meth:`~haet_torch.parallel.pipeline.PipelinedModel.reduce_gradients`).
+Checkpoints hold the stacked layout with every stage's layers: each rank's
+stacks are gathered over pp when the state is taken (every rank calls
+:meth:`state_dict`, rank 0 writes), and each rank keeps its stage's on
+restore. A checkpoint of the other layout raises JAX's message
+(``:466-496``).
 """
 
 from __future__ import annotations
@@ -491,16 +503,34 @@ class Trainer:
         self._grad_params = None
         self._flat_grad = None
         self.graphs = None
+        # here, not at import: the pipeline imports the models, which a
+        # process that only serves or reads checkpoints does not load
+        from ..parallel.pipeline import pipelines
+
+        self._pipes = pipelines(model)
+        if len(self._pipes) > 1:
+            raise ValueError("a trainer takes one PipelinedModel")
+        if self._pipes and mesh is not self._pipes[0].mesh:
+            raise ValueError("a PipelinedModel trains over its own mesh: "
+                             "pass it as Trainer(mesh=...)")
         if mesh is not None:
             if (not eager and self.device.type == "cuda"
                     and mesh.backend != "nccl"):
                 raise ValueError(
                     f"a {mesh.backend} mesh's collectives cannot be captured "
                     "in a CUDA graph: pass eager=True, or use NCCL")
-            parallel.bind_mesh(model, mesh)
-            #: parameters whose gradients are parts over tp
-            self._tp_partial = parallel.tp_partial_parameters(model)
-            mesh.broadcast_(self.state_tensors())
+            if self._pipes:
+                pp = self._pipes[0].pp_axis
+                stacked = self._stacked_ids()
+                state = self.state_tensors()
+                mesh.broadcast_([t for t in state if id(t) not in stacked])
+                mesh.broadcast_([t for t in state if id(t) in stacked],
+                                axes=[a for a in mesh.axis_names if a != pp])
+            else:
+                parallel.bind_mesh(model, mesh)
+                #: parameters whose gradients are parts over tp
+                self._tp_partial = parallel.tp_partial_parameters(model)
+                mesh.broadcast_(self.state_tensors())
         if not eager and self.device.type == "cuda":
             from .graphs import StepGraphs
 
@@ -511,28 +541,68 @@ class Trainer:
                 for k, v in batch.items()}
 
     # -- state ------------------------------------------------------------
+    def _stacked_ids(self) -> set:
+        """The ids of the pipeline's stacked tensors (its stage's layers)
+        and of their Adam moments: empty without a pipeline."""
+        if not self._pipes:
+            return set()
+        stacked = self._pipes[0].stacked_tensors()
+        ids = {id(t) for t in stacked}
+        for p in stacked:
+            ids.update(id(t) for t in self.optimizer.state.get(p, {}).values()
+                       if t.ndim)
+        return ids
+
+    def _restack(self, state: dict, fn) -> dict:
+        """``state`` (this trainer's :meth:`state_dict` layout) with ``fn``
+        applied to the entries of the pipeline's stacked tensors."""
+        pm = self._pipes[0]
+        ids = {id(t) for t in pm.stacked_tensors()}
+        local = self.model.state_dict(keep_vars=True)
+        model = {k: fn(v) if k in local and id(local[k]) in ids else v
+                 for k, v in state["model"].items()}
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        opt = dict(state["optimizer"])
+        opt["state"] = {i: ({k: fn(v) if getattr(v, "ndim", 0) else v
+                             for k, v in st.items()}
+                            if id(params[i]) in ids else st)
+                        for i, st in state["optimizer"]["state"].items()}
+        return {**state, "model": model, "optimizer": opt}
+
     def state_dict(self) -> dict:
         """The training state: the model's ``state_dict`` (BatchNorm
         running statistics and ``num_batches_tracked`` included), Adam's,
         the scheduler's (its ``last_epoch``; a cycled beta1 sits in Adam's
-        param groups) and the step."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "step": self.step}
+        param groups) and the step. Under a pipeline the stages' stacks
+        are gathered (a collective: every rank calls it)."""
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.scheduler.state_dict(),
+                 "step": self.step}
+        if self._pipes:
+            state = self._restack(state, self._pipes[0].gather_stages)
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         """Restore :meth:`state_dict`'s state in place (the model's
         ``load_state_dict`` copies into its tensors,
         :meth:`Adam.load_state_dict` into its own), so that the captured
-        graphs stay valid."""
+        graphs stay valid. Under a pipeline each rank keeps its stage's
+        layers of the stacks."""
+        if self._pipes:
+            state = self._restack(state, self._pipes[0].local_part)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
 
     def num_params(self) -> int:
-        return sum(p.numel() for p in self.model.parameters())
+        """The model's parameter count, every pipeline stage's layers
+        included."""
+        stages = self._pipes[0].n_stages if self._pipes else 1
+        stacked = {id(t) for pm in self._pipes for t in pm.stacked_tensors()}
+        return sum(p.numel() * (stages if id(p) in stacked else 1)
+                   for p in self.model.parameters())
 
     def maybe_restore(self, checkpointer, which: str = "last") -> bool:
         """Resume from ``which`` if it exists (onto this trainer's device,
@@ -548,7 +618,22 @@ class Trainer:
         if state is None:
             self._resume_epoch = None
             return False
-        self.load_state_dict(state)
+        try:
+            self.load_state_dict(state)
+        except Exception as e:
+            # a layout mismatch only where the checkpoint's tree shows it
+            is_pp = bool(self._pipes)
+            if any("layers" in k.split(".")
+                   for k in state.get("model", {})) == is_pp:
+                raise
+            raise RuntimeError(
+                "checkpoint tree does not match this run's state layout: "
+                "a checkpoint written "
+                + ("without --pp cannot resume a --pp run" if is_pp else
+                   "by a --pp run cannot resume an unpipelined run")
+                + " (the optimizer-state layouts differ). Resume with the "
+                "original parallel flags, or evaluate/export via car_eval, "
+                "which auto-converts pipeline-layout checkpoints.") from e
         self._resume_epoch = checkpointer.epoch_of(which, self.step)
         print(f"[Trainer] resumed from step {self.step}"
               + (f" (epoch {self._resume_epoch})"
@@ -650,7 +735,14 @@ class Trainer:
         if self.mesh is not None:
             self._reduce(self._flat_grad, self._grad_params, micro[0])
             grads = [p.grad for p in self._grad_params]
-        if self.cfg.max_grad_norm is not None:
+        if self._pipes and self._pipes[0].n_stages > 1:
+            # each rank holds one stage's layers: the norm is the whole
+            # model's, as torch's clip_grad_norm_ would take it
+            grad_norm = self._pipes[0].grad_norm(self._grad_params)
+            if self.cfg.max_grad_norm is not None:
+                torch._foreach_mul_(grads, torch.clamp(
+                    self.cfg.max_grad_norm / (grad_norm + 1e-6), max=1.0))
+        elif self.cfg.max_grad_norm is not None:
             grad_norm = torch.nn.utils.clip_grad_norm_(
                 self._grad_params, self.cfg.max_grad_norm)
         else:
@@ -666,6 +758,9 @@ class Trainer:
     def _reduce(self, flat, params, batch) -> None:
         """Sum the flat gradients of ``params`` over the mesh, for the
         layout of ``batch`` (its first model input's batch and points)."""
+        if self._pipes:
+            self._pipes[0].reduce_gradients(flat, params)
+            return
         x = self.batch_args(batch)[0]
         layout = self.mesh.layout(x.shape[0], x.shape[1] if x.ndim > 1 else 1)
         parallel.reduce_gradients(

@@ -12,6 +12,12 @@ port never imports ``haet_tpu``:
   the raw slice-head params -> ``in_project_slice``/``ada_temp_linear``;
 * BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``, and a zero
   ``num_batches_tracked`` per BatchNorm so a ``strict=True`` load works.
+
+:func:`from_jax_pipeline_variables` takes the JAX pipeline's layout
+(``haet_tpu/parallel/pipeline.py:split_variables``: ``pre``, ``layers``
+stacked ``[L, ...]``, ``head``) to the port's stacked one
+(:func:`haet_torch.parallel.pipeline.split_variables`), each stacked leaf
+converted layer by layer.
 """
 
 from __future__ import annotations
@@ -101,3 +107,31 @@ def from_jax_variables(variables: Mapping) -> dict:
 def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load JAX variables into ``model`` with ``strict=True``."""
     model.load_state_dict(from_jax_variables(variables), strict=True)
+
+
+def from_jax_pipeline_variables(pvars: Mapping) -> dict:
+    """The port's stacked pipeline state dict (``pre.*``, ``layers.*``
+    ``[L, ...]``, ``head.*``) for JAX pipeline-layout variables
+    ``{"params": {"pre", "layers", "head"}, "batch_stats": {"layers"}}``
+    given as nested dicts of numpy arrays: the same tensors as converting
+    the merged variables and splitting them."""
+    params = pvars["params"]
+    sd = {f"pre.{k}": v for k, v in
+          from_jax_variables({"params": params["pre"]}).items()}
+    last = "blocks_0"  # any block's name: only the key's tail is kept
+    for col, tree in (("params", params["layers"]),
+                      ("batch_stats", (pvars.get("batch_stats") or {})
+                       .get("layers", {}))):
+        for path, leaf in _flatten(tree).items():
+            arr = np.asarray(leaf)
+            if path[-1] in _KERNELS:
+                arr = np.stack([_torch_layout(a) for a in arr])
+            key = "layers." + torch_key((col, last) + path).split(".", 2)[2]
+            sd[key] = torch.tensor(arr)
+            if key.endswith(".running_mean"):
+                sd[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                    torch.zeros(arr.shape[0], dtype=torch.long))
+    for k, v in from_jax_variables(
+            {"params": {last: params["head"]}}).items():
+        sd["head." + k.split(".", 2)[2]] = v
+    return sd

@@ -150,24 +150,19 @@ def test_drivers_on_synthetic_stand_in(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dp", "2"], "parallel"), (["--tp", "2"], "parallel"),
-    (["--pp", "2"], "parallel"), (["--multihost"], "parallel"),
+    (["--dp", "2"], "needs 2 devices, have 1"),
+    (["--tp", "2"], "needs 2 devices, have 1"),
+    (["--pp", "2"], r"--dp 1 x --pp 2 x --tp 1 needs 2 devices, have 1"),
+    (["--multihost"], "HAET_COORDINATOR"),
 ])
 def test_car_train_unported_flags_raise(argv, match):
-    """``--pp`` raises naming its ``ROADMAP.md`` item (10b). The mesh
-    flags are ported: in this one process ``--dp 2`` and ``--tp 2`` exit
-    asking for their ranks before any process group is made, and
-    ``--multihost`` for a cluster to join
-    (``tests/test_torch_trainer_mesh.py`` runs them over four ranks)."""
+    """The mesh flags are ported: in this one process ``--dp 2``, ``--tp
+    2`` and ``--pp 2`` exit asking for their ranks before any process
+    group is made, and ``--multihost`` for a cluster to join
+    (``tests/test_torch_trainer_mesh.py`` and
+    ``tests/test_torch_pipeline.py`` run them over four ranks)."""
     argv = ["--smoke", "--device", "cpu"] + argv
-    if argv[3] == "--pp":
-        with pytest.raises(NotImplementedError, match=match) as e:
-            car_train.main(argv)
-        assert "ROADMAP.md" in str(e.value) and "10b" in str(e.value)
-        return
-    want = ("HAET_COORDINATOR" if argv[3] == "--multihost"
-            else "needs 2 devices, have 1")
-    with pytest.raises(SystemExit, match=want):
+    with pytest.raises(SystemExit, match=match):
         car_train.main(argv)
     assert not torch.distributed.is_initialized()
 

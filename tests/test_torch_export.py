@@ -223,9 +223,11 @@ def test_devices_and_unported_programs_raise(env, monkeypatch):
         hexport.save_rollout_artifact(os.path.join(env["root"], "r"),
                                       env["tm"], None, (env["x"], None),
                                       steps=2)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # multi-chip programs are ported (tests/test_torch_mesh_serve.py):
+    # a mesh pins the device, so mesh= and platforms= exclude each other
+    with pytest.raises(ValueError, match="mutually exclusive"):
         hexport.export_apply(env["tm"], None, (env["x"], None),
-                             mesh=object())
+                             mesh=object(), platforms=["cpu"])
 
 
 def test_ambiguous_bundle_raises():

@@ -127,12 +127,13 @@ def test_new_modules_import_with_matplotlib_blocked():
 
 
 def test_serving_imports_no_model_code():
-    """A process that loads programs (the config, the HTTP front end)
-    imports no model code: the auto threshold lives in the config, which
-    the models read, not the other way round."""
+    """A process that loads programs and reads checkpoints (the config,
+    the HTTP front end, the checkpointer) imports no model code: the auto
+    threshold lives in the config, which the models read, not the other
+    way round, and the trainer imports the pipeline only when built."""
     code = ("import sys\n"
             "import haet_torch.utils.config, haet_torch.serve_http\n"
-            "import haet_torch.export\n"
+            "import haet_torch.export, haet_torch.train.checkpoint\n"
             "assert 'haet_torch.models' not in sys.modules\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -218,3 +219,4 @@ def test_cpu_train_step_leaves_every_gradient_but_sigma():
             assert p.grad is not None, name
             assert bool(torch.isfinite(p.grad).all()), name
     assert n_sigma == 3   # one Erwin block per level
+

@@ -154,11 +154,11 @@ def test_driver_smoke_on_the_cpu(name, tmp_path, capsys):
     assert [r["epoch"] for r in lines] == [0, 1]
     assert all(np.isfinite(r["train/loss"]) for r in lines)
     assert (tmp_path / "checkpoints" / tag).is_dir()
-    # the mesh flags ask for their ranks; --pp waits for item 10b
+    # the mesh flags ask for their ranks, --pp included
     for flag in (["--dp", "2"], ["--tp", "2"]):
         with pytest.raises(SystemExit, match="needs 2 devices"):
             mod.main(argv + flag)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(SystemExit, match="--pp 2 x --tp 1 needs 2 devices"):
         mod.main(argv + ["--pp", "2"])
     if name == "exp_darcy":    # --showcase: the prediction renders
         renders = tmp_path / "results" / "darcy"

@@ -22,6 +22,7 @@ runs over stub bundles, as in ``tests/test_serve.py``.
 import os
 import threading
 import time
+import types
 
 import jax
 import numpy as np
@@ -415,9 +416,12 @@ def test_family_exports_validate(env, tmp_path):
             serve.export_batch_family(str(tmp_path / "c"), tm, None,
                                       (x[None], fx[None]), batch_sizes=(1,),
                                       extra_manifest=bad)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # over a mesh every batch size must divide dp, checked before any
+    # program is written (the default sizes hold 1)
+    dp2 = types.SimpleNamespace(shape={"dp": 2, "tp": 1})
+    with pytest.raises(ValueError, match=r"batch sizes \[1\] do not divide"):
         serve.export_batch_family(str(tmp_path / "d"), tm, None,
-                                  (x[None], fx[None]), mesh=object())
+                                  (x[None], fx[None]), mesh=dp2)
     assert not os.listdir(tmp_path)
 
 

@@ -35,6 +35,7 @@ import torch
 
 from haet_torch import serve, serve_http
 from haet_torch.export import ServingBundle
+from haet_torch.parallel.pipeline import split_variables
 from haet_torch.models import HAETransolverIrregularMesh as TModel
 from haet_torch.train.checkpoint import Checkpointer
 
@@ -278,7 +279,7 @@ def _run_dir(tmp_path, variables, epoch=0, which="last"):
 def test_load_variables(http_env, tmp_path):
     """The model's state dict from a training state's 'model' entry or a
     plain state dict; a missing name is FileNotFoundError (404 over
-    /reload); a pipeline-parallel layout raises naming its item."""
+    /reload); a pipeline-parallel (stacked) layout is converted."""
     v1 = {k: torch.from_numpy(v) for k, v in http_env["v1"].items()}
     ckdir = _run_dir(tmp_path, v1)
     got = serve_http._load_variables(ckdir, "last")
@@ -291,10 +292,13 @@ def test_load_variables(http_env, tmp_path):
         serve_http._load_variables(ckdir, "best")
     with pytest.raises(FileNotFoundError):
         serve_http._load_variables(str(tmp_path / "absent"), "last")
-    torch.save({"model": {"layers.0.w": v1["placeholder"]}},
+    # a --pp run's stacked layout is converted to the plain one
+    torch.save({"model": split_variables(v1, KW["n_layers"])},
                os.path.join(ckdir, "pp.pt"))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        serve_http._load_variables(ckdir, "pp")
+    got = serve_http._load_variables(ckdir, "pp")
+    assert sorted(got) == sorted(http_env["v1"])
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, http_env["v1"][k])
 
 
 def test_reload_endpoint_swaps_weights_mid_traffic(http_env, tmp_path):
@@ -423,12 +427,15 @@ def test_cli_end_to_end_and_sigterm_drain(http_env, tmp_path):
     """``python -m haet_torch.serve_http --device cpu`` on the bundle and a
     checkpoint: /healthz, a /predict equal to the in-process server, then
     SIGTERM while a request waits in the batcher's delay window: that
-    request is answered and the process exits 0. ``--dp``/``--tp`` raise
-    naming their item."""
+    request is answered and the process exits 0. ``--dp``/``--tp`` ask for
+    their ranks in one process, and exclude each other."""
     for flag in ("--dp", "--tp"):
-        with pytest.raises(NotImplementedError, match="parallel"):
+        with pytest.raises(SystemExit, match="needs 2 devices, have 1"):
             serve_http.main(["--bundle", "x", "--checkpoint", "y", flag,
                              "2"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        serve_http.main(["--bundle", "x", "--checkpoint", "y", "--dp", "2",
+                         "--tp", "2"])
     ckdir = _run_dir(tmp_path, {k: torch.from_numpy(v)
                                 for k, v in http_env["v1"].items()})
     # the bundle's batch-1 program alone: each request here is served alone
@@ -490,7 +497,8 @@ def test_cli_end_to_end_and_sigterm_drain(http_env, tmp_path):
 def test_serving_drivers_on_the_cpu(monkeypatch):
     """``micro_serving_latency`` and ``micro_serving_server`` as plumbing,
     on a small model and 64 points: every number of their JSON finite, the
-    batched modes dispatching, ``--tp`` raising naming its item."""
+    batched modes dispatching, ``--tp 3`` exiting as it does not divide
+    the heads."""
     from haet_torch.benchmarks import (micro_serving_latency,
                                        micro_serving_server)
 
@@ -525,5 +533,7 @@ def test_serving_drivers_on_the_cpu(monkeypatch):
     assert set(lat) >= {"aot", "aot_bound", "eager", "load_s"}
     assert sum(srv["batch_histogram_best_round"].values()) >= 2
     assert srv["sequential_b1_rps"] > 0
-    with pytest.raises(NotImplementedError, match="parallel"):
-        micro_serving_latency.main(["--device", "cpu", "--tp", "2"])
+    # --tp is ported (tests/test_torch_mesh_serve.py): a K that does not
+    # divide the heads exits, as in JAX
+    with pytest.raises(SystemExit, match="must divide n_head"):
+        micro_serving_latency.main(["--device", "cpu", "--tp", "3"])
