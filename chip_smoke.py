@@ -35,12 +35,15 @@ Phases (any failed check exits non-zero before the final line):
    parameter gradients, timed, with its bound) and, untimed, at the gate's
    edges, each shape twice to show the results bit-identical; the slice
    backward kernels (``slice_states_bwd``: dx, dWs, dbs, dWa, dba;
-   ``deslice_bwd``: those and dstates; the fast kernels at C <= 32, the
-   generic ones wider) against ``*_bwd_plain``, each gradient within
+   ``deslice_bwd``: those and dstates; at C <= 32 the per-pass kernels in
+   float32 and the fused kernel in bf16, one launch per call, the launches
+   per call shown by the profiler and checked; the generic ones wider)
+   against ``*_bwd_plain``, each gradient within
    ``KERNEL_RTOL`` of its max but the cancelling biases (dbs, dba:
    ``SLICE_BWD_RTOL``), at the padded car shape ``train_b1`` (timed:
-   device us per call with the L2 flushed, the bound, the plain version's
-   time; and a one-pass TF32 control, the plain version with TF32 matrix
+   device us per call with the L2 flushed, the CUDA launches per call, the
+   bound, the plain version's time; and a one-pass TF32 control, the plain
+   version with TF32 matrix
    products, whose distance the tolerances must tell apart) and, untimed,
    at every ``SLICE_EDGES`` entry, two calls bit-identical (at N = 1 the
    gradients through the softmax's derivative are zero in exact arithmetic
@@ -726,18 +729,62 @@ def slice_phase(dev, shapes, timed: bool, label: str = "phase 3"):
             for k, r in rec.items()]
 
 
-def slice_launches(dev, shape, kinds=("slice_states", "deslice")) -> str:
-    """The slice kernels' route, grid and shared memory per block."""
+def slice_launches(dev, shape, kinds=("slice_states", "deslice"),
+                   isz: int = 4) -> str:
+    """The slice kernels' route, grid and shared memory per block for
+    ``x_proj`` of ``isz`` bytes an element (a bf16 backward at C <= 32: the
+    fused kernel's persistent grid, from the card's resident blocks, one
+    launch per call)."""
     from haet_torch.ops.kernels import slice_kernels as sk
 
     b, h, n, c, gs = shape
+    fused = isz == 2 and sk.fast_widths(c, gs) is not None
     parts = []
     for kind in kinds:
+        if fused and kind.endswith("_sums"):
+            continue
+        if fused and kind in SLICE_BWD_GRADS:
+            per_sm = (sk.fused_blocks(sk._lib(), dev, kind, c)
+                      if dev.type == "cuda" else 1)
+            geom = sk.fused_geometry(kind, b * h, n, c, gs, sk.sm_count(dev),
+                                     per_sm)
+            parts.append(f"{kind} fused, one launch: grid {geom.blocks} x "
+                         f"256 threads ({per_sm} per SM), {b * h} x "
+                         f"{geom.per_cloud} units of {geom.span} rows, "
+                         f"{geom.groups} windows of {geom.slices} slices, "
+                         f"{geom.smem} B dynamic shared memory")
+            continue
         geom = sk.launch_geometry(kind, b * h, n, c, gs, sk.sm_count(dev))
         parts.append(f"{kind} {geom.route}, grid ({geom.per_cloud}, {b * h}, "
                      f"{geom.groups}) x 256 threads, {geom.span} rows per "
                      f"block, {geom.smem} B dynamic shared memory")
     return "; ".join(parts)
+
+
+def bwd_launches(shape, low: bool):
+    """The CUDA launches one call of a slice backward makes at C <= 32: the
+    fused kernel's one (bf16), or slice_bwd_fast's first pass, its sum, a
+    chain per window of 32 slices and their sum (float32); None wider."""
+    from haet_torch.ops.kernels import slice_kernels as sk
+
+    c, gs = shape[3], shape[4]
+    if sk.fast_widths(c, gs) is None:
+        return None
+    return 1 if low else 3 + -(-gs // sk.BWD_WINDOW)
+
+
+def launches_per_call(kind, fn, shape, low: bool = False) -> int:
+    """The CUDA launches of one call of the slice backward ``kind``, from
+    the profiler, checked against :func:`bwd_launches` at C <= 32."""
+    from haet_torch.ops.kernels import profile_launches
+
+    _, counts = profile_launches(fn)
+    got = counts["launches"][kind]
+    print(f"  {kind}: {got} CUDA launches per call", flush=True)
+    want = bwd_launches(shape, low)
+    if want is not None:
+        check(got == want, f"{kind}: {got} launches per call, not {want}")
+    return got
 
 
 def slice_f64(x, ws, bs, wa, ba, st, m, s, base_temp=0.5, epsilon=1e-6):
@@ -956,7 +1003,8 @@ def slice_bwd_phase(dev, shapes, timed: bool, label: str = "phase 3b"):
     from haet_torch.ops.kernels import slice_kernels as sk
 
     rec = {k: {"err": 0.0, "us": {}, "plain_us": {}, "bound_us": {},
-               "f32_bound_us": {}, "names": set(), "ms": None, "rel": {}}
+               "f32_bound_us": {}, "names": set(), "ms": None, "rel": {},
+               "launches_per_call": {}}
            for k in SLICE_BWD_GRADS}
     fns = {"slice_states_bwd": (sk.slice_states_bwd,
                                 sk.slice_states_bwd_plain),
@@ -1009,6 +1057,8 @@ def slice_bwd_phase(dev, shapes, timed: bool, label: str = "phase 3b"):
                 if not timed:
                     continue
                 r = rec[kind]
+                r["launches_per_call"][tag] = launches_per_call(
+                    kind, lambda: fn(*a_k), shape)
                 us, names = sb.flushed_us(lambda: fn(*a_k), 30, None)
                 plain_us, _ = sb.flushed_us(lambda: plain_fn(*a_k), 10, None)
                 bound = sb.bound_us(kind, shape)
@@ -1046,6 +1096,7 @@ def slice_bwd_phase(dev, shapes, timed: bool, label: str = "phase 3b"):
                           float32_bound_us=r["f32_bound_us"],
                           max_rel_err=r["rel"],
                           tf32_control_rel=r["tf32_control_rel"],
+                          launches_per_call=r["launches_per_call"],
                           kernel_names=sorted(r["names"]))
             for k, r in rec.items()]
 
@@ -2607,7 +2658,9 @@ def bf16_slice_phase(dev):
         shape = SLICE_TIMED[tag]
         b, h, n, c, gs = shape
         print(f"phase 10a: slice kernels in bf16 ({tag})  x [{b}, {h}, {n}, "
-              f"{c}] bf16, G {gs}", flush=True)
+              f"{c}] bf16, G {gs}; "
+              f"{slice_launches(dev, shape, tuple(SLICE_BWD_GRADS), 2)}",
+              flush=True)
         x32, ws, bs, wa, ba, st32 = sb.inputs(shape, dev, SEED + 40 + i)
         gst32, gout32 = sb.grads(shape, dev, SEED + 40 + i)
         x, st, g_st, g_out = (t.to(bf) for t in (x32, st32, gst32, gout32))
@@ -2690,6 +2743,9 @@ def bf16_slice_phase(dev):
                     *bwd_args["deslice_bwd"])}
             for kind, fn in calls.items():
                 r = recs[kind]
+                if kind in SLICE_BWD_GRADS:
+                    r["launches_per_call"] = launches_per_call(kind, fn,
+                                                               shape, True)
                 us, _ = sb.flushed_us(fn, 30, None)
                 us32, _ = sb.flushed_us(f32_calls[kind], 30, None)
                 bound = sb.bound_us(kind, shape, isz=2)
@@ -2713,6 +2769,7 @@ def bf16_slice_phase(dev):
     return [kernel_record(f"{k}_bf16", "haet_torch/csrc/slice_kernels.cu",
                           replaces[k], r["err"], r["ms"], r["plain_ms"],
                           r["bound"], dtype="bfloat16",
+                          launches_per_call=r.get("launches_per_call"),
                           device_us_per_call=r["us"],
                           float32_device_us_per_call=r["f32_us"],
                           bound_us=r["bound_us"],

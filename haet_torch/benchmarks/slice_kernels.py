@@ -6,8 +6,10 @@
 Times ``slice_states`` and ``deslice`` and their backwards
 (``slice_states_bwd``, ``deslice_bwd``: :data:`KINDS`) on one card at the
 shapes of :data:`SHAPES` (serve batch 1, the serve burst's batch of 4, the
-padded training batch, and the NS preset's G 64 at C 32, the widest slices
-of the presets), from a ``torch.profiler`` trace of ``--reps`` calls with
+padded training batch, the NS preset's G 64 at C 32, the widest slices of
+the presets, and the Darcy preset's G 64 at C 16), each with ``x_proj``
+in float32 and, under the tag's ``_bf16`` twin, in bf16 (the states and
+gradients with it), from a ``torch.profiler`` trace of ``--reps`` calls with
 the 50 MB L2 cache flushed before each (a 64 MB pass of ``bitwise_not``,
 which the sum leaves out): the device time of every kernel whose name
 contains "slice" (the forwards) or of every kernel the call launches (the
@@ -36,15 +38,19 @@ from pathlib import Path
 
 import torch
 
-#: ``tag: (B, H, N, C, G)``: the car model's (G 32, C 32) and the NS
-#: preset's training batch (``ns_config``: 64 x 64 points, batch 2, n_hidden
-#: 256 over 8 heads, 64 slices)
+#: ``tag: (B, H, N, C, G)``: the car model's (G 32, C 32), the NS preset's
+#: training batch (``ns_config``: 64 x 64 points, batch 2, n_hidden 256
+#: over 8 heads, 64 slices) and the Darcy preset's (``darcy_config``: 85 x
+#: 85 points, batch 4, n_hidden 128 over 8 heads, 64 slices)
 SHAPES = {
     "serve_b1": (1, 8, 32186, 32, 32),
     "burst_b4": (4, 8, 32186, 32, 32),
     "train_b1": (1, 8, 32768, 32, 32),
     "ns_b2": (2, 8, 4096, 32, 64),
+    "darcy_b4": (4, 8, 7225, 16, 64),
 }
+#: the dtypes of ``x_proj`` each shape is timed in, by tag suffix
+DTYPES = {"": torch.float32, "_bf16": torch.bfloat16}
 THIS_ROOT = Path(__file__).resolve().parents[2]
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 #: the tensor cores, dense TF32 FLOP/s of the tensor cores
@@ -181,7 +187,8 @@ def flushed_us(fn, reps: int, names=("slice",)) -> tuple:
     trace of ``reps`` calls, each after a pass of ``bitwise_not`` over
     :data:`FLUSH_BYTES`: the kernels whose names contain one of ``names``,
     or every kernel but the flush's when ``names`` is None."""
-    from ..utils.profiling import device_trace
+    # absolute: the tree under ``--root`` (first on the path) provides it
+    from haet_torch.utils.profiling import device_trace
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
     for _ in range(3):
@@ -216,36 +223,45 @@ def event_us(fn, reps: int) -> float:
 
 
 def measure(root: Path, reps: int) -> dict:
-    """``{tag: {kernel: {us, event_us, names}}}`` for the ``haet_torch``
-    under ``root``."""
+    """``{tag: {kernel: {us, event_us, names, launches}}}`` for the
+    ``haet_torch`` under ``root``, a tag per shape and dtype
+    (:data:`DTYPES`); ``launches`` the CUDA launches of one call."""
     if not torch.cuda.is_available():
         raise SystemExit("slice_kernels: no CUDA device")
     sys.path.insert(0, str(root))
-    from haet_torch.ops.kernels import _build
+    from haet_torch.ops.kernels import _build, profile_launches
     from haet_torch.ops.kernels import slice_kernels as sk
 
     _build.build_all()
     dev = torch.device("cuda")
     out = {}
     for i, (tag, shape) in enumerate(SHAPES.items()):
-        x, ws, bs, wa, ba, st = inputs(shape, dev, i)
-        g_st, g_out = grads(shape, dev, i)
-        with torch.inference_mode():
-            states, m, s = sk.slice_states(x, ws, bs, wa, ba)
-            fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
-                   "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s),
-                   "slice_states_bwd": lambda: sk.slice_states_bwd(
-                       x, ws, bs, wa, ba, states, m, s, g_st),
-                   "deslice_bwd": lambda: sk.deslice_bwd(
-                       x, ws, bs, wa, ba, st, m, s, g_out)}
-            out[tag] = {}
-            for kind, fn in fns.items():
-                us, names = flushed_us(
-                    fn, reps, None if kind.endswith("_bwd") else ("slice",))
-                out[tag][kind] = {"us": us, "event_us": event_us(fn, reps),
-                                  "names": names}
-        del x, st, g_out
-        torch.cuda.empty_cache()
+        for suffix, dtype in DTYPES.items():
+            x, ws, bs, wa, ba, st = inputs(shape, dev, i)
+            g_st, g_out = grads(shape, dev, i)
+            x, st, g_st, g_out = (t.to(dtype) for t in (x, st, g_st, g_out))
+            with torch.inference_mode():
+                _, m, s = sk.slice_states(x, ws, bs, wa, ba)
+                states = sk.slice_states_plain_f32(x, ws, bs, wa, ba)[0]
+                fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa,
+                                                               ba),
+                       "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st,
+                                                     m, s),
+                       "slice_states_bwd": lambda: sk.slice_states_bwd(
+                           x, ws, bs, wa, ba, states, m, s, g_st),
+                       "deslice_bwd": lambda: sk.deslice_bwd(
+                           x, ws, bs, wa, ba, st, m, s, g_out)}
+                out[tag + suffix] = {}
+                for kind, fn in fns.items():
+                    us, names = flushed_us(
+                        fn, reps,
+                        None if kind.endswith("_bwd") else ("slice",))
+                    out[tag + suffix][kind] = {
+                        "us": us, "event_us": event_us(fn, reps),
+                        "names": names,
+                        "launches": profile_launches(fn)[1]["launches"][kind]}
+            del x, st, g_out, states
+            torch.cuda.empty_cache()
     return out
 
 
@@ -261,8 +277,8 @@ def run_tree(root: Path, reps: int) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def medians(runs: list) -> dict:
-    return {tag: {kind: statistics.median(r[tag][kind]["us"] for r in runs)
+def medians(runs: list, key: str = "us") -> dict:
+    return {tag: {kind: statistics.median(r[tag][kind][key] for r in runs)
                   for kind in runs[0][tag]} for tag in runs[0]}
 
 
@@ -274,16 +290,23 @@ def ab(parent: Path, rounds: int, reps: int) -> dict:
             runs[side].append(res)
             print(f"round {r + 1} {side}: {json.dumps(res)}", flush=True)
     med = {side: medians(rs) for side, rs in runs.items()}
+    calls = {side: medians(rs, "launches") for side, rs in runs.items()}
     for tag, shape in SHAPES.items():
-        for kind in KINDS:
-            p, t = med["parent"][tag][kind], med["this"][tag][kind]
-            bound, by = bound_us(kind, shape)
-            f32, f32_by = bound_us(kind, shape, float32_only=True)
-            print(f"{tag:9s} {kind:16s} device us/call {p:8.2f} -> {t:8.2f}"
-                  f"  ({p / t:.2f}x)   bound {bound:.2f} ({by}; "
-                  f"{bound / t:.0%} of it; float32 FMA alone {f32:.2f}, "
-                  f"{f32_by})",
-                  flush=True)
+        for suffix, dtype in DTYPES.items():
+            isz = torch.empty(0, dtype=dtype).element_size()
+            for kind in KINDS:
+                p = med["parent"][tag + suffix][kind]
+                t = med["this"][tag + suffix][kind]
+                lp = calls["parent"][tag + suffix][kind]
+                lt = calls["this"][tag + suffix][kind]
+                bound, by = bound_us(kind, shape, isz=isz)
+                f32, f32_by = bound_us(kind, shape, float32_only=True,
+                                       isz=isz)
+                print(f"{tag + suffix:14s} {kind:16s} device us/call "
+                      f"{p:8.2f} -> {t:8.2f}  ({p / t:.2f}x), launches "
+                      f"{lp:g} -> {lt:g}   bound {bound:.2f} ({by}; "
+                      f"{bound / t:.0%} of it; float32 FMA alone {f32:.2f}, "
+                      f"{f32_by})", flush=True)
     return {"card": card_line(), "runs": runs, "medians": med}
 
 
@@ -294,7 +317,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ab", type=Path, default=None, metavar="PARENT_DIR",
                     help="time PARENT_DIR's haet_torch and this one in turns")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args(argv)
     if args.ab is not None:
         res = ab(args.ab.resolve(), args.rounds, args.reps)

@@ -21,11 +21,26 @@ runs the fast ``slice_states`` and ``deslice`` at serve batch 1 (``[1, 8,
 
 Both are timed beside the regular build, device us per call from the
 profiler with the L2 flushed before each call
-(:func:`haet_torch.benchmarks.slice_kernels.flushed_us`), and so are the
-backward kernels (``slice_states_bwd``, ``deslice_bwd``: every kernel of
-the call) at the padded training batch ``[1, 8, 32768, 32]``. The extra
-libraries go to ``haet_torch/_build/``; the slice wrappers use them only
-inside :func:`routed`.
+(:func:`haet_torch.benchmarks.slice_kernels.flushed_us`).
+
+The backwards (``slice_states_bwd``, ``deslice_bwd``) are broken down at
+:data:`BWD_SHAPES` (the padded training batch ``[1, 8, 32768, 32]`` G 32
+and the NS preset's ``[2, 8, 4096, 32]`` G 64) in float32 (``slice_bwd_fast``,
+a launch per pass and window and a sum after each pass) and bf16
+(``slice_bwd_fused``, one launch): for each build, every CUDA launch of one
+call with its device us and the idle gap before the next launch of the call
+(:func:`launch_trace`); and from the ``clock`` build, per pass (the first
+pass's sums, then the chain; of a chain launched per window, the last
+window's), the
+median cycles per warp of :data:`BWD_SEGMENTS`: its start (staging the
+fragment tables), its waits for the ring, ``load`` (the tile's widening,
+the temperatures and the x and g_out fragments), ``products`` (the logits,
+the dw product, the softmax arithmetic and the dx products, slice block by
+slice block), ``chain`` (sum_g dlogit * logit and draw), ``dpre`` (dpre or
+w through shared memory and the row-contracted products), ``store`` (dx
+out) and the tail (the block's partial sums and, where the pass has one,
+its merge). The extra libraries go to ``haet_torch/_build/``; the slice
+wrappers use them only inside :func:`routed`.
 """
 
 from __future__ import annotations
@@ -36,18 +51,29 @@ import ctypes
 import json
 import statistics
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from ..ops.kernels import _build
 from ..ops.kernels import slice_kernels as sk
-from .slice_kernels import SHAPES, card_line, flushed_us, grads, inputs
+from .slice_kernels import (FLUSH_BYTES, SHAPES, card_line, flushed_us,
+                            grads, inputs)
 
 #: blocks and warps per block the trace build records (``TRACE_CTAS``,
 #: ``WARPS`` in the CUDA source)
 TRACE_CTAS = 512
 TRACE_WARPS = 8
 SEGMENTS = ("start", "wait", "compute", "tail")
+#: the backward's segments per warp and pass (``BWD_SEGS`` in the source)
+BWD_SEGMENTS = ("start", "wait", "load", "products", "chain", "dpre",
+                "store", "tail")
+#: the backwards' passes by their trace index (the kernel's mode)
+BWD_PASSES = {"slice_states_bwd": (("sums", 3), ("chain", 0)),
+              "deslice_bwd": (("sums", 1), ("chain", 2))}
+#: the backward breakdown's shapes (``slice_kernels.SHAPES``) and dtypes
+BWD_SHAPES = ("train_b1", "ns_b2")
+BWD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: the builds beside the regular one: name -> nvcc defines
 VARIANTS = {"no_mma": ("HAET_SLICE_NO_MMA",),
             "clock": ("HAET_SLICE_TRACE",)}
@@ -85,35 +111,113 @@ def routed(lib):
         sk._lib = regular
 
 
+def launch_trace(fn, reps: int) -> dict:
+    """Every CUDA launch of one call of ``fn()``, from a device trace of
+    ``reps`` calls, each after the L2 flush: ``{"names": [...], "us": [...]
+    (median device us per launch, in launch order), "gaps_us": [...]
+    (median idle us from one launch's end to the next one's start within
+    the call), "span_us": median first start to last end, "total_us": the
+    launches' sum}``."""
+    from ..utils.profiling import device_trace
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda", dtype=torch.int32)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with device_trace(host=False) as prof:
+        for _ in range(reps):
+            torch.bitwise_not(flush, out=flush)
+            fn()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset"))),
+                     key=lambda e: e.time_range.start)
+    calls, cur = [], None
+    for e in kernels:
+        if "bitwise_not" in e.name:
+            cur = []
+            calls.append(cur)
+        elif cur is not None:
+            cur.append(e)
+    k = len(calls[-1])
+    calls = [c for c in calls if len(c) == k]
+    med = statistics.median
+    us = [med(c[i].time_range.elapsed_us() for c in calls) for i in range(k)]
+    return {"names": [e.name[:64] for e in calls[-1]], "us": us,
+            "gaps_us": [med(c[i + 1].time_range.start - c[i].time_range.end
+                            for c in calls) for i in range(k - 1)],
+            "span_us": med(c[-1].time_range.end - c[0].time_range.start
+                           for c in calls),
+            "total_us": sum(us)}
+
+
+def bwd_calls(tag: str, dtype, dev) -> dict:
+    """``{kind: fn}``: one call of each backward at ``SHAPES[tag]`` with
+    ``x_proj`` (and the states and gradients) in ``dtype``."""
+    shape = SHAPES[tag]
+    x, ws, bs, wa, ba, st = inputs(shape, dev)
+    g_st, g_out = grads(shape, dev)
+    x, st, g_st, g_out = (t.to(dtype) for t in (x, st, g_st, g_out))
+    states, m, s = sk.slice_states_plain_f32(x, ws, bs, wa, ba)
+    return {"slice_states_bwd": lambda: sk.slice_states_bwd(
+                x, ws, bs, wa, ba, states, m, s, g_st),
+            "deslice_bwd": lambda: sk.deslice_bwd(
+                x, ws, bs, wa, ba, st, m, s, g_out)}
+
+
+def bwd_cycles(lib, fns: dict) -> dict:
+    """One call of each backward from the ``clock`` build ``lib``: per
+    pass, the median over the recorded warps of each of
+    :data:`BWD_SEGMENTS` (cycles)."""
+    n = 4 * TRACE_CTAS * TRACE_WARPS * len(BWD_SEGMENTS)
+    buf = (ctypes.c_ulonglong * n)()
+    out = {}
+    with routed(lib):
+        for kind, fn in fns.items():
+            if lib.haet_trace_reset_bwd() != 0:
+                raise RuntimeError("haet_trace_reset_bwd failed")
+            fn()
+            torch.cuda.synchronize()
+            if lib.haet_trace_read_bwd(buf) != 0:
+                raise RuntimeError("haet_trace_read_bwd failed")
+            for label, mode in BWD_PASSES[kind]:
+                nseg = len(BWD_SEGMENTS)
+                base = mode * TRACE_CTAS * TRACE_WARPS * nseg
+                recs = [buf[base + r * nseg:base + (r + 1) * nseg]
+                        for r in range(TRACE_CTAS * TRACE_WARPS)]
+                recs = [r for r in recs if any(r)]
+                out[f"{kind} {label}"] = {
+                    seg: statistics.median(r[i] for r in recs)
+                    for i, seg in enumerate(BWD_SEGMENTS)}
+                out[f"{kind} {label}"]["warps"] = len(recs)
+    return out
+
+
 def run(reps: int) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("slice_phases: no CUDA device")
     dev = torch.device("cuda")
-    libs = {"kernels": None, **{name: build(name) for name in VARIANTS}}
+    with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:  # nvcc in parallel
+        regular = pool.submit(_build.build_all)
+        built = {name: pool.submit(build, name) for name in VARIANTS}
+        regular.result()
+        libs = {"kernels": None, **{k: f.result() for k, f in built.items()}}
+    libs["clock"].haet_trace_read_bwd.argtypes = [ctypes.c_void_p]
     shape = SHAPES["serve_b1"]
     x, ws, bs, wa, ba, st = inputs(shape, dev)
     b, h, n, c, g = shape
     ctas = {k: min(TRACE_CTAS, sk.launch_geometry(k, b * h, n, c, g,
                                                   sk.sm_count(dev)).per_cloud
                    * b * h) for k in ("slice_states", "deslice")}
-    res = {"card": card_line(), "us": {}}
+    res = {"card": card_line(), "us": {}, "bwd": {}, "bwd_cycles": {}}
     with torch.inference_mode():
         _, m, s = sk.slice_states_plain(x, ws, bs, wa, ba)
         fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
                "deslice": lambda: sk.deslice(x, ws, bs, wa, ba, st, m, s)}
-        xb, wsb, bsb, wab, bab, stb = inputs(SHAPES["train_b1"], dev)
-        g_st, g_out = grads(SHAPES["train_b1"], dev)
-        states_b, m_b, s_b = sk.slice_states_plain(xb, wsb, bsb, wab, bab)
-        bwd = {"slice_states_bwd": lambda: sk.slice_states_bwd(
-                   xb, wsb, bsb, wab, bab, states_b, m_b, s_b, g_st),
-               "deslice_bwd": lambda: sk.deslice_bwd(
-                   xb, wsb, bsb, wab, bab, stb, m_b, s_b, g_out)}
         for name, lib in libs.items():
             with routed(lib):
                 res["us"][name] = {k: flushed_us(fn, reps)[0]
                                    for k, fn in fns.items()}
-                res["us"][name].update({k: flushed_us(fn, reps, None)[0]
-                                        for k, fn in bwd.items()})
         buf = (ctypes.c_ulonglong * (2 * TRACE_CTAS * TRACE_WARPS * 4))()
         with routed(libs["clock"]):
             for fn in fns.values():  # one more call each: the records read
@@ -121,6 +225,19 @@ def run(reps: int) -> dict:
             torch.cuda.synchronize()
         if libs["clock"].haet_trace_read(buf) != 0:
             raise RuntimeError("haet_trace_read failed")
+        for tag in BWD_SHAPES:
+            for short, dtype in BWD_DTYPES.items():
+                key = f"{tag} {short}"
+                calls = bwd_calls(tag, dtype, dev)
+                res["bwd"][key] = {}
+                for name, lib in libs.items():
+                    with routed(lib):
+                        res["bwd"][key][name] = {
+                            k: launch_trace(fn, reps)
+                            for k, fn in calls.items()}
+                res["bwd_cycles"][key] = bwd_cycles(libs["clock"], calls)
+                del calls
+                torch.cuda.empty_cache()
     res["cycles"] = {}
     for k, kernel in enumerate(fns):
         recs = [[buf[((k * TRACE_CTAS + cta) * TRACE_WARPS + w) * 4 + i]
@@ -143,6 +260,18 @@ def main(argv=None) -> int:
     for kernel, seg in res["cycles"].items():
         print(f"{kernel:12s} median cycles per warp: " + "  ".join(
             f"{k} {v:.0f}" for k, v in seg.items()), flush=True)
+    for key, builds in res["bwd"].items():
+        for name, kinds in builds.items():
+            for kind, t in kinds.items():
+                print(f"{key:13s} {name:8s} {kind:16s} span "
+                      f"{t['span_us']:7.2f} us, launches {len(t['us'])}: " + " | ".join(
+                          f"{nm.split('(')[0][-28:]} {u:.2f}"
+                          for nm, u in zip(t["names"], t["us"]))
+                      + "; gaps " + " ".join(f"{v:.2f}" for v in t["gaps_us"]),
+                      flush=True)
+        for pas, seg in res["bwd_cycles"][key].items():
+            print(f"{key:13s} {pas:22s} median cycles per warp: " + "  ".join(
+                f"{k} {v:.0f}" for k, v in seg.items()), flush=True)
     print(res["card"])
     print(json.dumps(res))
     return 0

@@ -4,7 +4,8 @@
 //   * slice_states (_slice_states_kernel, called from _slice_states_impl_f32)
 //   * deslice      (_deslice_kernel, called from _deslice_impl)
 // and their custom_vjp backwards there (_slice_states_bwd, _deslice_bwd;
-// lax.scan over chunks of N in JAX, not Pallas): slice_bwd_fast below.
+// lax.scan over chunks of N in JAX, not Pallas): slice_bwd_fused and
+// slice_bwd_fast below.
 //
 // Math, per (b, h) cloud of N points with C channels and G slices:
 //   tau[n]     = base + clamp(x[n] . Wa + ba, -0.4, 0.4)
@@ -82,8 +83,8 @@
 // merge, per-thread scalar loops): right, not fast. The wrapper decides the
 // route.
 //
-// The backward kernels (slice_bwd_fast, slice_bwd_generic, sum_partials)
-// follow the forwards; their own note is there.
+// The backward kernels (slice_bwd_fused, slice_bwd_fast, slice_bwd_generic,
+// sum_partials) follow the forwards; their own note is there.
 //
 // Two builds for benchmarks/slice_phases.py, never the wrapper's:
 // -DHAET_SLICE_TRACE records per-warp clock64() segments of the fast
@@ -136,6 +137,20 @@ __device__ __forceinline__ void trace_record(int kernel, int lane, int warp,
   r[2] = compute;
   r[3] = tail;
 }
+
+// The backward's passes, per warp of the first TRACE_CTAS blocks, in SM
+// cycles, indexed by mode (BWD_STATES .. BWD_STATES_SUMS): BWD_SEGS
+// segments, each the sum over the warp's tiles (bwd_trace_names() in
+// benchmarks/slice_phases.py names them).
+constexpr int BWD_SEGS = 8;
+__device__ unsigned long long g_trace_bwd[4][TRACE_CTAS][WARPS][BWD_SEGS];
+// Adds the cycles since the last mark to segment i and moves the mark.
+#define HAET_SEG(seg, mark, i)                   \
+  do {                                           \
+    const long long now_ = clock64();            \
+    seg[i] += now_ - mark;                       \
+    mark = now_;                                 \
+  } while (0)
 #else
 #define HAET_TRACE(...)
 #endif
@@ -1434,8 +1449,10 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
-// Backward kernels: slice_bwd_fast and slice_bwd_generic (four modes
-// each) and sum_partials.
+// Backward kernels, for C <= 32: slice_bwd_fused (bf16 I/O, one launch per
+// call) and slice_bwd_fast (float32, one launch per pass); for wider heads
+// slice_bwd_generic (four modes); sum_partials (the sums of the per-pass
+// kernels' block partials).
 //
 // Replace the backwards of the Pallas kernels' custom_vjp pairs in
 // haet_tpu/ops/pallas/slice_kernels.py: _slice_states_bwd (one pass over N
@@ -1453,60 +1470,114 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 // g_out).
 //
 // What bounds them on an H100: at the car's training batch (BH 8, N 32768,
-// C = G = 32) slice_states_bwd reads x and writes dx (67 MB, 20 us at 3.35
-// TB/s; ~30 us for two passes that each read x) and deslice_bwd reads x
-// and g_out and writes dx (101 MB, 30 us; ~50 us for two passes that each
-// read both); their products, five of 2 N C G FLOP each (seven for
-// deslice's two passes), take 17 and 23 us in 3xTF32
-// on the tensor cores, 41 and 57 us in float32 FMA. The design keeps the
-// [B, H, N, G] tensors of the chunked PyTorch version out of device memory
-// and runs every product in 3xTF32 mma.sync as the forwards do:
-//   * One kernel, four modes: BWD_STATES_SUMS and BWD_STATES (slice_states'
-//     first pass and chain), BWD_SUMS and BWD_CHAIN (deslice's). Each warp
-//     streams its tiles of TR rows of x (and g_out) through a cp.async ring,
-//     as the forwards do, and handles them 16 rows at a time in the row
-//     layout of deslice_fast: Z = x Ws and the dw product are accumulator
-//     fragments (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block of
-//     8), and so are w, dlogit and dpre, elementwise.
-//   * dx^T = Ws dpre^T (+ G^T w^T): the accumulator fragment of dpre is,
-//     entry for entry, the B fragment of that product (k = tig is slice
-//     2 tig), so dx never leaves registers until the tile's store.
-//   * dWs^T = dpre^T x (and dstates = w^T g_out) contract over rows, which
-//     the fragment layout holds on gid: each warp writes dpre (w) of its 16
-//     rows to its own shared buffer and reads it back as A fragments; x is
-//     the B fragment, read from the ring slot.
-//   * Ws and the G-side matrix (G^ or states) are staged once per block,
-//     split into their TF32 high and low parts, in fragment order: a lane
-//     reads each fragment as one 16-byte load (four tables, 32 KB at C 32).
-//   * Slices come in windows of BW = 32, the accumulators of one window in
-//     registers. The first passes take their windows as grid z (their
-//     slices are independent); the chains couple a row's slices through
-//     dtau, so the wrapper launches them once per window: a launch adds its
-//     window's dx and sum_g dlogit * logit to those of the earlier ones
-//     (kept in dx and a [B*H, N] scratch), and the last one applies draw.
-//     At G <= 32 (the car) there is one window and no scratch.
-//   * The weights' normalisation: the first pass also sums S = sum_n w.
-//     The residuals (m, s) come from the forward's logits, whose rounding
-//     differs from this recomputation's, so S = 1 + O(1e-6); at
-//     temperatures near 0.1 and logits near 100 that mismatch, carried
-//     through the coupling t, cost deslice_bwd ~1e-4 of max |dx| and
-//     slice_states_bwd (with t in closed form, from the forward's states)
-//     ~5e-3 of max |d b_slice| against float64. The chains therefore use w
-//     / S and t / S: the exact softmax of their own logits. (slice_states'
-//     closed form would save its first pass, but needs sum_n w = 1.)
-//   * Each block writes its partial sums (dWs^T, dbs, dWa, dba; or t, S and
-//     dstates), its warps merged in warp order; sum_partials adds the
-//     blocks' partials in block order, then cloud order. No float atomics:
-//     two calls give bit-identical results.
-//   * Rows past N are masked to zero dpre, w and draw, and zero features in
-//     the row-contracted products; a slice past G gets m = +inf (w = 0).
+// C = G = 32) slice_states_bwd reads x and writes dx (67 MB in float32, 20
+// us at 3.35 TB/s; 34 MB in bf16) and deslice_bwd reads x and g_out and
+// writes dx (101 MB, 30 us); their products, five of 2 N C G FLOP each
+// (seven for deslice's two passes), take 17 and 23 us in 3xTF32 on the
+// tensor cores (fewer passes in bf16, below). Neither binds: the breakdown
+// (benchmarks/slice_phases.py; PERF.md) puts 53 % of a chain warp's cycles
+// in the slice-block loop of products, softmax and fragment loads, 15 % in
+// dpre's round trip through shared memory and 10 % in dx's store, and 21 of
+// the chain's 72 us in the mma.sync passes themselves: a loop of dependent
+// steps at 8 warps per SM (236-255 registers a thread).
+//
+// Which kernel a call takes is measured, not chosen (slice_kernels --ab,
+// PERF.md): the fused kernel is 1.06-1.40x the per-pass kernels in bf16 at
+// every preset's shape, as it drops the passes bf16 operands do not need;
+// in float32, where it drops none, its merges and grid barrier cost about
+// what the launches they replace did and its chain runs ~10 % slower than
+// the same loop as a launch of its own, so float32 keeps slice_bwd_fast.
+//
+// slice_bwd_fast, per pass. One kernel, four modes: BWD_STATES_SUMS and
+// BWD_STATES (slice_states' first pass and chain), BWD_SUMS and BWD_CHAIN
+// (deslice's). The first passes take their windows of BW = 32 slices as
+// grid z (their slices are independent); the chains couple a row's slices
+// through dtau, so the wrapper launches them once per window: a launch adds
+// its window's dx and sum_g dlogit * logit to those of the earlier ones
+// (kept in dx and a [B*H, N] scratch), and the last one applies draw. At G
+// <= 32 (the car) there is one window and no scratch. Each block writes
+// its partial sums (dWs^T, dbs, dWa, dba; or t, S and dstates), its warps
+// merged in warp order; sum_partials adds the blocks' partials in block
+// order, then cloud order. A call is four launches at G <= 32.
+//
+// slice_bwd_fused, per point of its design:
+//   * One launch per call, at any G. The grid is persistent: at most as
+//     many blocks as the card holds at once (the wrapper sizes it from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs), each
+//     taking `units` = (cloud, range of span rows) in turn. The first pass
+//     runs over every unit and window of 32 slices and writes each unit's
+//     partial sums (t, sum_n w, and for deslice dstates); the last unit of
+//     each cloud to finish (a counter and __threadfence, as
+//     slice_states_fast merges) adds its cloud's in unit order; each block
+//     stages its first chain window's tables; a grid-wide barrier follows
+//     (grid_sync: an arrival and a departure counter that the last block to
+//     leave resets, so a CUDA graph's replays find them at zero); then the
+//     chain runs over the same rows. The launch is cooperative: the runtime
+//     refuses it unless every block can be resident at once, so no block
+//     waits on one that cannot run, whatever else holds the card, and
+//     graphs capture it as such. Windows past the first add their dx and
+//     sum_g dlogit * logit to the earlier ones' through device memory
+//     (dacc, qbuf: the same warp's own rows, in L2), as no launch separates
+//     them. No sum_partials launch: each unit's chain partials (dWs^T, dbs
+//     per window; dWa, dba) go to device memory, the last unit of each
+//     cloud adds its cloud's in unit order, and the last cloud the clouds'
+//     in cloud order.
+//   * The passes each product needs. x, g_out and the G-side matrix (the
+//     states, or dL/dstates) are bf16, exact in TF32, so their 3xTF32 low
+//     part is zero and their products skip that pass (mma_p): the chain's
+//     logits take two passes, dw one, dx's Ws dpre^T three, G^ w^T two and
+//     dpre^T x two (10 of 15). G^'s 1 / (1 + 1e-5) moves to the other
+//     operand (dw is scaled after its product, w before G^'s) so that the
+//     table stays exact. Float32 operands (Ws, the weights, dpre) keep
+//     3xTF32 (one-pass TF32 misses the tolerance: chip_smoke.py's
+//     tf32_control).
+//   * x and g_out stay bf16 in the warps' rings (no widening in shared
+//     memory: half the bytes), and the fragments of an exact operand are
+//     its bits shifted, not split; the fragment tables of an exact operand
+//     hold its high parts alone (half the shared-memory reads). More warps
+//     per SM would need the chain's fragments and accumulators cut by half
+//     (128 registers): not done, so the rows in flight stay 8 warps'.
+//   * The second read: the chain takes each warp's tiles in reverse order,
+//     so that it first re-reads the rows the first pass read last, while
+//     they are in L2 (50 MB: x and g_out of the car's training batch in
+//     bf16, 34 MB, fit whole). Holding the rows in shared memory instead
+//     would buy nothing that shows: the breakdown put the ring waits at 6 %
+//     of a warp's cycles.
+//
+// Both, per tile: each warp streams its tiles of TR rows (and g_out)
+// through a cp.async ring and handles them 16 rows at a time in the row
+// layout of deslice_fast: Z = x Ws and the dw product are accumulator
+// fragments (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block of
+// 8), and so are w, dlogit and dpre, elementwise. dx^T = Ws dpre^T (+ G^T
+// w^T): the accumulator fragment of dpre is, entry for entry, the B
+// fragment of that product (k = tig is slice 2 tig), so dx stays in
+// registers until it goes to device memory (slice_bwd_fast: through the x
+// rows of its tile, once per tile; slice_bwd_fused: through the warp's
+// buffer, 16 rows at a time). dWs^T = dpre^T x (and dstates = w^T g_out)
+// contract over rows: dpre (w) goes through the warp's buffer and back as
+// A fragments; x is the B fragment, read from the ring. Ws and the G-side
+// matrix are staged once per window, in fragment order.
+//
+// Both keep fixed merge orders and no float atomics: two calls agree bit
+// for bit, and the fused kernel's counters are back at zero after every
+// call.
+//
+// The weights' normalisation: the first pass also sums S = sum_n w. The
+// residuals (m, s) come from the forward's logits, whose rounding differs
+// from this recomputation's, so S = 1 + O(1e-6); at temperatures near 0.1
+// and logits near 100 that mismatch, carried through the coupling t, cost
+// deslice_bwd ~1e-4 of max |dx| and slice_states_bwd (with t in closed
+// form, from the forward's states) ~5e-3 of max |d b_slice| against
+// float64. The chains therefore use w / S and t / S: the exact softmax of
+// their own logits. Rows past N are masked to zero dpre, w and draw, and
+// zero features in the row-contracted products; a slice past G gets m =
+// +inf (w = 0).
 // ---------------------------------------------------------------------------
 
 constexpr int BW = 32;                      // slices per window
 constexpr int BUF_STRIDE = BW + 4;          // row stride of the dpre buffer
 constexpr int BWD_STATES = 0, BWD_SUMS = 1, BWD_CHAIN = 2;
 constexpr int BWD_STATES_SUMS = 3;
-constexpr int BWD_FIRST = 1, BWD_LAST = 2;  // window flags
 
 // The first passes (t and sum_n w; deslice's also dstates) against the
 // chain modes.
@@ -1524,6 +1595,1047 @@ template <int CM>
 __host__ __device__ constexpr int bwd_mc() {
   return CM >= 16 ? CM / 16 : 1;
 }
+
+// Whether every value of T is exact in TF32 (bf16: 8 significant bits), so
+// that its low part in 3xTF32 is zero.
+template <typename T>
+__host__ __device__ constexpr bool tf32_exact() {
+  return !std::is_same_v<T, float>;
+}
+
+// Words per lane of a fragment table entry: a B fragment (b0, b1) as hi, lo
+// pairs, or its hi parts alone for an exact operand; an A fragment (a0 ..
+// a3) likewise.
+__host__ __device__ constexpr int tab_b_lane(bool exact) {
+  return exact ? 2 : 4;
+}
+
+__host__ __device__ constexpr int tab_a_lane(bool exact) {
+  return exact ? 4 : 8;
+}
+
+// Row stride, in elements of T, of a backward ring slot: C padded to CM,
+// then 16 bytes, so that rows stay 16-byte aligned.
+template <typename T, int CM>
+__host__ __device__ constexpr int bwd_cs() {
+  return CM + 16 / static_cast<int>(sizeof(T));
+}
+
+// Bytes of one ring (all warps' slots) in T.
+template <typename T, int CM>
+__host__ __device__ constexpr int bwd_ring_bytes() {
+  return WARPS * STAGES * TR * bwd_cs<T, CM>() * static_cast<int>(sizeof(T));
+}
+
+// Floats of one warp's share of a block merge (the largest, a chain's):
+// [BW][CM + 2] rows of the first pass or [BW][CM + 1] of the chain and its
+// dWa, dba.
+template <int CM>
+__host__ __device__ constexpr int bwd_merge_floats() {
+  return BW * (CM + 2) + CM + 1;
+}
+
+// Words of the fragment tables of one window: Ws as B (the logits) and the
+// G-side matrix as B (dw); Ws as A (dx) and, for slice_states, G^ as A.
+template <typename T, int CM, bool DESLICE>
+__host__ __device__ constexpr int bwd_table_words() {
+  constexpr bool EX = tf32_exact<T>();
+  return (CM / 8) * (BW / 8) * 32 * (tab_b_lane(false) + tab_b_lane(EX)) +
+         bwd_mc<CM>() * (BW / 8) * 32 *
+             (tab_a_lane(false) + (DESLICE ? 0 : tab_a_lane(EX)));
+}
+
+// Dynamic shared memory of slice_bwd_fused in bytes (mirrors bwd_smem() in
+// the wrapper): the x ring (and the g_out ring), where the block merges also
+// go; the fragment tables; bs - shift, m, 1 / (s S), u of the window; Wa;
+// the warps' dpre buffers [16][BUF_STRIDE] and draw [16].
+template <typename T, int CM, bool DESLICE>
+__host__ __device__ constexpr int bwd_fused_smem() {
+  constexpr int rings = (DESLICE ? 2 : 1) * bwd_ring_bytes<T, CM>();
+  constexpr int merge = 4 * WARPS * bwd_merge_floats<CM>();
+  return (rings > merge ? rings : merge) +
+         4 * (bwd_table_words<T, CM, DESLICE>() + 4 * BW + CM +
+              WARPS * 16 * (BUF_STRIDE + 1));
+}
+
+// One fused call's tensors and sizes. x, g_out [bh, n, c], the G-side
+// matrix bmat [bh, g, c] (dL/dstates, or the states), dstates and dx are T;
+// the rest float32. part1 [windows][units][BW][CM + 2] (per unit and
+// window: dstates, t, sum_n w per slice) and tsum [bh][windows][BW][2]
+// (their merge: t and sum_n w); part2 [units][pw2] and cpart [bh][pw2],
+// pw2 = windows * BW * (CM + 1) + CM + 1 (dWs^T and dbs per window, then
+// dWa, dba); dacc [bh, n, c] float32 (the windows' dx, past one window)
+// and qbuf [bh, n]; bar [3 + 2 bh] int, zero on entry
+// and on exit. units = bh * per_cloud; unit u is cloud u / per_cloud, rows
+// [(u % per_cloud) * span, + span).
+struct BwdArgs {
+  const void* x;
+  const void* gout;
+  const float *ws, *bs, *wa, *ba;
+  const void* bmat;
+  const float *m, *s;
+  float *part1, *tsum, *part2, *cpart;
+  void* dstates;
+  void* dx;
+  float *dacc, *qbuf;
+  float *dws, *dbs, *dwa, *dba;
+  int* bar;
+  int bh, n, c, g, per_cloud, span;
+  float base_temp, shift;
+};
+
+// d += a b with the passes the operands need: lo*hi where a has a low part,
+// hi*lo where b has one, hi*hi; the cross terms in d[0], hi*hi in d[1] (two
+// chains over k-blocks).
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma_p2(float (&d)[2][4], const Split (&a)[4],
+                                       const Split (&b)[2]) {
+  if constexpr (ALO)
+    mma(d[0], a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if constexpr (BLO)
+    mma(d[0], a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma(d[1], a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// The same into one accumulator.
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma_p(float (&d)[4], const Split (&a)[4],
+                                      const Split (&b)[2]) {
+  if constexpr (ALO)
+    mma(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if constexpr (BLO)
+    mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// An operand value as a tensor-core operand: split (float32), or its bits
+// with no low part (a widened bf16, exact in TF32).
+template <bool EXACT>
+__device__ __forceinline__ Split operand(float v) {
+  if constexpr (EXACT) return {__float_as_uint(v), 0u};
+  else return split(v);
+}
+
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+// rows [row0, row0 + rows) of one cloud (row stride c) into a ring slot of
+// T, rows bwd_cs apart: 16-byte cp.async chunks with vec, else plain
+// copies. Columns c..CM-1 are left alone. Out of
+// line: its inlined copies (x and g_out, each of its paths) spread the
+// tile loop's code (deslice_bwd was 8 % slower with it inlined, H100).
+template <typename T, int CM>
+__device__ __noinline__ void load_rows(T* slot, const T* xb, int row0,
+                                          int rows, int c, bool vec,
+                                          int lane) {
+  constexpr int CS = bwd_cs<T, CM>(), V = 16 / static_cast<int>(sizeof(T));
+  const T* src = xb + static_cast<size_t>(row0) * c;
+  if (vec && c == CM) {  // the row width known at compile time
+    constexpr int Q = CM / V;
+    for (int i = lane; i < rows * Q; i += 32) {
+      const int r = i / Q, k = i - r * Q;
+      cp16(reinterpret_cast<float*>(slot + r * CS + V * k),
+           reinterpret_cast<const float*>(src + r * CM + V * k));
+    }
+  } else if (vec) {
+    const int q = c / V;
+    for (int i = lane; i < rows * q; i += 32) {
+      const int r = i / q, k = i - r * q;
+      cp16(reinterpret_cast<float*>(slot + r * CS + V * k),
+           reinterpret_cast<const float*>(src + r * c + V * k));
+    }
+  } else {
+    for (int i = lane; i < rows * c; i += 32) {
+      const int r = i / c, k = i - r * c;
+      slot[r * CS + k] = src[i];
+    }
+  }
+}
+
+// The Q = CM / 4 channels [Q * tig, Q * tig + Q) of one bf16 ring row,
+// widened to float32.
+template <int CM>
+__device__ __forceinline__ void quarter(float (&v)[CM / 4], const bf16* p) {
+  constexpr int Q = CM / 4;
+  unsigned w[Q / 2];
+  if constexpr (Q == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
+  } else if constexpr (Q == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x, w[1] = t.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < Q / 2; ++i) {
+    v[2 * i] = bf_lo(w[i]);
+    v[2 * i + 1] = bf_hi(w[i]);
+  }
+}
+
+// 1 / tau and the raw Ada-Temp value x . Wa + ba of the ring row `lane`
+// (two FMA chains, channels k, k + 2 in one and k + 1, k + 3 in the other):
+// a float32 tile of slice_bwd_fast or a bf16 ring row of slice_bwd_fused.
+template <typename T, int CM>
+__device__ __forceinline__ void row_raw_tau(const T* slot, const float* wa_s,
+                                            float ba, float base_temp,
+                                            int lane, float& raw, float& it) {
+  const T* xr = slot + lane * bwd_cs<T, CM>();
+  float d0 = 0.f, d1 = 0.f;
+  if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+    for (int k = 0; k < CM; k += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xr + k);
+      const float4 wv = *reinterpret_cast<const float4*>(wa_s + k);
+      d0 = fmaf(xv.x, wv.x, d0);
+      d1 = fmaf(xv.y, wv.y, d1);
+      d0 = fmaf(xv.z, wv.z, d0);
+      d1 = fmaf(xv.w, wv.w, d1);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < CM; k += 8) {
+      const uint4 t = *reinterpret_cast<const uint4*>(xr + k);
+      const float4 w0 = *reinterpret_cast<const float4*>(wa_s + k);
+      const float4 w1 = *reinterpret_cast<const float4*>(wa_s + k + 4);
+      d0 = fmaf(bf_lo(t.x), w0.x, d0);
+      d1 = fmaf(bf_hi(t.x), w0.y, d1);
+      d0 = fmaf(bf_lo(t.y), w0.z, d0);
+      d1 = fmaf(bf_hi(t.y), w0.w, d1);
+      d0 = fmaf(bf_lo(t.z), w1.x, d0);
+      d1 = fmaf(bf_hi(t.z), w1.y, d1);
+      d0 = fmaf(bf_lo(t.w), w1.z, d0);
+      d1 = fmaf(bf_hi(t.w), w1.w, d1);
+    }
+  }
+  raw = d0 + d1 + ba;
+  it = 1.f / (base_temp + fminf(fmaxf(raw, -0.4f), 0.4f));
+}
+
+// A B fragment (b0, b1) of a table entry, with or without its low parts.
+template <bool EXACT>
+__device__ __forceinline__ void table_b(Split (&b)[2], const unsigned* t,
+                                        int e) {
+  if constexpr (EXACT) {
+    const uint2 v = reinterpret_cast<const uint2*>(t)[e];
+    b[0] = {v.x, 0u};
+    b[1] = {v.y, 0u};
+  } else {
+    const uint4 v = reinterpret_cast<const uint4*>(t)[e];
+    b[0] = {v.x, v.y};
+    b[1] = {v.z, v.w};
+  }
+}
+
+// An A fragment (a0 .. a3) of a table entry, with or without its low parts.
+template <bool EXACT>
+__device__ __forceinline__ void table_a(Split (&a)[4], const unsigned* t,
+                                        int e) {
+  if constexpr (EXACT) {
+    const uint4 v = reinterpret_cast<const uint4*>(t)[e];
+    a[0] = {v.x, 0u};
+    a[1] = {v.y, 0u};
+    a[2] = {v.z, 0u};
+    a[3] = {v.w, 0u};
+  } else {
+    const uint4 v0 = reinterpret_cast<const uint4*>(t)[2 * e];
+    const uint4 v1 = reinterpret_cast<const uint4*>(t)[2 * e + 1];
+    a[0] = {v0.x, v0.y};
+    a[1] = {v0.z, v0.w};
+    a[2] = {v1.x, v1.y};
+    a[3] = {v1.z, v1.w};
+  }
+}
+
+// Stores values into a table entry: hi, lo pairs, or the hi parts alone.
+template <bool EXACT, int N>
+__device__ __forceinline__ void table_put(unsigned* t, int e,
+                                          const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (EXACT) {
+      t[N * e + i] = __float_as_uint(v[i]);
+    } else {
+      const Split p = split(v[i]);
+      t[2 * (N * e + i)] = p.hi;
+      t[2 * (N * e + i) + 1] = p.lo;
+    }
+  }
+}
+
+// The first c columns (CM at most) of `rows` rows of src (row stride LD
+// floats) out to device memory at dst (row stride c): plus acc (float32,
+// the earlier windows' sums) unless first; into acc unless last, else into
+// out (bf16).
+// store_rows element by element (c not a multiple of the 16-byte chunk, or
+// a pointer unaligned): out of line, as it is rare.
+template <int LD, typename T>
+__device__ __noinline__ void store_scalars(const float* src, float* a, T* o,
+                                           int rows, int c, bool first,
+                                           bool last, int lane) {
+  for (int i = lane; i < rows * c; i += 32) {
+    const int r = i / c, k = i - r * c;
+    float v = src[r * LD + k];
+    if (!first) v += a[i];
+    if (last) o[i] = from_f32<T>(v);
+    else a[i] = v;
+  }
+}
+
+template <int LD, int CM, typename T>
+__device__ __forceinline__ void store_rows(const float* src, float* acc,
+                                           T* out, size_t off, int rows,
+                                           int c, bool vec, bool first,
+                                           bool last, int lane) {
+  constexpr int V = 8;
+  float* a = acc + off;
+  T* o = out + off;
+  auto chunks = [&](const int q) {  // q chunks of V per row
+    for (int i = lane; i < rows * q; i += 32) {
+      const int r = i / q, k = V * (i - r * q), e = r * c + k;
+      float v[V];
+#pragma unroll
+      for (int j = 0; j < V; j += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(src + r * LD + k + j);
+        v[j] = t.x, v[j + 1] = t.y, v[j + 2] = t.z, v[j + 3] = t.w;
+        if (!first) {
+          const float4 u = *reinterpret_cast<const float4*>(a + e + j);
+          v[j] += u.x, v[j + 1] += u.y, v[j + 2] += u.z, v[j + 3] += u.w;
+        }
+      }
+      if (!last) {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(a + e + j) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      } else {
+        __nv_bfloat162 h[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+        *reinterpret_cast<uint4*>(o + e) = *reinterpret_cast<const uint4*>(h);
+      }
+    }
+  };
+  if (vec) chunks(c / V);
+  else store_scalars<LD, T>(src, a, o, rows, c, first, last, lane);
+}
+
+// The shared memory of slice_bwd_fused, carved as bwd_fused_smem counts it.
+template <typename T, int CM, bool DESLICE>
+struct BwdSmem {
+  static constexpr bool EX = tf32_exact<T>();
+  static constexpr int KB = CM / 8, NB = BW / 8, MC = bwd_mc<CM>();
+  T* ring_x;        // [WARPS][STAGES][TR][bwd_cs] (the block merges, later)
+  T* ring_g;        // the same for g_out (deslice)
+  unsigned* tzb;    // Ws as B   [KB][NB][32] x tab_b_lane(false)
+  unsigned* tdb;    // G-side as B [KB][NB][32] x tab_b_lane(EX)
+  unsigned* twa;    // Ws as A   [MC][NB][32] x tab_a_lane(false)
+  unsigned* tba;    // G^ as A   [MC][NB][32] x tab_a_lane(EX) (slice_states)
+  float *bsh, *msl, *isl, *usl, *wa;  // [BW] x 4, [CM]
+  float *buf, *drw;  // [WARPS][16][BUF_STRIDE], [WARPS][16]
+  float* merge;      // [WARPS][bwd_merge_floats] over the rings
+
+  __device__ explicit BwdSmem(unsigned char* sm) {
+    constexpr int RB = bwd_ring_bytes<T, CM>();
+    constexpr int RINGS = (DESLICE ? 2 : 1) * RB;
+    constexpr int MERGE = 4 * WARPS * bwd_merge_floats<CM>();
+    ring_x = reinterpret_cast<T*>(sm);
+    ring_g = reinterpret_cast<T*>(sm + RB);
+    merge = reinterpret_cast<float*>(sm);
+    tzb = reinterpret_cast<unsigned*>(sm + (RINGS > MERGE ? RINGS : MERGE));
+    tdb = tzb + KB * NB * 32 * tab_b_lane(false);
+    twa = tdb + KB * NB * 32 * tab_b_lane(EX);
+    tba = twa + MC * NB * 32 * tab_a_lane(false);
+    bsh = reinterpret_cast<float*>(
+        tba + (DESLICE ? 0 : MC * NB * 32 * tab_a_lane(EX)));
+    msl = bsh + BW;
+    isl = msl + BW;
+    usl = isl + BW;
+    wa = usl + BW;
+    buf = wa + CM;
+    drw = buf + WARPS * 16 * BUF_STRIDE;
+  }
+};
+
+// Zeroes the padding columns c..CM-1 of every ring row (the loads never
+// write them, and the block merges overwrite the rings).
+template <typename T, int CM, bool DESLICE>
+__device__ __noinline__ void zero_columns(int c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdSmem<T, CM, DESLICE> L(smem);
+  constexpr int CS = bwd_cs<T, CM>();
+  constexpr int ROWS = (DESLICE ? 2 : 1) * WARPS * STAGES * TR;
+  for (int i = threadIdx.x; i < ROWS * (CM - c); i += NTF) {
+    const int r = i / (CM - c);
+    L.ring_x[r * CS + c + i - r * (CM - c)] = from_f32<T>(0.f);
+  }
+}
+
+template <typename T, int CM, bool DESLICE>
+__device__ __forceinline__ void zero_padding(int c) {
+  if (c < CM) zero_columns<T, CM, DESLICE>(c);
+}
+
+// The tables of one window of one cloud for a pass of MODE: Ws and the
+// G-side matrix in fragment order (as B; for a chain also as A); per slice
+// bs - shift, finite m (+inf past G: w = 0) and the residual s (guarded),
+// which the pass turns into 1 / (s S); Wa. A chain's first tables are
+// staged before the grid barrier, while no tile load is in flight to queue
+// their reads behind.
+template <typename T, int CM, bool DESLICE, int MODE>
+__device__ __forceinline__ void stage_tables(const BwdArgs& a, int cloud,
+                                             int win) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdSmem<T, CM, DESLICE> L(smem);
+  constexpr bool CHAIN = !bwd_sums(MODE), APATH = MODE == BWD_STATES;
+  constexpr bool EX = tf32_exact<T>();
+  constexpr int KB = CM / 8, NB = BW / 8, MC = bwd_mc<CM>(), Q = CM / 4;
+  const int tid = threadIdx.x, c = a.c, g = a.g;
+  const int w0 = win * BW, gw = min(BW, g - w0);
+  const T* bmw = static_cast<const T*>(a.bmat) +
+                 (static_cast<size_t>(cloud) * g + w0) * c;
+  auto wsv = [&](int k, int sl) {
+    return k < c && sl < gw ? a.ws[k * g + w0 + sl] : 0.f;
+  };
+  auto bmv = [&](int sl, int k) {
+    return k < c && sl < gw ? ldv(bmw + sl * c + k) : 0.f;
+  };
+  for (int e = tid; e < KB * NB * 32; e += NTF) {
+    // b0, b1 of k-block kb, slice block nb: channels Q*tig + 2*kb (+ 1),
+    // slice nb*8 + gid
+    const int ln = e & 31, kb = (e >> 5) / NB, nb = (e >> 5) - kb * NB;
+    const int k0 = Q * (ln & 3) + 2 * kb, sl = nb * 8 + (ln >> 2);
+    const float z[2] = {wsv(k0, sl), wsv(k0 + 1, sl)};
+    const float d[2] = {bmv(sl, k0), bmv(sl, k0 + 1)};
+    table_put<false>(L.tzb, e, z);
+    table_put<EX>(L.tdb, e, d);
+  }
+  if constexpr (CHAIN) {
+    for (int e = tid; e < MC * NB * 32; e += NTF) {
+      // a0 .. a3 of channel block mc, slice block nb: channels mc*16 + gid
+      // (+ 8), slices nb*8 + 2*tig (+ 1)
+      const int ln = e & 31, mc = (e >> 5) / NB, nb = (e >> 5) - mc * NB;
+      const int ch = mc * 16 + (ln >> 2), sl = nb * 8 + 2 * (ln & 3);
+      const float w4[4] = {wsv(ch, sl), wsv(ch + 8, sl), wsv(ch, sl + 1),
+                           wsv(ch + 8, sl + 1)};
+      table_put<false>(L.twa, e, w4);
+      if constexpr (APATH) {
+        const float b4[4] = {bmv(sl, ch), bmv(sl, ch + 8), bmv(sl + 1, ch),
+                             bmv(sl + 1, ch + 8)};
+        table_put<EX>(L.tba, e, b4);
+      }
+    }
+  }
+  if (tid < BW) {
+    const bool in = tid < gw;
+    const size_t sg = static_cast<size_t>(cloud) * g + w0 + tid;
+    const float mj = in ? a.m[sg] : 0.f, sj = in ? a.s[sg] : 1.f;
+    L.bsh[tid] = in ? a.bs[w0 + tid] - a.shift : 0.f;
+    L.msl[tid] = in ? (isfinite(mj) ? mj : 0.f) : INFINITY;
+    L.isl[tid] = sj > 0.f ? sj : 1.f;
+  }
+  if (tid < CM) L.wa[tid] = tid < c ? a.wa[tid] : 0.f;
+}
+
+#ifdef HAET_SLICE_TRACE
+#define HAET_TRACE_PARAMS , long long (&sg_)[BWD_SEGS], long long &mk_
+#define HAET_TRACE_ARGS , sg_, mk_
+#else
+#define HAET_TRACE_PARAMS
+#define HAET_TRACE_ARGS
+#endif
+
+// One pass of MODE over one unit's rows for window `win`: stage the
+// window's tables (unless `staged`: a chain's first, before the barrier;
+// a chain reads its cloud's merged first-pass sums for u and 1 / (s S)),
+// run the warps' tiles (the chain in reverse order),
+// and merge the warps' partial sums in warp order into part1 (first pass) or
+// part2 (chain; at the last window also dWa, dba).
+template <typename T, int CM, bool DESLICE, int MODE>
+__device__ __forceinline__ void bwd_rows(const BwdArgs& a, int unit, int win,
+                                         int windows,
+                                         bool staged HAET_TRACE_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdSmem<T, CM, DESLICE> L(smem);
+  constexpr bool CHAIN = !bwd_sums(MODE);      // the chain to x and the
+  constexpr bool APATH = MODE == BWD_STATES;   // weights; dx += w G^
+  constexpr bool GOUT = bwd_gout(MODE);        // a g_out stream
+  constexpr bool DST = MODE == BWD_SUMS;       // dstates = w^T g_out
+  constexpr bool EX = tf32_exact<T>();
+  constexpr int KB = CM / 8, NB = BW / 8, NC = CM / 8, MB = BW / 16;
+  constexpr int MC = bwd_mc<CM>(), Q = CM / 4, CS = bwd_cs<T, CM>();
+  constexpr int RW = CM + (CHAIN ? 1 : 2);     // row of a partial
+  constexpr int PM = bwd_merge_floats<CM>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n = a.n, c = a.c, g = a.g, units = a.bh * a.per_cloud;
+  const int cloud = unit / a.per_cloud, part = unit - cloud * a.per_cloud;
+  const int w0 = win * BW, gw = min(BW, g - w0);
+  const bool first = win == 0, last = win == windows - 1;
+  const int row_begin = part * a.span;
+  const int rows_blk = min(a.span, n - row_begin);
+  const size_t cl = static_cast<size_t>(cloud) * n * c;
+  const T* xb = static_cast<const T*>(a.x) + cl;
+  const T* gb = GOUT ? static_cast<const T*>(a.gout) + cl : nullptr;
+  T* dx = static_cast<T*>(a.dx);
+  const uintptr_t ptrs =
+      reinterpret_cast<uintptr_t>(a.x) |
+      (GOUT ? reinterpret_cast<uintptr_t>(a.gout) : 0) |
+      (CHAIN ? reinterpret_cast<uintptr_t>(a.dx) |
+                   reinterpret_cast<uintptr_t>(a.dacc) : 0);
+  const bool vec = vec_ok<T>(c, ptrs);
+
+  const int tiles = (rows_blk + TR - 1) / TR;
+  const int my_tiles = tiles > warp ? (tiles - warp + WARPS - 1) / WARPS : 0;
+  T* my_x = L.ring_x + warp * STAGES * TR * CS;
+  T* my_g = L.ring_g + warp * STAGES * TR * CS;
+  float* buf = L.buf + warp * 16 * BUF_STRIDE;
+  float* drw = L.drw + warp * 16;
+  // the warp's tile jt (the chain takes them last first)
+  auto tile_row = [&](int jt) {
+    const int j = CHAIN ? my_tiles - 1 - jt : jt;
+    return row_begin + (warp + j * WARPS) * TR;
+  };
+  auto load = [&](int jt) {  // tile jt of this warp into its ring slots
+    const int r0 = tile_row(jt), rows = min(TR, n - r0);
+    load_rows<T, CM>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c, vec,
+                     lane);
+    if constexpr (GOUT)
+      load_rows<T, CM>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c, vec,
+                       lane);
+  };
+
+  const float bscale = DESLICE ? 1.f : 1.f / NORM;
+  const float ba0 = a.ba[0], base_temp = a.base_temp;
+  if (!staged) stage_tables<T, CM, DESLICE, MODE>(a, cloud, win);
+  if (tid < BW) {  // 1 / (s S) and u = -t / S (S = 1, t = 0 in a first pass)
+    float u = 0.f, norm = 1.f;
+    if (CHAIN && tid < gw) {  // merged before the grid barrier
+      const float* ts = a.tsum + ((static_cast<size_t>(cloud) * windows +
+                                   win) * BW + tid) * 2;
+      const float sw = __ldcg(ts + 1);
+      norm = sw > 0.f ? sw : 1.f;
+      u = -__ldcg(ts) / norm;
+    }
+    L.isl[tid] = 1.f / (L.isl[tid] * norm);
+    L.usl[tid] = u;
+  }
+  // the first tiles' loads, after the tables' and sums' reads (which would
+  // otherwise queue behind them), in flight while the block syncs
+  int jl = 0;  // the next tile to load
+  auto load_next = [&] {
+    if (jl < my_tiles) load(jl);
+    cp_commit();
+    ++jl;
+  };
+  for (int j = 0; j < STAGES - 1; ++j) load_next();
+  __syncthreads();
+
+  // acc: dWs^T (chain) or dstates (first pass), slices mb*16 + gid (+ 8),
+  // channels nc*8 + 2*tig (+ 1); colsum: dbs or t of the lane's slices
+  // nb*8 + 2*tig (+ 1), over its rows, and wsum their sum_n w (first pass);
+  // dWa of channel `lane` and dba (the chain's last window).
+  float acc[MB][NC][4], colsum[NB][2], wsum[NB][2];
+  float dwa_l = 0.f, dba_l = 0.f;
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mb][nc][i] = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+    colsum[nb][0] = colsum[nb][1] = wsum[nb][0] = wsum[nb][1] = 0.f;
+
+  HAET_TRACE(HAET_SEG(sg_, mk_, 0);)
+  for (int jt = 0; jt < my_tiles; ++jt) {
+    __syncwarp();  // every lane is done with the slots refilled below
+    load_next();   // tile jt + STAGES - 1
+    cp_wait<STAGES - 1>();
+    __syncwarp();
+    HAET_TRACE(HAET_SEG(sg_, mk_, 1);)
+    const T* slot = my_x + (jt % STAGES) * TR * CS;
+    const T* gslot = GOUT ? my_g + (jt % STAGES) * TR * CS : slot;
+    const int row0 = tile_row(jt);
+    const int rows = min(TR, n - row0);
+    float raw_l, it_l;
+    row_raw_tau<T, CM>(slot, L.wa, ba0, base_temp, lane, raw_l, it_l);
+    for (int r16 = 0; r16 < rows; r16 += 16) {
+      // A fragments of rows r16 + gid (a0, a2) and r16 + gid + 8 (a1, a3):
+      // x, and g_out for the dw product
+      Split xf[KB][4], gf[KB][4];
+      {
+        float q0[Q], q1[Q];
+        const T* x0 = slot + (r16 + gid) * CS + Q * tig;
+        quarter<CM>(q0, x0);
+        quarter<CM>(q1, x0 + 8 * CS);
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          xf[kb][0] = operand<EX>(q0[2 * kb]);
+          xf[kb][1] = operand<EX>(q1[2 * kb]);
+          xf[kb][2] = operand<EX>(q0[2 * kb + 1]);
+          xf[kb][3] = operand<EX>(q1[2 * kb + 1]);
+        }
+        if constexpr (GOUT) {
+          const T* g0 = gslot + (r16 + gid) * CS + Q * tig;
+          quarter<CM>(q0, g0);
+          quarter<CM>(q1, g0 + 8 * CS);
+#pragma unroll
+          for (int kb = 0; kb < KB; ++kb) {
+            gf[kb][0] = operand<EX>(q0[2 * kb]);
+            gf[kb][1] = operand<EX>(q1[2 * kb]);
+            gf[kb][2] = operand<EX>(q0[2 * kb + 1]);
+            gf[kb][3] = operand<EX>(q1[2 * kb + 1]);
+          }
+        }
+      }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 2);)
+      const float it0 = __shfl_sync(FULL, it_l, r16 + gid);
+      const float it1 = __shfl_sync(FULL, it_l, r16 + gid + 8);
+      const bool v0 = r16 + gid < rows, v1 = r16 + gid + 8 < rows;
+      float q0 = 0.f, q1 = 0.f;  // sum_g dlogit * logit, rows gid, gid + 8
+      float dxt[MC][2][4];       // dx^T: channels mc*16 + gid (+ 8), rows
+#pragma unroll                   // nr*8 + 2*tig (+ 1)
+      for (int mc = 0; mc < MC; ++mc)
+#pragma unroll
+        for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dxt[mc][nr][i] = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c0 = nb * 8 + 2 * tig;  // the lane's slices c0, c0 + 1
+        // Z (bs - shift rides in the hi*hi accumulator) and dw
+        float zp[2][4] = {{0.f, 0.f, 0.f, 0.f},
+                          {L.bsh[c0], L.bsh[c0 + 1], L.bsh[c0],
+                           L.bsh[c0 + 1]}};
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          const int e = (kb * NB + nb) * 32 + lane;
+          Split b[2];
+          table_b<false>(b, L.tzb, e);
+          mma_p2<!EX, true>(zp, xf[kb], b);
+          table_b<EX>(b, L.tdb, e);
+          if constexpr (GOUT) mma_p2<!EX, !EX>(dp, gf[kb], b);
+          else mma_p2<!EX, !EX>(dp, xf[kb], b);
+        }
+        float val[4], wv[4];  // dpre (chain) or w (first pass); w
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int sl = c0 + (i & 1);
+          const bool valid = i < 2 ? v0 : v1;
+          const float lg = (zp[0][i] + zp[1][i]) * (i < 2 ? it0 : it1);
+          const float w = ex2((lg - L.msl[sl]) * L2E) * L.isl[sl];
+          const float d = fmaf(dp[0][i] + dp[1][i], bscale, L.usl[sl]);
+          wv[i] = valid ? w : 0.f;
+          if constexpr (CHAIN) {
+            const float dl = w * d;
+            val[i] = valid ? dl * (i < 2 ? it0 : it1) : 0.f;
+            if (i < 2) q0 = fmaf(dl, lg, q0);
+            else q1 = fmaf(dl, lg, q1);
+          } else {
+            val[i] = wv[i];
+            wsum[nb][i & 1] += wv[i];
+            if (valid) colsum[nb][i & 1] = fmaf(w, d, colsum[nb][i & 1]);
+          }
+        }
+        if constexpr (CHAIN) {
+          colsum[nb][0] += val[0] + val[2];
+          colsum[nb][1] += val[1] + val[3];
+        }
+        if constexpr (CHAIN || DST) {
+          *reinterpret_cast<float2*>(buf + gid * BUF_STRIDE + c0) =
+              make_float2(val[0], val[1]);
+          *reinterpret_cast<float2*>(buf + (gid + 8) * BUF_STRIDE + c0) =
+              make_float2(val[2], val[3]);
+        }
+        if constexpr (CHAIN) {
+          // dx^T += Ws dpre^T (+ G^T (w / (1 + 1e-5))^T): the fragments of
+          // dpre (w) are the B fragments, rows gid (nr 0) and gid + 8 (nr 1)
+          const Split bp[2][2] = {{split(val[0]), split(val[1])},
+                                  {split(val[2]), split(val[3])}};
+          Split bw[2][2];
+          if constexpr (APATH) {
+            bw[0][0] = split(wv[0] * bscale);
+            bw[0][1] = split(wv[1] * bscale);
+            bw[1][0] = split(wv[2] * bscale);
+            bw[1][1] = split(wv[3] * bscale);
+          }
+#pragma unroll
+          for (int mc = 0; mc < MC; ++mc) {
+            const int e = (mc * NB + nb) * 32 + lane;
+            Split aw[4];
+            table_a<false>(aw, L.twa, e);
+            mma_p<true, true>(dxt[mc][0], aw, bp[0]);
+            mma_p<true, true>(dxt[mc][1], aw, bp[1]);
+            if constexpr (APATH) {
+              table_a<EX>(aw, L.tba, e);
+              mma_p<!EX, true>(dxt[mc][0], aw, bw[0]);
+              mma_p<!EX, true>(dxt[mc][1], aw, bw[1]);
+            }
+          }
+        }
+      }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 3);)
+      if constexpr (CHAIN) {
+        q0 += __shfl_xor_sync(FULL, q0, 1);
+        q0 += __shfl_xor_sync(FULL, q0, 2);
+        q1 += __shfl_xor_sync(FULL, q1, 1);
+        q1 += __shfl_xor_sync(FULL, q1, 2);
+        const size_t qr = static_cast<size_t>(cloud) * n + row0 + r16 + gid;
+        if (!first) {  // the earlier windows' sums of these rows
+          if (v0) q0 += a.qbuf[qr];
+          if (v1) q1 += a.qbuf[qr + 8];
+        }
+        if (!last) {
+          if (tig == 0 && v0) a.qbuf[qr] = q0;
+          if (tig == 0 && v1) a.qbuf[qr + 8] = q1;
+        } else {
+          const float raw0 = __shfl_sync(FULL, raw_l, r16 + gid);
+          const float raw1 = __shfl_sync(FULL, raw_l, r16 + gid + 8);
+          const float dr0 =
+              v0 && raw0 > -0.4f && raw0 < 0.4f ? -q0 * it0 : 0.f;
+          const float dr1 =
+              v1 && raw1 > -0.4f && raw1 < 0.4f ? -q1 * it1 : 0.f;
+          // dx^T[ch][row] += Wa[ch] draw[row] for the lane's rows nr*8 +
+          // 2*tig (+ 1), held by the lanes of gid 2*tig (+ 1)
+          float d[2][2];
+          d[0][0] = __shfl_sync(FULL, dr0, 8 * tig);
+          d[0][1] = __shfl_sync(FULL, dr0, 8 * tig + 4);
+          d[1][0] = __shfl_sync(FULL, dr1, 8 * tig);
+          d[1][1] = __shfl_sync(FULL, dr1, 8 * tig + 4);
+#pragma unroll
+          for (int mc = 0; mc < MC; ++mc) {
+            const int ch = mc * 16 + gid;
+            const float wa0 = L.wa[ch], wa1 = ch + 8 < CM ? L.wa[ch + 8] : 0.f;
+#pragma unroll
+            for (int nr = 0; nr < 2; ++nr) {
+              dxt[mc][nr][0] = fmaf(wa0, d[nr][0], dxt[mc][nr][0]);
+              dxt[mc][nr][1] = fmaf(wa0, d[nr][1], dxt[mc][nr][1]);
+              dxt[mc][nr][2] = fmaf(wa1, d[nr][0], dxt[mc][nr][2]);
+              dxt[mc][nr][3] = fmaf(wa1, d[nr][1], dxt[mc][nr][3]);
+            }
+          }
+          if (tig == 0) {
+            drw[gid] = dr0;
+            drw[gid + 8] = dr1;
+            dba_l += dr0 + dr1;
+          }
+        }
+      }
+      __syncwarp();  // the buffer (and draw) are written
+      HAET_TRACE(HAET_SEG(sg_, mk_, 4);)
+      // acc += buf^T B over these 16 rows: dpre^T x (chain) or w^T g_out;
+      // k = tig is row kr*8 + 2*tig, k = tig + 4 row kr*8 + 2*tig + 1
+      const T* bsrc = CHAIN ? slot : gslot;
+#pragma unroll
+      for (int kr = 0; kr < ((CHAIN || DST) ? 2 : 0); ++kr) {
+        const int ra = kr * 8 + 2 * tig;
+        const bool va = r16 + ra < rows, vb = r16 + ra + 1 < rows;
+        Split af[MB][4];
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const float* p = buf + ra * BUF_STRIDE + mb * 16 + gid;
+          af[mb][0] = split(p[0]);
+          af[mb][1] = split(p[8]);
+          af[mb][2] = split(p[BUF_STRIDE]);
+          af[mb][3] = split(p[BUF_STRIDE + 8]);
+        }
+#pragma unroll
+        for (int nc = 0; nc < NC; ++nc) {
+          const T* p = bsrc + (r16 + ra) * CS + nc * 8 + gid;
+          const Split b[2] = {operand<EX>(va ? ldv(p) : 0.f),
+                              operand<EX>(vb ? ldv(p + CS) : 0.f)};
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+            mma_p<true, !EX>(acc[mb][nc], af[mb], b);
+        }
+      }
+      if constexpr (CHAIN) {
+        if (last && lane < CM) {  // dWa of channel `lane`
+          for (int r = 0; r < 16 && r16 + r < rows; ++r)
+            dwa_l = fmaf(ldv(slot + (r16 + r) * CS + lane), drw[r], dwa_l);
+        }
+      }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 5);)
+      if constexpr (CHAIN) {
+        // dx through the buffer, 16 rows at a time
+        __syncwarp();  // every lane is done reading the buffer and x
+#pragma unroll
+        for (int mc = 0; mc < MC; ++mc)
+#pragma unroll
+          for (int nr = 0; nr < 2; ++nr)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int ch = mc * 16 + gid + 8 * (i >> 1);
+              const int r = nr * 8 + 2 * tig + (i & 1);
+              if (ch < CM) buf[r * BUF_STRIDE + ch] = dxt[mc][nr][i];
+            }
+        __syncwarp();
+        // these rows' dx (added to the earlier windows')
+        store_rows<BUF_STRIDE, CM, T>(
+            buf, a.dacc, dx, cl + static_cast<size_t>(row0 + r16) * c,
+            min(16, rows - r16), c, vec, first, last, lane);
+      }
+      __syncwarp();  // the buffer is free for the next 16 rows
+      HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the rings are free: the warps' partials go there
+
+  // The warps' sums, then the block's in warp order.
+  float* mg = L.merge;  // [WARPS][PM]
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = colsum[nb][h];
+      v += __shfl_xor_sync(FULL, v, 4);
+      v += __shfl_xor_sync(FULL, v, 8);
+      v += __shfl_xor_sync(FULL, v, 16);
+      float* row = mg + warp * PM + (nb * 8 + 2 * tig + h) * RW;
+      if (gid == 0) row[CM] = v;
+      if constexpr (!CHAIN) {
+        v = wsum[nb][h];
+        v += __shfl_xor_sync(FULL, v, 4);
+        v += __shfl_xor_sync(FULL, v, 8);
+        v += __shfl_xor_sync(FULL, v, 16);
+        if (gid == 0) row[CM + 1] = v;
+      }
+    }
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mg[warp * PM + (mb * 16 + gid + 8 * (i >> 1)) * RW + nc * 8 +
+           2 * tig + (i & 1)] = acc[mb][nc][i];
+  const bool tail = CHAIN && last;  // dWa and dba follow the rows
+  if (tail) {
+    if (lane < CM) mg[warp * PM + BW * RW + lane] = dwa_l;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      dba_l += __shfl_xor_sync(FULL, dba_l, o);
+    if (lane == 0) mg[warp * PM + BW * RW + CM] = dba_l;
+  }
+  __syncthreads();
+  const int pw2 = windows * BW * (CM + 1) + CM + 1;
+  float* pb = CHAIN ? a.part2 + static_cast<size_t>(unit) * pw2 +
+                          static_cast<size_t>(win) * BW * (CM + 1)
+                    : a.part1 + (static_cast<size_t>(win) * units + unit) *
+                                    BW * (CM + 2);
+  for (int e = tid; e < BW * RW + (tail ? CM + 1 : 0); e += NTF) {
+    float v = 0.f;
+#pragma unroll
+    for (int u = 0; u < WARPS; ++u) v += mg[u * PM + e];
+    pb[e] = v;
+  }
+  __syncthreads();  // the rings are free again
+  zero_padding<T, CM, DESLICE>(c);
+  HAET_TRACE(HAET_SEG(sg_, mk_, 7);)
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Every block of the grid meets here (the launcher has checked that all
+// are resident at once). bar[0] counts the arrivals, bar[1] the
+// departures; the last block to leave, which knows that every block has
+// seen all arrivals, resets both to zero.
+__device__ __forceinline__ void grid_sync(int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // the block's writes, ordered by the barrier above
+    const int blocks = static_cast<int>(gridDim.x);
+    atomicAdd(bar, 1);
+    while (ld_acquire(bar) < blocks) __nanosleep(64);
+    __threadfence();
+    if (atomicAdd(bar + 1, 1) == blocks - 1) {
+      atomicExch(bar + 1, 0);
+      atomicExch(bar, 0);
+    }
+  }
+  __syncthreads();
+}
+
+// put(e, sum over q < rows of p[q][e], in q order) for every e < len, the
+// block's threads taking E entries each at a time, so that E loads of a row
+// (and, unrolled, of the next rows) are in flight together.
+template <int E, typename Put>
+__device__ __forceinline__ void sum_rows(const float* p, int rows, int len,
+                                         Put&& put) {
+  for (int e0 = threadIdx.x; e0 < len; e0 += E * NTF) {
+    float v[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) v[i] = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < rows; ++q)
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int e = e0 + i * NTF;
+        if (e < len) v[i] += __ldcg(p + static_cast<size_t>(q) * len + e);
+      }
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (e0 + i * NTF < len) put(e0 + i * NTF, v[i]);
+  }
+}
+
+// After a unit's first pass (every window): the last unit of its cloud to
+// finish (a counter, bar[3 + bh + cloud], reset here) adds the cloud's
+// partials in unit order: t and sum_n w into tsum and, for deslice,
+// dstates. Before the grid barrier, so that the chain reads the merged
+// sums alone, and no tile load queues in front of these reads.
+template <typename T, int CM, bool DESLICE>
+__device__ __forceinline__ void merge_first_pass(const BwdArgs& a, int unit,
+                                                 int windows, int* flag) {
+  const int tid = threadIdx.x;
+  const int cloud = unit / a.per_cloud, units = a.bh * a.per_cloud;
+  int* counter = a.bar + 3 + a.bh + cloud;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    *flag = atomicAdd(counter, 1) == a.per_cloud - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  constexpr int RW = CM + 2, LEN = BW * RW;
+  for (int w = 0; w < windows; ++w) {
+    const int w0 = w * BW, gw = min(BW, a.g - w0);
+    const float* p = a.part1 + (static_cast<size_t>(w) * units +
+                                static_cast<size_t>(cloud) * a.per_cloud) *
+                                   LEN;
+    float* ts = a.tsum + (static_cast<size_t>(cloud) * windows + w) * BW * 2;
+    T* dst = static_cast<T*>(a.dstates) +
+             (static_cast<size_t>(cloud) * a.g + w0) * a.c;
+    sum_rows<4>(p, a.per_cloud, LEN, [&](int e, float v) {
+      const int sl = e / RW, col = e - sl * RW;
+      if (col >= CM) ts[sl * 2 + col - CM] = v;
+      else if (DESLICE && sl < gw && col < a.c)
+        dst[sl * a.c + col] = from_f32<T>(v);
+    });
+  }
+  if (tid == 0) *counter = 0;
+}
+
+// After a unit's chain partials are in part2: the last unit of its cloud to
+// finish adds the cloud's in unit order into cpart; the last cloud to
+// finish adds the clouds' in cloud order into dWs [c][g], dbs, dWa and
+// dba. Each resets its counter (bar[3 + cloud], bar[2]).
+template <int CM>
+__device__ __forceinline__ void finish_unit(const BwdArgs& a, int unit,
+                                            int windows, int* flag) {
+  const int tid = threadIdx.x;
+  const int cloud = unit / a.per_cloud;
+  const int rows = windows * BW * (CM + 1), pw2 = rows + CM + 1;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    *flag = atomicAdd(a.bar + 3 + cloud, 1) == a.per_cloud - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const float* p = a.part2 + static_cast<size_t>(cloud) * a.per_cloud * pw2;
+  float* cp = a.cpart + static_cast<size_t>(cloud) * pw2;
+  sum_rows<4>(p, a.per_cloud, pw2, [&](int e, float v) { cp[e] = v; });
+  if (tid == 0) a.bar[3 + cloud] = 0;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    *flag = atomicAdd(a.bar + 2, 1) == a.bh - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  sum_rows<4>(a.cpart, a.bh, pw2, [&](int e, float v) {
+    if (e >= rows) {  // dWa, dba
+      const int k = e - rows;
+      if (k < a.c) a.dwa[k] = v;
+      if (k == CM) a.dba[0] = v;
+      return;
+    }
+    const int win = e / (BW * (CM + 1)), r = e - win * BW * (CM + 1);
+    const int sl = win * BW + r / (CM + 1), col = r % (CM + 1);
+    if (sl < a.g && col < a.c) a.dws[col * a.g + sl] = v;
+    if (sl < a.g && col == CM) a.dbs[sl] = v;
+  });
+  if (tid == 0) a.bar[2] = 0;
+}
+
+// One backward call (slice_states_bwd, or deslice_bwd with DESLICE) for C
+// <= 32 and any G: grid (blocks) of at most the card's resident blocks,
+// NTF threads; block b takes the units b, b + blocks, ... The first pass
+// over every unit and window, the grid barrier, then the chain over the
+// same units and windows and the merges (see the note above). The profiler's
+// name of a launch tells the kind by its last template argument
+// (haet_torch/ops/kernels/__init__.py:KERNEL_NAMES).
+template <typename T, int CM, bool DESLICE>
+__global__ void __launch_bounds__(NTF, 1)
+slice_bwd_fused(const __grid_constant__ BwdArgs a) {
+  // float32 takes slice_bwd_fast, faster there (PERF.md)
+  static_assert(std::is_same_v<T, bf16>, "slice_bwd_fused is for bf16 I/O");
+  constexpr int SUMS = DESLICE ? BWD_SUMS : BWD_STATES_SUMS;
+  constexpr int CHAIN = DESLICE ? BWD_CHAIN : BWD_STATES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int flag;
+  const int units = a.bh * a.per_cloud;
+  const int windows = (a.g + BW - 1) / BW;
+#ifdef HAET_SLICE_TRACE
+  long long mk_ = clock64(), sg_[BWD_SEGS] = {};
+  const int rec_ = blockIdx.x % TRACE_CTAS, warp_ = threadIdx.x >> 5;
+  auto record = [&](int mode) {
+    if ((threadIdx.x & 31) == 0)
+      for (int i = 0; i < BWD_SEGS; ++i)
+        g_trace_bwd[mode][rec_][warp_][i] = sg_[i];
+    for (int i = 0; i < BWD_SEGS; ++i) sg_[i] = 0;
+  };
+#endif
+  zero_padding<T, CM, DESLICE>(a.c);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    for (int w = 0; w < windows; ++w)
+      bwd_rows<T, CM, DESLICE, SUMS>(a, u, w, windows,
+                                     false HAET_TRACE_ARGS);
+    merge_first_pass<T, CM, DESLICE>(a, u, windows, &flag);
+  }
+  if (blockIdx.x < units)  // the first chain window's tables
+    stage_tables<T, CM, DESLICE, CHAIN>(a, blockIdx.x / a.per_cloud, 0);
+  grid_sync(a.bar);
+  HAET_TRACE(HAET_SEG(sg_, mk_, 7); record(SUMS);)
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    for (int w = 0; w < windows; ++w)
+      bwd_rows<T, CM, DESLICE, CHAIN>(
+          a, u, w, windows, u == blockIdx.x && w == 0 HAET_TRACE_ARGS);
+    finish_unit<CM>(a, u, windows, &flag);
+  }
+  HAET_TRACE(HAET_SEG(sg_, mk_, 7); record(CHAIN);)
+}
+
+// ---------------------------------------------------------------------------
+// slice_bwd_fast: the float32 backward for C <= 32, one launch per pass (see
+// the note above).
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_FIRST = 1, BWD_LAST = 2;  // window flags
 
 // Words of a B table ([KB][BW / 8][32 lanes] x uint4: hi, lo of b0, b1) and
 // of an A table ([MC][BW / 8][32 lanes] x 2 uint4: hi, lo of a0 .. a3).
@@ -1552,7 +2664,7 @@ __host__ __device__ constexpr int bwd_part_floats() {
 }
 
 // Dynamic shared memory of slice_bwd_fast in floats (mirrors
-// bwd_smem_bytes() in the wrapper): the x ring (and the g_out ring); the B
+// bwd_smem() in the wrapper): the x ring (and the g_out ring); the B
 // tables of Ws and of the G-side matrix; the A tables of Ws (and of G^,
 // slice_states); bs - shift, m, 1 / s, u of the window; Wa; the
 // warps' dpre buffers [16][BUF_STRIDE] and draw [16].
@@ -1563,27 +2675,6 @@ __host__ __device__ constexpr int bwd_smem_floats() {
          (MODE == BWD_STATES ? 2 : MODE == BWD_CHAIN ? 1 : 0) *
              tab_a_words<CM>() +
          4 * BW + CM + WARPS * 16 * (BUF_STRIDE + 1);
-}
-
-// 1 / tau and the raw Ada-Temp value x . Wa + ba of the slot's row `lane`.
-template <int CM>
-__device__ __forceinline__ void row_raw_tau(const float* slot,
-                                            const float* wa_s, float ba,
-                                            float base_temp, int lane,
-                                            float& raw, float& it) {
-  const float* xr = slot + lane * row_stride<CM>();
-  float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-  for (int k = 0; k < CM; k += 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(xr + k);
-    const float4 wv = *reinterpret_cast<const float4*>(wa_s + k);
-    d0 = fmaf(xv.x, wv.x, d0);
-    d1 = fmaf(xv.y, wv.y, d1);
-    d0 = fmaf(xv.z, wv.z, d0);
-    d1 = fmaf(xv.w, wv.w, d1);
-  }
-  raw = d0 + d1 + ba;
-  it = 1.f / (base_temp + fminf(fmaxf(raw, -0.4f), 0.4f));
 }
 
 __device__ __forceinline__ void split_b(Split (&b)[2], uint4 t) {
@@ -1611,19 +2702,18 @@ __device__ __forceinline__ uint4 split_pair(float v0, float v1) {
 // deslice's); tsum the first pass's sums (chain modes: t and S of cloud b,
 // slice w * BW + i at ((w * bh + b) * BW + i) * (CM + 2) + CM and + 1); m,
 // s [bh, g]. Outputs: part [windows][bh][per_cloud][bwd_part_floats]; dx
-// [bh, n, c] and the scratch q [bh, n] (chain modes). x, g_out, bmat and dx
-// are T; the windows' dx sums meet in dacc (float32; dx itself for a
-// float32 dx), and the last window writes dx. MODE is the last template
-// argument: the profiler's name of a launch tells the mode by it
+// [bh, n, c] and the scratch q [bh, n] (chain modes); the windows' dx sums
+// meet in dacc (dx itself), and the last window writes dx. MODE is the last
+// template argument: the profiler's name of a launch tells the mode by it
 // (haet_torch/ops/kernels/__init__.py:KERNEL_NAMES).
-template <typename T, int CM, int MODE>
+template <int CM, int MODE>
 __global__ void __launch_bounds__(NTF, 1)
-slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
+slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
                const float* __restrict__ ws, const float* __restrict__ bs,
                const float* __restrict__ wa, const float* __restrict__ ba,
-               const T* __restrict__ bmat, const float* __restrict__ tsum,
+               const float* __restrict__ bmat, const float* __restrict__ tsum,
                const float* __restrict__ m, const float* __restrict__ s,
-               float* __restrict__ part, T* dx, float* dacc,
+               float* __restrict__ part, float* dx, float* dacc,
                float* __restrict__ qbuf, int n, int c, int g, int span,
                int win0, int flags, float base_temp, float shift) {
   constexpr bool CHAIN = !bwd_sums(MODE);      // the chain to x and the
@@ -1634,6 +2724,7 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
   constexpr int MC = bwd_mc<CM>(), Q = CM / 4, CS = row_stride<CM>();
   constexpr int PW = bwd_part_floats<CM, MODE>(), RW = bwd_row<CM, MODE>();
   extern __shared__ __align__(16) float sm[];
+  HAET_TRACE(long long mk_ = clock64(), sg_[BWD_SEGS] = {};)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -1643,14 +2734,14 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
   const int row_begin = blockIdx.x * span;
   const int rows_blk = min(span, n - row_begin);
   const size_t cloud = static_cast<size_t>(bh) * n * c;
-  const T* xb = x + cloud;
-  const T* gb = GOUT ? gout + cloud : nullptr;
+  const float* xb = x + cloud;
+  const float* gb = GOUT ? gout + cloud : nullptr;
   const uintptr_t ptrs =
       reinterpret_cast<uintptr_t>(x) |
       (GOUT ? reinterpret_cast<uintptr_t>(gout) : 0) |
       (CHAIN ? reinterpret_cast<uintptr_t>(dx) |
                    reinterpret_cast<uintptr_t>(dacc) : 0);
-  const bool vec = vec_ok<T>(c, ptrs);
+  const bool vec = vec_ok<float>(c, ptrs);
 
   float* ring_x = sm;                           // [WARPS][STAGES][TR][CS]
   float* ring_g = ring_x + ring_floats<CM>();   // the same, if GOUT
@@ -1676,11 +2767,11 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
   constexpr int STRIDE = WARPS * TR;
   auto load = [&](int jt) {  // tile jt of this warp into its ring slots
     const int r0 = first_row + jt * STRIDE, rows = min(TR, n - r0);
-    load_tile<CM, T>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c, vec,
-                     lane);
+    load_tile<CM, float>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c,
+                         vec, lane);
     if constexpr (GOUT)
-      load_tile<CM, T>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c, vec,
-                       lane);
+      load_tile<CM, float>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c,
+                           vec, lane);
   };
 
   if (c < CM) {  // padding columns must read as zeros
@@ -1697,12 +2788,12 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
   // The window's Ws and G-side matrix, split, in fragment order; per slice
   // bs - shift, finite m (+inf past G: w = 0), 1 / s and u.
   const float bscale = GOUT ? 1.f : 1.f / NORM;
-  const T* bmw = bmat + (static_cast<size_t>(bh) * g + w0) * c;
+  const float* bmw = bmat + (static_cast<size_t>(bh) * g + w0) * c;
   auto wsv = [&](int k, int sl) {
     return k < c && sl < gw ? ws[k * g + w0 + sl] : 0.f;
   };
   auto bmv = [&](int sl, int k) {
-    return k < c && sl < gw ? to_f32(bmw[sl * c + k]) * bscale : 0.f;
+    return k < c && sl < gw ? bmw[sl * c + k] * bscale : 0.f;
   };
   for (int e = tid; e < KB * NB * 32; e += NTF) {
     // b0, b1 of k-block kb, slice block nb: channels Q*tig + 2*kb (+ 1),
@@ -1746,6 +2837,7 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
   if (tid < CM) wa_s[tid] = tid < c ? wa[tid] : 0.f;
   const float ba0 = ba[0];
   __syncthreads();
+  HAET_TRACE(HAET_SEG(sg_, mk_, 0);)
 
   // acc: dWs^T (chain) or dstates (first pass), slices mb*16 + gid (+ 8),
   // channels nc*8 + 2*tig (+ 1); colsum: dbs or t of the lane's slices
@@ -1769,15 +2861,13 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
     cp_commit();
     cp_wait<STAGES - 1>();
     __syncwarp();
+    HAET_TRACE(HAET_SEG(sg_, mk_, 1);)
     float* slot = my_x + (j % STAGES) * TR * CS;
     const int row0 = first_row + j * STRIDE;
     const int rows = min(TR, n - row0);
-    convert_tile<CM, T>(slot, rows, c, vec, lane);
-    if constexpr (GOUT)
-      convert_tile<CM, T>(my_g + (j % STAGES) * TR * CS, rows, c, vec, lane);
     const float* gslot = GOUT ? my_g + (j % STAGES) * TR * CS : slot;
     float raw_l, it_l;
-    row_raw_tau<CM>(slot, wa_s, ba0, base_temp, lane, raw_l, it_l);
+    row_raw_tau<float, CM>(slot, wa_s, ba0, base_temp, lane, raw_l, it_l);
     for (int r16 = 0; r16 < rows; r16 += 16) {
       // A fragments of rows r16 + gid (a0, a2) and r16 + gid + 8 (a1, a3):
       // x, and g_out for the dw product
@@ -1807,6 +2897,7 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
           }
         }
       }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 2);)
       const float it0 = __shfl_sync(FULL, it_l, r16 + gid);
       const float it1 = __shfl_sync(FULL, it_l, r16 + gid + 8);
       const bool v0 = r16 + gid < rows, v1 = r16 + gid + 8 < rows;
@@ -1893,6 +2984,7 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
           }
         }
       }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 3);)
       if constexpr (CHAIN) {
         q0 += __shfl_xor_sync(FULL, q0, 1);
         q0 += __shfl_xor_sync(FULL, q0, 2);
@@ -1939,6 +3031,7 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
           }
         }
       }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 4);)
       __syncwarp();  // the buffer (and draw) are written
       // acc += buf^T B over these 16 rows: dpre^T x (chain) or w^T g_out;
       // k = tig is row kr*8 + 2*tig, k = tig + 4 row kr*8 + 2*tig + 1
@@ -1970,6 +3063,9 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
           for (int r = 0; r < 16 && r16 + r < rows; ++r)
             dwa_l = fmaf(slot[(r16 + r) * CS + lane], drw[r], dwa_l);
         }
+      }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 5);)
+      if constexpr (CHAIN) {
         __syncwarp();  // every lane is done reading these rows' x
 #pragma unroll
         for (int mc = 0; mc < MC; ++mc)
@@ -1983,10 +3079,13 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
             }
       }
       __syncwarp();  // the buffer is free for the next 16 rows
+      HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
     }
     if constexpr (CHAIN)  // the tile's dx (added to the earlier windows')
-      store_tile<CM, T>(slot, dacc, dx, cloud + static_cast<size_t>(row0) * c,
-                        rows, c, vec, first, last, lane);
+      store_tile<CM, float>(slot, dacc, dx,
+                            cloud + static_cast<size_t>(row0) * c, rows, c,
+                            vec, first, last, lane);
+    HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
   }
   cp_wait<0>();
   __syncthreads();  // the rings are free: the warps' partials go there
@@ -2035,20 +3134,26 @@ slice_bwd_fast(const T* __restrict__ x, const T* __restrict__ gout,
     for (int u = 0; u < WARPS; ++u) v += mg[u * PW + e];
     pb[e] = v;
   }
+#ifdef HAET_SLICE_TRACE
+  HAET_SEG(sg_, mk_, 7);
+  if (lane == 0) {
+    const int rec =
+        ((blockIdx.z * nbh + bh) * per_cloud + blockIdx.x) % TRACE_CTAS;
+    for (int i = 0; i < BWD_SEGS; ++i) g_trace_bwd[MODE][rec][warp][i] = sg_[i];
+  }
+#endif
 }
 
 // Where sum_partials puts its sums, for windows of wr slices (BW for
-// slice_bwd_fast, g for slice_bwd_generic). SUM_PARAMS (b a window of the
-// chain, rows [wr][rw] of dWs^T and dbs, then dWa, dba): dWs [c][g] (out),
-// dbs [g] (o2), and from the last window dWa [c] (o3), dba (o4). SUM_STATES
-// (b = window * bh + cloud, rows [wr][rw] of dstates, t and sum_n w):
-// out[b][j], and dstates [bh][g][c] (o2, float32, or o2h, bf16, if not
-// null).
+// slice_bwd_fast, g for slice_bwd_generic: one window). SUM_PARAMS (b a
+// window of the chain, rows [wr][rw] of dWs^T and dbs, then dWa, dba): dWs
+// [c][g] (out), dbs [g] (o2), and from the last window dWa [c] (o3), dba
+// (o4). SUM_STATES (b = window * bh + cloud, rows [wr][rw] of dstates, t and
+// sum_n w): out[b][j], and dstates [bh][g][c] (o2, if not null).
 constexpr int SUM_PARAMS = 1, SUM_STATES = 2;
 
 struct SumOut {
   float *out, *o2, *o3, *o4;
-  bf16* o2h;
   int mode, c, g, cm, rw, bh, windows, wr;
 };
 
@@ -2092,10 +3197,7 @@ sum_partials(const float* __restrict__ part, int parts, int len, SumOut o) {
   } else if (o.mode == SUM_STATES) {
     const int win = b / o.bh, cloud = b - win * o.bh, sl = win * o.wr + row;
     const size_t e = (static_cast<size_t>(cloud) * o.g + sl) * o.c + col;
-    if (sl < o.g && col < o.c) {
-      if (o.o2) o.o2[e] = v;
-      if (o.o2h) o.o2h[e] = __float2bfloat16_rn(v);
-    }
+    if (sl < o.g && col < o.c && o.o2) o.o2[e] = v;
   }
 }
 
@@ -2116,7 +3218,7 @@ sum_partials(const float* __restrict__ part, int parts, int len, SumOut o) {
 // one thread), and the last applies draw. A block's partials: per slice,
 // dWs^T and dbs (chain modes) or dstates, t and sum_n w (first passes),
 // rows [g][rw]; then dWa [c] and dba (chain modes); sum_partials adds the
-// blocks' in a fixed order, as for slice_bwd_fast.
+// blocks' in a fixed order.
 // ---------------------------------------------------------------------------
 
 // Shared memory of slice_bwd_generic in floats, fixed and per row of a
@@ -2457,11 +3559,62 @@ cudaError_t launch_deslice(const void* x, const float* ws, const float* bs,
   return cudaGetLastError();
 }
 
-template <int CM, int MODE, typename T>
-cudaError_t launch_bwd(const void* x, const void* gout, const float* ws,
+// Resident blocks per SM of slice_bwd_fused<T, CM, DESLICE> at its shared
+// memory (opted in first) on the current device, cached per device: the
+// persistent grid's limit.
+constexpr int MAX_DEVICES = 64;
+
+template <typename T, int CM, bool DESLICE>
+cudaError_t fused_per_sm(int* per_sm) {
+  constexpr size_t SMEM = bwd_fused_smem<T, CM, DESLICE>();
+  static int cached[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!cached[dev]) {
+    err = cudaFuncSetAttribute(slice_bwd_fused<T, CM, DESLICE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(SMEM));
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &cached[dev], slice_bwd_fused<T, CM, DESLICE>, NTF, SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  *per_sm = cached[dev];
+  return cudaSuccess;
+}
+
+// A cooperative launch: the runtime refuses it unless every block can be
+// resident at once (so the grid barrier cannot wait on a block that never
+// runs, whatever else holds the SMs), and CUDA graphs capture it as such.
+template <typename T, int CM, bool DESLICE>
+cudaError_t launch_bwd_fused(const BwdArgs& a, int blocks, int smem,
+                             cudaStream_t stream) {
+  constexpr size_t SMEM = bwd_fused_smem<T, CM, DESLICE>();
+  if (static_cast<size_t>(smem) != SMEM || blocks < 1)
+    return cudaErrorInvalidValue;
+  int per_sm = 0;  // and the kernel opted into its shared memory
+  const cudaError_t err = fused_per_sm<T, CM, DESLICE>(&per_sm);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NTF);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, slice_bwd_fused<T, CM, DESLICE>, a);
+}
+
+template <int CM, int MODE>
+cudaError_t launch_bwd(const float* x, const float* gout, const float* ws,
                        const float* bs, const float* wa, const float* ba,
-                       const void* bmat, const float* tsum, const float* m,
-                       const float* s, float* part, void* dx, float* dacc,
+                       const float* bmat, const float* tsum, const float* m,
+                       const float* s, float* part, float* dx, float* dacc,
                        float* qbuf, int bh, int n, int c, int g,
                        int per_cloud, int span, int win0, int windows,
                        int flags, float base_temp, float shift, size_t smem,
@@ -2469,15 +3622,12 @@ cudaError_t launch_bwd(const void* x, const void* gout, const float* ws,
   if (smem != sizeof(float) * bwd_smem_floats<CM, MODE>())
     return cudaErrorInvalidValue;
   static size_t allowed = 0;
-  cudaError_t err =
-      allow_smem(slice_bwd_fast<T, CM, MODE>, smem, &allowed);
+  cudaError_t err = allow_smem(slice_bwd_fast<CM, MODE>, smem, &allowed);
   if (err != cudaSuccess) return err;
-  slice_bwd_fast<T, CM, MODE>
+  slice_bwd_fast<CM, MODE>
       <<<dim3(per_cloud, bh, windows), NTF, smem, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(gout), ws, bs, wa,
-          ba, static_cast<const T*>(bmat), tsum, m, s, part,
-          static_cast<T*>(dx), dacc, qbuf, n, c, g, span, win0, flags,
-          base_temp, shift);
+          x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, dacc, qbuf, n,
+          c, g, span, win0, flags, base_temp, shift);
   return cudaGetLastError();
 }
 
@@ -2527,6 +3677,10 @@ cudaError_t launch_bwd_generic(const float* x, const float* gout,
   X(8, 32, 32) X(8, 64, 64) X(8, 64, 0) X(16, 32, 32) X(16, 64, 64) \
   X(16, 64, 0) X(32, 32, 32) X(32, 32, 64) X(32, 32, 0)
 
+// The fused backward's instantiations (bf16 I/O): (CM, deslice).
+#define HAET_BWD_CASES(X)                                           \
+  X(8, false) X(16, false) X(32, false) X(8, true) X(16, true) X(32, true)
+
 extern "C" {
 
 const char* haet_error_string(int err) {
@@ -2538,6 +3692,20 @@ const char* haet_error_string(int err) {
 int haet_trace_read(unsigned long long* dst) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(dst, g_trace, sizeof(g_trace)));
+}
+
+// Copies g_trace_bwd [4][TRACE_CTAS][WARPS][BWD_SEGS] to dst.
+int haet_trace_read_bwd(unsigned long long* dst) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(dst, g_trace_bwd, sizeof(g_trace_bwd)));
+}
+
+// Zeroes g_trace_bwd (a record never written reads as zeros).
+int haet_trace_reset_bwd() {
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, g_trace_bwd);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(g_trace_bwd)));
 }
 #endif
 
@@ -2667,39 +3835,85 @@ int haet_deslice_generic_f32(const float* x, const float* ws,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the backward kernel slice_bwd_fast in `mode` (0:
+// Blocks per SM of the fused backward (deslice: deslice_bwd, else
+// slice_states_bwd) for C channels at its shared memory smem (the wrapper's
+// count, checked here): the wrapper sizes the persistent grid from it.
+int haet_slice_bwd_per_sm(int deslice, int c, int smem, int* per_sm) {
+  const int cm = fast_cm(c);
+  cudaError_t err = cudaErrorInvalidValue;
+#define HAET_CASE(CM, D)                                            \
+  if (cm == CM && (deslice != 0) == D) {                            \
+    if (static_cast<size_t>(smem) != bwd_fused_smem<bf16, CM, D>()) \
+      return static_cast<int>(cudaErrorInvalidValue);               \
+    err = fused_per_sm<bf16, CM, D>(per_sm);                        \
+  }
+  HAET_BWD_CASES(HAET_CASE)
+#undef HAET_CASE
+  return static_cast<int>(err);
+}
+
+// One call of the fused backward for bf16 I/O, one cooperative launch, for
+// C <= 32 and any G (see BwdArgs for the tensors and their layouts): blocks
+// at most the resident blocks (haet_slice_bwd_per_sm times the SMs),
+// per_cloud * span >= n > (per_cloud - 1) * span; qbuf and dacc needed past
+// one window of BW slices; smem is the wrapper's count, checked here.
+int haet_slice_bwd_fused(int deslice, const void* x, const void* gout,
+                         const float* ws, const float* bs, const float* wa,
+                         const float* ba, const void* bmat, const float* m,
+                         const float* s, float* part1, float* tsum,
+                         float* part2, float* cpart, void* dstates, void* dx,
+                         float* dacc, float* qbuf, float* dws, float* dbs,
+                         float* dwa, float* dba, int* bar, int bh, int n,
+                         int c, int g, int per_cloud, int span, int blocks,
+                         float base_temp, float shift, int smem,
+                         void* stream) {
+  const int cm = fast_cm(c);
+  if (!cm || bh < 1 || n < 1 || g < 1 || per_cloud < 1 ||
+      static_cast<long long>(per_cloud) * span < n ||
+      static_cast<long long>(per_cloud - 1) * span >= n ||
+      (g > BW && (qbuf == nullptr || dacc == nullptr)) ||
+      (deslice && dstates == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs args{x, gout, ws, bs, wa, ba, bmat, m, s, part1, tsum,
+                     part2, cpart, dstates, dx, dacc, qbuf, dws, dbs, dwa,
+                     dba, bar, bh, n, c, g, per_cloud, span, base_temp,
+                     shift};
+  cudaStream_t str = static_cast<cudaStream_t>(stream);
+#define HAET_CASE(CM, D)                   \
+  if (cm == CM && (deslice != 0) == D)     \
+    return static_cast<int>(               \
+        launch_bwd_fused<bf16, CM, D>(args, blocks, smem, str));
+  HAET_BWD_CASES(HAET_CASE)
+#undef HAET_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch of the float32 backward kernel slice_bwd_fast in `mode` (0:
 // slice_states' chain, 1: deslice's first pass, 2: its chain, 3:
 // slice_states' first pass), for C <= 32, over `windows` windows of BW
 // slices from window win0 (grid z); flags: 1 first window, 2 last window
-// (the chain modes). x, gout, bmat and dx float32 or, with bf16, bfloat16;
-// dacc float32, where the chain's windows add up their dx (dx itself for
-// float32; may be null with one window). Shapes as at slice_bwd_fast;
-// smem is the wrapper's count, checked here.
-int haet_slice_bwd(int mode, const void* x, const void* gout,
+// (the chain modes). dacc, where the chain's windows add up their dx, is dx
+// itself (may be null with one window). Shapes as at slice_bwd_fast; smem
+// is the wrapper's count, checked here.
+int haet_slice_bwd(int mode, const float* x, const float* gout,
                    const float* ws, const float* bs, const float* wa,
-                   const float* ba, const void* bmat, const float* tsum,
-                   const float* m, const float* s, float* part, void* dx,
+                   const float* ba, const float* bmat, const float* tsum,
+                   const float* m, const float* s, float* part, float* dx,
                    float* dacc, float* qbuf, int bh, int n, int c, int g,
                    int per_cloud, int span, int win0, int windows, int flags,
-                   float base_temp, float shift, int smem, int bf16_io,
-                   void* stream) {
+                   float base_temp, float shift, int smem, void* stream) {
   const int cm = fast_cm(c);
   if (!cm || windows < 1 || win0 < 0 || (win0 + windows - 1) * BW >= g ||
       ((mode == BWD_STATES || mode == BWD_CHAIN) && flags != 3 &&
        dacc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t str = static_cast<cudaStream_t>(stream);
-#define HAET_CASE(MODE, CM)                                                  \
-  case MODE * 100 + CM:                                                      \
-    return static_cast<int>(                                                 \
-        bf16_io ? launch_bwd<CM, MODE, bf16>(                                \
-                      x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx,   \
-                      dacc, qbuf, bh, n, c, g, per_cloud, span, win0,        \
-                      windows, flags, base_temp, shift, smem, str)           \
-                : launch_bwd<CM, MODE, float>(                               \
-                      x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx,   \
-                      dacc, qbuf, bh, n, c, g, per_cloud, span, win0,        \
-                      windows, flags, base_temp, shift, smem, str));
+#define HAET_CASE(MODE, CM)                                                 \
+  case MODE * 100 + CM:                                                     \
+    return static_cast<int>(launch_bwd<CM, MODE>(                           \
+        x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, dacc, qbuf, bh, \
+        n, c, g, per_cloud, span, win0, windows, flags, base_temp, shift,   \
+        smem, str));
 #define HAET_CASES(MODE) HAET_CASE(MODE, 8) HAET_CASE(MODE, 16) \
   HAET_CASE(MODE, 32)
   switch (mode * 100 + cm) {
@@ -2743,17 +3957,16 @@ int haet_slice_bwd_generic_f32(int mode, const float* x, const float* gout,
 // The sum over p < parts, in a fixed order, of part[b][p][j], for
 // `batches` rows b of `len` floats, put where `mode` says (SumOut, windows
 // of wr slices): the backward's parameter gradients (dWs, dbs, dWa, dba in
-// their own layouts) or dstates beside the first pass's full sums: in
-// float32 (o2) or bfloat16 (o2h), either may be null.
+// their own layouts) or dstates (o2, if not null) beside the first pass's
+// full sums.
 int haet_sum_partials(const float* part, float* out, float* o2, float* o3,
-                      float* o4, void* o2h, int batches, int parts, int len,
-                      int mode, int c, int g, int cm, int rw, int bh, int wr,
+                      float* o4, int batches, int parts, int len, int mode,
+                      int c, int g, int cm, int rw, int bh, int wr,
                       void* stream) {
   if (batches < 1 || parts < 1 || (mode != SUM_PARAMS && mode != SUM_STATES)
       || wr < 1 || len < wr * rw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const SumOut o{out, o2, o3, o4, static_cast<bf16*>(o2h), mode, c, g, cm,
-                 rw, bh, batches, wr};
+  const SumOut o{out, o2, o3, o4, mode, c, g, cm, rw, bh, batches, wr};
   sum_partials<<<dim3((len + 31) / 32, batches), NT, 0,
                  static_cast<cudaStream_t>(stream)>>>(part, parts, len, o);
   return static_cast<int>(cudaGetLastError());

@@ -104,15 +104,21 @@ def reset_launch_counts() -> None:
 
 #: the CUDA kernels of each wrapper, by their demangled names: ``(pattern,
 #: port kernel, is_call)``, where one ``is_call`` kernel runs per wrapper
-#: call. ``sum_partials`` (the slice backwards' sums) belongs to the
-#: backward whose pass it follows; the slice backward kernels' mode is their
-#: last template argument (3 and 0: slice_states_bwd's first pass and chain,
-#: 1 and 2: deslice_bwd's)
+#: call. The fused slice backward (bf16, C <= 32) is one launch per call,
+#: its kind the last template argument (false: slice_states_bwd, true:
+#: deslice_bwd); the per-pass ones (float32 ``slice_bwd_fast``, and
+#: ``slice_bwd_generic`` for wider heads) take four or more, their mode the
+#: last template argument (3 and 0: slice_states_bwd's first pass and
+#: chain, 1 and 2: deslice_bwd's), each pass followed by a
+#: ``sum_partials``, which belongs to the backward whose pass it follows
 KERNEL_NAMES = (
     (re.compile(r"\bslice_states_fast\b"), "slice_states", True),
     (re.compile(r"\bslice_partials_generic\b"), "slice_states", False),
     (re.compile(r"\bslice_merge_generic\b"), "slice_states", True),
     (re.compile(r"\bdeslice_(?:fast|generic)\b"), "deslice", True),
+    (re.compile(r"\bslice_bwd_fused<[^<>]*\bfalse>"), "slice_states_bwd",
+     True),
+    (re.compile(r"\bslice_bwd_fused<[^<>]*\btrue>"), "deslice_bwd", True),
     (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?3>"),
      "slice_states_bwd", True),
     (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?0>"),

@@ -42,9 +42,14 @@ the hand-derived passes over N of the JAX ``custom_vjp``
 launch the backward kernels, two passes over N each (the first sums the
 softmax coupling ``t`` and ``sum_n w``, the second applies the chain with
 the weights normalised by that sum), their partial sums added in a fixed
-order: at C <= 32 ``slice_bwd_fast`` (the slices in windows of
-:data:`BWD_WINDOW`), wider heads ``slice_bwd_generic`` (groups of slices
-sized by :func:`generic_bwd_plan`). On CPU tensors they run
+order. At C <= 32 a bf16 call takes ``slice_bwd_fused``, both passes in one
+cooperative launch of a persistent grid (:func:`fused_blocks`, a grid
+barrier between them), and a float32 call ``slice_bwd_fast``, one launch per
+pass and a sum of its partials after each (the chain once per window of
+:data:`BWD_WINDOW` slices): each is the faster there, as measured on an H100
+(``benchmarks/slice_kernels.py --ab``). Wider heads take
+``slice_bwd_generic`` in float32 (groups of slices sized by
+:func:`generic_bwd_plan`). On CPU tensors they run
 :func:`slice_states_bwd_plain` / :func:`deslice_bwd_plain`, chunked PyTorch
 that never holds more than one ``[B*H, BWD_CHUNK, G]`` weight tile. Only
 ``states`` and ``out`` carry a gradient; ``m`` and ``s`` are marked
@@ -82,13 +87,16 @@ MAX_GENERIC_C = NT * MAX_ACC
 MAX_SMEM = 232448
 #: slices per window of the backward kernels (``BW``)
 BWD_WINDOW = 32
+#: the row stride of a fused backward warp's 16-row buffer (``BUF_STRIDE``)
+BUF_STRIDE = BWD_WINDOW + 4
 #: points per chunk of the plain backward passes (``_BWD_CHUNK`` of the JAX
 #: code); a module constant so that tests can make the chunk loop run
 #: several times
 BWD_CHUNK = 64 * 1024
-#: the backward kernels' modes (``BWD_STATES``, ``BWD_SUMS``, ``BWD_CHAIN``,
-#: ``BWD_STATES_SUMS``) by launch name: slice_states' second and first
-#: pass, deslice's first and second
+#: the per-pass backward kernels' modes (``BWD_STATES``, ``BWD_SUMS``,
+#: ``BWD_CHAIN``, ``BWD_STATES_SUMS``) by launch name: slice_states' second
+#: and first pass, deslice's first and second (the fused kernel runs a
+#: backward's two passes in one launch)
 BWD_MODES = {"slice_states_bwd": 0, "deslice_bwd_sums": 1, "deslice_bwd": 2,
              "slice_states_bwd_sums": 3}
 
@@ -106,14 +114,17 @@ _F = ctypes.c_float
 
 
 class Geometry(NamedTuple):
-    """One kernel's launch: ``route`` "fast" or "generic"; the grid is
-    ``(per_cloud, bh, groups)`` blocks of 256 threads, block ``b`` covering
-    rows ``[b * span, min(n, (b + 1) * span))`` of its cloud, and one group
-    of ``slices`` slices. For deslice and the backwards' second passes,
-    ``groups`` counts the groups of ``slices`` slices that one block (the
-    generic chain, fast deslice) or one launch each (the fast chain) takes
-    in turn, instead of grid z. ``smem`` is the dynamic shared memory per
-    block in bytes."""
+    """One kernel's launch: ``route`` "fast", "generic" or "fused"; the
+    grid is ``(per_cloud, bh, groups)`` blocks of 256 threads, block ``b``
+    covering rows ``[b * span, min(n, (b + 1) * span))`` of its cloud, and
+    one group of ``slices`` slices. For deslice and the backwards' second
+    passes, ``groups`` counts the groups of ``slices`` slices that one block
+    (the generic chain, fast deslice) or one launch each (the fast chain)
+    takes in turn, instead of grid z. The fused backward is a
+    one-dimensional grid of ``blocks``, each taking the units (cloud, range
+    of ``span`` rows) ``b, b + blocks, ...`` of the ``bh * per_cloud``, and
+    ``groups`` windows of ``slices`` slices in turn. ``smem`` is the
+    dynamic shared memory per block in bytes."""
 
     route: str
     per_cloud: int
@@ -121,6 +132,7 @@ class Geometry(NamedTuple):
     groups: int
     smem: int
     slices: int
+    blocks: int = 0
 
 
 def fast_widths(c: int, g: int):
@@ -203,6 +215,38 @@ def bwd_part_floats(cm: int, kernel: str) -> int:
     dWa and dba for a chain."""
     extra = 0 if _is_first_pass(kernel) else cm + 1
     return BWD_WINDOW * bwd_row(cm, kernel) + extra
+
+
+def fused_smem(cm: int, kernel: str) -> int:
+    """Dynamic shared memory of a fused backward block (``bwd_fused_smem``
+    in the CUDA source, bf16 I/O): the x ring (and deslice's g_out ring) in
+    bf16, rows padded by 16 bytes, where the block merges also go; the
+    fragment tables of Ws as B and A (16-byte hi/lo pairs) and of the
+    G-side matrix as B (and slice_states' G^ as A), high parts alone; four
+    floats per slice of the window, Wa, and the warps' 16-row buffers and
+    draw."""
+    deslice = kernel.startswith("deslice")
+    ring = WARPS * STAGES * TILE_ROWS * (cm + 8) * 2
+    merge = 4 * WARPS * (BWD_WINDOW * (cm + 2) + cm + 1)
+    lanes = (BWD_WINDOW // 8) * 32
+    tables = ((cm // 8) * lanes * (4 + 2)
+              + max(1, cm // 16) * lanes * (8 + (0 if deslice else 4)))
+    return (max((2 if deslice else 1) * ring, merge)
+            + 4 * (tables + 4 * BWD_WINDOW + cm
+                   + WARPS * 16 * (BUF_STRIDE + 1)))
+
+
+def bwd_partials(cm: int, bh: int, per_cloud: int, windows: int):
+    """Floats of a fused backward's partial sums: ``(part1, tsum, part2,
+    cpart, pw2)``, the first pass's ``[windows][units][BW][CM + 2]``
+    (dstates, t and ``sum_n w`` per slice) and their merge per cloud
+    ``[bh][windows][BW][2]`` (t, ``sum_n w``), the chain's ``[units][pw2]``
+    and the clouds' ``[bh][pw2]``, ``pw2 = windows * BW * (CM + 1) + CM +
+    1`` (dWs^T and dbs per window, then dWa and dba)."""
+    units = bh * per_cloud
+    pw2 = windows * BWD_WINDOW * (cm + 1) + cm + 1
+    return (windows * units * BWD_WINDOW * (cm + 2),
+            bh * windows * BWD_WINDOW * 2, units * pw2, bh * pw2, pw2)
 
 
 def generic_bwd_plan(c: int, g: int):
@@ -309,15 +353,33 @@ def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
                     deslice_smem(cm, gp), gp)
 
 
-def warp_tiles(geom: Geometry, n: int):
+def fused_geometry(kernel: str, bh: int, n: int, c: int, g: int, sms: int,
+                   per_sm: int) -> Geometry:
+    """The launch of the fused backward ``kernel``, "slice_states_bwd" or
+    "deslice_bwd" (bf16, C <= 32), for ``bh`` clouds of ``n`` points on a
+    card of ``sms`` multiprocessors that keeps ``per_sm`` of its blocks
+    resident on each (:func:`fused_blocks`): a persistent grid of at most
+    ``per_sm * sms`` blocks; each cloud's N is cut into ``per_cloud``
+    ranges as for the forwards, each a unit."""
+    cm = fast_widths(c, g)[0]
+    capacity = per_sm * sms
+    per_cloud, span = _split_rows(bh, n, 1, capacity)
+    return Geometry("fused", per_cloud, span, _cdiv(g, BWD_WINDOW),
+                    fused_smem(cm, kernel), BWD_WINDOW,
+                    min(bh * per_cloud, capacity))
+
+
+def warp_tiles(geom: Geometry, n: int, reverse: bool = False):
     """``(block, warp, row0, rows)`` of every tile a fast-kernel launch
-    reads from one cloud, in the order each warp takes them."""
+    reads from one cloud, in the order each warp takes them (``block`` the
+    cloud's range of ``span`` rows; ``reverse``: last first, as the fused
+    backward's chain takes them)."""
     for blk in range(geom.per_cloud):
         begin = blk * geom.span
         end = min(n, begin + geom.span)
         for warp in range(WARPS):
-            for row0 in range(begin + warp * TILE_ROWS, end,
-                              WARPS * TILE_ROWS):
+            rows = range(begin + warp * TILE_ROWS, end, WARPS * TILE_ROWS)
+            for row0 in (reversed(rows) if reverse else rows):
                 yield blk, warp, row0, min(TILE_ROWS, end - row0)
 
 
@@ -332,22 +394,24 @@ _RETIRED: list = []
 _COUNTERS_LOCK = threading.Lock()
 
 
-def _counter(device, stream_ptr: int, count: int) -> torch.Tensor:
-    """The fast slice_states' arrival counters (one per cloud and slice
-    group) for one stream: int32 zeros, which the kernel's last block of
-    each cloud and group resets, so a CUDA graph that captured them stays
-    right replay after replay. They are allocated outside any capture: a
-    capture that would need a new one raises (warm the kernel up on the
-    capturing stream first)."""
-    key = (device.index, stream_ptr)
+def _counter(device, stream_ptr: int, count: int,
+             user: str = "slice_states") -> torch.Tensor:
+    """``count`` int32 counters of one kernel (``user``: the fast
+    slice_states' arrival counters, one per cloud and slice group; the
+    fused backward's grid barrier and merge counters) for one stream:
+    zeros, which the kernel leaves at zero, so a CUDA graph that captured
+    them stays right replay after replay. They are allocated outside any
+    capture: a capture that would need a new one raises (warm the kernel
+    up on the capturing stream first)."""
+    key = (device.index, stream_ptr, user)
     with _COUNTERS_LOCK:
         buf = _COUNTERS.get(key)
         if buf is None or buf.numel() < count:
             if torch.cuda.is_current_stream_capturing():
                 raise RuntimeError(
-                    "slice_states: no arrival counter for this stream and "
-                    "width outside the capture; run the step once on the "
-                    "capturing stream before capturing it")
+                    f"{user}: no counters for this stream and width outside "
+                    f"the capture; run the step once on the capturing "
+                    f"stream before capturing it")
             if buf is not None:
                 _RETIRED.append(buf)
             buf = torch.zeros(max(count, 64), device=device,
@@ -904,21 +968,19 @@ def _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, grad,
 
 def _bwd_launch(lib, kernel, geom, tensors, shape, win0, windows, flags,
                 base_temp, epsilon, stream):
-    """One launch of a backward kernel in ``kernel``'s mode (the fast one
-    over ``windows`` windows from ``win0`` with the window ``flags``, or
-    the generic one); ``tensors`` are ``(x, g_out, Ws, bs, Wa, ba, bmat,
-    tsum, m, s, part, dx, dacc, q)``, None where the mode reads none
-    (``dacc``, where a chain's windows add up dx in float32, only for the
-    fast kernel, whose x, g_out, bmat and dx may be bf16; the generic one's
-    are float32)."""
+    """One launch of a float32 backward kernel in ``kernel``'s mode (the
+    fast one over ``windows`` windows from ``win0`` with the window
+    ``flags``, or the generic one); ``tensors`` are ``(x, g_out, Ws, bs,
+    Wa, ba, bmat, tsum, m, s, part, dx, dacc, q)``, None where the mode
+    reads none (``dacc``, where a fast chain's windows add up dx: dx
+    itself)."""
     bh, n, c, g = shape
     ptrs = [_ptr(t) for t in tensors]
     tail = (base_temp, _shift(epsilon), geom.smem)
     if geom.route == "fast":
-        low = tensors[0].dtype == torch.bfloat16
         status = lib.haet_slice_bwd(
             BWD_MODES[kernel], *ptrs, bh, n, c, g, geom.per_cloud, geom.span,
-            win0, windows, flags, *tail, int(low), stream)
+            win0, windows, flags, *tail, stream)
     else:
         del ptrs[12]
         status = lib.haet_slice_bwd_generic_f32(
@@ -937,14 +999,11 @@ def _sum_partials(lib, part, batches: int, parts: int, stream, mode, outs,
                   shape):
     """``part [batches, parts, len]`` summed over ``parts`` in a fixed
     order into ``outs`` (see ``SumOut`` in the CUDA source: the second a
-    float32 or bf16 dstates); ``shape`` is ``(c, g, dbs column, row
-    stride, bh, slices per window)``."""
+    dstates, if not None); ``shape`` is ``(c, g, dbs column, row stride,
+    bh, slices per window)``."""
     length = part.numel() // (batches * parts)
-    out, o2, o3, o4 = outs
-    low = o2 is not None and o2.dtype == torch.bfloat16
     status = lib.haet_sum_partials(
-        part.data_ptr(), _ptr(out), None if low else _ptr(o2), _ptr(o3),
-        _ptr(o4), _ptr(o2) if low else None, batches, parts, length,
+        part.data_ptr(), *(_ptr(o) for o in outs), batches, parts, length,
         SUM_MODES[mode], *shape, stream)
     _build.check(lib, status, "sum_partials")
 
@@ -965,7 +1024,7 @@ def _first_pass_sums(lib, kernel, tensors, shape, base_temp, epsilon, stream,
     partials: ``tsum [windows * bh, slices * row stride]``, each slice's
     row holding dstates (or unused columns), t and ``sum_n w``; dstates
     also in its own layout if given. ``tensors``: ``(x, g_out, Ws, bs, Wa,
-    ba, bmat, m, s)``, ``g_out`` None for slice_states."""
+    ba, bmat, m, s)``, float32, ``g_out`` None for slice_states."""
     bh, n, c, g = shape
     dev = tensors[0].device
     geom = launch_geometry(kernel, bh, n, c, g, sm_count(dev))
@@ -998,14 +1057,9 @@ def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
     part = torch.empty((windows, bh * geom.per_cloud, wr * rw + col + 1),
                        **f32)
     dx = torch.empty_like(x_proj)
-    # the windows' dx sums meet in float32: dx itself, or a scratch for a
-    # bf16 dx of more than one window
-    dacc = dx
-    if x_proj.dtype != torch.float32:
-        dacc = torch.empty_like(dx, dtype=torch.float32) if windows > 1 \
-            else None
     q = torch.empty(bh * n, **f32) if geom.groups > 1 else None
-    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, dacc, q)
+    # the windows' dx sums meet in dx itself
+    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, dx, q)
     for w in range(windows):
         flags = (1 if w == 0 else 0) | (2 if w == windows - 1 else 0)
         _bwd_launch(lib, kernel, geom, ptrs, shape, w, 1, flags, base_temp,
@@ -1017,48 +1071,129 @@ def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
     return dx, dws, dbs, dwa, dba
 
 
+#: resident blocks per SM of each fused backward instantiation, by
+#: ``(device index, kernel, CM)``
+_PER_SM: dict = {}
+
+
+def fused_blocks(lib, device, kernel: str, c: int) -> int:
+    """Blocks per SM of the fused backward ``kernel`` that the card keeps
+    resident at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at
+    its shared memory, from ``haet_slice_bwd_per_sm``), cached: the
+    persistent grid holds at most this times the SMs."""
+    cm = fast_widths(c, 1)[0]
+    key = (device.index, kernel, cm)
+    per_sm = _PER_SM.get(key)
+    if per_sm is None:
+        out = ctypes.c_int(0)
+        status = lib.haet_slice_bwd_per_sm(
+            int(kernel == "deslice_bwd"), c, fused_smem(cm, kernel),
+            ctypes.byref(out))
+        _build.check(lib, status, f"{kernel} occupancy")
+        if out.value < 1:
+            raise RuntimeError(f"{kernel}: no block of the fused kernel fits "
+                               f"an SM")
+        per_sm = _PER_SM[key] = out.value
+    return per_sm
+
+
+def _fused_bwd(lib, kernel, tensors, shape, base_temp, epsilon, stream,
+               dstates=None):
+    """A backward on ``slice_bwd_fused`` (bf16, C <= 32, any G): one
+    launch. ``tensors``: ``(x, g_out, Ws, bs, Wa, ba, bmat, m, s)``,
+    ``g_out`` None for slice_states; x, g_out, bmat and dstates bf16.
+    Returns ``(dx, dWs, dbs, dWa, dba)``."""
+    bh, n, c, g = shape
+    x_proj = tensors[0]
+    dev = x_proj.device
+    geom = fused_geometry(kernel, bh, n, c, g, sm_count(dev),
+                          fused_blocks(lib, dev, kernel, c))
+    cm = fast_widths(c, g)[0]
+    windows = geom.groups
+    sizes = bwd_partials(cm, bh, geom.per_cloud, windows)[:4]
+    nq = bh * n if windows > 1 else 0
+    f32 = dict(device=dev, dtype=torch.float32)
+    # one scratch: part1, tsum, part2, cpart, then q (windows > 1)
+    parts = list(torch.empty(sum(sizes) + nq, **f32).split([*sizes, nq]))
+    q = parts.pop() if nq else None
+    dx = torch.empty_like(x_proj)
+    # the windows' dx sums meet in float32, past one window
+    dacc = (torch.empty_like(dx, dtype=torch.float32) if windows > 1
+            else None)
+    dws, dbs = torch.empty((c, g), **f32), torch.empty(g, **f32)
+    dwa, dba = torch.empty((c, 1), **f32), torch.empty(1, **f32)
+    stream_ptr = stream.value
+    bar = _counter(dev, stream_ptr, 3 + 2 * bh, "slice_bwd_fused")
+    ptrs = (*tensors, *parts[:4], dstates, dx, dacc, q, dws, dbs, dwa, dba,
+            bar)
+    status = lib.haet_slice_bwd_fused(
+        int(kernel == "deslice_bwd"), *(_ptr(t) for t in ptrs), bh, n, c, g,
+        geom.per_cloud, geom.span, geom.blocks, base_temp, _shift(epsilon),
+        geom.smem, stream)
+    _build.check(lib, status, kernel)
+    return dx, dws, dbs, dwa, dba
+
+
+def _fused_route(x_proj, c: int, g: int) -> bool:
+    """Whether a backward takes ``slice_bwd_fused`` (bf16 at C <= 32) or the
+    per-pass kernels (float32 ``slice_bwd_fast``, or ``slice_bwd_generic``
+    for wider heads, bf16 widened)."""
+    return x_proj.dtype == torch.bfloat16 and fast_widths(c, g) is not None
+
+
 def _slice_states_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states,
                              m, s, g_states, base_temp, epsilon):
-    """:func:`slice_states_bwd` on the card: the first pass (``t = sum_n w
-    (x G^)`` and ``sum_n w``) and the sum of its partials, then the chain
-    and the sum of its partials."""
+    """:func:`slice_states_bwd` on the card: one fused launch (bf16, C <=
+    32), or the first pass (``t = sum_n w (x G^)`` and ``sum_n w``) and the
+    sum of its partials, then the chain and the sum of its partials."""
     b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
                                states, m, s, g_states, "g_states",
                                lambda b, h, n, c, g: (b, h, g, c),
                                torch.float32)
     lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
-    generic_low = fast_widths(c, g) is None and x_proj.dtype != torch.float32
-    x_in, g_in = ((x_proj.float(), g_states.float()) if generic_low
-                  else (x_proj, g_states))
-    tensors = (x_in, None, w_slice, b_slice, w_ada, b_ada, g_in, m, s)
-    tsum = _first_pass_sums(lib, "slice_states_bwd_sums", tensors, shape,
-                            base_temp, epsilon, stream)
-    dx, *grads = _chain_grads(lib, "slice_states_bwd", tensors, tsum, shape,
-                              base_temp, epsilon, stream)
+    kind = "slice_states_bwd"
+    if _fused_route(x_proj, c, g):
+        tensors = (x_proj, None, w_slice, b_slice, w_ada, b_ada, g_states,
+                   m, s)
+        dx, *grads = _fused_bwd(lib, kind, tensors, shape, base_temp,
+                                epsilon, stream)
+    else:
+        tensors = (x_proj.float(), None, w_slice, b_slice, w_ada, b_ada,
+                   g_states.float(), m, s)
+        tsum = _first_pass_sums(lib, kind + "_sums", tensors, shape,
+                                base_temp, epsilon, stream)
+        dx, *grads = _chain_grads(lib, kind, tensors, tsum, shape, base_temp,
+                                  epsilon, stream)
     SLICE_STATES_BWD_LAUNCHES.add()
     return (dx.to(x_proj.dtype), *grads)
 
 
 def _deslice_bwd_kernel(x_proj, w_slice, b_slice, w_ada, b_ada, states, m,
                         s, g_out, base_temp, epsilon):
-    """:func:`deslice_bwd` on the card: the first pass (``t``, ``sum_n w``
-    and ``dL/dstates``) and the sum of its partials, then the chain and
-    the sum of its partials."""
+    """:func:`deslice_bwd` on the card: one fused launch (bf16, C <= 32),
+    or the first pass (``t``, ``sum_n w`` and ``dL/dstates``) and the sum
+    of its partials, then the chain and the sum of its partials."""
     b, h, n, c, g = _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada,
                                states, m, s, g_out, "g_out",
                                lambda b, h, n, c, g: (b, h, n, c),
                                x_proj.dtype)
     lib, stream, shape = _lib(), _stream(x_proj.device), (b * h, n, c, g)
-    generic_low = fast_widths(c, g) is None and x_proj.dtype != torch.float32
-    x_in, g_in, st_in = ((x_proj.float(), g_out.float(), states.float())
-                         if generic_low else (x_proj, g_out, states))
-    tensors = (x_in, g_in, w_slice, b_slice, w_ada, b_ada, st_in, m, s)
-    dstates = torch.empty((b, h, g, c), device=x_proj.device,
-                          dtype=st_in.dtype)
-    tsum = _first_pass_sums(lib, "deslice_bwd_sums", tensors, shape,
-                            base_temp, epsilon, stream, dstates)
-    dx, *grads = _chain_grads(lib, "deslice_bwd", tensors, tsum, shape,
-                              base_temp, epsilon, stream)
+    kind = "deslice_bwd"
+    if _fused_route(x_proj, c, g):
+        dstates = torch.empty_like(states)
+        tensors = (x_proj, g_out, w_slice, b_slice, w_ada, b_ada, states, m,
+                   s)
+        dx, *grads = _fused_bwd(lib, kind, tensors, shape, base_temp,
+                                epsilon, stream, dstates)
+    else:
+        dstates = torch.empty(states.shape, device=states.device,
+                              dtype=torch.float32)
+        tensors = (x_proj.float(), g_out.float(), w_slice, b_slice, w_ada,
+                   b_ada, states.float(), m, s)
+        tsum = _first_pass_sums(lib, kind + "_sums", tensors, shape,
+                                base_temp, epsilon, stream, dstates)
+        dx, *grads = _chain_grads(lib, kind, tensors, tsum, shape, base_temp,
+                                  epsilon, stream)
     DESLICE_BWD_LAUNCHES.add()
     return (dx.to(x_proj.dtype), *grads, dstates.to(states.dtype))
 
@@ -1068,7 +1203,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` with the argument and result types of the seven entry points
+    """``lib`` with the argument and result types of the nine entry points
     set (once)."""
     if not getattr(lib, "_haet_typed", False):
         lib.haet_slice_states.argtypes = (
@@ -1079,16 +1214,20 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
             [_P] * 11 + [_I] * 5 + [_F, _F, _P])
         lib.haet_deslice_generic_f32.argtypes = (
             [_P] * 9 + [_I] * 4 + [_F, _F, _P])
+        lib.haet_slice_bwd_fused.argtypes = (
+            [_I] + [_P] * 22 + [_I] * 7 + [_F, _F, _I, _P])
+        lib.haet_slice_bwd_per_sm.argtypes = (
+            [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
         lib.haet_slice_bwd.argtypes = (
-            [_I] + [_P] * 14 + [_I] * 9 + [_F, _F, _I, _I, _P])
+            [_I] + [_P] * 14 + [_I] * 9 + [_F, _F, _I, _P])
         lib.haet_slice_bwd_generic_f32.argtypes = (
             [_I] + [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P])
-        lib.haet_sum_partials.argtypes = [_P] * 6 + [_I] * 10 + [_P]
+        lib.haet_sum_partials.argtypes = [_P] * 5 + [_I] * 10 + [_P]
         for fn in (lib.haet_slice_states, lib.haet_deslice,
                    lib.haet_slice_states_generic_f32,
-                   lib.haet_deslice_generic_f32, lib.haet_slice_bwd,
-                   lib.haet_slice_bwd_generic_f32,
-                   lib.haet_sum_partials):
+                   lib.haet_deslice_generic_f32, lib.haet_slice_bwd_fused,
+                   lib.haet_slice_bwd_per_sm, lib.haet_slice_bwd,
+                   lib.haet_slice_bwd_generic_f32, lib.haet_sum_partials):
             fn.restype = _I
         lib._haet_typed = True
     return lib

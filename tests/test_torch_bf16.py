@@ -695,20 +695,14 @@ def test_bf16_host_outputs_are_exact(tmp_path):
 
 def test_bf16_kernel_names_map_to_the_port():
     """The profiler's names of the bf16 instantiations map to the port's
-    kernels as the float32 ones do (the backward's mode is its last
+    kernels as the float32 ones do (the fused backward's kind is its last
     template argument), so a replay's calls count the same."""
     names = (
         "void slice_states_fast<32, 32, __nv_bfloat16>(__nv_bfloat16 const*)",
         "void erwin_block_fwd<true, __nv_bfloat16>(__nv_bfloat16 const*)",
         "void deslice_fast<32, 32, 32, __nv_bfloat16>(__nv_bfloat16 const*)",
-        "void slice_bwd_fast<__nv_bfloat16, 32, 3>(__nv_bfloat16 const*)",
-        "sum_partials(float const*, int, int, SumOut)",
-        "void slice_bwd_fast<__nv_bfloat16, 32, 0>(__nv_bfloat16 const*)",
-        "sum_partials(float const*, int, int, SumOut)",
-        "void slice_bwd_fast<__nv_bfloat16, 32, 1>(__nv_bfloat16 const*)",
-        "sum_partials(float const*, int, int, SumOut)",
-        "void slice_bwd_fast<__nv_bfloat16, 32, 2>(__nv_bfloat16 const*)",
-        "sum_partials(float const*, int, int, SumOut)",
+        "void slice_bwd_fused<__nv_bfloat16, 32, false>(BwdArgs)",
+        "void slice_bwd_fused<__nv_bfloat16, 32, true>(BwdArgs)",
         "void erwin_block_bwd<true, __nv_bfloat16>(__nv_bfloat16 const*)",
         "erwin_block_sum_partials(float const*, float*, int, int)")
     got = count_kernels(names)
@@ -716,7 +710,9 @@ def test_bf16_kernel_names_map_to_the_port():
         "slice_states": 1, "deslice": 1, "slice_states_bwd": 1,
         "deslice_bwd": 1, "fused_erwin_block": 1,
         "fused_erwin_block_bwd": 1, "copy_scale": 0}
-    assert got["other"] == 0 and len(got["names"]) == 10
+    assert got["launches"]["slice_states_bwd"] == 1
+    assert got["launches"]["deslice_bwd"] == 1
+    assert got["other"] == 0 and len(got["names"]) == 7
 
 
 def test_precision_policy_keeps_bf16_products_in_float32():

@@ -1,27 +1,41 @@
 """PyTorch port, the slice backward kernels' partition, merge order and
 routes.
 
-The backward kernels (``slice_bwd_fast``, ``slice_bwd_generic`` and
-``sum_partials`` in ``haet_torch/csrc/slice_kernels.cu``) run only on the
-card; what surrounds them is Python and is checked here:
+The backward kernels (``slice_bwd_fused``, ``slice_bwd_fast``,
+``slice_bwd_generic`` and ``sum_partials`` in
+``haet_torch/csrc/slice_kernels.cu``) run only on the card; what surrounds
+them is Python and is checked here:
 
-* their launch geometry (:func:`launch_geometry` with the kinds
-  "slice_states_bwd_sums", "slice_states_bwd", "deslice_bwd_sums" and
-  "deslice_bwd") covers every row of every cloud once, at ragged N and
-  several blocks per cloud, and their shared memory fits the SM;
+* their launch geometry covers every row of every cloud once, at ragged N
+  and several blocks per cloud, and their shared memory fits the SM: the
+  per-pass kinds (:func:`launch_geometry`: "slice_states_bwd_sums",
+  "slice_states_bwd", "deslice_bwd_sums" and "deslice_bwd", fast at C <=
+  32, generic wider) in one wave of blocks, and the fused kernel's
+  "slice_states_bwd" and "deslice_bwd" (:func:`fused_geometry`, bf16 at C
+  <= 32: one launch of a persistent grid) with no more blocks than the card
+  keeps resident (the occupancy rule of :func:`fused_blocks`);
+* a CUDA backward takes the fused kernel in bf16 at C <= 32 and the
+  per-pass kernels otherwise (bf16 widened for the generic ones);
 * a torch model of the kernels' arithmetic in their partition and order
   (each backward's first pass sums ``t`` and ``S = sum_n w``, its chain
-  takes ``w / S`` and ``t / S``; the slices in windows of 32 (fast) or
-  groups of ``generic_bwd_plan`` (generic); a block's partial over its
-  rows, per warp in warp order (fast); ``sum_partials`` adding the
-  partials as 8 warps each take a contiguous eighth, then the warps in
-  order; the windows' dx and ``sum_g dlogit * logit`` added in window
-  order, draw applied by the last) equals ``*_bwd_plain`` and
+  takes ``w / S`` and ``t / S``; the slices in windows of 32 (fast, fused)
+  or groups of ``generic_bwd_plan`` (generic); a block's or unit's partial
+  over its rows, per warp in warp order (fused: each unit's first-pass sums
+  merged per cloud in unit order, its chain partials, over the warps'
+  tiles in reverse order, per cloud in unit order, then the clouds in
+  cloud order; fast and generic: ``sum_partials`` adding the partials as 8
+  warps each take a contiguous eighth, then the warps in order); the
+  windows' dx and ``sum_g dlogit * logit`` added in window order, draw
+  applied by the last) equals ``*_bwd_plain`` and
   ``jax.vjp`` of ``haet_tpu``'s ``slice_states``/``deslice`` (Pallas in
   interpret mode) within 1e-4 of each gradient's max (float32 with sums
   in another order; the bias gradients against their weight's max, as
   ``test_torch_grads.py`` holds them: their per-point terms cancel), at
-  G 32 / C 32, G 64 / C 16, G 128 / C 32 and, generic, G 20 / C 160;
+  G 32 / C 32, G 64 / C 16 and C 32 (two windows; the fused kernel's in
+  one launch), G 128 / C 32 in both fast orders and, generic, G 20 / C 160;
+* bf16 operands, exact in TF32, take the passes the fused kernel gives
+  them (their 3xTF32 low parts are zero), emulated in numpy against
+  float64;
 * a CUDA backward takes its kernel at every width, and none routes to
   the plain version; the forwards' wrappers take every G*C the JAX
   kernels take;
@@ -54,11 +68,15 @@ NAMES = ("dx", "dWs", "dbs", "dWa", "dba", "dstates")
 SCALE_OF = {"dbs": "dWs", "dba": "dWa"}
 BWD_KINDS = ("slice_states_bwd_sums", "slice_states_bwd", "deslice_bwd_sums",
              "deslice_bwd")
-#: (B, H, N, C, G, SMs): the presets' widths, G 128 and a generic width
-#: of two groups, small N, a card of few SMs so that each cloud takes
-#: several blocks and ragged last tiles
+#: the fused kernel's kinds: a whole backward per launch
+FUSED_KINDS = ("slice_states_bwd", "deslice_bwd")
+#: (B, H, N, C, G, SMs): the presets' widths (G 64 at C 16 and 32: two
+#: windows in one launch), G 128 and a generic width of two groups, small
+#: N, a card of few SMs so that each cloud takes several blocks and ragged
+#: last tiles
 CASES = [(1, 2, 600, 32, 32, 8), (1, 2, 500, 16, 64, 8),
-         (1, 2, 300, 32, 128, 8), (1, 2, 300, 160, 20, 8)]
+         (1, 2, 400, 32, 64, 8), (1, 2, 300, 32, 128, 8),
+         (1, 2, 300, 160, 20, 8)]
 #: warps of ``sum_partials``, each adding a contiguous range of partials
 SUM_WARPS = 8
 
@@ -73,9 +91,20 @@ def interpret_and_threads():
     torch.set_num_threads(threads)
 
 
-def _coverage(geom, n):
+def _fused_units(geom, bh):
+    """``{block: [(cloud, range), ...]}``: the units each block of a fused
+    backward launch takes, in its order (unit ``u`` by block ``u %
+    blocks``, as ``slice_bwd_fused`` loops)."""
+    units = {}
+    for u in range(bh * geom.per_cloud):
+        units.setdefault(u % geom.blocks, []).append(
+            divmod(u, geom.per_cloud))
+    return units
+
+
+def _coverage(geom, n, reverse=False):
     hits = np.zeros(n, np.int64)
-    for _, _, row0, rows in tsk.warp_tiles(geom, n):
+    for _, _, row0, rows in tsk.warp_tiles(geom, n, reverse):
         assert 0 < rows <= tsk.TILE_ROWS
         hits[row0:row0 + rows] += 1
     return hits
@@ -87,11 +116,15 @@ def _coverage(geom, n):
     (2, 600, 32, 32), (8, 1001, 32, 600), (8, 3001, 128, 32),
     (8, 1001, 128, 128), (8, 301, 2048, 3), (4, 300, 700, 40)])
 def test_bwd_geometry_covers_every_row_once(bh, n, c, g):
-    """Every backward launch covers each row of a cloud once (the fast
-    kernels in whole warp tiles per block), one wave of blocks (grid z:
-    the first passes' windows or groups of slices), with shared memory
-    that fits the SM; the generic kernel's groups keep their accumulators
-    in registers and take at least one row per tile."""
+    """Every backward launch covers each row of a cloud once. The per-pass
+    kinds: one wave of blocks (grid z: the first passes' windows or groups
+    of slices), the fast kernels in whole warp tiles per block; the generic
+    kernel's groups keep their accumulators in registers and take at least
+    one row per tile. The fused kernel (bf16, C <= 32): whole warp tiles
+    per range, in the first pass's order and the chain's reverse one; every
+    unit (cloud, range) taken by one block; at most the blocks the card
+    keeps resident (``per_sm`` times the SMs, at one and two per SM), so
+    every block is resident. Each one's shared memory fits the SM."""
     for kind in BWD_KINDS:
         geom = tsk.launch_geometry(kind, bh, n, c, g, H100_SMS)
         assert ((geom.per_cloud - 1) * geom.span < n
@@ -102,6 +135,7 @@ def test_bwd_geometry_covers_every_row_once(bh, n, c, g):
         assert geom.groups == -(-g // geom.slices)
         if c <= 32:
             assert geom.route == "fast" and geom.slices == tsk.BWD_WINDOW
+            assert geom.smem == tsk.bwd_smem(tsk.fast_widths(c, g)[0], kind)
             assert (_coverage(geom, n) == 1).all()
             assert geom.span % (tsk.WARPS * tsk.TILE_ROWS) == 0
             continue
@@ -109,21 +143,61 @@ def test_bwd_geometry_covers_every_row_once(bh, n, c, g):
         assert geom.route == "generic" and geom.slices == gsz
         assert gsz * c <= tsk.NT * tsk.MAX_ACC and c <= tsk.NT * tsk.MAX_ACC
         assert 1 <= tile <= tsk.GENERIC_TILE
+    if c > 32:
+        return
+    for kind in FUSED_KINDS:
+        for per_sm in (1, 2):
+            geom = tsk.fused_geometry(kind, bh, n, c, g, H100_SMS, per_sm)
+            assert ((geom.per_cloud - 1) * geom.span < n
+                    <= geom.per_cloud * geom.span)
+            assert geom.route == "fused" and geom.slices == tsk.BWD_WINDOW
+            assert geom.groups == -(-g // geom.slices)
+            assert geom.smem + 1024 <= SM_SMEM
+            assert geom.smem == tsk.fused_smem(tsk.fast_widths(c, g)[0],
+                                               kind)
+            assert 1 <= geom.blocks <= per_sm * H100_SMS
+            assert geom.blocks == min(bh * geom.per_cloud, per_sm * H100_SMS)
+            units = _fused_units(geom, bh)
+            assert sorted(units) == list(range(geom.blocks))
+            taken = sorted(u for us in units.values() for u in us)
+            assert taken == [(cl, r) for cl in range(bh)
+                             for r in range(geom.per_cloud)]
+            assert geom.span % (tsk.WARPS * tsk.TILE_ROWS) == 0
+            for reverse in (False, True):
+                assert (_coverage(geom, n, reverse) == 1).all()
 
 
 def test_car_step_backward_shape():
-    """At the car's training batch each backward launch gives each of the
-    8 clouds 16 blocks of 2048 rows, one window of slices: each backward's
-    first pass and chain, each followed by one sum."""
+    """At the car's training batch each per-pass launch gives each of the 8
+    clouds 16 blocks of 2048 rows, one window of slices (float32: each
+    backward's first pass and chain, each followed by one sum), and the
+    fused backward (bf16) is one launch of 128 blocks (one per SM at one
+    block per SM) over the same ranges. At the NS and Darcy presets' G 64,
+    one fused launch takes both windows."""
     for kind in BWD_KINDS:
         geom = tsk.launch_geometry(kind, 8, 32768, 32, 32, H100_SMS)
         assert (geom.per_cloud, geom.span, geom.groups) == (16, 2048, 1)
+    for kind in FUSED_KINDS:
+        geom = tsk.fused_geometry(kind, 8, 32768, 32, 32, H100_SMS, 1)
+        assert (geom.per_cloud, geom.span, geom.groups, geom.blocks) == (
+            16, 2048, 1, 128)
+        geom = tsk.fused_geometry(kind, 16, 4096, 32, 64, H100_SMS, 1)
+        assert (geom.per_cloud, geom.span, geom.groups, geom.blocks) == (
+            8, 512, 2, 128)
+        geom = tsk.fused_geometry(kind, 32, 7225, 16, 64, H100_SMS, 1)
+        assert (geom.per_cloud, geom.span, geom.groups, geom.blocks) == (
+            4, 2048, 2, 128)
+        # more clouds than resident blocks: each block takes several units
+        geom = tsk.fused_geometry(kind, 300, 700, 32, 32, H100_SMS, 1)
+        assert (geom.per_cloud, geom.blocks) == (1, H100_SMS)
+        assert max(len(u) for u in _fused_units(geom, 300).values()) == 3
 
 
-def _rows_by_warp(geom, n):
-    """``{(block, warp): row indices}`` of one cloud, in the warp's order."""
+def _rows_by_warp(geom, n, reverse=False):
+    """``{(block, warp): row indices}`` of one cloud, in the warp's order
+    (``block`` a range of ``span`` rows)."""
     rows = {}
-    for blk, warp, row0, count in tsk.warp_tiles(geom, n):
+    for blk, warp, row0, count in tsk.warp_tiles(geom, n, reverse):
         rows.setdefault((blk, warp), []).extend(range(row0, row0 + count))
     return rows
 
@@ -136,15 +210,16 @@ def _in_order(terms):
     return acc
 
 
-def _partial_sums(geom, n, per_row):
-    """``per_row [BH, N, ...]`` summed into the blocks' partials as the
-    kernels sum it -> ``[BH, per_cloud, ...]``: fast, each warp over its
-    rows, a block's warps in warp order; generic, a block over its rows."""
+def _partial_sums(geom, n, per_row, reverse=False):
+    """``per_row [BH, N, ...]`` summed into the ranges' partials as the
+    kernels sum it -> ``[BH, per_cloud, ...]``: fast and fused, each warp
+    over its rows (the fused chain takes them last first), a range's warps
+    in warp order; generic, a block over its rows."""
     if geom.route == "generic":
         return torch.stack([per_row[:, b * geom.span:(b + 1) * geom.span]
                             .sum(dim=1) for b in range(geom.per_cloud)],
                            dim=1)
-    rows = _rows_by_warp(geom, n)
+    rows = _rows_by_warp(geom, n, reverse)
     blocks = []
     for blk in range(geom.per_cloud):
         warps = [per_row[:, rows[(blk, w)]].sum(dim=1)
@@ -163,16 +238,30 @@ def _merge(parts):
     return _in_order(ranges)
 
 
-def _over_blocks(part):
-    """A first pass's ``[BH, per_cloud, ...]`` partials merged per cloud."""
-    return torch.stack([_merge(list(cloud)) for cloud in part])
+def _over_blocks(part, fused):
+    """A first pass's ``[BH, per_cloud, ...]`` partials merged per cloud:
+    in unit order (fused, each block after the grid barrier) or as
+    ``sum_partials`` merges them (generic)."""
+    return torch.stack([_in_order(list(cloud)) if fused
+                        else _merge(list(cloud)) for cloud in part])
 
 
-def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms):
+def _over_all(part, fused):
+    """A chain's ``[BH, per_cloud, ...]`` partials merged over every cloud:
+    per cloud in unit order, then the clouds in cloud order (fused: the
+    last unit of each cloud, then the last cloud), or as ``sum_partials``
+    merges the flattened partials (generic)."""
+    if fused:
+        return _in_order([_in_order(list(cloud)) for cloud in part])
+    return _merge(list(part.reshape(-1, *part.shape[2:])))
+
+
+def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms, fused):
     """``slice_states_bwd`` or ``deslice_bwd`` computed in the kernels'
     partition and order (per-row terms in float32, then the sums as
-    :func:`_partial_sums` and :func:`_merge`, and the windows or groups as
-    the chain takes them)."""
+    :func:`_partial_sums`, :func:`_over_blocks` and :func:`_over_all`, and
+    the windows or groups as the chain takes them): the fused kernel's, or
+    the per-pass kernels' (fast at C <= 32, else generic)."""
     b, h, n, c = x.shape
     g = ws.shape[1]
     bh = b * h
@@ -191,18 +280,21 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms):
         go = grad.reshape(bh, n, c)
         dwo = go @ st.transpose(1, 2)
         side = None
-    # the first pass: per window or group (grid z), per block; sum_partials
-    # merges a cloud's blocks; the chain takes w / S and t / S, S = sum_n w
-    # (1 up to the logits' rounding)
-    geom1 = tsk.launch_geometry(kind + "_sums", bh, n, c, g, sms)
-    norm = _over_blocks(_partial_sums(geom1, n, w))
-    t = _over_blocks(_partial_sums(geom1, n, w * dwo)) / norm
+    # the first pass: per window or group, per range; a cloud's ranges
+    # merged; the chain takes w / S and t / S, S = sum_n w (1 up to the
+    # logits' rounding)
+    if fused:
+        geom = geom1 = tsk.fused_geometry(kind, bh, n, c, g, sms, 1)
+    else:
+        geom = tsk.launch_geometry(kind, bh, n, c, g, sms)
+        geom1 = tsk.launch_geometry(kind + "_sums", bh, n, c, g, sms)
+    norm = _over_blocks(_partial_sums(geom1, n, w), fused)
+    t = _over_blocks(_partial_sums(geom1, n, w * dwo), fused) / norm
     if side is None:
         out["dstates"] = _over_blocks(_partial_sums(
-            geom1, n, w[..., None] * go[:, :, None]))
+            geom1, n, w[..., None] * go[:, :, None]), fused)
     w = w / norm[:, None]
     dwt = dwo - t[:, None]
-    geom = tsk.launch_geometry(kind, bh, n, c, g, sms)
     dl = w * dwt
     dpre = dl * it
     dx = torch.zeros_like(xf)
@@ -214,17 +306,15 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms):
         if side is not None:
             dx = dx + w[..., win] @ side[:, win]
         q = q + (dl[..., win] * lg[..., win]).sum(dim=-1, keepdim=True)
-        part = _partial_sums(geom, n, xf[..., None] * dpre[:, :, None, win])
-        dws.append(_merge(list(part.reshape(bh * geom.per_cloud, c, -1))))
-        dbs.append(_merge(list(_partial_sums(
-            geom, n, dpre[..., win]).reshape(bh * geom.per_cloud, -1))))
+        dws.append(_over_all(_partial_sums(
+            geom, n, xf[..., None] * dpre[:, :, None, win], fused), fused))
+        dbs.append(_over_all(_partial_sums(geom, n, dpre[..., win], fused),
+                             fused))
     inside = (raw > -0.4) & (raw < 0.4)
     draw = torch.where(inside, -q * it, torch.zeros_like(q))
     dx = dx + draw @ wa.t()
-    dwa = _merge(list(_partial_sums(geom, n, xf * draw).reshape(
-        bh * geom.per_cloud, c)))
-    dba = _merge(list(_partial_sums(geom, n, draw).reshape(
-        bh * geom.per_cloud, 1)))
+    dwa = _over_all(_partial_sums(geom, n, xf * draw, fused), fused)
+    dba = _over_all(_partial_sums(geom, n, draw, fused), fused)
     out.update(dx=dx.reshape(b, h, n, c), dWs=torch.cat(dws, dim=1),
                dbs=torch.cat(dbs), dWa=dwa[:, None], dba=dba)
     if "dstates" in out:
@@ -291,15 +381,164 @@ def test_partition_and_merge_match_plain_and_jax(b, h, n, c, g, sms):
     assert geom.per_cloud > 1 and n % tsk.TILE_ROWS  # ragged, several
     assert geom.route == ("fast" if c <= 32 else "generic")
     assert c <= 32 or geom.groups > 1
+    # the fused kernel: one launch, every unit its own block here
+    assert c > 32 or tsk.fused_geometry("deslice_bwd", b * h, n, c, g, sms,
+                                        1).blocks == b * h * geom.per_cloud
     for kind, grad, plain_fn, jax_grads in (
             ("slice_states_bwd", t["g_states"], tsk.slice_states_bwd_plain,
              jax_ss),
             ("deslice_bwd", t["g_out"], tsk.deslice_bwd_plain, jax_ds)):
         st_arg = states if kind == "slice_states_bwd" else t["st"]
-        got = _model_bwd(kind, *fwd, st_arg, m, s, grad, sms)
         plain = dict(zip(NAMES, plain_fn(*fwd, st_arg, m, s, grad)))
         jax_ref = dict(zip(NAMES, jax_grads))
-        _close(f"{kind} G {g} C {c}", got, {"plain": plain, "jax": jax_ref})
+        for fused in ((False, True) if c <= 32 else (False,)):
+            got = _model_bwd(kind, *fwd, st_arg, m, s, grad, sms, fused)
+            _close(f"{kind} G {g} C {c} {'fused' if fused else geom.route}",
+                   got, {"plain": plain, "jax": jax_ref})
+
+
+def _tf32(a, round_half=True):
+    """float32 as the tensor core reads a TF32 operand: the top 19 bits of
+    the register, after the kernels' half-ulp add (0x1000), or truncated
+    (a low part)."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    if round_half:
+        u = u + 0x1000
+    return (u & 0xffffe000).astype(np.uint32).view(np.float32)
+
+
+def _passes_mm(a, b, a_lo, b_lo):
+    """``a @ b`` as ``mma_p`` computes it: hi*hi, plus lo*hi where ``a``
+    keeps a low part and hi*lo where ``b`` does; products and sums in
+    float64, the result rounded to the float32 accumulator."""
+    f64 = lambda u, v: u.astype(np.float64) @ v.astype(np.float64)  # noqa
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = f64(a_hi, b_hi)
+    if a_lo:
+        out += f64(_tf32(a - a_hi, False), b_hi)
+    if b_lo:
+        out += f64(a_hi, _tf32(b - b_hi, False))
+    return out.astype(np.float32)
+
+
+def _bf16_chain(kind, x, side, go, ws, bs, wa, ba, mm):
+    """dx and dWs of one cloud's backward, the fused kernel's two passes
+    (the weights normalised by their own sum), each product through
+    ``mm(a, b, name)``; float32 between the products."""
+    f32 = np.float32
+    raw = x @ wa + ba
+    it = (1.0 / (0.5 + np.clip(raw, -0.4, 0.4))).astype(f32)
+    lg = (mm(x, ws, "z") + bs - f32(tsk._shift(1e-6))) * it
+    m = lg.max(axis=0)
+    e = np.exp(lg - m)
+    w = (e / e.sum(axis=0)).astype(f32)
+    if kind == "slice_states_bwd":
+        d = mm(x, side.T, "dw") / f32(tsk._NORM)
+    else:
+        d = mm(go, side.T, "dw")
+    norm = w.sum(axis=0)
+    t = (w * d).sum(axis=0) / norm
+    w = w / norm
+    dl = w * (d - t)
+    dpre = (dl * it).astype(f32)
+    q = (dl * lg).sum(axis=1, keepdims=True)
+    draw = np.where((raw > -0.4) & (raw < 0.4), -q * it, 0).astype(f32)
+    dx = mm(dpre, ws.T, "dx") + draw @ wa.T
+    if kind == "slice_states_bwd":
+        dx = dx + mm((w / f32(tsk._NORM)).astype(f32), side, "dxw")
+    return dx, mm(x.T, dpre, "dws")
+
+
+#: the passes the fused kernel gives each product of a bf16 call: (A keeps
+#: a low part, B keeps one); x, g_out and the G-side matrix are exact
+BF16_PASSES = {"z": (False, True), "dw": (False, False), "dx": (True, True),
+               "dxw": (True, False), "dws": (False, True)}
+
+
+@pytest.mark.parametrize("kind", ["slice_states_bwd", "deslice_bwd"])
+def test_bf16_operands_take_fewer_passes(kind):
+    """A bf16 ``x``, ``g_out`` and G-side matrix (the states, or their
+    gradient) are exact in TF32: their 3xTF32 low parts are zero, so the
+    passes the fused kernel drops for them (``BF16_PASSES``: the logits
+    two, dw one, G^ w^T two, dWs two, of nine) change no bit of a product,
+    and the bf16 chain through the tensor cores, emulated in numpy, gives
+    dx and dWs within 1e-4 of their max of float64; dropping the low part
+    of a float32 operand too (one pass each) misses that."""
+    rng = np.random.RandomState(16)
+    n, c, g = 2048, 32, 32
+    def bf(a):
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    x, side, go = (bf(rng.randn(*sh).astype(np.float32))
+                   for sh in ((n, c), (g, c), (n, c)))
+    ws = (0.3 * rng.randn(c, g)).astype(np.float32)
+    bs = (0.1 * rng.randn(g)).astype(np.float32)
+    wa = (0.1 * rng.randn(c, 1)).astype(np.float32)
+    ba = np.zeros(1, np.float32)
+    for v in (x, side, go):
+        assert (_tf32(v) == v).all() and not (v.view(np.uint32) & 0x1fff).any()
+    for a, b in ((x, ws), (x, side.T), (ws.T, x.T)):
+        assert np.array_equal(_passes_mm(a, b, True, True),
+                              _passes_mm(a, b, not (a is x), b is ws))
+    args = (kind, x, side, go, ws, bs, wa, ba)
+    want = _bf16_chain(*args, lambda a, b, _: (a.astype(np.float64)
+                                               @ b.astype(np.float64)))
+    got = _bf16_chain(*args, lambda a, b, k: _passes_mm(a, b,
+                                                        *BF16_PASSES[k]))
+    one = _bf16_chain(*args, lambda a, b, k: _passes_mm(a, b, False, False))
+    for name, w64, g32, g1 in zip(("dx", "dWs"), want, got, one):
+        scale = np.abs(w64).max()
+        err = np.abs(g32 - w64).max()
+        print(f"PARITY bf16 passes {kind} {name}: {err / scale:.3e} of max; "
+              f"one pass {np.abs(g1 - w64).max() / scale:.3e}")
+        assert err <= RTOL * scale
+        assert np.abs(g1 - w64).max() > RTOL * scale
+
+
+@pytest.mark.parametrize("dtype,c,route", [
+    (torch.float32, 32, "fast"), (torch.bfloat16, 32, "fused"),
+    (torch.bfloat16, 40, "generic"), (torch.float32, 16, "fast")])
+def test_backward_route_by_dtype(monkeypatch, dtype, c, route):
+    """On the card a backward at C <= 32 takes ``slice_bwd_fused`` in bf16
+    and the per-pass kernels in float32 (each where it is the faster); wider
+    heads take the per-pass generic kernels, bf16 widened to float32. The
+    per-pass kernels get float32 tensors, the fused one bf16."""
+    calls = []
+
+    def fused(lib, kind, tensors, shape, *rest):
+        calls.append(("fused", kind, tensors[0].dtype))
+        return tensors[0], None, None, None, None
+
+    def first(lib, kind, tensors, shape, *rest):
+        calls.append(("first", kind, tensors[0].dtype))
+
+    def chain(lib, kind, tensors, *rest):
+        calls.append(("chain", kind, tensors[0].dtype))
+        return tensors[0], None, None, None, None
+
+    monkeypatch.setattr(tsk, "_lib", lambda: None)
+    monkeypatch.setattr(tsk, "_stream", lambda dev: None)
+    monkeypatch.setattr(tsk, "_fused_bwd", fused)
+    monkeypatch.setattr(tsk, "_first_pass_sums", first)
+    monkeypatch.setattr(tsk, "_chain_grads", chain)
+    d = _inputs(1, 2, 40, c, 8)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    fwd = (t["x"].to(dtype), t["ws"], t["bs"], t["wa"], t["ba"])
+    _, m, s = tsk.slice_states_plain(*fwd)
+    dx, *_ = tsk._slice_states_bwd_kernel(
+        *fwd, t["st"], m, s, t["g_states"].to(dtype), 0.5, 1e-6)
+    out = tsk._deslice_bwd_kernel(*fwd, t["st"].to(dtype), m, s,
+                                  t["g_out"].to(dtype), 0.5, 1e-6)
+    assert dx.dtype == dtype and out[0].dtype == dtype
+    assert out[-1].dtype == dtype  # dstates in the states' dtype
+    if route == "fused":
+        assert calls == [("fused", "slice_states_bwd", torch.bfloat16),
+                         ("fused", "deslice_bwd", torch.bfloat16)]
+    else:
+        assert calls == [(p, k + sfx, torch.float32)
+                         for k in ("slice_states_bwd", "deslice_bwd")
+                         for p, sfx in (("first", "_sums"), ("chain", ""))]
+    assert (tsk.fast_widths(c, 8) is None) == (route == "generic")
 
 
 def test_routes_and_their_counts(monkeypatch):
@@ -360,8 +599,10 @@ def test_forwards_take_every_width(b, h, n, c, g):
 
 
 def test_constants_and_formulas_match_the_cuda_source():
-    """The wrapper's mirrors of the backward kernels' window, buffer and
-    partial sizes and of the generic kernels' limits are the source's."""
+    """The wrapper's mirrors of the backward kernels' window, buffer,
+    shared-memory and partial sizes, the fast kernels' instantiations and
+    the fused kernel's launch, and the generic kernels' limits are the
+    source's."""
     src = SRC.read_text()
     for name, value in (("BW", tsk.BWD_WINDOW), ("MAX_ACC", tsk.MAX_ACC),
                         ("MAX_OUT", tsk.MAX_OUT), ("NT", tsk.NT),
@@ -371,20 +612,63 @@ def test_constants_and_formulas_match_the_cuda_source():
     assert tsk.MAX_GENERIC_C == tsk.NT * tsk.MAX_ACC == 2048
     assert re.search(rf"constexpr size_t MAX_SMEM = {tsk.MAX_SMEM};", src)
     assert "constexpr int BUF_STRIDE = BW + 4;" in src
+    assert tsk.BUF_STRIDE == tsk.BWD_WINDOW + 4
     modes = {k: int(v) for k, v in re.findall(r"(BWD_\w+) = (\d)", src)}
     assert {k: modes[k] for k in ("BWD_STATES", "BWD_SUMS", "BWD_CHAIN",
                                   "BWD_STATES_SUMS")} == {
         "BWD_STATES": 0, "BWD_SUMS": 1, "BWD_CHAIN": 2, "BWD_STATES_SUMS": 3}
     assert tsk.BWD_MODES == {"slice_states_bwd": 0, "deslice_bwd_sums": 1,
                              "deslice_bwd": 2, "slice_states_bwd_sums": 3}
-    # the car's launches: 109,696 / 126,080 / 183,424 / 191,616 B of
-    # shared memory
+    # bwd_fused_smem's terms, as bwd_smem mirrors them: the rings in T
+    # (rows padded by 16 bytes), the merge over them, the tables (an exact
+    # operand's high parts alone), four floats per slice, Wa, the buffers
+    for line in (
+            "return CM + 16 / static_cast<int>(sizeof(T));",
+            "return BW * (CM + 2) + CM + 1;",
+            "return exact ? 2 : 4;", "return exact ? 4 : 8;",
+            "(CM / 8) * (BW / 8) * 32 * (tab_b_lane(false) + tab_b_lane(EX))",
+            "(tab_a_lane(false) + (DESLICE ? 0 : tab_a_lane(EX)));",
+            "constexpr int rings = (DESLICE ? 2 : 1) * "
+            "bwd_ring_bytes<T, CM>();",
+            "constexpr int merge = 4 * WARPS * bwd_merge_floats<CM>();",
+            "WARPS * 16 * (BUF_STRIDE + 1));"):
+        assert line in src, line
+    # the car's launches: float32 per pass, 109,696 / 126,080 / 183,424 /
+    # 191,616 B (bwd_smem_floats), and bf16 fused (slice_states_bwd,
+    # deslice_bwd)
     assert [tsk.bwd_smem(32, k) for k in BWD_KINDS] == [109696, 126080,
                                                         183424, 191616]
     for kind in ("slice_states_bwd_sums", "deslice_bwd_sums"):
         assert tsk.bwd_part_floats(32, kind) == 32 * 34
     for kind in ("slice_states_bwd", "deslice_bwd"):
         assert tsk.bwd_part_floats(32, kind) == 32 * 33 + 33
+    for line in ("return CM + (bwd_sums(MODE) ? 2 : 1);",
+                 "return BW * bwd_row<CM, MODE>() + (bwd_sums(MODE) ? 0 : "
+                 "CM + 1);",
+                 "4 * BW + CM + WARPS * 16 * (BUF_STRIDE + 1);"):
+        assert line in src, line
+    assert [tsk.fused_smem(32, k) for k in FUSED_KINDS] == [85120, 121984]
+    assert [tsk.fused_smem(16, k) for k in FUSED_KINDS] == [56384, 78912]
+    # the partial sums at the car's training batch and the NS preset's
+    assert tsk.bwd_partials(32, 8, 16, 1) == (139264, 512, 139392, 8712,
+                                             1089)
+    assert tsk.bwd_partials(32, 16, 8, 2)[4] == 2 * 32 * 33 + 33
+    # the fused kernel: one bf16 instantiation per fast width and kind
+    cases = re.search(r"#define HAET_BWD_CASES\(X\)(.*?)\n\n", src, re.S)
+    got = set(re.findall(r"X\((\d+), (\w+)\)", cases.group(1)))
+    assert got == {(cm, d) for cm in ("8", "16", "32")
+                   for d in ("false", "true")}
+    assert "launch_bwd_fused<bf16, CM, D>" in src
+    # the per-pass kernel: float32, every mode at every fast width
+    assert ("HAET_CASES(BWD_STATES) HAET_CASES(BWD_SUMS) "
+            "HAET_CASES(BWD_CHAIN)") in src
+    assert "launch_bwd<CM, MODE>(" in src
+    # the grid is sized from the resident blocks, and launched as a
+    # cooperative grid, which the runtime refuses unless all are resident
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+    assert "attr[0].id = cudaLaunchAttributeCooperative;" in src
+    assert "cudaLaunchKernelEx(&cfg, slice_bwd_fused<T, CM, DESLICE>, a)" \
+        in src
     # slice_bwd_generic's shared memory, fixed and per row of a tile
     assert "return 2 * c * gsz + 4 * gsz + c;" in src
     assert "return 2 * c + 3 * gsz + 4;" in src

@@ -356,8 +356,9 @@ def test_generic_deslice_at_unscaled_weights(chains, within):
 def test_phases_builds_are_switches_of_the_source():
     """``benchmarks/slice_phases.py`` builds ``csrc/slice_kernels.cu`` with
     the source's own switches: each define it passes guards code there,
-    the trace records both fast kernels in the layout the driver reads,
-    and the regular build has neither switch."""
+    the trace records both fast forwards and each pass of both fast
+    backwards (fused and per pass, by the pass's mode) in the layouts the
+    driver reads, and the regular build has neither switch."""
     src = SRC.read_text()
     for defines in slice_phases.VARIANTS.values():
         for d in defines:
@@ -368,6 +369,18 @@ def test_phases_builds_are_switches_of_the_source():
     assert "g_trace[2][TRACE_CTAS][WARPS][4]" in src
     assert len(re.findall(r"HAET_TRACE\(trace_record\((\d)", src)) == 2
     assert "int haet_trace_read(" in src
+    # the backward: BWD_SEGS segments per warp and pass, marked in order
+    assert "g_trace_bwd[4][TRACE_CTAS][WARPS][BWD_SEGS]" in src
+    assert re.search(rf"constexpr int BWD_SEGS = "
+                     rf"{len(slice_phases.BWD_SEGMENTS)};", src)
+    marks = {int(i) for i in re.findall(r"HAET_SEG\(sg_, mk_, (\d)\)", src)}
+    assert marks == set(range(len(slice_phases.BWD_SEGMENTS)))
+    assert "record(SUMS)" in src and "record(CHAIN)" in src
+    assert "g_trace_bwd[MODE][rec][warp][i] = sg_[i]" in src
+    assert {m for pas in slice_phases.BWD_PASSES.values()
+            for _, m in pas} == set(tsk.BWD_MODES.values())
+    for fn in ("int haet_trace_read_bwd(", "int haet_trace_reset_bwd("):
+        assert fn in src
     assert not any(f in " ".join(slice_phases._build.NVCC_FLAGS)
                    for f in ("HAET_SLICE_TRACE", "HAET_SLICE_NO_MMA"))
 
