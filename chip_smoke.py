@@ -36,7 +36,9 @@ Phases (any failed check exits non-zero before the final line):
    edges, each shape twice to show the results bit-identical; the slice
    backward kernels (``slice_states_bwd``: dx, dWs, dbs, dWa, dba;
    ``deslice_bwd``: those and dstates; at C <= 32 the per-pass kernels in
-   float32 and the fused kernel in bf16, one launch per call, the launches
+   float32 (``slice_bwd_f32``: 16 warps of 16-row tiles a block, both
+   windows of 32 slices in one sweep at the Darcy preset's G 64) and the
+   fused kernel in bf16, one launch per call, the launches
    per call shown by the profiler and checked; the generic ones wider)
    against ``*_bwd_plain``, each gradient within
    ``KERNEL_RTOL`` of its max but the cancelling biases (dbs, dba:
@@ -755,22 +757,34 @@ def slice_launches(dev, shape, kinds=("slice_states", "deslice"),
                          f"{geom.smem} B dynamic shared memory")
             continue
         geom = sk.launch_geometry(kind, b * h, n, c, gs, sk.sm_count(dev))
-        parts.append(f"{kind} {geom.route}, grid ({geom.per_cloud}, {b * h}, "
-                     f"{geom.groups}) x 256 threads, {geom.span} rows per "
-                     f"block, {geom.smem} B dynamic shared memory")
+        # a chain: grid z 1, a fast launch per sweep of windows (generic:
+        # one, looping over its groups); the rest: grid z the sweeps
+        sweeps = -(-geom.groups // geom.sweep)
+        chain = kind in SLICE_BWD_GRADS
+        z = 1 if chain else sweeps
+        launches = sweeps if chain and geom.route == "fast" else 1
+        sweep = (f", {geom.sweep} windows a sweep" if geom.route == "fast"
+                 else "")
+        parts.append(f"{kind} {geom.route}, {launches} x grid "
+                     f"({geom.per_cloud}, {b * h}, {z}) x "
+                     f"{32 * geom.warps} threads{sweep}, {geom.span} rows "
+                     f"per block, {geom.smem} B dynamic shared memory")
     return "; ".join(parts)
 
 
 def bwd_launches(shape, low: bool):
     """The CUDA launches one call of a slice backward makes at C <= 32: the
-    fused kernel's one (bf16), or slice_bwd_fast's first pass, its sum, a
-    chain per window of 32 slices and their sum (float32); None wider."""
+    fused kernel's one (bf16), or slice_bwd_f32's first pass, its sum, a
+    chain per sweep of windows of 32 slices and their sum (float32); None
+    wider."""
     from haet_torch.ops.kernels import slice_kernels as sk
 
     c, gs = shape[3], shape[4]
-    if sk.fast_widths(c, gs) is None:
+    widths = sk.fast_widths(c, gs)
+    if widths is None:
         return None
-    return 1 if low else 3 + -(-gs // sk.BWD_WINDOW)
+    sweep = sk.bwd_sweep(widths[0], "deslice_bwd", gs)
+    return 1 if low else 3 + -(-gs // (sk.BWD_WINDOW * sweep))
 
 
 def launches_per_call(kind, fn, shape, low: bool = False) -> int:

@@ -24,23 +24,27 @@ profiler with the L2 flushed before each call
 (:func:`haet_torch.benchmarks.slice_kernels.flushed_us`).
 
 The backwards (``slice_states_bwd``, ``deslice_bwd``) are broken down at
-:data:`BWD_SHAPES` (the padded training batch ``[1, 8, 32768, 32]`` G 32
-and the NS preset's ``[2, 8, 4096, 32]`` G 64) in float32 (``slice_bwd_fast``,
-a launch per pass and window and a sum after each pass) and bf16
+:data:`BWD_SHAPES` (the padded training batch ``[1, 8, 32768, 32]`` G 32,
+the Darcy preset's ``[4, 8, 7225, 16]`` G 64 and the NS preset's ``[2, 8,
+4096, 32]`` G 64) in float32 (``slice_bwd_f32``, a launch per pass, or per
+window of the NS chain, and a sum after each pass) and bf16
 (``slice_bwd_fused``, one launch): for each build, every CUDA launch of one
 call with its device us and the idle gap before the next launch of the call
 (:func:`launch_trace`); and from the ``clock`` build, per pass (the first
 pass's sums, then the chain; of a chain launched per window, the last
-window's), the
-median cycles per warp of :data:`BWD_SEGMENTS`: its start (staging the
-fragment tables), its waits for the ring, ``load`` (the tile's widening,
-the temperatures and the x and g_out fragments), ``products`` (the logits,
-the dw product, the softmax arithmetic and the dx products, slice block by
-slice block), ``chain`` (sum_g dlogit * logit and draw), ``dpre`` (dpre or
-w through shared memory and the row-contracted products), ``store`` (dx
-out) and the tail (the block's partial sums and, where the pass has one,
-its merge). The extra libraries go to ``haet_torch/_build/``; the slice
-wrappers use them only inside :func:`routed`.
+window's), the median cycles per warp of :data:`BWD_SEGMENTS`: its start
+(staging the operand tables), its waits for the ring, ``load`` (the
+temperatures, and in bf16 the tile's widening and the fragments),
+``products`` (the logits and the dw product; in bf16 also the softmax
+arithmetic and the dx products, slice block by slice block), ``chain``
+(float32: the softmax arithmetic; both: sum_g dlogit * logit and draw),
+``dpre`` (float32: the dx products; both: dpre or w through shared memory
+and the row-contracted products), ``store`` (dx out) and the tail (the
+block's partial sums and, where the pass has one, its merge). It prints
+the registers and spill bytes of every backward instantiation from the
+regular build's ``ptxas -v`` report (:func:`register_report`). The extra
+libraries go to ``haet_torch/_build/``; the slice wrappers use them only
+inside :func:`routed`.
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ import argparse
 import contextlib
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -64,6 +70,9 @@ from .slice_kernels import (FLUSH_BYTES, SHAPES, card_line, flushed_us,
 #: ``WARPS`` in the CUDA source)
 TRACE_CTAS = 512
 TRACE_WARPS = 8
+#: warps per block of the backward records (``FW`` in the source: the
+#: float32 backward's; the fused kernel's 8 fill the first of them)
+BWD_TRACE_WARPS = 16
 SEGMENTS = ("start", "wait", "compute", "tail")
 #: the backward's segments per warp and pass (``BWD_SEGS`` in the source)
 BWD_SEGMENTS = ("start", "wait", "load", "products", "chain", "dpre",
@@ -72,19 +81,62 @@ BWD_SEGMENTS = ("start", "wait", "load", "products", "chain", "dpre",
 BWD_PASSES = {"slice_states_bwd": (("sums", 3), ("chain", 0)),
               "deslice_bwd": (("sums", 1), ("chain", 2))}
 #: the backward breakdown's shapes (``slice_kernels.SHAPES``) and dtypes
-BWD_SHAPES = ("train_b1", "ns_b2")
+BWD_SHAPES = ("train_b1", "darcy_b4", "ns_b2")
 BWD_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 #: the builds beside the regular one: name -> nvcc defines
 VARIANTS = {"no_mma": ("HAET_SLICE_NO_MMA",),
             "clock": ("HAET_SLICE_TRACE",)}
 
 
-def build(name: str) -> ctypes.CDLL:
-    """Build and load ``slice_kernels.cu`` with the defines of variant
-    ``name``, its argument types set."""
+def register_report(ptxas: str, pattern: str = "slice_bwd") -> list:
+    """``[(kernel, registers, spill stores, spill loads)]`` of every entry
+    point whose (demangled) name contains ``pattern``, from ``ptxas -v``'s
+    report of a build."""
+    rows, name, spills = [], None, (0, 0)
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _demangle(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            if pattern in name:
+                rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
+def _demangle(symbol: str) -> str:
+    """``symbol`` demangled by the toolkit's ``cu++filt``, where there is
+    one."""
+    try:
+        tool = Path(_build.nvcc_path()).with_name("cu++filt")
+    except RuntimeError:
+        return symbol
+    if not tool.exists():
+        return symbol
+    out = subprocess.run([str(tool), symbol], capture_output=True, text=True)
+    return out.stdout.strip() or symbol
+
+
+def _short(name: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    arguments: ``slice_bwd_f32<32, 1, 0>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0]
+
+
+def compile_variant(name: str) -> tuple:
+    """``slice_kernels.cu`` compiled with the defines of variant ``name``
+    (none for "regular"): ``(library path, ptxas report)``."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = _build.BUILD_DIR / f"libslice_kernels_{name}.so"
-    defines = [f"-D{d}" for d in VARIANTS[name]]
+    defines = [f"-D{d}" for d in VARIANTS.get(name, ())]
     src = _build.CSRC / "slice_kernels.cu"
     out = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *defines,
                           "-o", str(so), str(src)], capture_output=True,
@@ -92,6 +144,13 @@ def build(name: str) -> ctypes.CDLL:
     if out.returncode != 0:
         raise RuntimeError(f"nvcc failed on slice_kernels.cu {defines}:\n"
                            f"{out.stderr}")
+    return so, out.stderr + out.stdout
+
+
+def build(name: str) -> ctypes.CDLL:
+    """Build and load ``slice_kernels.cu`` with the defines of variant
+    ``name``, its argument types set."""
+    so, _ = compile_variant(name)
     lib = ctypes.CDLL(str(so))
     lib.haet_error_string.argtypes = [ctypes.c_int]
     lib.haet_error_string.restype = ctypes.c_char_p
@@ -169,7 +228,7 @@ def bwd_cycles(lib, fns: dict) -> dict:
     """One call of each backward from the ``clock`` build ``lib``: per
     pass, the median over the recorded warps of each of
     :data:`BWD_SEGMENTS` (cycles)."""
-    n = 4 * TRACE_CTAS * TRACE_WARPS * len(BWD_SEGMENTS)
+    n = 4 * TRACE_CTAS * BWD_TRACE_WARPS * len(BWD_SEGMENTS)
     buf = (ctypes.c_ulonglong * n)()
     out = {}
     with routed(lib):
@@ -182,9 +241,9 @@ def bwd_cycles(lib, fns: dict) -> dict:
                 raise RuntimeError("haet_trace_read_bwd failed")
             for label, mode in BWD_PASSES[kind]:
                 nseg = len(BWD_SEGMENTS)
-                base = mode * TRACE_CTAS * TRACE_WARPS * nseg
+                base = mode * TRACE_CTAS * BWD_TRACE_WARPS * nseg
                 recs = [buf[base + r * nseg:base + (r + 1) * nseg]
-                        for r in range(TRACE_CTAS * TRACE_WARPS)]
+                        for r in range(TRACE_CTAS * BWD_TRACE_WARPS)]
                 recs = [r for r in recs if any(r)]
                 out[f"{kind} {label}"] = {
                     seg: statistics.median(r[i] for r in recs)
@@ -197,10 +256,14 @@ def run(reps: int) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("slice_phases: no CUDA device")
     dev = torch.device("cuda")
-    with ThreadPoolExecutor(len(VARIANTS) + 1) as pool:  # nvcc in parallel
+    with ThreadPoolExecutor(len(VARIANTS) + 2) as pool:  # nvcc in parallel
         regular = pool.submit(_build.build_all)
+        # the regular flags once more, for the ptxas report that a cached
+        # build of the wrapper's library does not give
+        report = pool.submit(compile_variant, "regular")
         built = {name: pool.submit(build, name) for name in VARIANTS}
         regular.result()
+        report = report.result()[1]
         libs = {"kernels": None, **{k: f.result() for k, f in built.items()}}
     libs["clock"].haet_trace_read_bwd.argtypes = [ctypes.c_void_p]
     shape = SHAPES["serve_b1"]
@@ -209,7 +272,8 @@ def run(reps: int) -> dict:
     ctas = {k: min(TRACE_CTAS, sk.launch_geometry(k, b * h, n, c, g,
                                                   sk.sm_count(dev)).per_cloud
                    * b * h) for k in ("slice_states", "deslice")}
-    res = {"card": card_line(), "us": {}, "bwd": {}, "bwd_cycles": {}}
+    res = {"card": card_line(), "us": {}, "bwd": {}, "bwd_cycles": {},
+           "registers": register_report(report)}
     with torch.inference_mode():
         _, m, s = sk.slice_states_plain(x, ws, bs, wa, ba)
         fns = {"slice_states": lambda: sk.slice_states(x, ws, bs, wa, ba),
@@ -254,6 +318,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args(argv)
     res = run(args.reps)
+    for kernel, regs, stores, loads in res["registers"]:
+        print(f"registers {regs:3d}, spill stores {stores} B, loads {loads} "
+              f"B: {kernel}", flush=True)
     for name, us in res["us"].items():
         print(f"{name:8s} device us/call  " + "  ".join(
             f"{k} {v:7.2f}" for k, v in us.items()), flush=True)
@@ -265,7 +332,7 @@ def main(argv=None) -> int:
             for kind, t in kinds.items():
                 print(f"{key:13s} {name:8s} {kind:16s} span "
                       f"{t['span_us']:7.2f} us, launches {len(t['us'])}: " + " | ".join(
-                          f"{nm.split('(')[0][-28:]} {u:.2f}"
+                          f"{_short(nm)} {u:.2f}"
                           for nm, u in zip(t["names"], t["us"]))
                       + "; gaps " + " ".join(f"{v:.2f}" for v in t["gaps_us"]),
                       flush=True)

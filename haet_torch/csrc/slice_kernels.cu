@@ -5,7 +5,7 @@
 //   * deslice      (_deslice_kernel, called from _deslice_impl)
 // and their custom_vjp backwards there (_slice_states_bwd, _deslice_bwd;
 // lax.scan over chunks of N in JAX, not Pallas): slice_bwd_fused and
-// slice_bwd_fast below.
+// slice_bwd_f32 below.
 //
 // Math, per (b, h) cloud of N points with C channels and G slices:
 //   tau[n]     = base + clamp(x[n] . Wa + ba, -0.4, 0.4)
@@ -83,7 +83,7 @@
 // merge, per-thread scalar loops): right, not fast. The wrapper decides the
 // route.
 //
-// The backward kernels (slice_bwd_fused, slice_bwd_fast, slice_bwd_generic,
+// The backward kernels (slice_bwd_fused, slice_bwd_f32, slice_bwd_generic,
 // sum_partials) follow the forwards; their own note is there.
 //
 // Two builds for benchmarks/slice_phases.py, never the wrapper's:
@@ -104,6 +104,9 @@ constexpr int WARPS = 8;                  // warps per block (fast kernels)
 constexpr int NTF = 32 * WARPS;           // threads per block
 constexpr int TR = 32;                    // rows per warp tile
 constexpr int STAGES = 2;                 // ring slots per warp
+constexpr int FW = 16;                    // warps per block (float32 bwd)
+constexpr int NTW = 32 * FW;              // its threads per block
+constexpr int FTR = 16;                   // its rows per warp tile
 constexpr float L2E = 1.4426950408889634f;
 constexpr float RESCALE_AT = 8.f;         // e <= exp(8) between rescales
 constexpr float NEG_BIG = -1e30f;         // reference shift before any row
@@ -143,7 +146,7 @@ __device__ __forceinline__ void trace_record(int kernel, int lane, int warp,
 // segments, each the sum over the warp's tiles (bwd_trace_names() in
 // benchmarks/slice_phases.py names them).
 constexpr int BWD_SEGS = 8;
-__device__ unsigned long long g_trace_bwd[4][TRACE_CTAS][WARPS][BWD_SEGS];
+__device__ unsigned long long g_trace_bwd[4][TRACE_CTAS][FW][BWD_SEGS];
 // Adds the cycles since the last mark to segment i and moves the mark.
 #define HAET_SEG(seg, mark, i)                   \
   do {                                           \
@@ -1450,7 +1453,7 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 
 // ---------------------------------------------------------------------------
 // Backward kernels, for C <= 32: slice_bwd_fused (bf16 I/O, one launch per
-// call) and slice_bwd_fast (float32, one launch per pass); for wider heads
+// call) and slice_bwd_f32 (float32, one launch per pass); for wider heads
 // slice_bwd_generic (four modes); sum_partials (the sums of the per-pass
 // kernels' block partials).
 //
@@ -1474,31 +1477,71 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 // us at 3.35 TB/s; 34 MB in bf16) and deslice_bwd reads x and g_out and
 // writes dx (101 MB, 30 us); their products, five of 2 N C G FLOP each
 // (seven for deslice's two passes), take 17 and 23 us in 3xTF32 on the
-// tensor cores (fewer passes in bf16, below). Neither binds: the breakdown
-// (benchmarks/slice_phases.py; PERF.md) puts 53 % of a chain warp's cycles
-// in the slice-block loop of products, softmax and fragment loads, 15 % in
-// dpre's round trip through shared memory and 10 % in dx's store, and 21 of
-// the chain's 72 us in the mma.sync passes themselves: a loop of dependent
-// steps at 8 warps per SM (236-255 registers a thread).
+// tensor cores (fewer passes in bf16, below). Neither binds. The loop of
+// dependent steps does: per tile, the products, the softmax, dpre's trip
+// through shared memory and dx's store, one after the other in each warp.
+// With Ws's fragments held in registers (236-255 a thread) the SM keeps 8
+// warps, too few rows in flight to hide that chain's latency; the
+// breakdown of the float32 per-pass kernel this route replaced
+// (benchmarks/slice_phases.py; PERF.md) put 42-53 % of a chain warp's
+// cycles in its slice-block loop, 15-17 % in dpre's round trip, 10 % in
+// dx's store, and 21 of a 72 us chain in the mma.sync passes themselves.
 //
 // Which kernel a call takes is measured, not chosen (slice_kernels --ab,
 // PERF.md): the fused kernel is 1.06-1.40x the per-pass kernels in bf16 at
 // every preset's shape, as it drops the passes bf16 operands do not need;
 // in float32, where it drops none, its merges and grid barrier cost about
-// what the launches they replace did and its chain runs ~10 % slower than
-// the same loop as a launch of its own, so float32 keeps slice_bwd_fast.
+// what the launches they replace do, so float32 takes slice_bwd_f32.
 //
-// slice_bwd_fast, per pass. One kernel, four modes: BWD_STATES_SUMS and
+// slice_bwd_f32, per pass. One kernel, four modes: BWD_STATES_SUMS and
 // BWD_STATES (slice_states' first pass and chain), BWD_SUMS and BWD_CHAIN
-// (deslice's). The first passes take their windows of BW = 32 slices as
-// grid z (their slices are independent); the chains couple a row's slices
-// through dtau, so the wrapper launches them once per window: a launch adds
-// its window's dx and sum_g dlogit * logit to those of the earlier ones
-// (kept in dx and a [B*H, N] scratch), and the last one applies draw. At G
-// <= 32 (the car) there is one window and no scratch. Each block writes
-// its partial sums (dWs^T, dbs, dWa, dba; or t, S and dstates), its warps
-// merged in warp order; sum_partials adds the blocks' partials in block
-// order, then cloud order. A call is four launches at G <= 32.
+// (deslice's). Per point of its design:
+//   * 16 warps per SM (FW, four warpgroups), at most 128 registers a
+//     thread: twice the rows in flight. No operand table lives in the
+//     registers: the products whose M is rows run as wgmma over a
+//     warpgroup's 64 rows (each warp's tile of FTR = 16 rows), A from the
+//     registers and B from shared memory, so a thread holds one tile's
+//     fragments and accumulators alone.
+//   * The products on the tensor cores, float32 operands in 3xTF32 (lo*hi,
+//     hi*lo, hi*hi: three wgmma m64nNk8 tf32 per k-step; one pass misses
+//     the tolerance, chip_smoke.py's tf32_control): Z = x Ws and dw = x G^T
+//     (or g_out states^T), N = the window's 32 slices, and dx = dpre Ws^T +
+//     w G^, N = CM channels. B is staged once per window, split into hi and
+//     lo tables in wgmma's no-swizzle K-major layout (8 x 8 core matrices),
+//     in the order that the lanes' A fragments take: x's channels
+//     permuted as in the forwards (lane tig reads channels Q * tig .. + Q -
+//     1), and dpre's slices as the accumulator fragment holds them. A k-step's A registers are released after its
+//     wait, so one k-block's fragments are in flight at a time.
+//   * dpre stays in the registers for dx: the accumulator fragment of the
+//     logits (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block of
+//     8) is, entry for entry, the A fragment of dx = dpre Ws^T with k the
+//     slices, so softmax, dpre and dx never leave the registers, and dx
+//     goes from its accumulators straight to device memory, two channels a
+//     store, after the draw term (no round trip through the ring, no tile
+//     store). dWs^T = dpre^T x (and dstates = w^T g_out) contract over rows
+//     with M = the window's 32 slices, below wgmma's 64: they stay on
+//     mma.sync m16n8k8 (3xTF32), dpre (w) through the warp's 16-row buffer
+//     as A, x (g_out) from the ring as B.
+//   * Windows of BW = 32 slices. At CM <= 16 and G > 32 (the Darcy
+//     preset's G 64) slice_states' first pass and both chains sweep SW = 2
+//     windows per read of their rows (HAET_BWD_F32_CASES): x is read once
+//     a pass, and a chain keeps both windows' dx and sum_g dlogit * logit
+//     in the registers, one launch where it took two. Not in deslice's
+//     first pass, nor at CM 32 (the NS preset): their two windows'
+//     accumulators spill past 128 registers, and those sweeps measured
+//     slower (PERF.md); a first pass then takes its windows as grid z, and
+//     a chain launches once per window, each adding its dx and sum_g
+//     dlogit * logit to the earlier launches' (in dx and a [B*H, N]
+//     scratch) and the last applying draw.
+//   * 1 / tau per row in the forwards' order of summation (row_inv_tau).
+//   * Merges in a fixed order, no float atomics: each lane sums over its
+//     rows, a warp's lanes by shuffles in a fixed pattern, a block's warps
+//     in warp order into its partial per window; sum_partials adds the
+//     blocks' partials in block order (each of its 8 warps a contiguous
+//     range, then the warps in order), after the first pass per cloud and
+//     window and after the chain over every block of every cloud. Two calls
+//     agree bit for bit. A call is four launches at G <= 32 and at the
+//     Darcy preset's G 64, five at the NS preset's.
 //
 // slice_bwd_fused, per point of its design:
 //   * One launch per call, at any G. The grid is persistent: at most as
@@ -1529,38 +1572,33 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 //     dpre^T x two (10 of 15). G^'s 1 / (1 + 1e-5) moves to the other
 //     operand (dw is scaled after its product, w before G^'s) so that the
 //     table stays exact. Float32 operands (Ws, the weights, dpre) keep
-//     3xTF32 (one-pass TF32 misses the tolerance: chip_smoke.py's
-//     tf32_control).
+//     3xTF32.
 //   * x and g_out stay bf16 in the warps' rings (no widening in shared
 //     memory: half the bytes), and the fragments of an exact operand are
 //     its bits shifted, not split; the fragment tables of an exact operand
-//     hold its high parts alone (half the shared-memory reads). More warps
-//     per SM would need the chain's fragments and accumulators cut by half
-//     (128 registers): not done, so the rows in flight stay 8 warps'.
+//     hold its high parts alone (half the shared-memory reads). It keeps
+//     the per-tile loop below at 8 warps per SM (177-247 registers); the
+//     float32 route's wgmma loop has not been carried over.
 //   * The second read: the chain takes each warp's tiles in reverse order,
 //     so that it first re-reads the rows the first pass read last, while
 //     they are in L2 (50 MB: x and g_out of the car's training batch in
 //     bf16, 34 MB, fit whole). Holding the rows in shared memory instead
 //     would buy nothing that shows: the breakdown put the ring waits at 6 %
 //     of a warp's cycles.
-//
-// Both, per tile: each warp streams its tiles of TR rows (and g_out)
-// through a cp.async ring and handles them 16 rows at a time in the row
-// layout of deslice_fast: Z = x Ws and the dw product are accumulator
-// fragments (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block of
-// 8), and so are w, dlogit and dpre, elementwise. dx^T = Ws dpre^T (+ G^T
-// w^T): the accumulator fragment of dpre is, entry for entry, the B
-// fragment of that product (k = tig is slice 2 tig), so dx stays in
-// registers until it goes to device memory (slice_bwd_fast: through the x
-// rows of its tile, once per tile; slice_bwd_fused: through the warp's
-// buffer, 16 rows at a time). dWs^T = dpre^T x (and dstates = w^T g_out)
-// contract over rows: dpre (w) goes through the warp's buffer and back as
-// A fragments; x is the B fragment, read from the ring. Ws and the G-side
-// matrix are staged once per window, in fragment order.
-//
-// Both keep fixed merge orders and no float atomics: two calls agree bit
-// for bit, and the fused kernel's counters are back at zero after every
-// call.
+//   * Per tile: each warp streams its tiles of TR rows (and g_out) through
+//     a cp.async ring and handles them 16 rows at a time in the row layout
+//     of deslice_fast: Z = x Ws and the dw product are accumulator
+//     fragments (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block
+//     of 8), and so are w, dlogit and dpre, elementwise. dx^T = Ws dpre^T
+//     (+ G^T w^T): the accumulator fragment of dpre is, entry for entry,
+//     the B fragment of that product (k = tig is slice 2 tig), so dx stays
+//     in registers until it goes to device memory through the warp's
+//     buffer, 16 rows at a time. dWs^T = dpre^T x (and dstates = w^T
+//     g_out) contract over rows: dpre (w) goes through the warp's buffer
+//     and back as A fragments; x is the B fragment, read from the ring. Ws
+//     and the G-side matrix are staged once per window, in fragment order.
+//   * Fixed merge orders and no float atomics: two calls agree bit for
+//     bit, and the counters are back at zero after every call.
 //
 // The weights' normalisation: the first pass also sums S = sum_n w. The
 // residuals (m, s) come from the forward's logits, whose rounding differs
@@ -1569,7 +1607,11 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 // deslice_bwd ~1e-4 of max |dx| and slice_states_bwd (with t in closed
 // form, from the forward's states) ~5e-3 of max |d b_slice| against
 // float64. The chains therefore use w / S and t / S: the exact softmax of
-// their own logits. Rows past N are masked to zero dpre, w and draw, and
+// their own logits; so does deslice's dstates from the per-pass kernels
+// (sum_partials divides it by S: slice_bwd_f32's logits, on wgmma, round
+// otherwise than the forward's mma.sync, and at the low-temperature edge
+// of chip_smoke.py the unnormalised dstates was 1.0e-4 of its max from
+// float64). Rows past N are masked to zero dpre, w and draw, and
 // zero features in the row-contracted products; a slice past G gets m =
 // +inf (w = 0).
 // ---------------------------------------------------------------------------
@@ -1784,40 +1826,29 @@ __device__ __forceinline__ void quarter(float (&v)[CM / 4], const bf16* p) {
   }
 }
 
-// 1 / tau and the raw Ada-Temp value x . Wa + ba of the ring row `lane`
-// (two FMA chains, channels k, k + 2 in one and k + 1, k + 3 in the other):
-// a float32 tile of slice_bwd_fast or a bf16 ring row of slice_bwd_fused.
+// 1 / tau and the raw Ada-Temp value x . Wa + ba of the bf16 ring row
+// `lane` of slice_bwd_fused (two FMA chains, channels k, k + 2 in one and
+// k + 1, k + 3 in the other).
 template <typename T, int CM>
 __device__ __forceinline__ void row_raw_tau(const T* slot, const float* wa_s,
                                             float ba, float base_temp,
                                             int lane, float& raw, float& it) {
+  static_assert(std::is_same_v<T, bf16>, "bf16 ring rows");
   const T* xr = slot + lane * bwd_cs<T, CM>();
   float d0 = 0.f, d1 = 0.f;
-  if constexpr (std::is_same_v<T, float>) {
 #pragma unroll
-    for (int k = 0; k < CM; k += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(xr + k);
-      const float4 wv = *reinterpret_cast<const float4*>(wa_s + k);
-      d0 = fmaf(xv.x, wv.x, d0);
-      d1 = fmaf(xv.y, wv.y, d1);
-      d0 = fmaf(xv.z, wv.z, d0);
-      d1 = fmaf(xv.w, wv.w, d1);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < CM; k += 8) {
-      const uint4 t = *reinterpret_cast<const uint4*>(xr + k);
-      const float4 w0 = *reinterpret_cast<const float4*>(wa_s + k);
-      const float4 w1 = *reinterpret_cast<const float4*>(wa_s + k + 4);
-      d0 = fmaf(bf_lo(t.x), w0.x, d0);
-      d1 = fmaf(bf_hi(t.x), w0.y, d1);
-      d0 = fmaf(bf_lo(t.y), w0.z, d0);
-      d1 = fmaf(bf_hi(t.y), w0.w, d1);
-      d0 = fmaf(bf_lo(t.z), w1.x, d0);
-      d1 = fmaf(bf_hi(t.z), w1.y, d1);
-      d0 = fmaf(bf_lo(t.w), w1.z, d0);
-      d1 = fmaf(bf_hi(t.w), w1.w, d1);
-    }
+  for (int k = 0; k < CM; k += 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(xr + k);
+    const float4 w0 = *reinterpret_cast<const float4*>(wa_s + k);
+    const float4 w1 = *reinterpret_cast<const float4*>(wa_s + k + 4);
+    d0 = fmaf(bf_lo(t.x), w0.x, d0);
+    d1 = fmaf(bf_hi(t.x), w0.y, d1);
+    d0 = fmaf(bf_lo(t.y), w0.z, d0);
+    d1 = fmaf(bf_hi(t.y), w0.w, d1);
+    d0 = fmaf(bf_lo(t.z), w1.x, d0);
+    d1 = fmaf(bf_hi(t.z), w1.y, d1);
+    d0 = fmaf(bf_lo(t.w), w1.z, d0);
+    d1 = fmaf(bf_hi(t.w), w1.w, d1);
   }
   raw = d0 + d1 + ba;
   it = 1.f / (base_temp + fminf(fmaxf(raw, -0.4f), 0.4f));
@@ -2592,7 +2623,7 @@ __device__ __forceinline__ void finish_unit(const BwdArgs& a, int unit,
 template <typename T, int CM, bool DESLICE>
 __global__ void __launch_bounds__(NTF, 1)
 slice_bwd_fused(const __grid_constant__ BwdArgs a) {
-  // float32 takes slice_bwd_fast, faster there (PERF.md)
+  // float32 takes slice_bwd_f32, faster there (PERF.md)
   static_assert(std::is_same_v<T, bf16>, "slice_bwd_fused is for bf16 I/O");
   constexpr int SUMS = DESLICE ? BWD_SUMS : BWD_STATES_SUMS;
   constexpr int CHAIN = DESLICE ? BWD_CHAIN : BWD_STATES;
@@ -2631,22 +2662,18 @@ slice_bwd_fused(const __grid_constant__ BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// slice_bwd_fast: the float32 backward for C <= 32, one launch per pass (see
+// slice_bwd_f32: the float32 backward for C <= 32, one launch per pass (see
 // the note above).
 // ---------------------------------------------------------------------------
 
 constexpr int BWD_FIRST = 1, BWD_LAST = 2;  // window flags
 
-// Words of a B table ([KB][BW / 8][32 lanes] x uint4: hi, lo of b0, b1) and
-// of an A table ([MC][BW / 8][32 lanes] x 2 uint4: hi, lo of a0 .. a3).
+// Floats of one operand table of one window, hi or lo parts: the B matrix
+// of a product over 32 slices and CM channels (K x N = CM x 32 or 32 x CM)
+// in wgmma's no-swizzle K-major layout, 8 x 8 per k-step.
 template <int CM>
-__host__ __device__ constexpr int tab_b_words() {
-  return (CM / 8) * (BW / 8) * 32 * 4;
-}
-
-template <int CM>
-__host__ __device__ constexpr int tab_a_words() {
-  return bwd_mc<CM>() * (BW / 8) * 32 * 8;
+__host__ __device__ constexpr int wg_table_floats() {
+  return 32 * CM;
 }
 
 // Row stride of a block's partial sums: the channels, then dbs (chain) or
@@ -2656,127 +2683,315 @@ __host__ __device__ constexpr int bwd_row() {
   return CM + (bwd_sums(MODE) ? 2 : 1);
 }
 
-// Floats of one block's partial sums: [BW][bwd_row] (dWs^T and dbs, or
-// dstates, t and sum_n w), then for the chain modes dWa [CM] and dba.
+// Floats of one block's partial sums per window: [BW][bwd_row] (dWs^T and
+// dbs, or dstates, t and sum_n w), then for the chain modes dWa [CM] and
+// dba.
 template <int CM, int MODE>
 __host__ __device__ constexpr int bwd_part_floats() {
   return BW * bwd_row<CM, MODE>() + (bwd_sums(MODE) ? 0 : CM + 1);
 }
 
-// Dynamic shared memory of slice_bwd_fast in floats (mirrors
-// bwd_smem() in the wrapper): the x ring (and the g_out ring); the B
-// tables of Ws and of the G-side matrix; the A tables of Ws (and of G^,
-// slice_states); bs - shift, m, 1 / s, u of the window; Wa; the
-// warps' dpre buffers [16][BUF_STRIDE] and draw [16].
-template <int CM, int MODE>
+// Floats of one ring of slice_bwd_f32: every warp's STAGES slots of FTR rows.
+template <int CM>
+__host__ __device__ constexpr int f32_ring_floats() {
+  return FW * STAGES * FTR * row_stride<CM>();
+}
+
+// Operand tables of one window of a pass of MODE: Ws and the G-side matrix
+// as the B of the logits and of dw; the chains' Ws^T (and slice_states' G^)
+// as the B of dx. Each as hi and lo parts.
+template <int MODE>
+__host__ __device__ constexpr int bwd_tables() {
+  return 2 + (MODE == BWD_STATES ? 2 : MODE == BWD_CHAIN ? 1 : 0);
+}
+
+// Dynamic shared memory of slice_bwd_f32 in floats (mirrors bwd_smem() in
+// the wrapper): the x ring (and the g_out ring); per window of the sweep its
+// operand tables (hi and lo) and bs - shift, m, 1 / (s S), u; Wa; per warp
+// the dpre (or w) buffer [FTR][BUF_STRIDE] and draw [FTR].
+template <int CM, int SW, int MODE>
 __host__ __device__ constexpr int bwd_smem_floats() {
-  return (bwd_gout(MODE) ? 2 : 1) * ring_floats<CM>() +
-         2 * tab_b_words<CM>() +
-         (MODE == BWD_STATES ? 2 : MODE == BWD_CHAIN ? 1 : 0) *
-             tab_a_words<CM>() +
-         4 * BW + CM + WARPS * 16 * (BUF_STRIDE + 1);
+  return (bwd_gout(MODE) ? 2 : 1) * f32_ring_floats<CM>() +
+         SW * (2 * bwd_tables<MODE>() * wg_table_floats<CM>() + 4 * BW) +
+         CM + FW * FTR * (BUF_STRIDE + 1);
 }
 
-__device__ __forceinline__ void split_b(Split (&b)[2], uint4 t) {
-  b[0] = {t.x, t.y};
-  b[1] = {t.z, t.w};
+// v as a TF32 high part with its low 13 bits cleared (split()'s own
+// rounding to nearest) and the remainder.
+__device__ __forceinline__ Split split_t(float v) {
+  const unsigned hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(v - __uint_as_float(hi))};
 }
 
-__device__ __forceinline__ void split_a(Split (&a)[4], uint4 t0, uint4 t1) {
-  a[0] = {t0.x, t0.y};
-  a[1] = {t0.z, t0.w};
-  a[2] = {t1.x, t1.y};
-  a[3] = {t1.z, t1.w};
+// The shared-memory descriptor of a wgmma B operand: no swizzle, K-major,
+// 8 x 16-byte core matrices, 128 bytes apart along K and 256 along N.
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
 }
 
-__device__ __forceinline__ uint4 split_pair(float v0, float v1) {
-  const Split a = split(v0), b = split(v1);
-  return make_uint4(a.hi, a.lo, b.hi, b.lo);
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-// grid (per_cloud, bh, windows), NTF threads; N cut as for the forwards.
-// Block (blockIdx.x, blockIdx.y) takes rows [blockIdx.x * span, + span) of
-// cloud blockIdx.y for the window of slices [w * BW, + BW), w = win0 +
-// blockIdx.z. Inputs: x, g_out [bh, n, c]; Ws [c, g]; bs [g]; Wa [c]; ba;
-// bmat [bh, g, c] (dL/dstates for slice_states' modes, the states for
-// deslice's); tsum the first pass's sums (chain modes: t and S of cloud b,
-// slice w * BW + i at ((w * bh + b) * BW + i) * (CM + 2) + CM and + 1); m,
-// s [bh, g]. Outputs: part [windows][bh][per_cloud][bwd_part_floats]; dx
-// [bh, n, c] and the scratch q [bh, n] (chain modes); the windows' dx sums
-// meet in dacc (dx itself), and the last window writes dx. MODE is the last
-// template argument: the profiler's name of a launch tells the mode by it
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d += a b for the warpgroup's 64 rows: one wgmma m64nNk8 in TF32, A from
+// the registers (each warp's 16 rows, the mma.sync m16n8k8 A layout), B
+// from shared memory; d the accumulator layout of N / 8 m16n8 blocks.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], const unsigned (&a)[4],
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<8>(float (&d)[4], const unsigned (&a)[4],
+                                         uint64_t b) {
+#ifdef HAET_SLICE_NO_MMA
+  d[0] += __uint_as_float(a[0] ^ static_cast<unsigned>(b));
+#else
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#endif
+}
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8],
+                                          const unsigned (&a)[4], uint64_t b) {
+#ifdef HAET_SLICE_NO_MMA
+  d[0] += __uint_as_float(a[0] ^ static_cast<unsigned>(b));
+#else
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#endif
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16],
+                                          const unsigned (&a)[4], uint64_t b) {
+#ifdef HAET_SLICE_NO_MMA
+  d[0] += __uint_as_float(a[0] ^ static_cast<unsigned>(b));
+#else
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+#endif
+}
+
+// d += a b, one part of 3xTF32: the cross terms lo*hi + hi*lo (CROSS) or
+// the high parts' hi*hi; `a` split in the registers, b's hi and lo tables
+// at bhi and blo.
+template <int N, bool CROSS>
+__device__ __forceinline__ void wgmma_part(float (&d)[N / 2],
+                                           const Split (&a)[4],
+                                           const unsigned* bhi,
+                                           const unsigned* blo) {
+  const unsigned ah[4] = {a[0].hi, a[1].hi, a[2].hi, a[3].hi};
+  if constexpr (CROSS) {
+    const unsigned al[4] = {a[0].lo, a[1].lo, a[2].lo, a[3].lo};
+    wgmma<N>(d, al, wg_desc(bhi));
+    wgmma<N>(d, ah, wg_desc(blo));
+  } else {
+    wgmma<N>(d, ah, wg_desc(bhi));
+  }
+}
+
+// d += a b in 3xTF32 (lo*hi, hi*lo, hi*hi).
+template <int N>
+__device__ __forceinline__ void wgmma3(float (&d)[N / 2], const Split (&a)[4],
+                                       const unsigned* bhi,
+                                       const unsigned* blo) {
+  wgmma_part<N, true>(d, a, bhi, blo);
+  wgmma_part<N, false>(d, a, bhi, blo);
+}
+
+// 1 / tau and the raw Ada-Temp value x . Wa + ba of row lane % 16 of a
+// 16-row tile (lanes r and r + 16 both take row r), summed in the order of
+// the forwards' row_inv_tau (two FMA chains along the row), so that the
+// temperatures, and with them the logits, are those of the forward whose
+// residuals (m, s) the weights take.
+template <int CM>
+__device__ __forceinline__ void row16_raw_tau(const float* slot,
+                                              const float* wa_s, float ba,
+                                              float base_temp, int lane,
+                                              float& raw, float& it) {
+  const float* xr = slot + (lane & 15) * row_stride<CM>();
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int k = 0; k < CM; k += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + k);
+    const float4 wv = *reinterpret_cast<const float4*>(wa_s + k);
+    d0 = fmaf(xv.x, wv.x, d0);
+    d1 = fmaf(xv.y, wv.y, d1);
+    d0 = fmaf(xv.z, wv.z, d0);
+    d1 = fmaf(xv.w, wv.w, d1);
+  }
+  raw = d0 + d1 + ba;
+  it = 1.f / (base_temp + fminf(fmaxf(raw, -0.4f), 0.4f));
+}
+
+// The 2 * KP channels [Q * tig + 2 * kb, + 2 * KP) of one tile row: a
+// lane's x (or g_out) fragments of k-blocks kb .. kb + KP - 1.
+template <int KP>
+__device__ __forceinline__ void frag_cols(float (&v)[2 * KP],
+                                          const float* p) {
+  if constexpr (KP == 2) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+// acc += buf^T B over a 16-row tile: the buffer's slices (dpre or w) as A
+// (M = slices, K = rows), the slot's channels (x or g_out) as B; k = tig is
+// row kr*8 + 2*tig, k = tig + 4 row kr*8 + 2*tig + 1 (both bank-conflict
+// free at the strides of 36 and CM + 4 floats). Rows past `rows` read as
+// zero features.
+template <int CM>
+__device__ __forceinline__ void rows_product(float (&acc)[BW / 16][CM / 8][4],
+                                             const float* buf,
+                                             const float* slot, int rows,
+                                             int gid, int tig) {
+  constexpr int MB = BW / 16, NC = CM / 8, CS = row_stride<CM>();
+#pragma unroll
+  for (int kr = 0; kr < 2; ++kr) {
+    const int ra = kr * 8 + 2 * tig;
+    const bool va = ra < rows, vb = ra + 1 < rows;
+    Split af[MB][4];
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) {
+      const float* p = buf + ra * BUF_STRIDE + mb * 16 + gid;
+      af[mb][0] = split(p[0]);
+      af[mb][1] = split(p[8]);
+      af[mb][2] = split(p[BUF_STRIDE]);
+      af[mb][3] = split(p[BUF_STRIDE + 8]);
+    }
+#pragma unroll
+    for (int nc = 0; nc < NC; ++nc) {
+      const float* p = slot + ra * CS + nc * 8 + gid;
+      const Split b[2] = {split(va ? p[0] : 0.f), split(vb ? p[CS] : 0.f)};
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) mma3(acc[mb][nc], af[mb], b);
+    }
+  }
+}
+
+// grid (per_cloud, bh, sweeps), NTW threads (FW / 4 warpgroups); N cut as
+// for the forwards. Block (blockIdx.x, blockIdx.y) takes rows
+// [blockIdx.x * span, + span) of cloud blockIdx.y for the SW windows of BW
+// slices from window win0 + blockIdx.z * SW (fewer at wend). Inputs: x,
+// g_out [bh, n, c]; Ws [c, g]; bs [g]; Wa [c]; ba; bmat [bh, g, c]
+// (dL/dstates for slice_states' modes, the states for deslice's); tsum the
+// first pass's sums (chain modes: t and S of cloud b, slice w * BW + i at
+// ((w * bh + b) * BW + i) * (CM + 2) + CM and + 1); m, s [bh, g]. Outputs:
+// part [windows][bh][per_cloud][bwd_part_floats]; dx [bh, n, c] and the
+// scratch q [bh, n] (chain modes: a launch adds its windows' dx and q to
+// those of the earlier launches unless flags has BWD_FIRST, and the one
+// with BWD_LAST applies draw). MODE is the last template argument: the
+// profiler's name of a launch tells the mode by it
 // (haet_torch/ops/kernels/__init__.py:KERNEL_NAMES).
-template <int CM, int MODE>
-__global__ void __launch_bounds__(NTF, 1)
-slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
-               const float* __restrict__ ws, const float* __restrict__ bs,
-               const float* __restrict__ wa, const float* __restrict__ ba,
-               const float* __restrict__ bmat, const float* __restrict__ tsum,
-               const float* __restrict__ m, const float* __restrict__ s,
-               float* __restrict__ part, float* dx, float* dacc,
-               float* __restrict__ qbuf, int n, int c, int g, int span,
-               int win0, int flags, float base_temp, float shift) {
+template <int CM, int SW, int MODE>
+__global__ void __launch_bounds__(NTW, 1)
+slice_bwd_f32(const float* __restrict__ x, const float* __restrict__ gout,
+              const float* __restrict__ ws, const float* __restrict__ bs,
+              const float* __restrict__ wa, const float* __restrict__ ba,
+              const float* __restrict__ bmat, const float* __restrict__ tsum,
+              const float* __restrict__ m, const float* __restrict__ s,
+              float* __restrict__ part, float* __restrict__ dx,
+              float* __restrict__ qbuf, int n, int c, int g, int span,
+              int win0, int wend, int flags, float base_temp, float shift) {
   constexpr bool CHAIN = !bwd_sums(MODE);      // the chain to x and the
   constexpr bool APATH = MODE == BWD_STATES;   // weights; dx += w G^
   constexpr bool GOUT = bwd_gout(MODE);        // a g_out stream
   constexpr bool DST = MODE == BWD_SUMS;       // dstates = w^T g_out
+  constexpr bool ROWS = CHAIN || DST;          // a row-contracted product
   constexpr int KB = CM / 8, NB = BW / 8, NC = CM / 8, MB = BW / 16;
-  constexpr int MC = bwd_mc<CM>(), Q = CM / 4, CS = row_stride<CM>();
+  constexpr int Q = CM / 4, CS = row_stride<CM>();
+  constexpr int KP = KB < 2 ? KB : 2;          // k-blocks per fragment load
   constexpr int PW = bwd_part_floats<CM, MODE>(), RW = bwd_row<CM, MODE>();
+  constexpr int TF = wg_table_floats<CM>();    // one table's hi (or lo)
+  constexpr int TW = 2 * bwd_tables<MODE>() * TF;  // a window's tables
+  constexpr int RING = f32_ring_floats<CM>(), STRIDE = FW * FTR;
+  static_assert(FW % 4 == 0, "whole warpgroups");
+  static_assert(FW * PW <= RING, "a window's block merge fits one ring");
+  static_assert(SW == 1 || (CM <= 16 && !DST), "sweeps: CM <= 16, no dstates");
   extern __shared__ __align__(16) float sm[];
   HAET_TRACE(long long mk_ = clock64(), sg_[BWD_SEGS] = {};)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.y, nbh = gridDim.y, per_cloud = gridDim.x;
-  const int win = win0 + blockIdx.z, w0 = win * BW, gw = min(BW, g - w0);
+  const int wb = win0 + blockIdx.z * SW;       // the sweep's first window
+  const int nw = min(SW, wend - wb);           // and its windows
   const bool first = flags & BWD_FIRST, last = flags & BWD_LAST;
   const int row_begin = blockIdx.x * span;
   const int rows_blk = min(span, n - row_begin);
   const size_t cloud = static_cast<size_t>(bh) * n * c;
   const float* xb = x + cloud;
   const float* gb = GOUT ? gout + cloud : nullptr;
-  const uintptr_t ptrs =
-      reinterpret_cast<uintptr_t>(x) |
-      (GOUT ? reinterpret_cast<uintptr_t>(gout) : 0) |
-      (CHAIN ? reinterpret_cast<uintptr_t>(dx) |
-                   reinterpret_cast<uintptr_t>(dacc) : 0);
-  const bool vec = vec_ok<float>(c, ptrs);
+  const bool vec = vec_ok<float>(
+      c, reinterpret_cast<uintptr_t>(x) |
+             (GOUT ? reinterpret_cast<uintptr_t>(gout) : 0));
+  const bool pair = c % 2 == 0 && (reinterpret_cast<uintptr_t>(dx) & 7) == 0;
 
-  float* ring_x = sm;                           // [WARPS][STAGES][TR][CS]
-  float* ring_g = ring_x + ring_floats<CM>();   // the same, if GOUT
-  uint4* tzb = reinterpret_cast<uint4*>(ring_x + (GOUT ? 2 : 1) *
-                                                     ring_floats<CM>());
-  uint4* tdb = tzb + tab_b_words<CM>() / 4;   // G-side matrix as B
-  uint4* twa = tdb + tab_b_words<CM>() / 4;   // Ws as A (chain modes)
-  uint4* tba = twa + (CHAIN ? tab_a_words<CM>() / 4 : 0);  // G^ as A
-  float* bsh_s = reinterpret_cast<float*>(
-      tba + (APATH ? tab_a_words<CM>() / 4 : 0));          // [BW]
-  float* m_s = bsh_s + BW;                                  // [BW]
-  float* is_s = m_s + BW;                                  // [BW]
-  float* u_s = is_s + BW;                                   // [BW]
-  float* wa_s = u_s + BW;                                   // [CM]
-  float* buf = wa_s + CM + warp * 16 * BUF_STRIDE;          // [16][BS]
-  float* drw = wa_s + CM + WARPS * 16 * BUF_STRIDE + warp * 16;  // [16]
+  float* ring_x = sm;                              // [FW][STAGES][FTR][CS]
+  float* ring_g = ring_x + RING;                   // the same, if GOUT
+  // per window: [table][hi, lo][TF]: Ws as B of the logits (K channels,
+  // N slices), the G-side matrix as B of dw, Ws^T as B of dx (K slices, N
+  // channels; chains), G^ as B of dx (slice_states' chain)
+  unsigned* tab = reinterpret_cast<unsigned*>(ring_x + (GOUT ? 2 : 1) * RING);
+  float* bsh_s = reinterpret_cast<float*>(tab + SW * TW);  // [SW][BW] each
+  float* m_s = bsh_s + SW * BW;
+  float* is_s = m_s + SW * BW;
+  float* u_s = is_s + SW * BW;
+  float* wa_s = u_s + SW * BW;                     // [CM]
+  float* buf = wa_s + CM + warp * FTR * BUF_STRIDE;          // dpre or w
+  float* drw = wa_s + CM + FW * FTR * BUF_STRIDE + warp * FTR;  // draw
+  auto table = [&](int sw, int t, int lo) {
+    return tab + sw * TW + (2 * t + lo) * TF;
+  };
 
-  const int tiles = (rows_blk + TR - 1) / TR;
-  const int my_tiles = tiles > warp ? (tiles - warp + WARPS - 1) / WARPS : 0;
-  float* my_x = ring_x + warp * STAGES * TR * CS;
-  float* my_g = ring_g + warp * STAGES * TR * CS;
-  const int first_row = row_begin + warp * TR;
-  constexpr int STRIDE = WARPS * TR;
-  auto load = [&](int jt) {  // tile jt of this warp into its ring slots
-    const int r0 = first_row + jt * STRIDE, rows = min(TR, n - r0);
-    load_tile<CM, float>(my_x + (jt % STAGES) * TR * CS, xb, r0, rows, c,
+  const int tiles = (rows_blk + FTR - 1) / FTR;
+  const int my_tiles = tiles > warp ? (tiles - warp + FW - 1) / FW : 0;
+  const int lead = warp & ~3;  // the warpgroup's first warp takes the most
+  const int wg_tiles = tiles > lead ? (tiles - lead + FW - 1) / FW : 0;
+  float* my_x = ring_x + warp * STAGES * FTR * CS;
+  float* my_g = ring_g + warp * STAGES * FTR * CS;
+  const int first_row = row_begin + warp * FTR;
+  auto load = [&](int j) {  // tile j of this warp into its ring slots
+    const int r0 = first_row + j * STRIDE, rows = min(FTR, n - r0);
+    load_tile<CM, float>(my_x + (j % STAGES) * FTR * CS, xb, r0, rows, c,
                          vec, lane);
     if constexpr (GOUT)
-      load_tile<CM, float>(my_g + (jt % STAGES) * TR * CS, gb, r0, rows, c,
+      load_tile<CM, float>(my_g + (j % STAGES) * FTR * CS, gb, r0, rows, c,
                            vec, lane);
   };
 
   if (c < CM) {  // padding columns must read as zeros
-    for (int i = tid; i < (GOUT ? 2 : 1) * ring_floats<CM>(); i += NTF)
-      ring_x[i] = 0.f;
+    for (int i = tid; i < (GOUT ? 2 : 1) * RING; i += NTW) ring_x[i] = 0.f;
     __syncthreads();
   }
 #pragma unroll
@@ -2785,354 +3000,378 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
     cp_commit();
   }
 
-  // The window's Ws and G-side matrix, split, in fragment order; per slice
-  // bs - shift, finite m (+inf past G: w = 0), 1 / s and u.
+  // Each window's operand tables, split; per slice bs - shift, finite m
+  // (+inf past G: w = 0), 1 / (s S) and u.
   const float bscale = GOUT ? 1.f : 1.f / NORM;
-  const float* bmw = bmat + (static_cast<size_t>(bh) * g + w0) * c;
-  auto wsv = [&](int k, int sl) {
-    return k < c && sl < gw ? ws[k * g + w0 + sl] : 0.f;
+  auto wsv = [&](int k, int sl) {  // sl a slice of the whole G
+    return k < c && sl < g ? ws[k * g + sl] : 0.f;
   };
   auto bmv = [&](int sl, int k) {
-    return k < c && sl < gw ? bmw[sl * c + k] * bscale : 0.f;
+    return k < c && sl < g
+               ? bmat[(static_cast<size_t>(bh) * g + sl) * c + k] * bscale
+               : 0.f;
   };
-  for (int e = tid; e < KB * NB * 32; e += NTF) {
-    // b0, b1 of k-block kb, slice block nb: channels Q*tig + 2*kb (+ 1),
-    // slice nb*8 + gid
-    const int ln = e & 31, kb = (e >> 5) / NB, nb = (e >> 5) - kb * NB;
-    const int k0 = Q * (ln & 3) + 2 * kb, sl = nb * 8 + (ln >> 2);
-    tzb[e] = split_pair(wsv(k0, sl), wsv(k0 + 1, sl));
-    tdb[e] = split_pair(bmv(sl, k0), bmv(sl, k0 + 1));
-  }
-  if constexpr (CHAIN) {
-    for (int e = tid; e < MC * NB * 32; e += NTF) {
-      // a0 .. a3 of channel block mc, slice block nb: channels mc*16 + gid
-      // (+ 8), slices nb*8 + 2*tig (+ 1)
-      const int ln = e & 31, mc = (e >> 5) / NB, nb = (e >> 5) - mc * NB;
-      const int ch = mc * 16 + (ln >> 2), sl = nb * 8 + 2 * (ln & 3);
-      twa[2 * e] = split_pair(wsv(ch, sl), wsv(ch + 8, sl));
-      twa[2 * e + 1] = split_pair(wsv(ch, sl + 1), wsv(ch + 8, sl + 1));
-      if constexpr (APATH) {
-        tba[2 * e] = split_pair(bmv(sl, ch), bmv(sl, ch + 8));
-        tba[2 * e + 1] = split_pair(bmv(sl + 1, ch), bmv(sl + 1, ch + 8));
-      }
+  auto put = [&](int sw, int t, int e, float v) {
+    const Split p = split_t(v);
+    table(sw, t, 0)[e] = p.hi;
+    table(sw, t, 1)[e] = p.lo;
+  };
+  for (int i = tid; i < nw * TF; i += NTW) {
+    const int sw = i / TF, e = i - sw * TF, w0 = (wb + sw) * BW;
+    // B[k][n] of entry e: k-step e / (8 N) of an N-wide product
+    const int r = e & 255, q = r >> 5;
+    const int k = (q & 1) * 4 + (r & 3), nr = (q >> 1) * 8 + ((r >> 2) & 7);
+    {  // the logits and dw (N = 32 slices): channel Q*(k%4) + 2*kb + k/4,
+       // the order of the lanes' x (g_out) fragments
+      const int sl = w0 + nr, ch = Q * (k & 3) + 2 * (e >> 8) + (k >> 2);
+      put(sw, 0, e, wsv(ch, sl));
+      put(sw, 1, e, bmv(sl, ch));
+    }
+    if constexpr (CHAIN) {  // dx (N = CM channels, k-steps of 8 * CM):
+                            // slice nb*8 + 2*(k%4) + k/4, the order of the
+                            // accumulator fragments of dpre and w
+      const int rr = e % (8 * CM), qq = rr >> 5;
+      const int kk = (qq & 1) * 4 + (rr & 3);
+      const int ch = (qq >> 1) * 8 + ((rr >> 2) & 7);
+      const int sl = w0 + (e / (8 * CM)) * 8 + 2 * (kk & 3) + (kk >> 2);
+      put(sw, 2, e, wsv(ch, sl));
+      if constexpr (APATH) put(sw, 3, e, bmv(sl, ch));
     }
   }
-  if (tid < BW) {
-    const bool in = tid < gw;
-    const size_t sg = static_cast<size_t>(bh) * g + w0 + tid;
+  for (int i = tid; i < nw * BW; i += NTW) {
+    const int w = wb + i / BW, j = i % BW, sl = w * BW + j;
+    const bool in = sl < g;
+    const size_t sg = static_cast<size_t>(bh) * g + sl;
     const float mj = in ? m[sg] : 0.f, sj = in ? s[sg] : 1.f;
-    bsh_s[tid] = in ? bs[w0 + tid] - shift : 0.f;
-    m_s[tid] = in ? (isfinite(mj) ? mj : 0.f) : INFINITY;
+    bsh_s[i] = in ? bs[sl] - shift : 0.f;
+    m_s[i] = in ? (isfinite(mj) ? mj : 0.f) : INFINITY;
     float u = 0.f, norm = 1.f;
     if (in && CHAIN) {  // t / S, and w / S
       const float* ts =
-          tsum + ((static_cast<size_t>(win) * nbh + bh) * BW + tid) *
-                     (CM + 2) + CM;
+          tsum + ((static_cast<size_t>(w) * nbh + bh) * BW + j) * (CM + 2) +
+          CM;
       norm = ts[1] > 0.f ? ts[1] : 1.f;
       u = -ts[0] / norm;
     }
-    is_s[tid] = 1.f / ((sj > 0.f ? sj : 1.f) * norm);
-    u_s[tid] = u;
+    is_s[i] = 1.f / ((sj > 0.f ? sj : 1.f) * norm);
+    u_s[i] = u;
   }
   if (tid < CM) wa_s[tid] = tid < c ? wa[tid] : 0.f;
   const float ba0 = ba[0];
+  // the tables, written by the threads, are read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   HAET_TRACE(HAET_SEG(sg_, mk_, 0);)
 
-  // acc: dWs^T (chain) or dstates (first pass), slices mb*16 + gid (+ 8),
-  // channels nc*8 + 2*tig (+ 1); colsum: dbs or t of the lane's slices
-  // nb*8 + 2*tig (+ 1), over its rows, and wsum their sum_n w (first
-  // pass); dWa of channel `lane`, dba.
-  float acc[MB][NC][4], colsum[NB][2], wsum[NB][2];
+  // acc: per window dWs^T (chain) or dstates (deslice's first pass),
+  // slices mb*16 + gid (+ 8), channels nc*8 + 2*tig (+ 1); colsum: dbs or t
+  // of the lane's slices nb*8 + 2*tig (+ 1) over its rows, and wsum their
+  // sum_n w (first pass); dWa of channel lane % CM over its rows, dba.
+  constexpr int NACC = ROWS ? SW : 1;
+  float acc[NACC][MB][NC][4], colsum[SW][NB][2], wsum[SW][NB][2];
   float dwa_l = 0.f, dba_l = 0.f;
 #pragma unroll
-  for (int mb = 0; mb < MB; ++mb)
+  for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
+    for (int mb = 0; mb < MB; ++mb)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mb][nc][i] = 0.f;
+      for (int nc = 0; nc < NC; ++nc)
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-    colsum[nb][0] = colsum[nb][1] = wsum[nb][0] = wsum[nb][1] = 0.f;
+        for (int i = 0; i < 4; ++i) acc[a][mb][nc][i] = 0.f;
+#pragma unroll
+  for (int sw = 0; sw < SW; ++sw)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      colsum[sw][nb][0] = colsum[sw][nb][1] = wsum[sw][nb][0] =
+          wsum[sw][nb][1] = 0.f;
 
-  for (int j = 0; j < my_tiles; ++j) {
-    __syncwarp();  // every lane is done with the slots refilled below
+  // every warp of a warpgroup runs the warpgroup's count of tiles (wgmma
+  // is collective): past its own, a warp's rows are all masked
+  for (int j = 0; j < wg_tiles; ++j) {
+    __syncwarp();  // every lane is done with the slot refilled below
     if (j + STAGES - 1 < my_tiles) load(j + STAGES - 1);
     cp_commit();
     cp_wait<STAGES - 1>();
     __syncwarp();
     HAET_TRACE(HAET_SEG(sg_, mk_, 1);)
-    float* slot = my_x + (j % STAGES) * TR * CS;
+    const float* slot = my_x + (j % STAGES) * FTR * CS;
+    const float* gslot = GOUT ? my_g + (j % STAGES) * FTR * CS : slot;
     const int row0 = first_row + j * STRIDE;
-    const int rows = min(TR, n - row0);
-    const float* gslot = GOUT ? my_g + (j % STAGES) * TR * CS : slot;
+    const int rows = j < my_tiles ? min(FTR, n - row0) : 0;
     float raw_l, it_l;
-    row_raw_tau<float, CM>(slot, wa_s, ba0, base_temp, lane, raw_l, it_l);
-    for (int r16 = 0; r16 < rows; r16 += 16) {
-      // A fragments of rows r16 + gid (a0, a2) and r16 + gid + 8 (a1, a3):
-      // x, and g_out for the dw product
-      Split xf[KB][4], gf[KB][4];
-      {
-        const float* x0 = slot + (r16 + gid) * CS + Q * tig;
-        float q0[Q], q1[Q];
-        load_quarter<CM>(q0, x0);
-        load_quarter<CM>(q1, x0 + 8 * CS);
+    row16_raw_tau<CM>(slot, wa_s, ba0, base_temp, lane, raw_l, it_l);
+    const float it0 = __shfl_sync(FULL, it_l, gid);
+    const float it1 = __shfl_sync(FULL, it_l, gid + 8);
+    const bool v0 = gid < rows, v1 = gid + 8 < rows;
+    float q0 = 0.f, q1 = 0.f;  // sum_g dlogit * logit, rows gid, gid + 8
+    float dxa[CHAIN ? CM / 2 : 1];  // dx: rows gid (+ 8), channels
+                                    // 8*j + 2*tig (+ 1)
+    HAET_TRACE(HAET_SEG(sg_, mk_, 2);)
 #pragma unroll
-        for (int kb = 0; kb < KB; ++kb) {
-          xf[kb][0] = split(q0[2 * kb]);
-          xf[kb][1] = split(q1[2 * kb]);
-          xf[kb][2] = split(q0[2 * kb + 1]);
-          xf[kb][3] = split(q1[2 * kb + 1]);
-        }
-        if constexpr (GOUT) {
-          const float* g0 = gslot + (r16 + gid) * CS + Q * tig;
-          load_quarter<CM>(q0, g0);
-          load_quarter<CM>(q1, g0 + 8 * CS);
+    for (int sw = 0; sw < SW; ++sw) {
+      if (sw >= nw) break;
+      // Z and dw (- t) of the warpgroup's 64 rows and the window's 32
+      // slices on the tensor cores, [4 * nb + i]: slices nb*8 + 2*tig +
+      // (i & 1), rows gid (+ 8 from i = 2). An addition to a large
+      // accumulator on the tensor cores drops the small term's low bits,
+      // so every k-block's cross terms are summed first, while the
+      // accumulators are small, then the high parts' products, then bs -
+      // shift and u: what a separate accumulator for the cross terms
+      // gives, without its 32 registers. (All three passes k-block by
+      // k-block into one accumulator put 2.4x the error in d b_slice at
+      // low temperature: chip_smoke.py phase 3b against float64.)
+      float zp[16], dp[16];
 #pragma unroll
-          for (int kb = 0; kb < KB; ++kb) {
-            gf[kb][0] = split(q0[2 * kb]);
-            gf[kb][1] = split(q1[2 * kb]);
-            gf[kb][2] = split(q0[2 * kb + 1]);
-            gf[kb][3] = split(q1[2 * kb + 1]);
+      for (int i = 0; i < 16; ++i) zp[i] = dp[i] = 0.f;
+      auto products = [&](auto cross) {
+        constexpr bool CROSS = decltype(cross)::value;
+#pragma unroll
+        for (int p = 0; p < KB; p += KP) {
+          float xq[2][2 * KP], gq[2][2 * KP];
+          frag_cols<KP>(xq[0], slot + gid * CS + Q * tig + 2 * p);
+          frag_cols<KP>(xq[1], slot + (gid + 8) * CS + Q * tig + 2 * p);
+          if constexpr (GOUT) {
+            frag_cols<KP>(gq[0], gslot + gid * CS + Q * tig + 2 * p);
+            frag_cols<KP>(gq[1], gslot + (gid + 8) * CS + Q * tig + 2 * p);
+          }
+#pragma unroll
+          for (int h = 0; h < KP; ++h) {
+            const int kb = p + h;
+            // A fragments of rows gid (a0, a2) and gid + 8 (a1, a3); one
+            // k-block's products in flight at a time, so that their A
+            // registers stay few
+            const Split xa[4] = {
+                split_t(xq[0][2 * h]), split_t(xq[1][2 * h]),
+                split_t(xq[0][2 * h + 1]), split_t(xq[1][2 * h + 1])};
+            wg_fence();
+            wgmma_part<32, CROSS>(zp, xa, table(sw, 0, 0) + kb * 256,
+                                  table(sw, 0, 1) + kb * 256);
+            if constexpr (GOUT) {
+              const Split ga[4] = {
+                  split_t(gq[0][2 * h]), split_t(gq[1][2 * h]),
+                  split_t(gq[0][2 * h + 1]), split_t(gq[1][2 * h + 1])};
+              wgmma_part<32, CROSS>(dp, ga, table(sw, 1, 0) + kb * 256,
+                                    table(sw, 1, 1) + kb * 256);
+            } else {
+              wgmma_part<32, CROSS>(dp, xa, table(sw, 1, 0) + kb * 256,
+                                    table(sw, 1, 1) + kb * 256);
+            }
+            wg_commit_wait();
           }
         }
-      }
-      HAET_TRACE(HAET_SEG(sg_, mk_, 2);)
-      const float it0 = __shfl_sync(FULL, it_l, r16 + gid);
-      const float it1 = __shfl_sync(FULL, it_l, r16 + gid + 8);
-      const bool v0 = r16 + gid < rows, v1 = r16 + gid + 8 < rows;
-      float q0 = 0.f, q1 = 0.f;  // sum_g dlogit * logit, rows gid, gid + 8
-      float dxt[MC][2][4];       // dx^T: channels mc*16 + gid (+ 8), rows
-#pragma unroll                   // nr*8 + 2*tig (+ 1)
-      for (int mc = 0; mc < MC; ++mc)
-#pragma unroll
-        for (int nr = 0; nr < 2; ++nr)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dxt[mc][nr][i] = 0.f;
+      };
+      products(std::true_type{});
+      products(std::false_type{});
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
-        const int c0 = nb * 8 + 2 * tig;  // the lane's slices c0, c0 + 1
-        // Z and dw (- t): bs - shift and u ride in the hi*hi accumulators
-        float zp[2][4] = {{0.f, 0.f, 0.f, 0.f},
-                          {bsh_s[c0], bsh_s[c0 + 1], bsh_s[c0],
-                           bsh_s[c0 + 1]}};
-        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f},
-                          {u_s[c0], u_s[c0 + 1], u_s[c0], u_s[c0 + 1]}};
-#pragma unroll
-        for (int kb = 0; kb < KB; ++kb) {
-          Split b[2];
-          split_b(b, tzb[(kb * NB + nb) * 32 + lane]);
-          mma3_split(zp, xf[kb], b);
-          split_b(b, tdb[(kb * NB + nb) * 32 + lane]);
-          if constexpr (GOUT) mma3_split(dp, gf[kb], b);
-          else mma3_split(dp, xf[kb], b);
-        }
-        float val[4], wv[4];  // dpre (chain) or w (first pass); w
+        const int c0 = sw * BW + nb * 8 + 2 * tig;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int sl = c0 + (i & 1);
-          const bool valid = i < 2 ? v0 : v1;
-          const float lg = (zp[0][i] + zp[1][i]) * (i < 2 ? it0 : it1);
-          const float w = ex2((lg - m_s[sl]) * L2E) * is_s[sl];
-          const float d = dp[0][i] + dp[1][i];
-          wv[i] = valid ? w : 0.f;
-          if constexpr (CHAIN) {
-            const float dl = w * d;
-            val[i] = valid ? dl * (i < 2 ? it0 : it1) : 0.f;
-            if (i < 2) q0 = fmaf(dl, lg, q0);
-            else q1 = fmaf(dl, lg, q1);
-          } else {
-            val[i] = wv[i];
-            wsum[nb][i & 1] += wv[i];
-            if (valid) colsum[nb][i & 1] = fmaf(w, d, colsum[nb][i & 1]);
-          }
-        }
-        if constexpr (CHAIN) {
-          colsum[nb][0] += val[0] + val[2];
-          colsum[nb][1] += val[1] + val[3];
-        }
-        if constexpr (CHAIN || DST) {
-          *reinterpret_cast<float2*>(buf + gid * BUF_STRIDE + c0) =
-              make_float2(val[0], val[1]);
-          *reinterpret_cast<float2*>(buf + (gid + 8) * BUF_STRIDE + c0) =
-              make_float2(val[2], val[3]);
-        }
-        if constexpr (CHAIN) {
-          // dx^T += Ws dpre^T (+ G^T w^T): the fragments of dpre (w) are the
-          // B fragments, rows gid (nr 0) and gid + 8 (nr 1)
-          const Split bp[2][2] = {{split(val[0]), split(val[1])},
-                                  {split(val[2]), split(val[3])}};
-          Split bw[2][2];
-          if constexpr (APATH) {
-            bw[0][0] = split(wv[0]);
-            bw[0][1] = split(wv[1]);
-            bw[1][0] = split(wv[2]);
-            bw[1][1] = split(wv[3]);
-          }
-#pragma unroll
-          for (int mc = 0; mc < MC; ++mc) {
-            const int e = (mc * NB + nb) * 32 + lane;
-            Split a[4];
-            split_a(a, twa[2 * e], twa[2 * e + 1]);
-            mma3(dxt[mc][0], a, bp[0]);
-            mma3(dxt[mc][1], a, bp[1]);
-            if constexpr (APATH) {
-              split_a(a, tba[2 * e], tba[2 * e + 1]);
-              mma3(dxt[mc][0], a, bw[0]);
-              mma3(dxt[mc][1], a, bw[1]);
-            }
-          }
+          zp[4 * nb + i] += bsh_s[c0 + (i & 1)];
+          dp[4 * nb + i] += u_s[c0 + (i & 1)];
         }
       }
       HAET_TRACE(HAET_SEG(sg_, mk_, 3);)
-      if constexpr (CHAIN) {
-        q0 += __shfl_xor_sync(FULL, q0, 1);
-        q0 += __shfl_xor_sync(FULL, q0, 2);
-        q1 += __shfl_xor_sync(FULL, q1, 1);
-        q1 += __shfl_xor_sync(FULL, q1, 2);
-        const size_t qr = static_cast<size_t>(bh) * n + row0 + r16 + gid;
-        if (!first) {  // the earlier windows' sums of these rows
-          if (v0) q0 += qbuf[qr];
-          if (v1) q1 += qbuf[qr + 8];
+      // the softmax: dpre (chain) or w (first pass), kept for dx and put in
+      // the buffer for the row-contracted product
+      float val[NB][4], wv[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int c0 = nb * 8 + 2 * tig;  // the lane's slices c0, c0 + 1
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cs = sw * BW + c0 + (i & 1);
+          const bool valid = i < 2 ? v0 : v1;
+          const float lg = zp[4 * nb + i] * (i < 2 ? it0 : it1);
+          const float w = ex2((lg - m_s[cs]) * L2E) * is_s[cs];
+          const float d = dp[4 * nb + i];
+          wv[nb][i] = valid ? w : 0.f;
+          if constexpr (CHAIN) {
+            const float dl = w * d;
+            val[nb][i] = valid ? dl * (i < 2 ? it0 : it1) : 0.f;
+            if (i < 2) q0 = fmaf(dl, lg, q0);
+            else q1 = fmaf(dl, lg, q1);
+          } else {
+            val[nb][i] = wv[nb][i];
+            wsum[sw][nb][i & 1] += wv[nb][i];
+            if (valid)
+              colsum[sw][nb][i & 1] = fmaf(w, d, colsum[sw][nb][i & 1]);
+          }
         }
-        if (!last) {
-          if (tig == 0 && v0) qbuf[qr] = q0;
-          if (tig == 0 && v1) qbuf[qr + 8] = q1;
-        } else {
-          const float raw0 = __shfl_sync(FULL, raw_l, r16 + gid);
-          const float raw1 = __shfl_sync(FULL, raw_l, r16 + gid + 8);
-          const float dr0 =
-              v0 && raw0 > -0.4f && raw0 < 0.4f ? -q0 * it0 : 0.f;
-          const float dr1 =
-              v1 && raw1 > -0.4f && raw1 < 0.4f ? -q1 * it1 : 0.f;
-          // dx^T[ch][row] += Wa[ch] draw[row] for the lane's rows nr*8 +
-          // 2*tig (+ 1), held by the lanes of gid 2*tig (+ 1)
-          float d[2][2];
-          d[0][0] = __shfl_sync(FULL, dr0, 8 * tig);
-          d[0][1] = __shfl_sync(FULL, dr0, 8 * tig + 4);
-          d[1][0] = __shfl_sync(FULL, dr1, 8 * tig);
-          d[1][1] = __shfl_sync(FULL, dr1, 8 * tig + 4);
-#pragma unroll
-          for (int mc = 0; mc < MC; ++mc) {
-            const int ch = mc * 16 + gid;
-            const float wa0 = wa_s[ch], wa1 = ch + 8 < CM ? wa_s[ch + 8] : 0.f;
-#pragma unroll
-            for (int nr = 0; nr < 2; ++nr) {
-              dxt[mc][nr][0] = fmaf(wa0, d[nr][0], dxt[mc][nr][0]);
-              dxt[mc][nr][1] = fmaf(wa0, d[nr][1], dxt[mc][nr][1]);
-              dxt[mc][nr][2] = fmaf(wa1, d[nr][0], dxt[mc][nr][2]);
-              dxt[mc][nr][3] = fmaf(wa1, d[nr][1], dxt[mc][nr][3]);
-            }
-          }
-          if (tig == 0) {
-            drw[gid] = dr0;
-            drw[gid + 8] = dr1;
-            dba_l += dr0 + dr1;
-          }
+        if constexpr (CHAIN) {
+          colsum[sw][nb][0] += val[nb][0] + val[nb][2];
+          colsum[sw][nb][1] += val[nb][1] + val[nb][3];
+        }
+        if constexpr (ROWS) {
+          *reinterpret_cast<float2*>(buf + gid * BUF_STRIDE + c0) =
+              make_float2(val[nb][0], val[nb][1]);
+          *reinterpret_cast<float2*>(buf + (gid + 8) * BUF_STRIDE + c0) =
+              make_float2(val[nb][2], val[nb][3]);
         }
       }
       HAET_TRACE(HAET_SEG(sg_, mk_, 4);)
-      __syncwarp();  // the buffer (and draw) are written
-      // acc += buf^T B over these 16 rows: dpre^T x (chain) or w^T g_out;
-      // k = tig is row kr*8 + 2*tig, k = tig + 4 row kr*8 + 2*tig + 1
-      const float* bsrc = CHAIN ? slot : gslot;
+      if constexpr (CHAIN) {
+        // dx += dpre Ws^T (+ w G^) on the tensor cores: the accumulator
+        // fragments of dpre (w) are the A fragments, k = tig slice 2*tig,
+        // k = tig + 4 slice 2*tig + 1 of each block of 8 (dx zero until
+        // the first window's, out of the registers of the logits)
+        if (sw == 0)
 #pragma unroll
-      for (int kr = 0; kr < ((CHAIN || DST) ? 2 : 0); ++kr) {
-        const int ra = kr * 8 + 2 * tig;
-        const bool va = r16 + ra < rows, vb = r16 + ra + 1 < rows;
-        Split af[MB][4];
+          for (int i = 0; i < CM / 2; ++i) dxa[i] = 0.f;
 #pragma unroll
-        for (int mb = 0; mb < MB; ++mb) {
-          const float* p = buf + ra * BUF_STRIDE + mb * 16 + gid;
-          af[mb][0] = split(p[0]);
-          af[mb][1] = split(p[8]);
-          af[mb][2] = split(p[BUF_STRIDE]);
-          af[mb][3] = split(p[BUF_STRIDE + 8]);
-        }
-#pragma unroll
-        for (int nc = 0; nc < NC; ++nc) {
-          const float* p = bsrc + (r16 + ra) * CS + nc * 8 + gid;
-          const Split b[2] = {split(va ? p[0] : 0.f),
-                              split(vb ? p[CS] : 0.f)};
-#pragma unroll
-          for (int mb = 0; mb < MB; ++mb) mma3(acc[mb][nc], af[mb], b);
+        for (int nb = 0; nb < NB; ++nb) {
+          const Split a[4] = {split_t(val[nb][0]), split_t(val[nb][2]),
+                              split_t(val[nb][1]), split_t(val[nb][3])};
+          wg_fence();
+          wgmma3<CM>(dxa, a, table(sw, 2, 0) + nb * 8 * CM,
+                     table(sw, 2, 1) + nb * 8 * CM);
+          if constexpr (APATH) {
+            const Split b[4] = {split_t(wv[nb][0]), split_t(wv[nb][2]),
+                                split_t(wv[nb][1]), split_t(wv[nb][3])};
+            wgmma3<CM>(dxa, b, table(sw, 3, 0) + nb * 8 * CM,
+                       table(sw, 3, 1) + nb * 8 * CM);
+          }
+          wg_commit_wait();
         }
       }
-      if constexpr (CHAIN) {
-        if (last && lane < CM) {  // dWa of channel `lane`
-          for (int r = 0; r < 16 && r16 + r < rows; ++r)
-            dwa_l = fmaf(slot[(r16 + r) * CS + lane], drw[r], dwa_l);
+      if constexpr (ROWS) {
+        __syncwarp();  // the buffer is written
+        // dWs^T += dpre^T x (chain), dstates += w^T g_out (first pass)
+        rows_product<CM>(acc[sw], buf, CHAIN ? slot : gslot, rows, gid, tig);
+        __syncwarp();  // the buffer is free for the next window
+        HAET_TRACE(HAET_SEG(sg_, mk_, 5);)
+      }
+    }
+    if constexpr (CHAIN) {
+      q0 += __shfl_xor_sync(FULL, q0, 1);
+      q0 += __shfl_xor_sync(FULL, q0, 2);
+      q1 += __shfl_xor_sync(FULL, q1, 1);
+      q1 += __shfl_xor_sync(FULL, q1, 2);
+      const size_t qr = static_cast<size_t>(bh) * n + row0 + gid;
+      if (!first) {  // the earlier launches' sums of these rows
+        if (v0) q0 += qbuf[qr];
+        if (v1) q1 += qbuf[qr + 8];
+      }
+      if (!last) {
+        if (tig == 0 && v0) qbuf[qr] = q0;
+        if (tig == 0 && v1) qbuf[qr + 8] = q1;
+      } else {
+        const float raw0 = __shfl_sync(FULL, raw_l, gid);
+        const float raw1 = __shfl_sync(FULL, raw_l, gid + 8);
+        const float dr0 =
+            v0 && raw0 > -0.4f && raw0 < 0.4f ? -q0 * it0 : 0.f;
+        const float dr1 =
+            v1 && raw1 > -0.4f && raw1 < 0.4f ? -q1 * it1 : 0.f;
+        // dx[row][ch] += draw[row] Wa[ch]: the lane's rows are gid, gid + 8
+#pragma unroll
+        for (int jc = 0; jc < CM / 8; ++jc) {
+          const float wa0 = wa_s[8 * jc + 2 * tig];
+          const float wa1 = wa_s[8 * jc + 2 * tig + 1];
+          dxa[4 * jc] = fmaf(wa0, dr0, dxa[4 * jc]);
+          dxa[4 * jc + 1] = fmaf(wa1, dr0, dxa[4 * jc + 1]);
+          dxa[4 * jc + 2] = fmaf(wa0, dr1, dxa[4 * jc + 2]);
+          dxa[4 * jc + 3] = fmaf(wa1, dr1, dxa[4 * jc + 3]);
+        }
+        if (tig == 0) {
+          drw[gid] = dr0;
+          drw[gid + 8] = dr1;
+          dba_l += dr0 + dr1;
         }
       }
-      HAET_TRACE(HAET_SEG(sg_, mk_, 5);)
-      if constexpr (CHAIN) {
-        __syncwarp();  // every lane is done reading these rows' x
+      HAET_TRACE(HAET_SEG(sg_, mk_, 4);)
+      // dx straight from the fragments, two channels a store, plus the
+      // earlier launches' windows
+      float* dxr = dx + cloud + static_cast<size_t>(row0) * c;
 #pragma unroll
-        for (int mc = 0; mc < MC; ++mc)
+      for (int jc = 0; jc < CM / 8; ++jc)
 #pragma unroll
-          for (int nr = 0; nr < 2; ++nr)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int ch = mc * 16 + gid + 8 * (i >> 1);
-              const int r = r16 + nr * 8 + 2 * tig + (i & 1);
-              if (ch < CM) slot[r * CS + ch] = dxt[mc][nr][i];
+        for (int h = 0; h < 2; ++h) {
+          const int r = gid + 8 * h, ch = 8 * jc + 2 * tig;
+          if (r >= rows || ch >= c) continue;
+          float e0 = dxa[4 * jc + 2 * h], e1 = dxa[4 * jc + 2 * h + 1];
+          float* p = dxr + r * c + ch;
+          if (pair) {
+            if (!first) {
+              const float2 u = *reinterpret_cast<const float2*>(p);
+              e0 += u.x, e1 += u.y;
             }
+            *reinterpret_cast<float2*>(p) = make_float2(e0, e1);
+          } else {
+            if (!first) e0 += p[0];
+            p[0] = e0;
+            if (ch + 1 < c) {
+              if (!first) e1 += p[1];
+              p[1] = e1;
+            }
+          }
+        }
+      HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
+      if (last) {  // dWa of channel lane % CM over rows lane / CM + k 32 / CM
+        __syncwarp();  // draw is written
+        constexpr int LPC = 32 / CM;
+        for (int r = lane / CM; r < rows; r += LPC)
+          dwa_l = fmaf(slot[r * CS + lane % CM], drw[r], dwa_l);
       }
-      __syncwarp();  // the buffer is free for the next 16 rows
       HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
     }
-    if constexpr (CHAIN)  // the tile's dx (added to the earlier windows')
-      store_tile<CM, float>(slot, dacc, dx,
-                            cloud + static_cast<size_t>(row0) * c, rows, c,
-                            vec, first, last, lane);
-    HAET_TRACE(HAET_SEG(sg_, mk_, 6);)
   }
   cp_wait<0>();
   __syncthreads();  // the rings are free: the warps' partials go there
 
-  // The warps' sums, then the block's in warp order.
-  float* mg = sm;  // [WARPS][PW]
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = colsum[nb][h];
-      v += __shfl_xor_sync(FULL, v, 4);
-      v += __shfl_xor_sync(FULL, v, 8);
-      v += __shfl_xor_sync(FULL, v, 16);
-      float* row = mg + warp * PW + (nb * 8 + 2 * tig + h) * RW;
-      if (gid == 0) row[CM] = v;
-      if constexpr (!CHAIN) {
-        v = wsum[nb][h];
-        v += __shfl_xor_sync(FULL, v, 4);
-        v += __shfl_xor_sync(FULL, v, 8);
-        v += __shfl_xor_sync(FULL, v, 16);
-        if (gid == 0) row[CM + 1] = v;
-      }
-    }
-#pragma unroll
-  for (int mb = 0; mb < MB; ++mb)
-#pragma unroll
-    for (int nc = 0; nc < NC; ++nc)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        mg[warp * PW + (mb * 16 + gid + 8 * (i >> 1)) * RW + nc * 8 +
-           2 * tig + (i & 1)] = acc[mb][nc][i];
   if constexpr (CHAIN) {
-    if (lane < CM) mg[warp * PW + BW * RW + lane] = dwa_l;
+#pragma unroll
+    for (int o = CM; o < 32; o <<= 1)  // the lanes of a channel
+      dwa_l += __shfl_xor_sync(FULL, dwa_l, o);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       dba_l += __shfl_xor_sync(FULL, dba_l, o);
-    if (lane == 0) mg[warp * PW + PW - 1] = dba_l;
   }
-  __syncthreads();
-  float* pb = part + ((static_cast<size_t>(win) * nbh + bh) * per_cloud +
-                      blockIdx.x) * PW;
-  for (int e = tid; e < PW; e += NTF) {
-    float v = 0.f;
+  // Per window, the warps' sums, then the block's in warp order.
+  float* mg = sm;  // [FW][PW]
 #pragma unroll
-    for (int u = 0; u < WARPS; ++u) v += mg[u * PW + e];
-    pb[e] = v;
+  for (int sw = 0; sw < SW; ++sw) {
+    if (sw >= nw) break;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = colsum[sw][nb][h];
+        v += __shfl_xor_sync(FULL, v, 4);
+        v += __shfl_xor_sync(FULL, v, 8);
+        v += __shfl_xor_sync(FULL, v, 16);
+        float* row = mg + warp * PW + (nb * 8 + 2 * tig + h) * RW;
+        if (gid == 0) row[CM] = v;
+        if constexpr (!CHAIN) {
+          v = wsum[sw][nb][h];
+          v += __shfl_xor_sync(FULL, v, 4);
+          v += __shfl_xor_sync(FULL, v, 8);
+          v += __shfl_xor_sync(FULL, v, 16);
+          if (gid == 0) row[CM + 1] = v;
+        }
+      }
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mg[warp * PW + (mb * 16 + gid + 8 * (i >> 1)) * RW + nc * 8 +
+             2 * tig + (i & 1)] = acc[ROWS ? sw : 0][mb][nc][i];
+    if constexpr (CHAIN) {  // dWa and dba with the sweep's last window
+      const bool tail = sw == nw - 1;
+      if (lane < CM) mg[warp * PW + BW * RW + lane] = tail ? dwa_l : 0.f;
+      if (lane == 0) mg[warp * PW + PW - 1] = tail ? dba_l : 0.f;
+    }
+    __syncthreads();
+    float* pb = part + ((static_cast<size_t>(wb + sw) * nbh + bh) * per_cloud +
+                        blockIdx.x) * PW;
+    for (int e = tid; e < PW; e += NTW) {
+      float v = 0.f;
+#pragma unroll
+      for (int u = 0; u < FW; ++u) v += mg[u * PW + e];
+      pb[e] = v;
+    }
+    __syncthreads();  // the merge area is free for the next window
   }
 #ifdef HAET_SLICE_TRACE
   HAET_SEG(sg_, mk_, 7);
@@ -3145,11 +3384,12 @@ slice_bwd_fast(const float* __restrict__ x, const float* __restrict__ gout,
 }
 
 // Where sum_partials puts its sums, for windows of wr slices (BW for
-// slice_bwd_fast, g for slice_bwd_generic: one window). SUM_PARAMS (b a
+// slice_bwd_f32, g for slice_bwd_generic: one window). SUM_PARAMS (b a
 // window of the chain, rows [wr][rw] of dWs^T and dbs, then dWa, dba): dWs
 // [c][g] (out), dbs [g] (o2), and from the last window dWa [c] (o3), dba
 // (o4). SUM_STATES (b = window * bh + cloud, rows [wr][rw] of dstates, t and
-// sum_n w): out[b][j], and dstates [bh][g][c] (o2, if not null).
+// sum_n w): out[b][j], and dstates [bh][g][c] divided by each slice's sum_n
+// w (o2, if not null).
 constexpr int SUM_PARAMS = 1, SUM_STATES = 2;
 
 struct SumOut {
@@ -3163,23 +3403,35 @@ struct SumOut {
 // for bit).
 __global__ void __launch_bounds__(NT)
 sum_partials(const float* __restrict__ part, int parts, int len, SumOut o) {
-  __shared__ float red[NT / 32][32];
+  __shared__ float red[2][NT / 32][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int j = blockIdx.x * 32 + lane, b = blockIdx.y;
   const int per = (parts + NT / 32 - 1) / (NT / 32);
   const int p0 = min(parts, warp * per), p1 = min(parts, p0 + per);
-  float v = 0.f;
+  // dstates is divided by its slice's sum_n w (column cm + 1 of its row),
+  // summed here in the order of that column's own sum
+  const bool norm = o.mode == SUM_STATES && o.o2 != nullptr && j < len;
+  const int js = norm ? (j / o.rw) * o.rw + o.cm + 1 : j;
+  float v = 0.f, vs = 0.f;
   if (j < len) {
-    const float* p = part + (static_cast<size_t>(b) * parts + p0) * len + j;
+    const float* p = part + (static_cast<size_t>(b) * parts + p0) * len;
 #pragma unroll 8
-    for (int k = p0; k < p1; ++k) v += p[static_cast<size_t>(k - p0) * len];
+    for (int k = p0; k < p1; ++k) {
+      const float* q = p + static_cast<size_t>(k - p0) * len;
+      v += q[j];
+      if (norm) vs += q[js];
+    }
   }
-  red[warp][lane] = v;
+  red[0][warp][lane] = v;
+  red[1][warp][lane] = vs;
   __syncthreads();
   if (warp != 0 || j >= len) return;
-  v = 0.f;
+  v = vs = 0.f;
 #pragma unroll
-  for (int w = 0; w < NT / 32; ++w) v += red[w][lane];
+  for (int w = 0; w < NT / 32; ++w) {
+    v += red[0][w][lane];
+    vs += red[1][w][lane];
+  }
   if (o.mode == SUM_STATES) o.out[static_cast<size_t>(b) * len + j] = v;
   if (j >= o.wr * o.rw) {  // the chain's dWa, dba: the last window's
     const int k = j - o.wr * o.rw;
@@ -3197,7 +3449,7 @@ sum_partials(const float* __restrict__ part, int parts, int len, SumOut o) {
   } else if (o.mode == SUM_STATES) {
     const int win = b / o.bh, cloud = b - win * o.bh, sl = win * o.wr + row;
     const size_t e = (static_cast<size_t>(cloud) * o.g + sl) * o.c + col;
-    if (sl < o.g && col < o.c && o.o2) o.o2[e] = v;
+    if (sl < o.g && col < o.c && o.o2) o.o2[e] = v / (vs > 0.f ? vs : 1.f);
   }
 }
 
@@ -3610,24 +3862,24 @@ cudaError_t launch_bwd_fused(const BwdArgs& a, int blocks, int smem,
   return cudaLaunchKernelEx(&cfg, slice_bwd_fused<T, CM, DESLICE>, a);
 }
 
-template <int CM, int MODE>
+template <int CM, int SW, int MODE>
 cudaError_t launch_bwd(const float* x, const float* gout, const float* ws,
                        const float* bs, const float* wa, const float* ba,
                        const float* bmat, const float* tsum, const float* m,
-                       const float* s, float* part, float* dx, float* dacc,
-                       float* qbuf, int bh, int n, int c, int g,
-                       int per_cloud, int span, int win0, int windows,
-                       int flags, float base_temp, float shift, size_t smem,
-                       cudaStream_t stream) {
-  if (smem != sizeof(float) * bwd_smem_floats<CM, MODE>())
+                       const float* s, float* part, float* dx, float* qbuf,
+                       int bh, int n, int c, int g, int per_cloud, int span,
+                       int win0, int wend, int flags, float base_temp,
+                       float shift, size_t smem, cudaStream_t stream) {
+  if (smem != sizeof(float) * bwd_smem_floats<CM, SW, MODE>())
     return cudaErrorInvalidValue;
   static size_t allowed = 0;
-  cudaError_t err = allow_smem(slice_bwd_fast<CM, MODE>, smem, &allowed);
+  cudaError_t err = allow_smem(slice_bwd_f32<CM, SW, MODE>, smem, &allowed);
   if (err != cudaSuccess) return err;
-  slice_bwd_fast<CM, MODE>
-      <<<dim3(per_cloud, bh, windows), NTF, smem, stream>>>(
-          x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, dacc, qbuf, n,
-          c, g, span, win0, flags, base_temp, shift);
+  const int sweeps = (wend - win0 + SW - 1) / SW;
+  slice_bwd_f32<CM, SW, MODE>
+      <<<dim3(per_cloud, bh, sweeps), NTW, smem, stream>>>(
+          x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, qbuf, n, c, g,
+          span, win0, wend, flags, base_temp, shift);
   return cudaGetLastError();
 }
 
@@ -3677,6 +3929,19 @@ cudaError_t launch_bwd_generic(const float* x, const float* gout,
   X(8, 32, 32) X(8, 64, 64) X(8, 64, 0) X(16, 32, 32) X(16, 64, 64) \
   X(16, 64, 0) X(32, 32, 32) X(32, 32, 64) X(32, 32, 0)
 
+// The float32 backward's instantiations: (mode, CM, windows per sweep).
+// Two windows in one sweep at C <= 16 alone, and not in deslice's first
+// pass: wider, or with dstates' accumulators, the sweep's accumulators spill
+// past the 128 registers of 16 warps per SM (slower, as measured: PERF.md).
+#define HAET_BWD_F32_CASES(X)                                              \
+  X(BWD_STATES, 8, 1) X(BWD_STATES, 16, 1) X(BWD_STATES, 32, 1)            \
+  X(BWD_STATES, 8, 2) X(BWD_STATES, 16, 2) X(BWD_CHAIN, 8, 1)              \
+  X(BWD_CHAIN, 16, 1) X(BWD_CHAIN, 32, 1) X(BWD_CHAIN, 8, 2)               \
+  X(BWD_CHAIN, 16, 2) X(BWD_STATES_SUMS, 8, 1) X(BWD_STATES_SUMS, 16, 1)   \
+  X(BWD_STATES_SUMS, 32, 1) X(BWD_STATES_SUMS, 8, 2)                       \
+  X(BWD_STATES_SUMS, 16, 2) X(BWD_SUMS, 8, 1) X(BWD_SUMS, 16, 1)           \
+  X(BWD_SUMS, 32, 1)
+
 // The fused backward's instantiations (bf16 I/O): (CM, deslice).
 #define HAET_BWD_CASES(X)                                           \
   X(8, false) X(16, false) X(32, false) X(8, true) X(16, true) X(32, true)
@@ -3694,7 +3959,7 @@ int haet_trace_read(unsigned long long* dst) {
       cudaMemcpyFromSymbol(dst, g_trace, sizeof(g_trace)));
 }
 
-// Copies g_trace_bwd [4][TRACE_CTAS][WARPS][BWD_SEGS] to dst.
+// Copies g_trace_bwd [4][TRACE_CTAS][FW][BWD_SEGS] to dst.
 int haet_trace_read_bwd(unsigned long long* dst) {
   return static_cast<int>(
       cudaMemcpyFromSymbol(dst, g_trace_bwd, sizeof(g_trace_bwd)));
@@ -3888,39 +4153,33 @@ int haet_slice_bwd_fused(int deslice, const void* x, const void* gout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One launch of the float32 backward kernel slice_bwd_fast in `mode` (0:
+// One launch of the float32 backward kernel slice_bwd_f32 in `mode` (0:
 // slice_states' chain, 1: deslice's first pass, 2: its chain, 3:
-// slice_states' first pass), for C <= 32, over `windows` windows of BW
-// slices from window win0 (grid z); flags: 1 first window, 2 last window
-// (the chain modes). dacc, where the chain's windows add up their dx, is dx
-// itself (may be null with one window). Shapes as at slice_bwd_fast; smem
-// is the wrapper's count, checked here.
-int haet_slice_bwd(int mode, const float* x, const float* gout,
+// slice_states' first pass), for C <= 32, over the windows [win0, wend) of
+// BW slices, `sweep` of them in one sweep of the rows (grid z: the sweeps; a
+// chain launch is one sweep); flags: 1 the chain's first launch, 2 its last
+// (qbuf needed unless both). Shapes as at slice_bwd_f32; smem is the
+// wrapper's count, checked here.
+int haet_slice_bwd(int mode, int sweep, const float* x, const float* gout,
                    const float* ws, const float* bs, const float* wa,
                    const float* ba, const float* bmat, const float* tsum,
                    const float* m, const float* s, float* part, float* dx,
-                   float* dacc, float* qbuf, int bh, int n, int c, int g,
-                   int per_cloud, int span, int win0, int windows, int flags,
-                   float base_temp, float shift, int smem, void* stream) {
+                   float* qbuf, int bh, int n, int c, int g, int per_cloud,
+                   int span, int win0, int wend, int flags, float base_temp,
+                   float shift, int smem, void* stream) {
   const int cm = fast_cm(c);
-  if (!cm || windows < 1 || win0 < 0 || (win0 + windows - 1) * BW >= g ||
-      ((mode == BWD_STATES || mode == BWD_CHAIN) && flags != 3 &&
-       dacc == nullptr))
+  const bool chain = mode == BWD_STATES || mode == BWD_CHAIN;
+  if (!cm || win0 < 0 || wend <= win0 || (wend - 1) * BW >= g ||
+      (chain && (wend - win0 > sweep ||
+                 (flags != (BWD_FIRST | BWD_LAST) && qbuf == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t str = static_cast<cudaStream_t>(stream);
-#define HAET_CASE(MODE, CM)                                                 \
-  case MODE * 100 + CM:                                                     \
-    return static_cast<int>(launch_bwd<CM, MODE>(                           \
-        x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, dacc, qbuf, bh, \
-        n, c, g, per_cloud, span, win0, windows, flags, base_temp, shift,   \
-        smem, str));
-#define HAET_CASES(MODE) HAET_CASE(MODE, 8) HAET_CASE(MODE, 16) \
-  HAET_CASE(MODE, 32)
-  switch (mode * 100 + cm) {
-    HAET_CASES(BWD_STATES) HAET_CASES(BWD_SUMS) HAET_CASES(BWD_CHAIN)
-    HAET_CASES(BWD_STATES_SUMS)
-  }
-#undef HAET_CASES
+#define HAET_CASE(MODE, CM, SW)                                              \
+  case (MODE * 100 + CM) * 10 + SW:                                          \
+    return static_cast<int>(launch_bwd<CM, SW, MODE>(                        \
+        x, gout, ws, bs, wa, ba, bmat, tsum, m, s, part, dx, qbuf, bh, n, c, \
+        g, per_cloud, span, win0, wend, flags, base_temp, shift, smem, str));
+  switch ((mode * 100 + cm) * 10 + sweep) { HAET_BWD_F32_CASES(HAET_CASE) }
 #undef HAET_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

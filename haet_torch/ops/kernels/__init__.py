@@ -106,7 +106,7 @@ def reset_launch_counts() -> None:
 #: port kernel, is_call)``, where one ``is_call`` kernel runs per wrapper
 #: call. The fused slice backward (bf16, C <= 32) is one launch per call,
 #: its kind the last template argument (false: slice_states_bwd, true:
-#: deslice_bwd); the per-pass ones (float32 ``slice_bwd_fast``, and
+#: deslice_bwd); the per-pass ones (float32 ``slice_bwd_f32``, and
 #: ``slice_bwd_generic`` for wider heads) take four or more, their mode the
 #: last template argument (3 and 0: slice_states_bwd's first pass and
 #: chain, 1 and 2: deslice_bwd's), each pass followed by a
@@ -119,13 +119,13 @@ KERNEL_NAMES = (
     (re.compile(r"\bslice_bwd_fused<[^<>]*\bfalse>"), "slice_states_bwd",
      True),
     (re.compile(r"\bslice_bwd_fused<[^<>]*\btrue>"), "deslice_bwd", True),
-    (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?3>"),
+    (re.compile(r"\bslice_bwd_(?:f32|generic)<(?:[^<>]*,\s*)?3>"),
      "slice_states_bwd", True),
-    (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?0>"),
+    (re.compile(r"\bslice_bwd_(?:f32|generic)<(?:[^<>]*,\s*)?0>"),
      "slice_states_bwd", False),
-    (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?1>"),
+    (re.compile(r"\bslice_bwd_(?:f32|generic)<(?:[^<>]*,\s*)?1>"),
      "deslice_bwd", True),
-    (re.compile(r"\bslice_bwd_(?:fast|generic)<(?:[^<>]*,\s*)?2>"),
+    (re.compile(r"\bslice_bwd_(?:f32|generic)<(?:[^<>]*,\s*)?2>"),
      "deslice_bwd", False),
     (re.compile(r"\bsum_partials\b"), None, False),
     (re.compile(r"\berwin_block_fwd\b"), "fused_erwin_block", True),

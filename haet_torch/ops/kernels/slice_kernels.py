@@ -44,10 +44,11 @@ softmax coupling ``t`` and ``sum_n w``, the second applies the chain with
 the weights normalised by that sum), their partial sums added in a fixed
 order. At C <= 32 a bf16 call takes ``slice_bwd_fused``, both passes in one
 cooperative launch of a persistent grid (:func:`fused_blocks`, a grid
-barrier between them), and a float32 call ``slice_bwd_fast``, one launch per
-pass and a sum of its partials after each (the chain once per window of
-:data:`BWD_WINDOW` slices): each is the faster there, as measured on an H100
-(``benchmarks/slice_kernels.py --ab``). Wider heads take
+barrier between them), and a float32 call ``slice_bwd_f32``, one launch per
+pass and a sum of its partials after each (16 warps per SM; windows of
+:data:`BWD_WINDOW` slices, two in one sweep of the rows where
+:func:`bwd_sweep` says so, the chain once per sweep): each is the faster
+there, as measured on an H100 (``benchmarks/slice_kernels.py --ab``). Wider heads take
 ``slice_bwd_generic`` in float32 (groups of slices sized by
 :func:`generic_bwd_plan`). On CPU tensors they run
 :func:`slice_states_bwd_plain` / :func:`deslice_bwd_plain`, chunked PyTorch
@@ -87,6 +88,10 @@ MAX_GENERIC_C = NT * MAX_ACC
 MAX_SMEM = 232448
 #: slices per window of the backward kernels (``BW``)
 BWD_WINDOW = 32
+#: warps per block and rows per warp tile of the float32 backward kernel
+#: (``FW``, ``FTR``): 16 warps of at most 128 registers on each SM
+BWD_WARPS = 16
+BWD_TILE_ROWS = 16
 #: the row stride of a fused backward warp's 16-row buffer (``BUF_STRIDE``)
 BUF_STRIDE = BWD_WINDOW + 4
 #: points per chunk of the plain backward passes (``_BWD_CHUNK`` of the JAX
@@ -124,7 +129,11 @@ class Geometry(NamedTuple):
     one-dimensional grid of ``blocks``, each taking the units (cloud, range
     of ``span`` rows) ``b, b + blocks, ...`` of the ``bh * per_cloud``, and
     ``groups`` windows of ``slices`` slices in turn. ``smem`` is the
-    dynamic shared memory per block in bytes."""
+    dynamic shared memory per block in bytes. The float32 backward
+    (``slice_bwd_f32``) takes ``sweep`` windows in one sweep of its rows:
+    a first pass's grid z holds ``ceil(groups / sweep)`` sweeps, a chain
+    launches once per sweep. ``warps`` and ``tile_rows``: a block's warps
+    and their tiles' rows (:func:`warp_tiles`)."""
 
     route: str
     per_cloud: int
@@ -133,6 +142,9 @@ class Geometry(NamedTuple):
     smem: int
     slices: int
     blocks: int = 0
+    sweep: int = 1
+    warps: int = WARPS
+    tile_rows: int = TILE_ROWS
 
 
 def fast_widths(c: int, g: int):
@@ -186,21 +198,35 @@ def _is_first_pass(kernel: str) -> bool:
     return kernel.endswith("_sums")
 
 
-def bwd_smem(cm: int, kernel: str) -> int:
-    """Dynamic shared memory of a fast backward kernel block
-    (``bwd_smem_floats`` in the CUDA source): the x ring (and deslice's
-    g_out ring), the fragment tables of Ws and the G-side matrix as B
-    (16-byte hi/lo pairs) and, in the chains, of Ws (and G^) as A, four
-    floats per slice of the window, Wa, and the warps' 16-row buffers and
-    draw."""
+def bwd_smem(cm: int, kernel: str, sweep: int = 1) -> int:
+    """Dynamic shared memory of a float32 backward block
+    (``bwd_smem_floats`` in the CUDA source) sweeping ``sweep`` windows:
+    the x ring (and deslice's g_out ring) of :data:`BWD_WARPS` warps'
+    slots; per window the wgmma B tables, hi and lo parts of ``32 * CM``
+    floats each (Ws and the G-side matrix for the logits and dw; in the
+    chains Ws^T, and slice_states' G^, for dx), and four floats per slice;
+    Wa; the warps' 16-row dpre (or w) buffers and draw."""
     mode = BWD_MODES[kernel]
-    ring = WARPS * STAGES * TILE_ROWS * (cm + 4)
-    tab_b = (cm // 8) * (BWD_WINDOW // 8) * 32 * 4
-    tab_a = max(1, cm // 16) * (BWD_WINDOW // 8) * 32 * 8
-    floats = ((2 if kernel.startswith("deslice") else 1) * ring + 2 * tab_b
-              + (2, 0, 1, 0)[mode] * tab_a + 4 * BWD_WINDOW + cm
-              + WARPS * 16 * (BWD_WINDOW + 5))
+    ring = BWD_WARPS * STAGES * BWD_TILE_ROWS * (cm + 4)
+    tables = 2 + (2, 0, 1, 0)[mode]
+    floats = ((2 if kernel.startswith("deslice") else 1) * ring
+              + sweep * (2 * tables * 32 * cm + 4 * BWD_WINDOW)
+              + cm + BWD_WARPS * BWD_TILE_ROWS * (BUF_STRIDE + 1))
     return 4 * floats
+
+
+def bwd_sweep(cm: int, kernel: str, g: int) -> int:
+    """Windows of :data:`BWD_WINDOW` slices the float32 backward ``kernel``
+    takes in one sweep of its rows at ``CM`` and G (the CUDA source's
+    ``HAET_BWD_F32_CASES``): two past G 32 at CM <= 16 (the Darcy preset's
+    G 64: x read once for both windows, and the chain's dx and its rows'
+    ``sum_g dlogit * logit`` kept in registers), except in deslice's first
+    pass, whose dstates accumulators for two windows spill past the 128
+    registers a thread has at 16 warps per SM; one at CM 32, where the
+    sweep's accumulators spill (slower on an H100: ``PERF.md``)."""
+    if g <= BWD_WINDOW or cm > 16 or kernel == "deslice_bwd_sums":
+        return 1
+    return 2
 
 
 def bwd_row(cm: int, kernel: str) -> int:
@@ -300,12 +326,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split_rows(bh: int, n: int, groups: int, sms: int):
+def _split_rows(bh: int, n: int, groups: int, sms: int,
+                block_rows: int = WARPS * TILE_ROWS):
     """``(per_cloud, span)``: one wave of blocks, one per SM, shared among
     the clouds and grid-z groups; each block's range a whole number of its
-    warps' tiles."""
+    warps' tiles (``block_rows`` rows a round)."""
     per_cloud = max(1, min(sms // (bh * groups), _cdiv(n, TILE_ROWS)))
-    block_rows = WARPS * TILE_ROWS
     span = _cdiv(_cdiv(n, per_cloud), block_rows) * block_rows
     return _cdiv(n, span), span
 
@@ -317,8 +343,9 @@ def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
     pass, "slice_states_bwd_sums" / "deslice_bwd_sums" (the first passes)
     or "slice_states_bwd" / "deslice_bwd" (the chains). A fast kernel, or a
     generic backward, fills one wave, one block per SM, shared among the
-    clouds and its grid-z groups; each block's range is a whole number of
-    the fast warps' tiles. Heads wider than 32 take the generic kernels."""
+    clouds and its grid-z groups (a first pass's sweeps of windows); each
+    block's range is a whole number of the fast warps' tiles. Heads wider
+    than 32 take the generic kernels."""
     widths = fast_widths(c, g)
     if kernel in BWD_MODES:
         if widths is None:  # C <= MAX_GENERIC_C (``_check_inputs``)
@@ -328,11 +355,15 @@ def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
                 bh, n, groups if _is_first_pass(kernel) else 1, sms)
             return Geometry("generic", per_cloud, span, groups,
                             generic_bwd_smem(c, g), gsz)
+        cm = widths[0]
         windows = _cdiv(g, BWD_WINDOW)
+        sweep = bwd_sweep(cm, kernel, g)
         per_cloud, span = _split_rows(
-            bh, n, windows if _is_first_pass(kernel) else 1, sms)
+            bh, n, _cdiv(windows, sweep) if _is_first_pass(kernel) else 1,
+            sms, BWD_WARPS * BWD_TILE_ROWS)
         return Geometry("fast", per_cloud, span, windows,
-                        bwd_smem(widths[0], kernel), BWD_WINDOW)
+                        bwd_smem(cm, kernel, sweep), BWD_WINDOW, sweep=sweep,
+                        warps=BWD_WARPS, tile_rows=BWD_TILE_ROWS)
     if widths is None:  # C <= MAX_GENERIC_C (``_check_inputs``)
         gs, dtile, gd = generic_plan(c, g)
         if kernel == "slice_states":
@@ -372,15 +403,17 @@ def fused_geometry(kernel: str, bh: int, n: int, c: int, g: int, sms: int,
 def warp_tiles(geom: Geometry, n: int, reverse: bool = False):
     """``(block, warp, row0, rows)`` of every tile a fast-kernel launch
     reads from one cloud, in the order each warp takes them (``block`` the
-    cloud's range of ``span`` rows; ``reverse``: last first, as the fused
+    cloud's range of ``span`` rows, ``geom.warps`` warps of tiles of
+    ``geom.tile_rows`` rows; ``reverse``: last first, as the fused
     backward's chain takes them)."""
+    tr = geom.tile_rows
     for blk in range(geom.per_cloud):
         begin = blk * geom.span
         end = min(n, begin + geom.span)
-        for warp in range(WARPS):
-            rows = range(begin + warp * TILE_ROWS, end, WARPS * TILE_ROWS)
+        for warp in range(geom.warps):
+            rows = range(begin + warp * tr, end, geom.warps * tr)
             for row0 in (reversed(rows) if reverse else rows):
-                yield blk, warp, row0, min(TILE_ROWS, end - row0)
+                yield blk, warp, row0, min(tr, end - row0)
 
 
 def sm_count(device) -> int:
@@ -966,23 +999,21 @@ def _check_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, grad,
     return b, h, n, c, g
 
 
-def _bwd_launch(lib, kernel, geom, tensors, shape, win0, windows, flags,
+def _bwd_launch(lib, kernel, geom, tensors, shape, win0, wend, flags,
                 base_temp, epsilon, stream):
     """One launch of a float32 backward kernel in ``kernel``'s mode (the
-    fast one over ``windows`` windows from ``win0`` with the window
-    ``flags``, or the generic one); ``tensors`` are ``(x, g_out, Ws, bs,
-    Wa, ba, bmat, tsum, m, s, part, dx, dacc, q)``, None where the mode
-    reads none (``dacc``, where a fast chain's windows add up dx: dx
-    itself)."""
+    fast one over the windows ``[win0, wend)``, ``geom.sweep`` in a sweep,
+    with the chain's launch ``flags``, or the generic one); ``tensors`` are
+    ``(x, g_out, Ws, bs, Wa, ba, bmat, tsum, m, s, part, dx, q)``, None
+    where the mode reads none."""
     bh, n, c, g = shape
     ptrs = [_ptr(t) for t in tensors]
     tail = (base_temp, _shift(epsilon), geom.smem)
     if geom.route == "fast":
         status = lib.haet_slice_bwd(
-            BWD_MODES[kernel], *ptrs, bh, n, c, g, geom.per_cloud, geom.span,
-            win0, windows, flags, *tail, stream)
+            BWD_MODES[kernel], geom.sweep, *ptrs, bh, n, c, g,
+            geom.per_cloud, geom.span, win0, wend, flags, *tail, stream)
     else:
-        del ptrs[12]
         status = lib.haet_slice_bwd_generic_f32(
             BWD_MODES[kernel], *ptrs, bh, n, c, g, geom.per_cloud, geom.span,
             *tail, stream)
@@ -1023,7 +1054,8 @@ def _first_pass_sums(lib, kernel, tensors, shape, base_temp, epsilon, stream,
     """A first pass (its windows or groups as grid z) and the sum of its
     partials: ``tsum [windows * bh, slices * row stride]``, each slice's
     row holding dstates (or unused columns), t and ``sum_n w``; dstates
-    also in its own layout if given. ``tensors``: ``(x, g_out, Ws, bs, Wa,
+    also in its own layout if given, divided by its slice's ``sum_n w``
+    (the chains' normalisation). ``tensors``: ``(x, g_out, Ws, bs, Wa,
     ba, bmat, m, s)``, float32, ``g_out`` None for slice_states."""
     bh, n, c, g = shape
     dev = tensors[0].device
@@ -1032,7 +1064,7 @@ def _first_pass_sums(lib, kernel, tensors, shape, base_temp, epsilon, stream,
     f32 = dict(device=dev, dtype=torch.float32)
     part = torch.empty((windows * bh, geom.per_cloud, wr * rw), **f32)
     _bwd_launch(lib, kernel, geom,
-                (*tensors[:7], None, *tensors[7:], part, None, None, None),
+                (*tensors[:7], None, *tensors[7:], part, None, None),
                 shape, 0, windows, 0, base_temp, epsilon, stream)
     tsum = torch.empty((windows * bh, wr * rw), **f32)
     _sum_partials(lib, part, windows * bh, geom.per_cloud, stream, "states",
@@ -1044,9 +1076,9 @@ def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
                  stream):
     """A chain pass (``tensors`` as for :func:`_first_pass_sums`, ``tsum``
     its sums) and the sum of its partials: ``(dx, dWs, dbs, dWa, dba)``.
-    The fast kernel runs one launch per window of slices, the
+    The fast kernel runs one launch per sweep of windows of slices, the
     generic one a loop over its groups in each block; both add each
-    window's or group's dx and its rows' ``sum_g dlogit * logit`` to the
+    sweep's or group's dx and its rows' ``sum_g dlogit * logit`` to the
     earlier ones'."""
     bh, n, c, g = shape
     x_proj = tensors[0]
@@ -1057,12 +1089,16 @@ def _chain_grads(lib, kernel, tensors, tsum, shape, base_temp, epsilon,
     part = torch.empty((windows, bh * geom.per_cloud, wr * rw + col + 1),
                        **f32)
     dx = torch.empty_like(x_proj)
-    q = torch.empty(bh * n, **f32) if geom.groups > 1 else None
-    # the windows' dx sums meet in dx itself
-    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, dx, q)
-    for w in range(windows):
-        flags = (1 if w == 0 else 0) | (2 if w == windows - 1 else 0)
-        _bwd_launch(lib, kernel, geom, ptrs, shape, w, 1, flags, base_temp,
+    sweeps = [(w, min(windows, w + geom.sweep))
+              for w in range(0, windows, geom.sweep)]
+    q = (torch.empty(bh * n, **f32)
+         if len(sweeps) > 1 or (geom.route != "fast" and geom.groups > 1)
+         else None)
+    # the sweeps' dx sums meet in dx itself
+    ptrs = (*tensors[:7], tsum, *tensors[7:], part, dx, q)
+    for i, (w0, w1) in enumerate(sweeps):
+        flags = (1 if i == 0 else 0) | (2 if i == len(sweeps) - 1 else 0)
+        _bwd_launch(lib, kernel, geom, ptrs, shape, w0, w1, flags, base_temp,
                     epsilon, stream)
     dws, dbs = torch.empty((c, g), **f32), torch.empty(g, **f32)
     dwa, dba = torch.empty((c, 1), **f32), torch.empty(1, **f32)
@@ -1136,7 +1172,7 @@ def _fused_bwd(lib, kernel, tensors, shape, base_temp, epsilon, stream,
 
 def _fused_route(x_proj, c: int, g: int) -> bool:
     """Whether a backward takes ``slice_bwd_fused`` (bf16 at C <= 32) or the
-    per-pass kernels (float32 ``slice_bwd_fast``, or ``slice_bwd_generic``
+    per-pass kernels (float32 ``slice_bwd_f32``, or ``slice_bwd_generic``
     for wider heads, bf16 widened)."""
     return x_proj.dtype == torch.bfloat16 and fast_widths(c, g) is not None
 
@@ -1219,7 +1255,7 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.haet_slice_bwd_per_sm.argtypes = (
             [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
         lib.haet_slice_bwd.argtypes = (
-            [_I] + [_P] * 14 + [_I] * 9 + [_F, _F, _I, _P])
+            [_I, _I] + [_P] * 13 + [_I] * 9 + [_F, _F, _I, _P])
         lib.haet_slice_bwd_generic_f32.argtypes = (
             [_I] + [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P])
         lib.haet_sum_partials.argtypes = [_P] * 5 + [_I] * 10 + [_P]

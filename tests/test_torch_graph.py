@@ -302,9 +302,9 @@ KERNELS = (
     "void erwin_block_fwd<false>(float const*, float const*, float*)",
     "void deslice_fast<32, 32, true>(float const*, float*)",
     "void at::native::elementwise_kernel<128, 4>(int, float)",
-    "void slice_bwd_fast<32, 3>(float const*, float const*, float)",
+    "void slice_bwd_f32<32, 1, 3>(float const*, float const*, float)",
     "sum_partials(float const*, int, int, SumOut)",
-    "void slice_bwd_fast<32, 0>(float const*, float const*, float)",
+    "void slice_bwd_f32<32, 1, 0>(float const*, float const*, float)",
     "sum_partials(float const*, int, int, SumOut)",
     "void erwin_block_bwd<true>(float const*, float*)",
     "erwin_block_sum_partials(float const*, float*, int, int)",

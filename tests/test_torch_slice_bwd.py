@@ -1,7 +1,7 @@
 """PyTorch port, the slice backward kernels' partition, merge order and
 routes.
 
-The backward kernels (``slice_bwd_fused``, ``slice_bwd_fast``,
+The backward kernels (``slice_bwd_fused``, ``slice_bwd_f32``,
 ``slice_bwd_generic`` and ``sum_partials`` in
 ``haet_torch/csrc/slice_kernels.cu``) run only on the card; what surrounds
 them is Python and is checked here:
@@ -10,7 +10,9 @@ them is Python and is checked here:
   and several blocks per cloud, and their shared memory fits the SM: the
   per-pass kinds (:func:`launch_geometry`: "slice_states_bwd_sums",
   "slice_states_bwd", "deslice_bwd_sums" and "deslice_bwd", fast at C <=
-  32, generic wider) in one wave of blocks, and the fused kernel's
+  32, generic wider) in one wave of blocks (the float32 fast kernel's
+  16 warps of 16-row tiles, two windows of slices a sweep where
+  :func:`bwd_sweep` says so), and the fused kernel's
   "slice_states_bwd" and "deslice_bwd" (:func:`fused_geometry`, bf16 at C
   <= 32: one launch of a persistent grid) with no more blocks than the card
   keeps resident (the occupancy rule of :func:`fused_blocks`);
@@ -18,21 +20,26 @@ them is Python and is checked here:
   per-pass kernels otherwise (bf16 widened for the generic ones);
 * a torch model of the kernels' arithmetic in their partition and order
   (each backward's first pass sums ``t`` and ``S = sum_n w``, its chain
-  takes ``w / S`` and ``t / S``; the slices in windows of 32 (fast, fused)
-  or groups of ``generic_bwd_plan`` (generic); a block's or unit's partial
+  takes ``w / S`` and ``t / S``, and the per-pass kernels' dstates is
+  divided by ``S``; the slices in windows of 32 (fast, fused)
+  or groups of ``generic_bwd_plan`` (generic), the fast chain's windows in
+  sweeps of :func:`bwd_sweep`; a block's or unit's partial
   over its rows, per warp in warp order (fused: each unit's first-pass sums
   merged per cloud in unit order, its chain partials, over the warps'
   tiles in reverse order, per cloud in unit order, then the clouds in
   cloud order; fast and generic: ``sum_partials`` adding the partials as 8
   warps each take a contiguous eighth, then the warps in order); the
-  windows' dx and ``sum_g dlogit * logit`` added in window order, draw
-  applied by the last) equals ``*_bwd_plain`` and
+  windows' dx and ``sum_g dlogit * logit`` added in window order within a
+  sweep, draw applied by the last sweep before it adds the earlier sweeps'
+  dx) equals ``*_bwd_plain`` and
   ``jax.vjp`` of ``haet_tpu``'s ``slice_states``/``deslice`` (Pallas in
   interpret mode) within 1e-4 of each gradient's max (float32 with sums
   in another order; the bias gradients against their weight's max, as
   ``test_torch_grads.py`` holds them: their per-point terms cancel), at
-  G 32 / C 32, G 64 / C 16 and C 32 (two windows; the fused kernel's in
-  one launch), G 128 / C 32 in both fast orders and, generic, G 20 / C 160;
+  G 32 / C 32, G 64 / C 16 (one sweep of both windows) and C 32 (a chain
+  launch per window; the fused kernel's in one launch), G 96 / C 16 (a
+  sweep of two windows, then one of one), G 128 / C 32 in both fast orders
+  and, generic, G 20 / C 160;
 * bf16 operands, exact in TF32, take the passes the fused kernel gives
   them (their 3xTF32 low parts are zero), emulated in numpy against
   float64;
@@ -70,13 +77,15 @@ BWD_KINDS = ("slice_states_bwd_sums", "slice_states_bwd", "deslice_bwd_sums",
              "deslice_bwd")
 #: the fused kernel's kinds: a whole backward per launch
 FUSED_KINDS = ("slice_states_bwd", "deslice_bwd")
-#: (B, H, N, C, G, SMs): the presets' widths (G 64 at C 16 and 32: two
-#: windows in one launch), G 128 and a generic width of two groups, small
-#: N, a card of few SMs so that each cloud takes several blocks and ragged
-#: last tiles
+#: (B, H, N, C, G, SMs): the presets' widths (G 64 at C 16, both windows
+#: in one float32 sweep, and at C 32, a float32 chain launch per window;
+#: the fused kernel's in one launch), G 96 at C 16 (a sweep of two windows
+#: and one of one), G 128 and a generic width of two groups, small N, a
+#: card of few SMs so that each cloud takes several blocks and ragged last
+#: tiles
 CASES = [(1, 2, 600, 32, 32, 8), (1, 2, 500, 16, 64, 8),
-         (1, 2, 400, 32, 64, 8), (1, 2, 300, 32, 128, 8),
-         (1, 2, 300, 160, 20, 8)]
+         (1, 2, 400, 32, 64, 8), (1, 2, 300, 16, 96, 8),
+         (1, 2, 300, 32, 128, 8), (1, 2, 300, 160, 20, 8)]
 #: warps of ``sum_partials``, each adding a contiguous range of partials
 SUM_WARPS = 8
 
@@ -105,7 +114,7 @@ def _fused_units(geom, bh):
 def _coverage(geom, n, reverse=False):
     hits = np.zeros(n, np.int64)
     for _, _, row0, rows in tsk.warp_tiles(geom, n, reverse):
-        assert 0 < rows <= tsk.TILE_ROWS
+        assert 0 < rows <= geom.tile_rows
         hits[row0:row0 + rows] += 1
     return hits
 
@@ -117,8 +126,9 @@ def _coverage(geom, n, reverse=False):
     (8, 1001, 128, 128), (8, 301, 2048, 3), (4, 300, 700, 40)])
 def test_bwd_geometry_covers_every_row_once(bh, n, c, g):
     """Every backward launch covers each row of a cloud once. The per-pass
-    kinds: one wave of blocks (grid z: the first passes' windows or groups
-    of slices), the fast kernels in whole warp tiles per block; the generic
+    kinds: one wave of blocks (grid z: the first passes' sweeps of windows
+    or groups of slices), the fast kernels in whole warp tiles per block,
+    the sweeps as :func:`bwd_sweep` sets them; the generic
     kernel's groups keep their accumulators in registers and take at least
     one row per tile. The fused kernel (bf16, C <= 32): whole warp tiles
     per range, in the first pass's order and the chain's reverse one; every
@@ -129,15 +139,21 @@ def test_bwd_geometry_covers_every_row_once(bh, n, c, g):
         geom = tsk.launch_geometry(kind, bh, n, c, g, H100_SMS)
         assert ((geom.per_cloud - 1) * geom.span < n
                 <= geom.per_cloud * geom.span)
-        z = geom.groups if kind.endswith("_sums") else 1
+        z = (-(-geom.groups // geom.sweep) if kind.endswith("_sums")
+             else 1)
         assert geom.per_cloud * bh * z <= max(H100_SMS, bh * z)
         assert geom.smem + 1024 <= SM_SMEM
         assert geom.groups == -(-g // geom.slices)
         if c <= 32:
+            cm = tsk.fast_widths(c, g)[0]
             assert geom.route == "fast" and geom.slices == tsk.BWD_WINDOW
-            assert geom.smem == tsk.bwd_smem(tsk.fast_widths(c, g)[0], kind)
+            assert geom.sweep == tsk.bwd_sweep(cm, kind, g)
+            assert geom.sweep == 1 or (g > tsk.BWD_WINDOW and cm <= 16)
+            assert geom.smem == tsk.bwd_smem(cm, kind, geom.sweep)
+            assert (geom.warps, geom.tile_rows) == (tsk.BWD_WARPS,
+                                                    tsk.BWD_TILE_ROWS)
             assert (_coverage(geom, n) == 1).all()
-            assert geom.span % (tsk.WARPS * tsk.TILE_ROWS) == 0
+            assert geom.span % (geom.warps * geom.tile_rows) == 0
             continue
         gsz, tile = tsk.generic_bwd_plan(c, g)
         assert geom.route == "generic" and geom.slices == gsz
@@ -173,10 +189,24 @@ def test_car_step_backward_shape():
     backward's first pass and chain, each followed by one sum), and the
     fused backward (bf16) is one launch of 128 blocks (one per SM at one
     block per SM) over the same ranges. At the NS and Darcy presets' G 64,
-    one fused launch takes both windows."""
+    one fused launch takes both windows; in float32 the Darcy preset's (C
+    16) slice_states first pass and both chains sweep both windows in one
+    read of their rows, deslice's first pass takes them as grid z, and the
+    NS preset's (C 32) take them as grid z and a chain launch per window."""
     for kind in BWD_KINDS:
         geom = tsk.launch_geometry(kind, 8, 32768, 32, 32, H100_SMS)
         assert (geom.per_cloud, geom.span, geom.groups) == (16, 2048, 1)
+        assert (geom.sweep, geom.warps, geom.tile_rows) == (1, 16, 16)
+    darcy = {k: tsk.launch_geometry(k, 32, 7225, 16, 64, H100_SMS)
+             for k in BWD_KINDS}
+    assert {k: (v.per_cloud, v.span, v.groups, v.sweep)
+            for k, v in darcy.items()} == {
+        "slice_states_bwd_sums": (4, 2048, 2, 2),
+        "slice_states_bwd": (4, 2048, 2, 2),
+        "deslice_bwd_sums": (2, 3840, 2, 1), "deslice_bwd": (4, 2048, 2, 2)}
+    for kind in BWD_KINDS:
+        geom = tsk.launch_geometry(kind, 16, 4096, 32, 64, H100_SMS)
+        assert (geom.groups, geom.sweep) == (2, 1)
     for kind in FUSED_KINDS:
         geom = tsk.fused_geometry(kind, 8, 32768, 32, 32, H100_SMS, 1)
         assert (geom.per_cloud, geom.span, geom.groups, geom.blocks) == (
@@ -214,7 +244,7 @@ def _partial_sums(geom, n, per_row, reverse=False):
     """``per_row [BH, N, ...]`` summed into the ranges' partials as the
     kernels sum it -> ``[BH, per_cloud, ...]``: fast and fused, each warp
     over its rows (the fused chain takes them last first), a range's warps
-    in warp order; generic, a block over its rows."""
+    (``geom.warps``) in warp order; generic, a block over its rows."""
     if geom.route == "generic":
         return torch.stack([per_row[:, b * geom.span:(b + 1) * geom.span]
                             .sum(dim=1) for b in range(geom.per_cloud)],
@@ -223,7 +253,7 @@ def _partial_sums(geom, n, per_row, reverse=False):
     blocks = []
     for blk in range(geom.per_cloud):
         warps = [per_row[:, rows[(blk, w)]].sum(dim=1)
-                 for w in range(tsk.WARPS) if (blk, w) in rows]
+                 for w in range(geom.warps) if (blk, w) in rows]
         blocks.append(_in_order(warps))
     return torch.stack(blocks, dim=1)
 
@@ -260,7 +290,9 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms, fused):
     """``slice_states_bwd`` or ``deslice_bwd`` computed in the kernels'
     partition and order (per-row terms in float32, then the sums as
     :func:`_partial_sums`, :func:`_over_blocks` and :func:`_over_all`, and
-    the windows or groups as the chain takes them): the fused kernel's, or
+    the windows or groups as the chain takes them: the fast chain's dx and
+    ``sum_g dlogit * logit`` summed over the windows of a sweep, draw added
+    by the last sweep, then the earlier sweeps' dx): the fused kernel's, or
     the per-pass kernels' (fast at C <= 32, else generic)."""
     b, h, n, c = x.shape
     g = ws.shape[1]
@@ -290,9 +322,10 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms, fused):
         geom1 = tsk.launch_geometry(kind + "_sums", bh, n, c, g, sms)
     norm = _over_blocks(_partial_sums(geom1, n, w), fused)
     t = _over_blocks(_partial_sums(geom1, n, w * dwo), fused) / norm
-    if side is None:
-        out["dstates"] = _over_blocks(_partial_sums(
+    if side is None:  # the per-pass kernels' divided by S too
+        ds = _over_blocks(_partial_sums(
             geom1, n, w[..., None] * go[:, :, None]), fused)
+        out["dstates"] = ds if fused else ds / norm[..., None]
     w = w / norm[:, None]
     dwt = dwo - t[:, None]
     dl = w * dwt
@@ -300,19 +333,25 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms, fused):
     dx = torch.zeros_like(xf)
     q = torch.zeros(bh, n, 1)
     dws, dbs = [], []
-    for w0 in range(0, g, geom.slices):  # windows or groups, in order
-        win = slice(w0, w0 + geom.slices)
-        dx = dx + dpre[..., win] @ ws[:, win].t()
-        if side is not None:
-            dx = dx + w[..., win] @ side[:, win]
-        q = q + (dl[..., win] * lg[..., win]).sum(dim=-1, keepdim=True)
-        dws.append(_over_all(_partial_sums(
-            geom, n, xf[..., None] * dpre[:, :, None, win], fused), fused))
-        dbs.append(_over_all(_partial_sums(geom, n, dpre[..., win], fused),
-                             fused))
-    inside = (raw > -0.4) & (raw < 0.4)
-    draw = torch.where(inside, -q * it, torch.zeros_like(q))
-    dx = dx + draw @ wa.t()
+    span = geom.slices * (1 if fused else geom.sweep)
+    for s0 in range(0, g, span):  # sweeps (or windows, groups), in order
+        dxs = torch.zeros_like(xf)
+        for w0 in range(s0, min(g, s0 + span), geom.slices):
+            win = slice(w0, w0 + geom.slices)
+            dxs = dxs + dpre[..., win] @ ws[:, win].t()
+            if side is not None:
+                dxs = dxs + w[..., win] @ side[:, win]
+            q = q + (dl[..., win] * lg[..., win]).sum(dim=-1, keepdim=True)
+            dws.append(_over_all(_partial_sums(
+                geom, n, xf[..., None] * dpre[:, :, None, win], fused),
+                fused))
+            dbs.append(_over_all(_partial_sums(geom, n, dpre[..., win],
+                                               fused), fused))
+        if s0 + span >= g:  # the last sweep applies draw
+            inside = (raw > -0.4) & (raw < 0.4)
+            draw = torch.where(inside, -q * it, torch.zeros_like(q))
+            dxs = dxs + draw @ wa.t()
+        dx = dxs + dx
     dwa = _over_all(_partial_sums(geom, n, xf * draw, fused), fused)
     dba = _over_all(_partial_sums(geom, n, draw, fused), fused)
     out.update(dx=dx.reshape(b, h, n, c), dWs=torch.cat(dws, dim=1),
@@ -600,13 +639,15 @@ def test_forwards_take_every_width(b, h, n, c, g):
 
 def test_constants_and_formulas_match_the_cuda_source():
     """The wrapper's mirrors of the backward kernels' window, buffer,
-    shared-memory and partial sizes, the fast kernels' instantiations and
-    the fused kernel's launch, and the generic kernels' limits are the
-    source's."""
+    shared-memory and partial sizes, the float32 kernel's warps, tiles and
+    instantiations (a sweep of two windows where :func:`bwd_sweep` takes
+    one) and the fused kernel's launch, and the generic kernels' limits are
+    the source's."""
     src = SRC.read_text()
     for name, value in (("BW", tsk.BWD_WINDOW), ("MAX_ACC", tsk.MAX_ACC),
                         ("MAX_OUT", tsk.MAX_OUT), ("NT", tsk.NT),
-                        ("TILE", tsk.GENERIC_TILE)):
+                        ("TILE", tsk.GENERIC_TILE), ("FW", tsk.BWD_WARPS),
+                        ("FTR", tsk.BWD_TILE_ROWS)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     assert "constexpr int MAX_GENERIC_C = NT * MAX_ACC;" in src
     assert tsk.MAX_GENERIC_C == tsk.NT * tsk.MAX_ACC == 2048
@@ -633,11 +674,16 @@ def test_constants_and_formulas_match_the_cuda_source():
             "constexpr int merge = 4 * WARPS * bwd_merge_floats<CM>();",
             "WARPS * 16 * (BUF_STRIDE + 1));"):
         assert line in src, line
-    # the car's launches: float32 per pass, 109,696 / 126,080 / 183,424 /
-    # 191,616 B (bwd_smem_floats), and bf16 fused (slice_states_bwd,
-    # deslice_bwd)
-    assert [tsk.bwd_smem(32, k) for k in BWD_KINDS] == [109696, 126080,
-                                                        183424, 191616]
+    # the car's launches: float32 per pass, 128,640 / 145,024 / 202,368 /
+    # 210,560 B (bwd_smem_floats: rings of 16 warps' two 16-row slots, two
+    # to four tables of hi and lo parts), the Darcy preset's sweeps of two
+    # windows (C 16), and bf16 fused (slice_states_bwd, deslice_bwd)
+    assert [tsk.bwd_smem(32, k) for k in BWD_KINDS] == [128640, 145024,
+                                                        202368, 210560]
+    assert [tsk.bwd_smem(16, k, 2) for k in BWD_KINDS] == [96320, 112704,
+                                                           137280, 145472]
+    assert all(tsk.bwd_smem(cm, k, tsk.bwd_sweep(cm, k, 64)) + 1024
+               <= SM_SMEM for cm in (8, 16, 32) for k in BWD_KINDS)
     for kind in ("slice_states_bwd_sums", "deslice_bwd_sums"):
         assert tsk.bwd_part_floats(32, kind) == 32 * 34
     for kind in ("slice_states_bwd", "deslice_bwd"):
@@ -645,7 +691,13 @@ def test_constants_and_formulas_match_the_cuda_source():
     for line in ("return CM + (bwd_sums(MODE) ? 2 : 1);",
                  "return BW * bwd_row<CM, MODE>() + (bwd_sums(MODE) ? 0 : "
                  "CM + 1);",
-                 "4 * BW + CM + WARPS * 16 * (BUF_STRIDE + 1);"):
+                 "return FW * STAGES * FTR * row_stride<CM>();",
+                 "return 2 + (MODE == BWD_STATES ? 2 : MODE == BWD_CHAIN ? "
+                 "1 : 0);",
+                 "return 32 * CM;",
+                 "SW * (2 * bwd_tables<MODE>() * wg_table_floats<CM>() + 4 "
+                 "* BW) +",
+                 "CM + FW * FTR * (BUF_STRIDE + 1);"):
         assert line in src, line
     assert [tsk.fused_smem(32, k) for k in FUSED_KINDS] == [85120, 121984]
     assert [tsk.fused_smem(16, k) for k in FUSED_KINDS] == [56384, 78912]
@@ -659,10 +711,19 @@ def test_constants_and_formulas_match_the_cuda_source():
     assert got == {(cm, d) for cm in ("8", "16", "32")
                    for d in ("false", "true")}
     assert "launch_bwd_fused<bf16, CM, D>" in src
-    # the per-pass kernel: float32, every mode at every fast width
-    assert ("HAET_CASES(BWD_STATES) HAET_CASES(BWD_SUMS) "
-            "HAET_CASES(BWD_CHAIN)") in src
-    assert "launch_bwd<CM, MODE>(" in src
+    # the per-pass kernel: float32, every mode at every fast width in one
+    # window a sweep, and in two wherever bwd_sweep takes two
+    cases = re.search(r"#define HAET_BWD_F32_CASES\(X\)(.*?)\n\n", src, re.S)
+    got = set(re.findall(r"X\((BWD_\w+), (\d+), (\d)\)", cases.group(1)))
+    want = {(mode, str(cm), str(sw)) for kind, k in tsk.BWD_MODES.items()
+            for mode in [m for m in ("BWD_STATES", "BWD_SUMS", "BWD_CHAIN",
+                                     "BWD_STATES_SUMS") if modes[m] == k]
+            for cm in (8, 16, 32)
+            for sw in {1, tsk.bwd_sweep(cm, kind, 64),
+                       tsk.bwd_sweep(cm, kind, 600)}}
+    assert got == want
+    assert "launch_bwd<CM, SW, MODE>(" in src
+    assert "switch ((mode * 100 + cm) * 10 + sweep)" in src
     # the grid is sized from the resident blocks, and launched as a
     # cooperative grid, which the runtime refuses unless all are resident
     assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src

@@ -370,7 +370,9 @@ def test_phases_builds_are_switches_of_the_source():
     assert len(re.findall(r"HAET_TRACE\(trace_record\((\d)", src)) == 2
     assert "int haet_trace_read(" in src
     # the backward: BWD_SEGS segments per warp and pass, marked in order
-    assert "g_trace_bwd[4][TRACE_CTAS][WARPS][BWD_SEGS]" in src
+    assert "g_trace_bwd[4][TRACE_CTAS][FW][BWD_SEGS]" in src
+    assert re.search(rf"constexpr int FW = {slice_phases.BWD_TRACE_WARPS};",
+                     src)
     assert re.search(rf"constexpr int BWD_SEGS = "
                      rf"{len(slice_phases.BWD_SEGMENTS)};", src)
     marks = {int(i) for i in re.findall(r"HAET_SEG\(sg_, mk_, (\d)\)", src)}
