@@ -1510,8 +1510,9 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 //     lo tables in wgmma's no-swizzle K-major layout (8 x 8 core matrices),
 //     in the order that the lanes' A fragments take: x's channels
 //     permuted as in the forwards (lane tig reads channels Q * tig .. + Q -
-//     1), and dpre's slices as the accumulator fragment holds them. A k-step's A registers are released after its
-//     wait, so one k-block's fragments are in flight at a time.
+//     1), and dpre's slices as the accumulator fragment holds them. A
+//     k-step's A registers are released after its wait, so one k-block's
+//     fragments are in flight at a time.
 //   * dpre stays in the registers for dx: the accumulator fragment of the
 //     logits (rows gid, gid + 8; slices 2 tig, 2 tig + 1 of each block of
 //     8) is, entry for entry, the A fragment of dx = dpre Ws^T with k the
@@ -1533,7 +1534,16 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 //     a chain launches once per window, each adding its dx and sum_g
 //     dlogit * logit to the earlier launches' (in dx and a [B*H, N]
 //     scratch) and the last applying draw.
-//   * 1 / tau per row in the forwards' order of summation (row_inv_tau).
+//   * 1 / tau per row in the forwards' order of summation (row16_raw_tau):
+//     at tau 0.1 its rounding reaches every logit of the row (|logit| ~100),
+//     and summed otherwise it put slice_states_bwd's d b_slice 1.2e-3 of
+//     its max from float64 at chip_smoke.py's low-temperature edge. With
+//     it, each k-block's three passes go into one accumulator in one
+//     round.
+//   * What bounds it now: ptxas serializes its wgmma (C7520, a
+//     compiler-inserted warpgroup arrive in a divergent path), so each
+//     product waits for the one before it; it runs at 22-26 % of its
+//     bound at the car's training batch (PERF.md).
 //   * Merges in a fixed order, no float atomics: each lane sums over its
 //     rows, a warp's lanes by shuffles in a fixed pattern, a block's warps
 //     in warp order into its partial per window; sum_partials adds the
@@ -1607,11 +1617,13 @@ deslice_generic(const float* __restrict__ x, const float* __restrict__ ws,
 // deslice_bwd ~1e-4 of max |dx| and slice_states_bwd (with t in closed
 // form, from the forward's states) ~5e-3 of max |d b_slice| against
 // float64. The chains therefore use w / S and t / S: the exact softmax of
-// their own logits; so does deslice's dstates from the per-pass kernels
-// (sum_partials divides it by S: slice_bwd_f32's logits, on wgmma, round
-// otherwise than the forward's mma.sync, and at the low-temperature edge
-// of chip_smoke.py the unnormalised dstates was 1.0e-4 of its max from
-// float64). Rows past N are masked to zero dpre, w and draw, and
+// their own logits; so does deslice's dstates, on every route, so that
+// each route computes one function, the gradient of that softmax
+// (sum_partials and the fused kernel's merge_first_pass divide it by S,
+// summed in the order of S's own sum: slice_bwd_f32's logits, on wgmma,
+// round otherwise than the forward's mma.sync, and at the low-temperature
+// edge of chip_smoke.py the unnormalised dstates was 1.0e-4 of its max
+// from float64). Rows past N are masked to zero dpre, w and draw, and
 // zero features in the row-contracted products; a slice past G gets m =
 // +inf (w = 0).
 // ---------------------------------------------------------------------------
@@ -1829,12 +1841,12 @@ __device__ __forceinline__ void quarter(float (&v)[CM / 4], const bf16* p) {
 // 1 / tau and the raw Ada-Temp value x . Wa + ba of the bf16 ring row
 // `lane` of slice_bwd_fused (two FMA chains, channels k, k + 2 in one and
 // k + 1, k + 3 in the other).
-template <typename T, int CM>
-__device__ __forceinline__ void row_raw_tau(const T* slot, const float* wa_s,
-                                            float ba, float base_temp,
-                                            int lane, float& raw, float& it) {
-  static_assert(std::is_same_v<T, bf16>, "bf16 ring rows");
-  const T* xr = slot + lane * bwd_cs<T, CM>();
+template <int CM>
+__device__ __forceinline__ void row_raw_tau(const bf16* slot,
+                                            const float* wa_s, float ba,
+                                            float base_temp, int lane,
+                                            float& raw, float& it) {
+  const bf16* xr = slot + lane * bwd_cs<bf16, CM>();
   float d0 = 0.f, d1 = 0.f;
 #pragma unroll
   for (int k = 0; k < CM; k += 8) {
@@ -2202,7 +2214,7 @@ __device__ __forceinline__ void bwd_rows(const BwdArgs& a, int unit, int win,
     const int row0 = tile_row(jt);
     const int rows = min(TR, n - row0);
     float raw_l, it_l;
-    row_raw_tau<T, CM>(slot, L.wa, ba0, base_temp, lane, raw_l, it_l);
+    row_raw_tau<CM>(slot, L.wa, ba0, base_temp, lane, raw_l, it_l);
     for (int r16 = 0; r16 < rows; r16 += 16) {
       // A fragments of rows r16 + gid (a0, a2) and r16 + gid + 8 (a1, a3):
       // x, and g_out for the dw product
@@ -2509,32 +2521,42 @@ __device__ __forceinline__ void grid_sync(int* bar) {
 
 // put(e, sum over q < rows of p[q][e], in q order) for every e < len, the
 // block's threads taking E entries each at a time, so that E loads of a row
-// (and, unrolled, of the next rows) are in flight together.
-template <int E, typename Put>
+// (and, unrolled, of the next rows) are in flight together. With RW > 0,
+// put(e, v, vs) also gets vs, the same sum of the last entry of e's row of
+// RW entries (sum_n w, for a first pass's partials), in the same order.
+template <int E, int RW = 0, typename Put>
 __device__ __forceinline__ void sum_rows(const float* p, int rows, int len,
                                          Put&& put) {
   for (int e0 = threadIdx.x; e0 < len; e0 += E * NTF) {
-    float v[E];
+    float v[E], vs[E];
 #pragma unroll
-    for (int i = 0; i < E; ++i) v[i] = 0.f;
+    for (int i = 0; i < E; ++i) v[i] = vs[i] = 0.f;
 #pragma unroll 4
     for (int q = 0; q < rows; ++q)
 #pragma unroll
       for (int i = 0; i < E; ++i) {
         const int e = e0 + i * NTF;
-        if (e < len) v[i] += __ldcg(p + static_cast<size_t>(q) * len + e);
+        const float* r = p + static_cast<size_t>(q) * len;
+        if (e < len) {
+          v[i] += __ldcg(r + e);
+          if constexpr (RW > 0) vs[i] += __ldcg(r + (e / RW + 1) * RW - 1);
+        }
       }
 #pragma unroll
-    for (int i = 0; i < E; ++i)
-      if (e0 + i * NTF < len) put(e0 + i * NTF, v[i]);
+    for (int i = 0; i < E; ++i) {
+      if (e0 + i * NTF >= len) continue;
+      if constexpr (RW > 0) put(e0 + i * NTF, v[i], vs[i]);
+      else put(e0 + i * NTF, v[i]);
+    }
   }
 }
 
 // After a unit's first pass (every window): the last unit of its cloud to
 // finish (a counter, bar[3 + bh + cloud], reset here) adds the cloud's
 // partials in unit order: t and sum_n w into tsum and, for deslice,
-// dstates. Before the grid barrier, so that the chain reads the merged
-// sums alone, and no tile load queues in front of these reads.
+// dstates, divided by its slice's sum_n w as sum_partials divides it.
+// Before the grid barrier, so that the chain reads the merged sums alone,
+// and no tile load queues in front of these reads.
 template <typename T, int CM, bool DESLICE>
 __device__ __forceinline__ void merge_first_pass(const BwdArgs& a, int unit,
                                                  int windows, int* flag) {
@@ -2558,12 +2580,19 @@ __device__ __forceinline__ void merge_first_pass(const BwdArgs& a, int unit,
     float* ts = a.tsum + (static_cast<size_t>(cloud) * windows + w) * BW * 2;
     T* dst = static_cast<T*>(a.dstates) +
              (static_cast<size_t>(cloud) * a.g + w0) * a.c;
-    sum_rows<4>(p, a.per_cloud, LEN, [&](int e, float v) {
-      const int sl = e / RW, col = e - sl * RW;
-      if (col >= CM) ts[sl * 2 + col - CM] = v;
-      else if (DESLICE && sl < gw && col < a.c)
-        dst[sl * a.c + col] = from_f32<T>(v);
-    });
+    if constexpr (DESLICE) {
+      sum_rows<4, RW>(p, a.per_cloud, LEN, [&](int e, float v, float sw) {
+        const int sl = e / RW, col = e - sl * RW;
+        if (col >= CM) ts[sl * 2 + col - CM] = v;
+        else if (sl < gw && col < a.c)
+          dst[sl * a.c + col] = from_f32<T>(v / (sw > 0.f ? sw : 1.f));
+      });
+    } else {
+      sum_rows<4>(p, a.per_cloud, LEN, [&](int e, float v) {
+        const int sl = e / RW, col = e - sl * RW;
+        if (col >= CM) ts[sl * 2 + col - CM] = v;
+      });
+    }
   }
   if (tid == 0) *counter = 0;
 }
@@ -2799,31 +2828,17 @@ __device__ __forceinline__ void wgmma<32>(float (&d)[16],
 #endif
 }
 
-// d += a b, one part of 3xTF32: the cross terms lo*hi + hi*lo (CROSS) or
-// the high parts' hi*hi; `a` split in the registers, b's hi and lo tables
-// at bhi and blo.
-template <int N, bool CROSS>
-__device__ __forceinline__ void wgmma_part(float (&d)[N / 2],
-                                           const Split (&a)[4],
-                                           const unsigned* bhi,
-                                           const unsigned* blo) {
-  const unsigned ah[4] = {a[0].hi, a[1].hi, a[2].hi, a[3].hi};
-  if constexpr (CROSS) {
-    const unsigned al[4] = {a[0].lo, a[1].lo, a[2].lo, a[3].lo};
-    wgmma<N>(d, al, wg_desc(bhi));
-    wgmma<N>(d, ah, wg_desc(blo));
-  } else {
-    wgmma<N>(d, ah, wg_desc(bhi));
-  }
-}
-
-// d += a b in 3xTF32 (lo*hi, hi*lo, hi*hi).
+// d += a b in 3xTF32 (lo*hi, hi*lo, hi*hi); `a` split in the registers,
+// b's hi and lo tables at bhi and blo.
 template <int N>
 __device__ __forceinline__ void wgmma3(float (&d)[N / 2], const Split (&a)[4],
                                        const unsigned* bhi,
                                        const unsigned* blo) {
-  wgmma_part<N, true>(d, a, bhi, blo);
-  wgmma_part<N, false>(d, a, bhi, blo);
+  const unsigned ah[4] = {a[0].hi, a[1].hi, a[2].hi, a[3].hi};
+  const unsigned al[4] = {a[0].lo, a[1].lo, a[2].lo, a[3].lo};
+  wgmma<N>(d, al, wg_desc(bhi));
+  wgmma<N>(d, ah, wg_desc(blo));
+  wgmma<N>(d, ah, wg_desc(bhi));
 }
 
 // 1 / tau and the raw Ada-Temp value x . Wa + ba of row lane % 16 of a
@@ -3112,56 +3127,45 @@ slice_bwd_f32(const float* __restrict__ x, const float* __restrict__ gout,
       if (sw >= nw) break;
       // Z and dw (- t) of the warpgroup's 64 rows and the window's 32
       // slices on the tensor cores, [4 * nb + i]: slices nb*8 + 2*tig +
-      // (i & 1), rows gid (+ 8 from i = 2). An addition to a large
-      // accumulator on the tensor cores drops the small term's low bits,
-      // so every k-block's cross terms are summed first, while the
-      // accumulators are small, then the high parts' products, then bs -
-      // shift and u: what a separate accumulator for the cross terms
-      // gives, without its 32 registers. (All three passes k-block by
-      // k-block into one accumulator put 2.4x the error in d b_slice at
-      // low temperature: chip_smoke.py phase 3b against float64.)
+      // (i & 1), rows gid (+ 8 from i = 2); all three passes of a k-block
+      // in one round, then bs - shift and u
       float zp[16], dp[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) zp[i] = dp[i] = 0.f;
-      auto products = [&](auto cross) {
-        constexpr bool CROSS = decltype(cross)::value;
 #pragma unroll
-        for (int p = 0; p < KB; p += KP) {
-          float xq[2][2 * KP], gq[2][2 * KP];
-          frag_cols<KP>(xq[0], slot + gid * CS + Q * tig + 2 * p);
-          frag_cols<KP>(xq[1], slot + (gid + 8) * CS + Q * tig + 2 * p);
-          if constexpr (GOUT) {
-            frag_cols<KP>(gq[0], gslot + gid * CS + Q * tig + 2 * p);
-            frag_cols<KP>(gq[1], gslot + (gid + 8) * CS + Q * tig + 2 * p);
-          }
-#pragma unroll
-          for (int h = 0; h < KP; ++h) {
-            const int kb = p + h;
-            // A fragments of rows gid (a0, a2) and gid + 8 (a1, a3); one
-            // k-block's products in flight at a time, so that their A
-            // registers stay few
-            const Split xa[4] = {
-                split_t(xq[0][2 * h]), split_t(xq[1][2 * h]),
-                split_t(xq[0][2 * h + 1]), split_t(xq[1][2 * h + 1])};
-            wg_fence();
-            wgmma_part<32, CROSS>(zp, xa, table(sw, 0, 0) + kb * 256,
-                                  table(sw, 0, 1) + kb * 256);
-            if constexpr (GOUT) {
-              const Split ga[4] = {
-                  split_t(gq[0][2 * h]), split_t(gq[1][2 * h]),
-                  split_t(gq[0][2 * h + 1]), split_t(gq[1][2 * h + 1])};
-              wgmma_part<32, CROSS>(dp, ga, table(sw, 1, 0) + kb * 256,
-                                    table(sw, 1, 1) + kb * 256);
-            } else {
-              wgmma_part<32, CROSS>(dp, xa, table(sw, 1, 0) + kb * 256,
-                                    table(sw, 1, 1) + kb * 256);
-            }
-            wg_commit_wait();
-          }
+      for (int p = 0; p < KB; p += KP) {
+        float xq[2][2 * KP], gq[2][2 * KP];
+        frag_cols<KP>(xq[0], slot + gid * CS + Q * tig + 2 * p);
+        frag_cols<KP>(xq[1], slot + (gid + 8) * CS + Q * tig + 2 * p);
+        if constexpr (GOUT) {
+          frag_cols<KP>(gq[0], gslot + gid * CS + Q * tig + 2 * p);
+          frag_cols<KP>(gq[1], gslot + (gid + 8) * CS + Q * tig + 2 * p);
         }
-      };
-      products(std::true_type{});
-      products(std::false_type{});
+#pragma unroll
+        for (int h = 0; h < KP; ++h) {
+          const int kb = p + h;
+          // A fragments of rows gid (a0, a2) and gid + 8 (a1, a3); one
+          // k-block's products in flight at a time, so that their A
+          // registers stay few
+          const Split xa[4] = {
+              split_t(xq[0][2 * h]), split_t(xq[1][2 * h]),
+              split_t(xq[0][2 * h + 1]), split_t(xq[1][2 * h + 1])};
+          wg_fence();
+          wgmma3<32>(zp, xa, table(sw, 0, 0) + kb * 256,
+                     table(sw, 0, 1) + kb * 256);
+          if constexpr (GOUT) {
+            const Split ga[4] = {
+                split_t(gq[0][2 * h]), split_t(gq[1][2 * h]),
+                split_t(gq[0][2 * h + 1]), split_t(gq[1][2 * h + 1])};
+            wgmma3<32>(dp, ga, table(sw, 1, 0) + kb * 256,
+                       table(sw, 1, 1) + kb * 256);
+          } else {
+            wgmma3<32>(dp, xa, table(sw, 1, 0) + kb * 256,
+                       table(sw, 1, 1) + kb * 256);
+          }
+          wg_commit_wait();
+        }
+      }
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const int c0 = sw * BW + nb * 8 + 2 * tig;

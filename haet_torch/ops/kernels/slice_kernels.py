@@ -327,11 +327,12 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _split_rows(bh: int, n: int, groups: int, sms: int,
-                block_rows: int = WARPS * TILE_ROWS):
+                warps: int = WARPS, tile_rows: int = TILE_ROWS):
     """``(per_cloud, span)``: one wave of blocks, one per SM, shared among
     the clouds and grid-z groups; each block's range a whole number of its
-    warps' tiles (``block_rows`` rows a round)."""
-    per_cloud = max(1, min(sms // (bh * groups), _cdiv(n, TILE_ROWS)))
+    ``warps`` warps' tiles of ``tile_rows`` rows."""
+    per_cloud = max(1, min(sms // (bh * groups), _cdiv(n, tile_rows)))
+    block_rows = warps * tile_rows
     span = _cdiv(_cdiv(n, per_cloud), block_rows) * block_rows
     return _cdiv(n, span), span
 
@@ -360,7 +361,7 @@ def launch_geometry(kernel: str, bh: int, n: int, c: int, g: int,
         sweep = bwd_sweep(cm, kernel, g)
         per_cloud, span = _split_rows(
             bh, n, _cdiv(windows, sweep) if _is_first_pass(kernel) else 1,
-            sms, BWD_WARPS * BWD_TILE_ROWS)
+            sms, BWD_WARPS, BWD_TILE_ROWS)
         return Geometry("fast", per_cloud, span, windows,
                         bwd_smem(cm, kernel, sweep), BWD_WINDOW, sweep=sweep,
                         warps=BWD_WARPS, tile_rows=BWD_TILE_ROWS)
@@ -974,7 +975,9 @@ def deslice_bwd(x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,
     The coupling ``t[g] = sum_n w (dL/dout @ states^T)`` has no closed form,
     so two passes run over N: the first sums ``t``, ``sum_n w`` and
     ``dL/dstates``, the second applies the softmax and Ada-Temp chain. On
-    CUDA tensors the backward kernels; on CPU tensors
+    CUDA tensors the backward kernels, which normalise by their own ``S =
+    sum_n w`` as :func:`slice_states_bwd` says, dstates included (``sum_n
+    w g_out / S``, on every route); on CPU tensors
     :func:`deslice_bwd_plain`.
     """
     args = (x_proj, w_slice, b_slice, w_ada, b_ada, states, m, s, g_out,

@@ -20,8 +20,8 @@ them is Python and is checked here:
   per-pass kernels otherwise (bf16 widened for the generic ones);
 * a torch model of the kernels' arithmetic in their partition and order
   (each backward's first pass sums ``t`` and ``S = sum_n w``, its chain
-  takes ``w / S`` and ``t / S``, and the per-pass kernels' dstates is
-  divided by ``S``; the slices in windows of 32 (fast, fused)
+  takes ``w / S`` and ``t / S``, and every route's dstates is divided
+  by ``S``; the slices in windows of 32 (fast, fused)
   or groups of ``generic_bwd_plan`` (generic), the fast chain's windows in
   sweeps of :func:`bwd_sweep`; a block's or unit's partial
   over its rows, per warp in warp order (fused: each unit's first-pass sums
@@ -322,10 +322,10 @@ def _model_bwd(kind, x, ws, bs, wa, ba, states, m, s, grad, sms, fused):
         geom1 = tsk.launch_geometry(kind + "_sums", bh, n, c, g, sms)
     norm = _over_blocks(_partial_sums(geom1, n, w), fused)
     t = _over_blocks(_partial_sums(geom1, n, w * dwo), fused) / norm
-    if side is None:  # the per-pass kernels' divided by S too
+    if side is None:  # dstates divided by S too, on every route
         ds = _over_blocks(_partial_sums(
             geom1, n, w[..., None] * go[:, :, None]), fused)
-        out["dstates"] = ds if fused else ds / norm[..., None]
+        out["dstates"] = ds / norm[..., None]
     w = w / norm[:, None]
     dwt = dwo - t[:, None]
     dl = w * dwt
